@@ -5,6 +5,8 @@ setup(
     version='0.1.0',
     description='TPU-native automatic music transcription framework (JAX/XLA/Pallas)',
     packages=find_packages(exclude=['tests', 'examples']),
+    # The PyTorch/CUDA port compiles its kernel sources at first use
+    package_data={'amt_tools_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'numpy',
