@@ -1,11 +1,13 @@
-"""Transcription model base class and the logistic output head.
+"""Transcription model base class and the output heads.
 
 Counterparts of ``amt_tools_tpu/models/common.py`` ``TranscriptionModel``
-(``:42``) and ``LogisticBank`` (``:246``) in inference mode: features arrive
-as (B, C, F, T), ``pre_proc`` gives the models (B, T, F, C) as in the JAX
-package, and ``finalize_output`` turns (B, T, O) logits into (B, O, T)
-activations. Computation runs in ``dtype`` (e.g. ``torch.bfloat16``) while
-parameters stay float32. Losses come with the training slice.
+(``:42``), ``SoftmaxGroups`` (``:182``) and ``LogisticBank`` (``:246``) in
+inference mode: features arrive as (B, C, F, T) and each model's
+``pre_proc`` lays them out for its forward; ``finalize_output`` turns
+(B, T, O) logits into (B, O, T) activations (``LogisticBank``) or (B, G, T)
+class ids (``SoftmaxGroups``). Computation runs in ``dtype`` (e.g.
+``torch.bfloat16``) while parameters stay float32. Losses come with the
+training slice.
 """
 
 from abc import abstractmethod
@@ -16,7 +18,7 @@ import torch.nn as nn
 from ..ops.decode import sigmoid
 from ..ops.layers import lecun_normal_, linear
 
-__all__ = ['TranscriptionModel', 'LogisticBank']
+__all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank']
 
 
 class TranscriptionModel(nn.Module):
@@ -59,6 +61,49 @@ class TranscriptionModel(nn.Module):
     @classmethod
     def model_name(cls):
         return cls.__name__
+
+
+class SoftmaxGroups(nn.Module):
+    """Multi-group softmax head for tablature: (B, T, E) -> (B, T, G*C).
+
+    Each degree of freedom (a guitar string) is an independent softmax over
+    ``num_classes`` (frets + silence, silence last). The bias starts at
+    zero, as Flax's ``Dense`` does.
+    """
+
+    def __init__(self, dim_in, dim_out, num_groups, num_classes, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.dim_in = dim_in
+        self.dim_out = dim_out
+        self.num_groups = num_groups
+        self.num_classes = num_classes
+        self.dtype = dtype
+        self.Dense_0 = nn.Linear(dim_in, dim_out)
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        lecun_normal_(self.Dense_0.weight, dim_in, generator)
+        nn.init.zeros_(self.Dense_0.bias)
+
+    def forward(self, feats):
+        return linear(feats, self.Dense_0, self.dtype)
+
+    def finalize_output(self, raw_output, last_negative=True):
+        """(B, T, G*C) logits -> (B, G, T) int64 class ids (-1 = silence).
+
+        ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does,
+        so tied logits (common in bf16) decode alike in both packages.
+        """
+
+        out = raw_output.detach()
+        out = out.reshape(out.shape[:-1] + (self.num_groups, self.num_classes))
+        out = torch.argmax(out, dim=-1)
+
+        if last_negative:
+            out = torch.where(out == self.num_classes - 1, -1, out)
+
+        return out.transpose(-1, -2)
 
 
 class LogisticBank(nn.Module):

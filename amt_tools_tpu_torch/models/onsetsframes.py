@@ -18,18 +18,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import tools
-from ..ops.layers import BatchNorm, conv2d_same, lecun_normal_, linear
+from ..ops.layers import BatchNorm, conv2d_same, conv3x3, lecun_normal_, linear
 from ..ops.lstm import FastBiLSTM, FastLSTM
 from .common import LogisticBank, TranscriptionModel
 
 __all__ = ['AcousticModel', 'LanguageModel', 'OnsetsFrames', 'OnsetsFrames2']
-
-
-def _conv(in_channels, out_channels, generator):
-    conv = nn.Conv2d(in_channels, out_channels, (3, 3))
-    lecun_normal_(conv.weight, 9 * in_channels, generator)
-    nn.init.zeros_(conv.bias)
-    return conv
 
 
 class AcousticModel(nn.Module):
@@ -50,11 +43,11 @@ class AcousticModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
-        self.Conv_0 = _conv(in_channels, nf1, generator)
+        self.Conv_0 = conv3x3(in_channels, nf1, generator)
         self.BatchNorm_0 = BatchNorm(nf1)
-        self.Conv_1 = _conv(nf1, nf1, generator)
+        self.Conv_1 = conv3x3(nf1, nf1, generator)
         self.BatchNorm_1 = BatchNorm(nf1)
-        self.Conv_2 = _conv(nf1, nf3, generator)
+        self.Conv_2 = conv3x3(nf1, nf3, generator)
         self.BatchNorm_2 = BatchNorm(nf3)
 
         features = nf3 * (dim_in // 2 // 2)

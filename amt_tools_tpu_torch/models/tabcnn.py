@@ -1,0 +1,156 @@
+"""TabCNN guitar tablature model, inference forward.
+
+Counterpart of ``amt_tools_tpu/models/tabcnn.py`` ``TabCNN`` (``:23``) in
+eval mode. Submodule names follow the Flax tree (``conv1``, ``conv2``,
+``conv3``, ``dense1``, ``tablature_out.Dense_0``), so ``weights.from_flax``
+maps one onto the other by name.
+
+The feature image stays (B, C, F, T): frequency is the height and time (or
+the window) the width, so a Flax (3, 3, Cin, Cout) kernel with H = F and
+W = T becomes the OIHW weight by the usual transpose. Before the flatten
+into ``dense1`` the port permutes to (B, T, F', C) (or (N, F', W', C) for
+windows), so the flatten is frequency-major exactly as in the JAX package
+(``tabcnn.py:158-160``) and the dense rows need no permutation.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .. import tools
+from ..ops import frames as frame_ops
+from ..ops.layers import conv2d_valid, conv3x3, lecun_normal_, linear
+from .common import SoftmaxGroups, TranscriptionModel
+
+__all__ = ['TabCNN']
+
+
+class TabCNN(TranscriptionModel):
+    """Per-frame context-window CNN with a softmax-group tablature output.
+
+    Three 3x3 VALID convs (32, 64, 64 channels at complexity 1) with ReLU, a
+    2x2 max-pool, a 128-wide dense with ReLU and a ``SoftmaxGroups`` head.
+    ``fullseq=True`` runs the conv stack once over the whole zero-padded
+    (F, T + 8) image instead of over T 9-frame windows: every conv is VALID,
+    so output position t is what window t computes, and the per-window
+    (2, 2)/(2, 2) pool over the 3 surviving window positions becomes a
+    (2, 2)/(2, 1) pool over time (the JAX class docstring). Both modes share
+    the parameters. Dropout is the identity at inference.
+    """
+
+    def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
+                 frame_width=9, online=False, fullseq=False, dtype=None,
+                 generator=None):
+        super().__init__(dim_in, profile, in_channels=in_channels,
+                         model_complexity=model_complexity,
+                         frame_width=frame_width, dtype=dtype)
+        self.online = online
+        self.fullseq = fullseq
+        # Three 3x3 VALID convs leave frame_width - 6 window positions; the
+        # (2, 1)-strided pool and trim reproduce the per-window pool only
+        # when that count is 3 (frame_width == 9, the reference geometry)
+        if fullseq and frame_width != 9:
+            raise ValueError(
+                f'fullseq=True requires frame_width == 9 (the geometry whose '
+                f'pool equivalence is established); got {frame_width}. '
+                f'Use the windowed forward (fullseq=False) for other widths.')
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+
+        nf1 = 32 * model_complexity
+        nf2 = 64 * model_complexity
+        embedding = 128 * model_complexity
+
+        self.conv1 = conv3x3(in_channels, nf1, generator)
+        self.conv2 = conv3x3(nf1, nf2, generator)
+        self.conv3 = conv3x3(nf2, nf2, generator)
+
+        # Three VALID 3x3 convs take 6 from each spatial axis, the pool halves
+        features = nf2 * ((dim_in - 6) // 2) * ((frame_width - 6) // 2)
+        self.dense1 = nn.Linear(features, embedding)
+        lecun_normal_(self.dense1.weight, features, generator)
+        nn.init.zeros_(self.dense1.bias)
+
+        self.tablature_out = SoftmaxGroups(
+            embedding, self.num_groups * self.num_classes,
+            num_groups=self.num_groups, num_classes=self.num_classes,
+            dtype=dtype, generator=generator)
+
+    @property
+    def num_groups(self):
+        return self.profile.get_num_dofs()
+
+    @property
+    def num_classes(self):
+        return self.profile.num_pitches + 1
+
+    def pre_proc(self, batch):
+        """Lay out (B, C, F, T) features for the forward.
+
+        fullseq: one zero-padded (B, C, F, T + W - 1) image (the padding
+        ``framify`` applies, so edge frames match the windows). Windowed:
+        (B, T', C, F, W) context windows; in online mode the features already
+        span one window and are not padded.
+        """
+
+        batch = dict(batch)
+        feats = batch[tools.KEY_FEATS]
+
+        if self.fullseq:
+            pad = self.frame_width // 2
+            batch[tools.KEY_FEATS] = F.pad(feats, (pad, pad))
+            return batch
+
+        # (B, C, F, T) -> (B, C, F, T', W) -> (B, T', C, F, W)
+        feats = frame_ops.framify(feats, self.frame_width,
+                                  pad=(not self.online))
+        batch[tools.KEY_FEATS] = feats.permute(0, 3, 1, 2, 4)
+
+        return batch
+
+    def _convs(self, x):
+        x = F.relu(conv2d_valid(x, self.conv1, self.dtype))
+        x = F.relu(conv2d_valid(x, self.conv2, self.dtype))
+        return F.relu(conv2d_valid(x, self.conv3, self.dtype))
+
+    def forward(self, feats):
+        """:meth:`pre_proc` features -> {tablature: (B, T, G*C) logits}."""
+
+        self._check_inference()
+
+        if self.fullseq:
+            batch_size = feats.shape[0]
+            num_frames = feats.shape[-1] - (self.frame_width - 1)
+
+            x = self._convs(feats)
+            # Per-window pool over its 3 surviving positions keeps
+            # max(pos 0, pos 1) -> full-sequence positions (t, t + 1)
+            x = F.max_pool2d(x, (2, 2), stride=(2, 1))
+            x = x[..., :num_frames]
+
+            # (B, C, F', T) -> (B, T, F', C): the windowed flatten order
+            x = x.permute(0, 3, 2, 1)
+        else:
+            batch_size, num_frames = feats.shape[:2]
+
+            # Each context window is an independent sample of the stack
+            x = self._convs(feats.reshape((-1,) + feats.shape[2:]))
+            x = F.max_pool2d(x, (2, 2), stride=(2, 2))
+
+            # (N, C, F', W') -> (N, F', W', C)
+            x = x.permute(0, 2, 3, 1)
+
+        x = x.reshape(batch_size, num_frames, -1)
+        x = F.relu(linear(x, self.dense1, self.dtype))
+
+        return {tools.KEY_TABLATURE: self.tablature_out(x)}
+
+    def post_proc(self, batch):
+        """Argmax tablature (B, G, T), -1 for silence."""
+
+        output = dict(batch[tools.KEY_OUTPUT])
+        output[tools.KEY_TABLATURE] = self.tablature_out.finalize_output(
+            output[tools.KEY_TABLATURE])
+
+        return output

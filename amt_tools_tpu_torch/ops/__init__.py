@@ -1,5 +1,5 @@
 """Tensor ops: spectral primitives, Hopper kernels with plain versions,
-LSTM layers and the on-device note decode."""
+LSTM layers, framing and the on-device note and tablature decode."""
 
-from . import (cuda_build, decode, layers, lstm, lstm_kernel, spectral,
-               stft_kernel)
+from . import (cqt_kernel, cuda_build, decode, frames, layers, lstm,
+               lstm_kernel, spectral, stft_kernel)

@@ -1,11 +1,14 @@
-"""Device-side note decode on tensors, and its host finalization.
+"""Device-side note and tablature decode on tensors, and its host
+finalization.
 
 Counterparts of ``amt_tools_tpu/ops/decode.py``: ``threshold`` (``:29``),
-``multi_pitch_to_onsets`` (``:62``), ``note_segments`` (``:175``),
+``multi_pitch_to_onsets`` (``:62``), ``multi_pitch_to_offsets`` (``:72``),
+the tablature conversions (``:82-172``), ``note_segments`` (``:175``),
 ``notes_on_device`` (``:246``) and ``notes_from_device`` (``:315``). The
 device functions take any number of leading batch axes where the JAX
-functions are vmapped, and produce the same int32 buffers bit for bit,
-including ``count > capacity`` overflow reports.
+functions are vmapped, and produce the same values bit for bit, including
+``count > capacity`` overflow reports. Class ids are int64 here (torch's
+index type) where JAX gives int32.
 """
 
 import warnings
@@ -20,6 +23,13 @@ __all__ = [
     'sigmoid',
     'threshold',
     'multi_pitch_to_onsets',
+    'multi_pitch_to_offsets',
+    'logistic_to_tablature',
+    'tablature_to_stacked_multi_pitch',
+    'tablature_to_local_multi_pitch',
+    'stacked_multi_pitch_to_tablature',
+    'stacked_multi_pitch_to_multi_pitch',
+    'stacked_multi_pitch_to_logistic',
     'note_segments',
     'notes_on_device',
     'notes_from_device',
@@ -62,6 +72,108 @@ def multi_pitch_to_onsets(multi_pitch):
     onsets = torch.cat([first, diff], dim=-1)
 
     return torch.where(onsets > 0, onsets, 0.0)
+
+
+def multi_pitch_to_offsets(multi_pitch):
+    """Edge-detect activation ends along the last axis."""
+
+    last = multi_pitch[..., -1:]
+    diff = -(multi_pitch[..., 1:] - multi_pitch[..., :-1])
+    offsets = torch.cat([diff, last], dim=-1)
+
+    return torch.where(offsets > 0, offsets, 0.0)
+
+
+def logistic_to_tablature(logistic, profile, silence, silence_thr=0.05):
+    """(..., N, T) flattened string/fret activations -> (..., S, T) class ids."""
+
+    num_dofs = profile.get_num_dofs()
+    group = profile.num_pitches + int(silence)
+    lead = logistic.shape[:-2]
+
+    # (..., S, group, T) view of the flattened activations
+    acts = logistic.reshape(lead + (num_dofs, group, logistic.shape[-1]))
+
+    max_acts = torch.amax(acts, dim=-2)
+    highest = torch.argmax(acts, dim=-2)
+
+    if silence:
+        return highest - 1
+
+    return torch.where(max_acts <= silence_thr, -1, highest)
+
+
+def tablature_to_stacked_multi_pitch(tablature, profile):
+    """(..., S, T) class ids -> (..., S, F, T) one-hot pitch activations."""
+
+    num_pitches = profile.get_range_len()
+    tuning = torch.as_tensor(profile.get_midi_tuning(), device=tablature.device)
+
+    # Absolute pitch row per (string, frame); silence maps out of range
+    pitch_idx = tablature + (tuning - profile.low)[..., :, None]
+    pitch_idx = torch.where(tablature >= 0, pitch_idx, num_pitches)
+
+    rows = torch.arange(num_pitches, device=tablature.device)
+    one_hot = rows[:, None] == pitch_idx[..., None, :]
+
+    return one_hot.float()
+
+
+def tablature_to_local_multi_pitch(tablature, num_classes):
+    """(..., S, T) class ids -> (..., S, num_classes, T) LOCAL one-hot.
+
+    Fret-space variant of :func:`tablature_to_stacked_multi_pitch`: row f is
+    "fret f active on this string", so each string's map has
+    ``num_classes`` rows instead of the instrument's pitch range. Map a
+    decoded row back to MIDI with ``row + tuning[string]``.
+    """
+
+    rows = torch.arange(num_classes, device=tablature.device)
+    one_hot = rows[:, None] == tablature[..., None, :]
+
+    return one_hot.float()
+
+
+def stacked_multi_pitch_to_tablature(stacked_multi_pitch, profile):
+    """(..., S, F, T) stack -> (..., S, T) class ids (-1 = silence)."""
+
+    tuning = profile.get_midi_tuning()
+    num_pitches = profile.num_pitches
+
+    tabs = []
+    for dof in range(stacked_multi_pitch.shape[-3]):
+        lo = int(tuning[dof]) - profile.low
+        mp = stacked_multi_pitch[..., dof, lo: lo + num_pitches, :]
+        silent = torch.sum(mp, dim=-2) == 0
+        highest = torch.argmax(mp, dim=-2)
+        tabs.append(torch.where(silent, -1, highest)[..., None, :])
+
+    return torch.cat(tabs, dim=-2)
+
+
+def stacked_multi_pitch_to_multi_pitch(stacked_multi_pitch):
+    """Collapse (..., S, F, T) -> (..., F, T) by max."""
+
+    return torch.amax(stacked_multi_pitch, dim=-3)
+
+
+def stacked_multi_pitch_to_logistic(stacked_multi_pitch, profile,
+                                    silence=False):
+    """(..., S, F, T) stack -> (..., N, T) flattened string/fret activations."""
+
+    tuning = profile.get_midi_tuning()
+    num_pitches = profile.num_pitches
+
+    parts = []
+    for dof in range(stacked_multi_pitch.shape[-3]):
+        lo = int(tuning[dof]) - profile.low
+        mp = stacked_multi_pitch[..., dof, lo: lo + num_pitches, :]
+        if silence:
+            silent = (torch.sum(mp, dim=-2, keepdim=True) == 0).to(mp.dtype)
+            mp = torch.cat([silent, mp], dim=-2)
+        parts.append(mp)
+
+    return torch.cat(parts, dim=-2)
 
 
 def _reverse_cummin(x):

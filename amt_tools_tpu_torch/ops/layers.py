@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ['linear', 'conv2d_same', 'BatchNorm', 'lecun_normal_', 'orthogonal_']
+__all__ = ['linear', 'conv2d_same', 'conv2d_valid', 'conv3x3', 'BatchNorm',
+           'lecun_normal_', 'orthogonal_']
 
 
 def _compute_dtype(x, dtype):
@@ -37,6 +38,14 @@ def conv2d_same(x, layer, dtype=None):
 
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
                     padding=padding)
+
+
+def conv2d_valid(x, layer, dtype=None):
+    """``layer`` (an ``nn.Conv2d``) with VALID (no) padding in ``dtype``."""
+
+    dtype = _compute_dtype(x, dtype)
+
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class BatchNorm(nn.Module):
@@ -77,6 +86,17 @@ def lecun_normal_(tensor, fan_in, generator):
     with torch.no_grad():
         return nn.init.trunc_normal_(tensor, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)
+
+
+def conv3x3(in_channels, out_channels, generator):
+    """An ``nn.Conv2d`` 3x3 layer initialized as Flax's ``nn.Conv``:
+    LeCun-normal kernel (fan-in 9 * in_channels), zero bias."""
+
+    conv = nn.Conv2d(in_channels, out_channels, (3, 3))
+    lecun_normal_(conv.weight, 9 * in_channels, generator)
+    nn.init.zeros_(conv.bias)
+
+    return conv
 
 
 def orthogonal_(tensor, generator):

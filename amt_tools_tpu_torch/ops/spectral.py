@@ -1,11 +1,13 @@
 """Spectral primitives on tensors, and the filterbank builders (host numpy).
 
 The numpy builders (``hann_window``, ``dft_bank``, ``hz_to_mel``,
-``mel_to_hz``, ``mel_filterbank``) are copies of
-``amt_tools_tpu/ops/spectral.py`` and agree with it bit for bit. The tensor
-functions (``frame_signal``, ``stft_mag``, ``power_to_db``,
-``amplitude_to_db``) are PyTorch counterparts of its jnp functions, with the
-same frame algebra: T = 1 + N // hop with centre padding of n_fft // 2.
+``mel_to_hz``, ``mel_filterbank``, ``cqt_frequencies``, ``wavelet_lengths``,
+``wavelet_bank``) are copies of ``amt_tools_tpu/ops/spectral.py`` and agree
+with it bit for bit. The tensor functions (``frame_signal``, ``stft_mag``,
+``power_to_db``, ``amplitude_to_db``) are PyTorch counterparts of its jnp
+functions, with the same frame algebra: T = 1 + N // hop with centre
+padding of half the frame length. Its ``cqt_mag`` is
+``cqt_kernel.cqt_mag_plain`` here.
 """
 
 import numpy as np
@@ -21,6 +23,9 @@ __all__ = [
     'amplitude_to_db',
     'hz_to_mel', 'mel_to_hz',
     'mel_filterbank',
+    'cqt_frequencies',
+    'wavelet_lengths',
+    'wavelet_bank',
 ]
 
 
@@ -236,3 +241,59 @@ def mel_filterbank(sample_rate, n_fft, n_mels=128, fmin=0.0, fmax=None, htk=Fals
         weights *= enorm[:, None]
 
     return weights.astype(np.float32)
+
+
+##################################################
+# CQT / VQT WAVELET BANK                         #
+##################################################
+
+
+def cqt_frequencies(n_bins, fmin, bins_per_octave=12):
+    """Center frequencies of geometrically-spaced CQT bins."""
+
+    return fmin * (2.0 ** (np.arange(n_bins) / bins_per_octave))
+
+
+def wavelet_lengths(freqs, sample_rate, alpha, gamma=0.0):
+    """Filter length (samples) per center frequency: ``Q * sr / (f + gamma/alpha)``."""
+
+    freqs = np.asarray(freqs, dtype=np.float64)
+    Q = 1.0 / alpha
+
+    return Q * sample_rate / (freqs + gamma / alpha)
+
+
+def wavelet_bank(freqs, sample_rate, alpha, gamma=0.0, dtype=np.float32):
+    """L1-normalized complex wavelet bank as a real matmul kernel.
+
+    Each filter is a Hann-windowed complex exponential of frequency-dependent
+    length, centered in a common support of ``max_length`` samples, rounded
+    up to a multiple of 2048 (the JAX package's support tile; the frame
+    algebra does not depend on it). Returns ``(kernel, max_length)`` where
+    ``kernel`` is ``(max_length, 2 * n_bins)`` with ``[cos | -sin]`` halves,
+    so that framed audio ``(T, max_length) @ kernel`` gives the real and
+    imaginary responses and ``|CQT| = sqrt(re^2 + im^2)``.
+    """
+
+    freqs = np.asarray(freqs, dtype=np.float64)
+    lengths = wavelet_lengths(freqs, sample_rate, alpha, gamma)
+
+    max_length = int(-(-int(np.ceil(np.max(lengths))) // 2048) * 2048)
+
+    n_bins = len(freqs)
+    kernel = np.zeros((max_length, 2 * n_bins), dtype=np.float64)
+
+    t = np.arange(max_length)
+    for k in range(n_bins):
+        ilen = int(np.floor(lengths[k]))
+        if ilen % 2 == 0:
+            ilen += 1  # odd length centers cleanly
+        start = (max_length - ilen) // 2
+        # Symmetric Hann window over the filter's support
+        window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(ilen) / (ilen - 1))
+        window /= np.sum(window)  # L1 normalization
+        phase = 2 * np.pi * freqs[k] * (t[start: start + ilen] - max_length // 2) / sample_rate
+        kernel[start: start + ilen, k] = window * np.cos(phase)
+        kernel[start: start + ilen, n_bins + k] = -window * np.sin(phase)
+
+    return kernel.astype(dtype), max_length

@@ -1,12 +1,15 @@
 """Production serving: audio batches in, per-clip notes out.
 
 Counterpart of ``amt_tools_tpu/serving.py``: :func:`calibrate_activity`
-(``:71``), ``_ServingPipeline`` (``:167``) with its asynchronous
-dispatch/finalize protocol and overflow re-decode (``:288``), and
-:class:`TranscriptionPipeline` (``:312``). One dispatch runs feature
-extraction (the STFT kernel), the model forward (the LSTM kernel), the
-sigmoid threshold and the full note decode on the device; the host gets
-four fixed-capacity int32 buffers per batch.
+(``:71``), :func:`calibrate_tablature_activity` (``:116``),
+``_ServingPipeline`` (``:167``) with its asynchronous dispatch/finalize
+protocol and overflow re-decode (``:265-301``), :class:`TranscriptionPipeline`
+(``:312``) and :class:`TablaturePipeline` (``:378``). One piano dispatch
+runs feature extraction (the STFT kernel), the model forward (the LSTM
+kernel), the sigmoid threshold and the full note decode on the device; one
+guitar dispatch runs the CQT (kernel C or D), TabCNN, the per-string argmax
+and the per-string note decode. The host gets four fixed-capacity int32
+buffers per batch.
 
 :meth:`dispatch` never waits for the device: it enqueues the work and the
 copy of the buffers into pinned host memory, and returns. Dispatching batch
@@ -19,7 +22,8 @@ import torch
 from . import tools
 from .ops import decode
 
-__all__ = ['TranscriptionPipeline', 'calibrate_activity']
+__all__ = ['TranscriptionPipeline', 'TablaturePipeline', 'calibrate_activity',
+           'calibrate_tablature_activity']
 
 
 def _as_audio(audio, device):
@@ -84,6 +88,47 @@ def calibrate_activity(model, data_proc, audio,
             shifts[head] = float(shift)
 
     return shifts
+
+
+def calibrate_tablature_activity(model, data_proc, audio, rate=0.05,
+                                 device=None):
+    """Shift the silence-class biases so string activity is trained-like.
+
+    Demo/benchmark utility, the tablature counterpart of
+    :func:`calibrate_activity`: an untrained ``SoftmaxGroups`` head argmaxes
+    to an arbitrary class per (string, frame). This probes one forward
+    pass, takes per string the margin of the best fret logit over the
+    silence logit (in the logits' dtype), and raises that string's
+    silence-class bias of ``tablature_out.Dense_0`` in place by the margin's
+    ``1 - rate`` quantile (linear interpolation, as ``jnp.quantile``), so
+    about ``rate`` of (string, frame) cells decode to a fret.
+
+    Moves the model to ``device`` (CUDA unless given) and returns the
+    per-string shifts as a float32 numpy array. Turns TF32 off for the
+    process (:func:`tools.use_exact_fp32`).
+    """
+
+    device = tools.resolve_device(device)
+    tools.use_exact_fp32()
+    model = model.to(device).eval()
+    num_groups, num_classes = model.num_groups, model.num_classes
+
+    logits = _forward(model, data_proc, _as_audio(audio, device))[
+        tools.KEY_TABLATURE]
+
+    with torch.no_grad():
+        logits = logits.reshape(logits.shape[:-1] + (num_groups, num_classes))
+        # Margin of the best fret over silence (last class), per string
+        margin = torch.amax(logits[..., :-1], dim=-1) - logits[..., -1]
+        shifts = torch.quantile(margin.reshape(-1, num_groups).float(),
+                                1.0 - rate, dim=0)
+
+        bias = model.tablature_out.Dense_0.bias
+        silence = torch.arange(num_groups, device=device) * num_classes + (
+            num_classes - 1)
+        bias[silence] += shifts
+
+    return shifts.cpu().numpy()
 
 
 class _ServingPipeline:
@@ -162,27 +207,31 @@ class _ServingPipeline:
         if done is not None:
             done.synchronize()
         arrays = tuple(h.numpy() for h in host)
-        counts = arrays[-1]
 
+        return self._finalize_batch(
+            arrays, times,
+            lambda b, capacity: self._decode(audio[b][None], capacity))
+
+    def _finalize_batch(self, arrays, times, redecode):
+        """Per-clip results of one batch's host buffers.
+
+        A clip whose true note count exceeds ``capacity`` is decoded again
+        by ``redecode(b, capacity)`` at a capacity that fits it (a multiple
+        of 1024, at least twice the default).
+        """
+
+        counts = arrays[-1]
         groups = []
         for b in range(counts.shape[0]):
             needed = int(np.max(counts[b]))
             if needed > self.capacity:
-                groups.append(self._redecode_overflow(audio[b], needed, times))
+                capacity = max(2 * self.capacity, -(-needed // 1024) * 1024)
+                redone = tuple(x.cpu().numpy() for x in redecode(b, capacity))
+                groups.append(self._finalize_clip(redone, 0, times))
             else:
                 groups.append(self._finalize_clip(arrays, b, times))
 
         return groups
-
-    def _redecode_overflow(self, clip, count, times):
-        """Re-run one clip at a capacity that fits its true note count
-        (a multiple of 1024, at least twice the default)."""
-
-        capacity = max(2 * self.capacity, -(-count // 1024) * 1024)
-        buffers = self._decode(clip[None], capacity)
-        arrays = tuple(b.cpu().numpy() for b in buffers)
-
-        return self._finalize_clip(arrays, 0, times)
 
     def __call__(self, audio):
         """Synchronous convenience: dispatch + finalize one batch."""
@@ -244,3 +293,83 @@ class TranscriptionPipeline(_ServingPipeline):
 
         return decode.notes_from_device(rows[b], on[b], off[b], counts[b],
                                         times, self.profile)
+
+
+class TablaturePipeline(_ServingPipeline):
+    """Audio batches in, per-clip stacked notes ``{string: (pitches,
+    intervals)}`` out.
+
+    The guitar serving path: CQT features, the TabCNN forward, per-string
+    softmax argmax to class ids, a LOCAL fret one-hot per string
+    (``decode.tablature_to_local_multi_pitch``: 20 rows per string on a
+    19-fret guitar instead of the 44-pitch range) and the note decode of
+    each string's map, all on the device. The host maps fret rows back to
+    MIDI with the string's tuning. Semantics per clip match the JAX
+    pipeline: onsets from pitch-activity edges, no inhibition window, no
+    duration filter.
+
+    Parameters
+    ----------
+    model : TabCNN
+        A model whose raw output carries ``KEY_TABLATURE`` logits decoded by
+        its ``tablature_out`` ``SoftmaxGroups`` head (last class silence).
+    data_proc : FeatureModule
+        Feature extraction run on the device via ``process``.
+    capacity : int
+        Maximum notes decoded per STRING per clip before a re-decode retry.
+    device : str or torch.device, optional
+        Where the pipeline runs: CUDA unless given; without a CUDA device
+        and without ``device='cpu'`` construction raises.
+
+    Construction turns TF32 off for the process (:func:`tools.use_exact_fp32`).
+    """
+
+    def __init__(self, model, data_proc, capacity=512, device=None):
+        super().__init__(model, data_proc, capacity, device=device)
+
+    def _decode_stage(self, tablature, capacity):
+        """(B, S, T) class ids -> (B, S, capacity) note buffers and (B, S)
+        counts, in local fret rows."""
+
+        with torch.inference_mode():
+            local = decode.tablature_to_local_multi_pitch(
+                tablature, self.model.num_classes - 1)  # drop silence
+
+            return decode.notes_on_device(local, None, capacity=capacity)
+
+    def _decode(self, audio, capacity):
+        raw = _forward(self.model, self.data_proc, audio)
+
+        with torch.inference_mode():
+            tablature = self.model.tablature_out.finalize_output(
+                raw[tools.KEY_TABLATURE])
+
+        return self._decode_stage(tablature, capacity)
+
+    def decode_tablature(self, tablature, times):
+        """Decode pre-computed (B, S, T) tablature through the pipeline's
+        device decode stage -> per-clip stacked notes.
+
+        Overflowing clips re-decode at a sufficient capacity from the same
+        tablature (no forward re-run).
+        """
+
+        tablature = torch.as_tensor(tablature, device=self.device)
+        arrays = tuple(b.cpu().numpy()
+                       for b in self._decode_stage(tablature, self.capacity))
+
+        return self._finalize_batch(
+            arrays, times,
+            lambda b, capacity: self._decode_stage(tablature[b][None],
+                                                   capacity))
+
+    def _finalize_clip(self, arrays, b, times):
+        rows, on, off, counts = arrays
+        tuning = self.profile.get_midi_tuning()
+
+        # Rows are local fret classes: row + the string's open tuning is the
+        # MIDI pitch
+        return {slc: decode.notes_from_device(
+                    rows[b, slc], on[b, slc], off[b, slc], counts[b, slc],
+                    times, self.profile, low=int(tuning[slc]))
+                for slc in range(counts.shape[1])}

@@ -1,20 +1,23 @@
 """Flax variables -> the port's ``state_dict``.
 
 The port's modules carry the Flax tree's names (``pitch_am.Conv_0``,
-``onset_lm.FastBiLSTM_0.input_proj_fwd``, ``adjoin_out.Dense_0``, ...), so
-the conversion walks the tree and changes only leaf names and layouts:
+``onset_lm.FastBiLSTM_0.input_proj_fwd``, ``adjoin_out.Dense_0``,
+``conv1``, ``tablature_out.Dense_0``, ...), so the conversion walks the tree
+and changes only leaf names and layouts:
 
-- ``params/.../kernel`` of a conv, (kh, kw, Cin, Cout) HWIO with H = time
-  and W = frequency -> ``weight`` (Cout, Cin, kh, kw) OIHW;
+- ``params/.../kernel`` of a conv, (kh, kw, Cin, Cout) HWIO -> ``weight``
+  (Cout, Cin, kh, kw) OIHW, with the port's image axes in the Flax order
+  (O&F: H = time, W = frequency; TabCNN: H = frequency, W = time);
 - ``params/.../kernel`` of a dense, (in, out) -> ``weight`` (out, in);
 - ``params/.../scale`` of a batch norm -> ``weight``; ``bias`` stays;
 - ``batch_stats/.../mean`` and ``var`` -> ``running_mean``, ``running_var``;
 - ``recurrent_kernel_{fwd,bwd}`` keep their (H, 4H) layout (gate order
   i, f, g, o), which is what the LSTM kernel reads.
 
-The AcousticModel's flatten ahead of ``Dense_0`` is feature-major in both
-packages (the port permutes its NCHW activations back to (B, T, F/4, C)
-before the reshape), so the dense rows need no permutation.
+The AcousticModel's flatten ahead of ``Dense_0`` and TabCNN's ahead of
+``dense1`` are feature-major in both packages (the port permutes its NCHW
+activations back to (B, T, F', C) before the reshape), so the dense rows
+need no permutation.
 """
 
 import numpy as np

@@ -15,17 +15,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. the LSTM kernel against its plain version at B = 128, T = 1876,
    H = 256, both directions, float32 and bf16, timed beside the plain
    version and cuDNN ``torch.nn.LSTM``;
-5. the serving path: Onsets & Frames v2 at complexity 3 (full width) in
-   bf16 with seeded random weights, activity calibration on 4 clips, then
-   3 requests of 128 x 60 s clips with overlapped dispatch/finalize. The
-   kernels' launch counts are reset just before the requests and read just
-   after; every kernel must have run. One more batch runs under
-   ``torch.profiler`` to print the device time by kernel. A narrow float32
-   copy checks notes and logits on the card against the CPU (plain
-   versions).
+5. the piano serving path: Onsets & Frames v2 at complexity 3 (full
+   width) in bf16 with seeded random weights, activity calibration on 4
+   clips, then 3 requests of 128 x 60 s clips with overlapped
+   dispatch/finalize. Every kernel's launch count is reset just before the
+   requests and read just after; kernels A and B must have run. 5b: a
+   narrow float32 copy checks notes and logits on the card against the CPU
+   (plain versions);
+6. the full-bank CQT kernel (C) against its plain version at the serving
+   shape, 64 guitar clips of 60 s at 22.05 kHz (192 bins at 24 per octave
+   from C1, support 24,576), on magnitudes and on the [0, 1] features, and
+   in its bf16 mode on the first 5 s of each clip; then timed at that shape
+   beside the plain version and cuDNN ``conv1d`` over the same bank;
+7. the support-grouped CQT kernel (D) against kernel C on the full bank and
+   against its own plain version at the same shape, then timed the same
+   way;
+8. the guitar serving path: TabCNN (fullseq, paper width) in bf16 with
+   seeded random weights behind the serving CQT (exact='high',
+   grouped='auto'), tablature activity calibration on 4 clips, then 3
+   requests of 64 x 60 s with overlapped dispatch/finalize, counts reset
+   before and read after: kernel D must have run. One more request goes
+   through the class-default full-bank CQT (grouped=False), counts reset
+   before and read after: kernel C must have run. 8b: a float32 TabCNN
+   behind the serving CQT, card (kernel D) against the CPU (plain
+   versions);
+9. one piano and one guitar batch under ``torch.profiler``, in one
+   session: the device time by kernel and the busy share of each, whose
+   path's kernels must appear in it.
 
-The last lines are the card, one ``kernels`` JSON line, and one JSON line
-``{"ok": true, "device": {...}}``.
+The last lines are the card, one ``kernels`` JSON line (A, B, C, D), and
+one JSON line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -36,6 +55,9 @@ import time
 import numpy as np
 
 SAMPLE_RATE = 16000
+GUITAR_SAMPLE_RATE = 22050
+GUITAR_BATCH = 64
+GUITAR_CAPACITY = 512
 HOP = 512
 N_FFT = 2048
 N_MELS = 229
@@ -57,6 +79,9 @@ MEL_FEATURE_TOL = 4e-4   # [0, 1] features (ops/pallas_stft.py:30)
 LSTM_TOL = {'float32': 1e-4, 'bfloat16': 1e-2}
 LSTM_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 8e-5}
 LOGIT_TOL = 2e-3         # float32 logits, card vs CPU (PARITY.md bound)
+CQT_TOL = 1e-5           # of each clip's peak magnitude: float32, sum order
+CQT_FEATURE_TOL = 2e-4   # [0, 1] features (amt_tools_tpu/features/cqt.py:29)
+TAB_MARGIN = 2 * LOGIT_TOL  # tablature may differ where the top two are closer
 
 
 def require(condition, message):
@@ -97,7 +122,9 @@ def bound_ms(num_bytes, flops, peak_flops):
                                    else 'operations')
 
 
-def render_clips(profile, count, seconds):
+def render_clips(profile, count, seconds, sample_rate=SAMPLE_RATE):
+    """About 2 notes a second per clip (``bench.py:430-437``), from seed 0."""
+
     from amt_tools_tpu_torch.datasets import random_notes, render_notes
 
     rng = np.random.RandomState(0)
@@ -105,10 +132,31 @@ def render_clips(profile, count, seconds):
     for b in range(count):
         pitches, intervals = random_notes(profile, seconds, int(2 * seconds),
                                           rng)
-        clips.append(render_notes(pitches, intervals, SAMPLE_RATE, seconds,
+        clips.append(render_notes(pitches, intervals, sample_rate, seconds,
                                   seed=b))
 
     return np.stack(clips)
+
+
+def kernel_counters():
+    """Every hand-written kernel's wrapper, by kernel name."""
+
+    from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_grouped
+    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan
+    from amt_tools_tpu_torch.ops.stft_kernel import stft_power
+
+    return {'stft_power': stft_power, 'lstm_scan': lstm_scan,
+            'cqt_mag': cqt_mag, 'cqt_mag_grouped': cqt_mag_grouped}
+
+
+def reset_launches():
+    for wrapper in kernel_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches
+            for name, wrapper in kernel_counters().items()}
 
 
 def check_stft(audio):
@@ -344,8 +392,6 @@ def serve(clips, profile, card):
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.features import MelSpec
     from amt_tools_tpu_torch.models import OnsetsFrames2
-    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan
-    from amt_tools_tpu_torch.ops.stft_kernel import stft_power
     from amt_tools_tpu_torch.serving import (TranscriptionPipeline,
                                              calibrate_activity)
 
@@ -364,20 +410,9 @@ def serve(clips, profile, card):
     pipeline(requests[0][:8])  # warm-up: cuDNN and allocator first use
     torch.cuda.synchronize()
 
-    stft_power.launches = 0
-    lstm_scan.launches = 0
-    start = time.perf_counter()
-    pending = pipeline.dispatch(requests[0])
-    results = []
-    for request in requests[1:]:
-        upcoming = pipeline.dispatch(request)
-        results.append(pipeline.finalize(pending))
-        pending = upcoming
-    results.append(pipeline.finalize(pending))
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    launches = {'stft_power': stft_power.launches,
-                'lstm_scan': lstm_scan.launches}
+    reset_launches()
+    results, elapsed = serve_requests(pipeline, requests)
+    launches = read_launches()
 
     notes = [len(pitches) for result in results for pitches, _ in result]
     audio_seconds = REQUESTS * BATCH * CLIP_SECONDS
@@ -394,8 +429,6 @@ def serve(clips, profile, card):
     require(len(notes) == REQUESTS * BATCH and min(notes) > 0,
             'a served clip decoded no notes')
 
-    profile_batch(pipeline, requests[0])
-
     with torch.inference_mode():
         feats = mel.process(audio[:2])
         raw = model(model.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS])
@@ -405,39 +438,82 @@ def serve(clips, profile, card):
                 bool(torch.isfinite(logits).all()),
                 f'bf16 {key} logits are not finite of shape (2, {frames}, 88)')
 
-    return launches
+    return launches, ('piano batch', pipeline, requests[0],
+                      ('stft_power_kernel', 'lstm_scan_kernel'))
 
 
-def profile_batch(pipeline, audio):
-    """Device time by kernel over one served batch, from torch.profiler."""
+def serve_requests(pipeline, requests):
+    """Overlapped dispatch/finalize of the requests -> (results, seconds)."""
+
+    import torch
+
+    start = time.perf_counter()
+    pending = pipeline.dispatch(requests[0])
+    results = []
+    for request in requests[1:]:
+        upcoming = pipeline.dispatch(request)
+        results.append(pipeline.finalize(pending))
+        pending = upcoming
+    results.append(pipeline.finalize(pending))
+    torch.cuda.synchronize()
+
+    return results, time.perf_counter() - start
+
+
+def profile_batches(batches):
+    """Device time by kernel over one served batch of each path.
+
+    ``batches`` holds (label, pipeline, audio, kernel name fragments). All
+    batches run in one ``torch.profiler`` session, after every kernel's
+    library is loaded: a kernel whose module was loaded after an earlier
+    session ended went missing from a later session's trace. Each batch
+    runs in its own ``record_function`` range, and a device event belongs
+    to the range its start falls in (the profiler keeps host and device
+    events on one clock). Each path's kernels must appear in its range.
+    """
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
+    labels = [label for label, _, _, _ in batches]
+    walls = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        pipeline(audio)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
+        for label, pipeline, audio, _ in batches:
+            torch.cuda.synchronize()
+            with record_function(label):
+                start = time.perf_counter()
+                pipeline(audio)
+                torch.cuda.synchronize()
+                walls[label] = (time.perf_counter() - start) * 1e3
 
-    # Device-side events only: the operators that launched them report
-    # the same time again
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    for kernel in ('stft_power_kernel', 'lstm_scan_kernel'):
-        require(any(kernel in name for _, _, name in rows),
-                f'{kernel} is missing from the profile')
-    busy_ms = sum(ms for ms, _, _ in rows)
-    log(f'one batch of {audio.shape[0]} clips under the profiler: '
-        f'{wall_ms:.1f} ms wall, {busy_ms:.1f} ms on the device '
-        f'({100 * busy_ms / wall_ms:.1f}% busy)')
-    for ms, count, name in rows[:15]:
-        log(f'  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} '
-            f'{name[:200]}')
+    events = prof.events()
+    ranges = {e.name: e.time_range for e in events
+              if e.name in labels and e.device_type == DeviceType.CPU}
+    for label, _, audio, kernels in batches:
+        span = ranges[label]
+        by_kernel = {}
+        # Device-side events only, without the ranges' own annotations
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and e.name not in labels and
+                    span.start <= e.time_range.start <= span.end):
+                ms, count = by_kernel.get(e.name, (0.0, 0))
+                by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                     count + 1)
+        rows = sorted(((ms, count, name)
+                       for name, (ms, count) in by_kernel.items()),
+                      reverse=True)
+        busy_ms = sum(ms for ms, _, _ in rows)
+        log(f'{label} of {audio.shape[0]} clips under the profiler: '
+            f'{walls[label]:.1f} ms wall, {busy_ms:.1f} ms on the device '
+            f'({100 * busy_ms / walls[label]:.1f}% busy)')
+        for ms, count, name in rows[:15]:
+            log(f'  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} '
+                f'{name[:200]}')
+        for kernel in kernels:
+            require(any(kernel in name for _, _, name in rows),
+                    f'{kernel} is missing from the profile of the {label}')
 
 
 def check_against_cpu(clips, profile):
@@ -500,6 +576,375 @@ def check_against_cpu(clips, profile):
         f'{sum(len(p) for p, _ in cpu_notes)} notes compared')
 
 
+def guitar_cqt(grouped):
+    """The guitar serving CQT (``bench.py:422-423``)."""
+
+    from amt_tools_tpu_torch.features import CQT
+
+    return CQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP, n_bins=192,
+               bins_per_octave=24, exact='high', grouped=grouped)
+
+
+def cqt_fft_flops(cqt, frames):
+    """Least operations of an FFT-based CQT over ``frames`` frames: per
+    frame and octave, one real FFT of the octave's longest wavelet at the
+    octave's decimated rate (2.5 n log2 n, n a power of two), plus one
+    complex multiply-add per bin."""
+
+    from amt_tools_tpu_torch.ops import spectral
+
+    freqs = spectral.cqt_frequencies(cqt.n_bins, cqt.fmin,
+                                     cqt.bins_per_octave)
+    lengths = spectral.wavelet_lengths(freqs, cqt.sample_rate, cqt.alpha,
+                                       cqt.gamma)
+    octave = (cqt.n_bins - 1 - np.arange(cqt.n_bins)) // cqt.bins_per_octave
+    per_frame = 8.0 * cqt.n_bins
+    for o in np.unique(octave):
+        n = 2 ** int(np.ceil(np.log2(lengths[octave == o].max() / 2 ** o)))
+        per_frame += 2.5 * n * np.log2(n)
+
+    return frames * per_frame
+
+
+def cqt_errors(got, ref):
+    """Max |got - ref|, absolute and as a share of each clip's peak."""
+
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    diff = (got - ref).abs()
+
+    return diff.max().item(), (diff / peak).max().item()
+
+
+def conv1d_cqt(audio, banks):
+    """The library yardstick: one cuDNN ``conv1d`` per (bank, support) over
+    the centred audio, then the magnitude, bins concatenated."""
+
+    import torch
+    import torch.nn.functional as F
+
+    parts = []
+    for weight, support in banks:
+        resp = F.conv1d(audio[:, None], weight, stride=HOP,
+                        padding=support // 2)
+        n = weight.shape[0] // 2
+        parts.append(torch.sqrt(resp[:, :n] ** 2 + resp[:, n:] ** 2))
+
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def time_library(fn, name):
+    """Time the library yardstick, or None where cuDNN refuses the shape or
+    one call runs past 5 s (the port never calls it)."""
+
+    import torch
+
+    try:
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - start
+    except RuntimeError as exc:
+        log(f'{name}: no library call, cuDNN refused: {exc}')
+        return None, None
+    if first > 5.0:
+        log(f'{name}: no library call, one call took {first:.1f} s')
+        return None, None
+
+    return time_ms(fn, reps=3), out
+
+
+def report_cqt(name, ms, plain_ms, library_ms, cqt, audio, bank, out,
+               contraction):
+    """Log the times beside both bounds and the contraction's floor."""
+
+    batch, frames = out.shape[0], out.shape[-1]
+    num_bytes = 4 * (audio.numel() + bank.numel() + out.numel())
+    fft_flops = cqt_fft_flops(cqt, batch * frames)
+    bound, bound_by = bound_ms(num_bytes, fft_flops, PEAK_FP32_FLOPS)
+    library = 'no library call' if library_ms is None else \
+        f'conv1d {library_ms:.3f} ms'
+    log(f'{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, {library}, '
+        f'bound {bound:.3f} ms ({bound_by}: {num_bytes / 1e9:.3f} GB take '
+        f'{num_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms, an FFT-based CQT '
+        f'{fft_flops / 1e12:.4f} TFLOP {fft_flops / PEAK_FP32_FLOPS * 1e3:.3f}'
+        f' ms) at {tuple(audio.shape)} -> {tuple(out.shape)}; the '
+        f'contraction is {contraction / 1e12:.3f} TFLOP: at least '
+        f'{contraction / PEAK_FP32_FLOPS * 1e3:.3f} ms in float32 '
+        f'({contraction / 1e9 / ms:.1f} TFLOP/s achieved)')
+
+    return bound, bound_by
+
+
+def check_cqt(clips):
+    """Phase 6: kernel C vs its plain version, then timed at the recipe."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_plain
+
+    cqt = guitar_cqt(grouped=False)
+    support = cqt._support
+    audio = torch.from_numpy(clips).cuda()
+    bank = torch.from_numpy(cqt._kernel).cuda()
+
+    with tools.exact_fp32():
+        out = cqt_mag(audio, bank, support, HOP, exact='high')
+        ref = cqt_mag_plain(audio, bank, support, HOP, exact='high')
+        abs_err, rel_err = cqt_errors(out, ref)
+        feat_err = (cqt.post_proc(out) -
+                    cqt.post_proc(ref)).abs().max().item()
+
+        short = audio[:, :5 * GUITAR_SAMPLE_RATE].contiguous()
+        low = cqt_mag(short, bank, support, HOP, exact=False)
+        _, bf16_err = cqt_errors(low, cqt_mag_plain(short, bank, support, HOP,
+                                                    exact=False))
+        _, bf16_off = cqt_errors(low, cqt_mag(short, bank, support, HOP))
+        del ref, low
+
+        log(f'cqt_mag: max |kernel - plain| = {abs_err:.6g} ({rel_err:.3g} '
+            f'of the clip peak, tolerance {CQT_TOL}) on {tuple(audio.shape)};'
+            f' [0, 1] features {feat_err:.3g} (tolerance {CQT_FEATURE_TOL}); '
+            f'exact=False vs its bf16-rounded plain version {bf16_err:.3g} of '
+            f'the peak (tolerance {CQT_TOL}) on {tuple(short.shape)}, '
+            f'{bf16_off:.3g} off the float32 result')
+        require(rel_err <= CQT_TOL, 'cqt_mag disagrees with its plain version')
+        require(feat_err <= CQT_FEATURE_TOL, 'cqt_mag features disagree')
+        require(bf16_err <= CQT_TOL,
+                'cqt_mag exact=False disagrees with its plain version')
+
+        ms = time_ms(lambda: cqt_mag(audio, bank, support, HOP, exact='high'),
+                     reps=5)
+        plain_ms = time_ms(lambda: cqt_mag_plain(audio, bank, support, HOP),
+                           reps=2)
+        weights = [(bank.t().contiguous()[:, None, :], support)]
+        library_ms, lib_out = time_library(
+            lambda: conv1d_cqt(audio, weights), 'cqt_mag yardstick')
+        if lib_out is not None:
+            log(f'cqt_mag: conv1d vs kernel {cqt_errors(lib_out, out)[1]:.3g}'
+                f' of the clip peak')
+        del lib_out
+
+    contraction = 2.0 * support * bank.shape[1] * out.shape[0] * out.shape[-1]
+    bound, bound_by = report_cqt('cqt_mag', ms, plain_ms, library_ms, cqt,
+                                 audio, bank, out, contraction)
+
+    return {'name': 'cqt_mag', 'route': 'cuda',
+            'source': 'amt_tools_tpu_torch/csrc/cqt_mag.cu',
+            'replaces': 'amt_tools_tpu/ops/pallas_cqt.py:51',
+            'max_abs_err': abs_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms}
+
+
+def check_cqt_grouped(clips):
+    """Phase 7: kernel D vs kernel C on the full bank and vs its plain
+    version, then timed at the recipe."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.cqt_kernel import (cqt_mag, cqt_mag_grouped,
+                                                    cqt_mag_grouped_plain)
+
+    cqt = guitar_cqt(grouped='auto')
+    require(cqt._groups is not None, "grouped='auto' built no groups")
+    audio = torch.from_numpy(clips).cuda()
+    stack = torch.from_numpy(cqt._bank_stack).cuda()
+    args = (stack, cqt._group_supports, cqt._group_bins, HOP)
+
+    with tools.exact_fp32():
+        out = cqt_mag_grouped(audio, *args, exact='high')
+        full = cqt_mag(audio, torch.from_numpy(cqt._kernel).cuda(),
+                       cqt._support, HOP, exact='high')
+        _, full_err = cqt_errors(out, full)
+        del full
+        abs_err, rel_err = cqt_errors(
+            out, cqt_mag_grouped_plain(audio, *args, exact='high'))
+
+        log(f'cqt_mag_grouped: groups of {cqt._group_bins} bins at supports '
+            f'{cqt._group_supports}; on {tuple(audio.shape)}: vs kernel C on '
+            f'the full bank {full_err:.3g} of the clip peak; max |kernel - '
+            f'plain| = {abs_err:.6g} ({rel_err:.3g} of the clip peak); '
+            f'tolerance {CQT_TOL}')
+        require(full_err <= CQT_TOL,
+                'cqt_mag_grouped disagrees with the full-bank kernel')
+        require(rel_err <= CQT_TOL,
+                'cqt_mag_grouped disagrees with its plain version')
+
+        ms = time_ms(lambda: cqt_mag_grouped(audio, *args, exact='high'),
+                     reps=5)
+        plain_ms = time_ms(lambda: cqt_mag_grouped_plain(audio, *args),
+                           reps=2)
+        gb = stack.shape[1] // 2
+        weights = []
+        row0 = 0
+        for support, bins in zip(cqt._group_supports, cqt._group_bins):
+            rows = stack[row0: row0 + support]
+            bank = torch.cat([rows[:, :bins], rows[:, gb: gb + bins]], dim=1)
+            weights.append((bank.t().contiguous()[:, None, :], support))
+            row0 += support
+        library_ms, lib_out = time_library(
+            lambda: conv1d_cqt(audio, weights), 'cqt_mag_grouped yardstick')
+        if lib_out is not None:
+            log(f'cqt_mag_grouped: conv1d vs kernel '
+                f'{cqt_errors(lib_out, out)[1]:.3g} of the clip peak')
+        del lib_out
+
+    contraction = sum(2.0 * support * 2 * bins for support, bins in
+                      zip(cqt._group_supports, cqt._group_bins))
+    contraction *= out.shape[0] * out.shape[-1]
+    bound, bound_by = report_cqt('cqt_mag_grouped', ms, plain_ms, library_ms,
+                                 cqt, audio, stack, out, contraction)
+
+    return {'name': 'cqt_mag_grouped', 'route': 'cuda',
+            'source': 'amt_tools_tpu_torch/csrc/cqt_mag.cu',
+            'replaces': 'amt_tools_tpu/ops/pallas_cqt.py:115',
+            'max_abs_err': abs_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms}
+
+
+def serve_guitar(clips, card):
+    """Phase 8: the port's guitar serving path at full width, 3 requests
+    through the serving CQT (kernel D), then one through the full bank
+    (kernel C)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.serving import (TablaturePipeline,
+                                             calibrate_tablature_activity)
+
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = guitar_cqt(grouped='auto')
+    model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                   fullseq=True, dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(0))
+    shifts = calibrate_tablature_activity(model, cqt, clips[:4])
+    log(f'calibrated silence biases by {np.round(shifts, 4).tolist()}')
+
+    pipeline = TablaturePipeline(model, cqt, capacity=GUITAR_CAPACITY)
+    audio = torch.from_numpy(clips).cuda()
+    requests = [torch.roll(audio, shifts=17 * r, dims=0)
+                for r in range(REQUESTS)]
+
+    pipeline(requests[0][:8])  # warm-up: cuDNN and allocator first use
+    torch.cuda.synchronize()
+
+    reset_launches()
+    results, elapsed = serve_requests(pipeline, requests)
+    launches = read_launches()
+
+    notes = [sum(len(pitches) for pitches, _ in clip.values())
+             for result in results for clip in result]
+    audio_seconds = REQUESTS * GUITAR_BATCH * CLIP_SECONDS
+    log(f'guitar: served {REQUESTS} requests of {GUITAR_BATCH} x '
+        f'{CLIP_SECONDS:.0f} s in {elapsed:.3f} s: '
+        f'{audio_seconds / elapsed:.1f} audio-s per wall-s ({card}); notes '
+        f'per clip min {min(notes)} median {int(np.median(notes))} max '
+        f'{max(notes)}; launches {launches}')
+    require(launches['cqt_mag_grouped'] >= REQUESTS,
+            'the grouped CQT kernel did not run once per dispatch')
+    require(len(notes) == REQUESTS * GUITAR_BATCH and min(notes) > 0,
+            'a served guitar clip decoded no notes')
+
+    with torch.inference_mode():
+        feats = cqt.process(audio[:2])
+        raw = model(model.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS])
+    frames = cqt.get_expected_frames(clips[0])
+    logits = raw[tools.KEY_TABLATURE]
+    require(logits.shape == (2, frames, 6 * 21) and
+            bool(torch.isfinite(logits).all()),
+            f'bf16 tablature logits are not finite of shape (2, {frames}, '
+            f'126)')
+
+    # The class default: the full bank, through kernel C
+    full = TablaturePipeline(model, guitar_cqt(grouped=False),
+                             capacity=GUITAR_CAPACITY)
+    reset_launches()
+    full_results, full_elapsed = serve_requests(full, requests[:1])
+    full_launches = read_launches()
+    full_notes = [sum(len(pitches) for pitches, _ in clip.values())
+                  for clip in full_results[0]]
+    log(f'guitar, full-bank CQT: 1 request of {GUITAR_BATCH} x '
+        f'{CLIP_SECONDS:.0f} s in {full_elapsed:.3f} s; {sum(full_notes)} '
+        f'notes (the grouped bank gave {sum(notes[:GUITAR_BATCH])}); '
+        f'launches {full_launches}')
+    require(full_launches['cqt_mag'] >= 1,
+            'the full-bank CQT kernel did not run')
+    require(min(full_notes) > 0, 'a full-bank guitar clip decoded no notes')
+
+    return ({'cqt_mag_grouped': launches['cqt_mag_grouped'],
+             'cqt_mag': full_launches['cqt_mag']},
+            ('guitar batch', pipeline, requests[0], ('cqt_mag_kernel',)))
+
+
+def check_guitar_against_cpu(clips):
+    """Phase 8b: a float32 TabCNN behind the serving CQT, card (kernel D)
+    vs CPU (plain versions)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.serving import (TablaturePipeline,
+                                             calibrate_tablature_activity)
+
+    audio = np.ascontiguousarray(clips[:2, :10 * GUITAR_SAMPLE_RATE])
+    cqt = guitar_cqt(grouped='auto')
+    model = TabCNN(dim_in=cqt.get_feature_size(),
+                   profile=tools.GuitarProfile(num_frets=19), fullseq=True,
+                   generator=torch.Generator().manual_seed(3))
+    calibrate_tablature_activity(model, cqt, audio, device='cpu')
+
+    outputs = {}
+    for device in ('cpu', 'cuda'):
+        pipeline = TablaturePipeline(model, cqt, capacity=GUITAR_CAPACITY,
+                                     device=device)
+        notes = pipeline(audio)
+        with torch.inference_mode(), tools.exact_fp32():
+            feats = cqt.process(torch.from_numpy(audio).to(device))
+            raw = model(model.pre_proc({tools.KEY_FEATS: feats})[
+                tools.KEY_FEATS])[tools.KEY_TABLATURE]
+        outputs[device] = notes, raw.float().cpu()
+
+    (cpu_notes, cpu_raw), (gpu_notes, gpu_raw) = outputs['cpu'], outputs['cuda']
+    worst = (gpu_raw - cpu_raw).abs().max().item()
+    require(worst <= LOGIT_TOL, f'float32 tablature logits card vs CPU '
+                                f'{worst} > {LOGIT_TOL}')
+
+    head = model.tablature_out
+    cpu_tab, gpu_tab = head.finalize_output(cpu_raw), head.finalize_output(
+        gpu_raw)
+    top2 = cpu_raw.reshape(cpu_raw.shape[:2] + (6, 21)).topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).transpose(-1, -2)
+    differ = cpu_tab != gpu_tab
+    require(bool((margin[differ] <= TAB_MARGIN).all()),
+            f'tablature differs where the top-two margin exceeds {TAB_MARGIN}')
+
+    compared = notes_compared = 0
+    for b in range(len(audio)):
+        for string in range(6):
+            if not torch.equal(cpu_tab[b, string], gpu_tab[b, string]):
+                continue
+            (p_cpu, i_cpu), (p_gpu, i_gpu) = (cpu_notes[b][string],
+                                              gpu_notes[b][string])
+            require(np.array_equal(p_gpu, p_cpu) and
+                    np.array_equal(i_gpu, i_cpu),
+                    f'clip {b} string {string}: notes on the card differ '
+                    f'from the CPU')
+            compared += 1
+            notes_compared += len(p_cpu)
+    require(compared > 0, 'no string was compared')
+    log(f'guitar float32 card vs CPU: logits within {worst:.3g} (tolerance '
+        f'{LOGIT_TOL}); {int(differ.sum())} of {differ.numel()} tablature '
+        f'cells differ (all within a top-two margin of {TAB_MARGIN}); notes '
+        f'identical on {compared} of {6 * len(audio)} strings, '
+        f'{notes_compared} notes compared')
+
+
 def main():
     import torch
 
@@ -536,14 +981,35 @@ def main():
     lstm = check_lstm(frames)
     torch.cuda.empty_cache()
 
-    launches = serve(clips, profile, card)
+    launches, piano_batch = serve(clips, profile, card)
     check_against_cpu(clips, profile)
+    del clips
+    torch.cuda.empty_cache()
 
     stft['launches'] = launches['stft_power']
     lstm['launches'] = launches['lstm_scan']
 
+    start = time.perf_counter()
+    guitar = render_clips(tools.GuitarProfile(num_frets=19), GUITAR_BATCH,
+                          CLIP_SECONDS, GUITAR_SAMPLE_RATE)
+    log(f'rendered {GUITAR_BATCH} x {CLIP_SECONDS:.0f} s guitar clips at '
+        f'{GUITAR_SAMPLE_RATE} Hz in {time.perf_counter() - start:.1f} s')
+
+    cqt_full = check_cqt(guitar)
+    torch.cuda.empty_cache()
+    cqt_grouped = check_cqt_grouped(guitar)
+    torch.cuda.empty_cache()
+
+    launches, guitar_batch = serve_guitar(guitar, card)
+    check_guitar_against_cpu(guitar)
+    profile_batches([piano_batch, guitar_batch])
+
+    cqt_full['launches'] = launches['cqt_mag']
+    cqt_grouped['launches'] = launches['cqt_mag_grouped']
+
     log(card)
-    print(json.dumps({'kernels': [stft, lstm]}), flush=True)
+    print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,10 @@ only PyTorch and the CUDA toolkit, without the repository's JAX conftest:
 Tolerances:
 - STFT power: 1e-5 of each clip's peak power (both float32, sums in
   another order);
+- CQT magnitudes (kernels C and D): 1e-5 of each clip's peak magnitude
+  against the plain versions, in every ``exact`` mode (float32 sums in
+  another order; ``exact=False`` rounds the same operands to bf16 on both
+  sides), and D within 1e-5 of C on the full bank;
 - LSTM float32: 1e-4 absolute after hundreds of steps (float32 products in
   another order, compounded through the recurrence);
 - LSTM bf16: 1e-2 absolute at most and 8e-5 absolute on the mean, on
@@ -25,12 +29,17 @@ import pytest
 import torch
 
 from amt_tools_tpu_torch import tools
-from amt_tools_tpu_torch.features import MelSpec
-from amt_tools_tpu_torch.models import OnsetsFrames2
+from amt_tools_tpu_torch.features import CQT, MelSpec
+from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.ops import decode, spectral
+from amt_tools_tpu_torch.ops.cqt_kernel import (cqt_mag, cqt_mag_grouped,
+                                                cqt_mag_grouped_plain,
+                                                cqt_mag_plain)
 from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
 from amt_tools_tpu_torch.ops.stft_kernel import stft_power, stft_power_plain
-from amt_tools_tpu_torch.serving import TranscriptionPipeline
+from amt_tools_tpu_torch.serving import (TablaturePipeline,
+                                         TranscriptionPipeline,
+                                         calibrate_tablature_activity)
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +101,102 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, mean_atol, reverse):
     diff = (got.float() - ref.float()).abs()
     assert diff.max().item() <= atol
     assert diff.mean().item() <= mean_atol
+
+
+def _close_to_peak(got, ref):
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    return ((got - ref).abs() / peak).max().item()
+
+
+def _guitar_cqt(grouped, group_size=64, n_bins=192):
+    return CQT(n_bins=n_bins, bins_per_octave=24, exact='high',
+               grouped=grouped, group_size=group_size)
+
+
+@pytest.mark.parametrize('exact', [True, 'high', False])
+@pytest.mark.parametrize('num_samples', [22050 * 3, 12345])
+def test_cqt_kernel_matches_plain(cuda, exact, num_samples):
+    cqt = _guitar_cqt(grouped=False)
+    audio = _audio(3, num_samples).to(cuda)
+    bank = torch.from_numpy(cqt._kernel).to(cuda)
+
+    launches = cqt_mag.launches
+    got = cqt_mag(audio, bank, cqt._support, 512, exact=exact)
+    torch.cuda.synchronize()
+    assert cqt_mag.launches == launches + 1
+
+    ref = cqt_mag_plain(audio, bank, cqt._support, 512, exact=exact)
+    assert got.shape == ref.shape == (3, 192, 1 + num_samples // 512)
+    assert _close_to_peak(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('n_bins,group_size', [(192, 64), (80, 32)])
+def test_cqt_grouped_kernel_matches_plain_and_full_bank(cuda, n_bins,
+                                                        group_size):
+    """(80, 32) gives groups of 32, 32 and 16: the last is column padded."""
+
+    cqt = _guitar_cqt(grouped=True, group_size=group_size, n_bins=n_bins)
+    audio = _audio(2, 22050 * 2, seed=4).to(cuda)
+    stack = torch.from_numpy(cqt._bank_stack).to(cuda)
+    args = (stack, cqt._group_supports, cqt._group_bins, 512)
+
+    launches = cqt_mag_grouped.launches
+    got = cqt_mag_grouped(audio, *args)
+    torch.cuda.synchronize()
+    assert cqt_mag_grouped.launches == launches + 1
+
+    assert _close_to_peak(got, cqt_mag_grouped_plain(audio, *args)) <= 1e-5
+    full = cqt_mag(audio, torch.from_numpy(cqt._kernel).to(cuda),
+                   cqt._support, 512)
+    assert _close_to_peak(got, full) <= 1e-5
+
+
+def test_tablature_pipeline_on_cuda_matches_cpu(cuda):
+    """A float32 TabCNN behind the serving CQT recipe, the card (kernel D)
+    against the CPU (plain versions): logits within 2e-3, tablature equal
+    wherever the CPU's top-two margin exceeds 4e-3, and identical notes on
+    every string whose tablature is equal."""
+
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = _guitar_cqt(grouped='auto')
+    audio = _audio(2, 22050 * 4, seed=5)
+    model = TabCNN(dim_in=192, profile=profile, fullseq=True,
+                   generator=torch.Generator().manual_seed(6))
+    calibrate_tablature_activity(model, cqt, audio, device='cpu')
+
+    outputs = {}
+    for device in ('cpu', cuda):
+        launches = cqt_mag_grouped.launches
+        notes = TablaturePipeline(model, cqt, capacity=64,
+                                  device=device)(audio.numpy())
+        with torch.no_grad():
+            feats = cqt.process(audio.to(device))
+            raw = model(model.pre_proc({tools.KEY_FEATS: feats})[
+                tools.KEY_FEATS])[tools.KEY_TABLATURE].cpu()
+        if device == cuda:
+            assert cqt_mag_grouped.launches == launches + 2
+        outputs[str(device)] = notes, raw
+
+    (cpu_notes, cpu_raw), (gpu_notes, gpu_raw) = outputs['cpu'], outputs['cuda']
+    assert (gpu_raw - cpu_raw).abs().max().item() <= 2e-3
+
+    head = model.tablature_out
+    cpu_tab = head.finalize_output(cpu_raw)
+    gpu_tab = head.finalize_output(gpu_raw)
+    top2 = cpu_raw.reshape(2, -1, 6, 21).topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).transpose(-1, -2)
+    assert (margin[cpu_tab != gpu_tab] <= 4e-3).all()
+
+    compared = 0
+    for b in range(2):
+        for string in range(6):
+            if torch.equal(cpu_tab[b, string], gpu_tab[b, string]):
+                (p_cpu, i_cpu), (p_gpu, i_gpu) = (cpu_notes[b][string],
+                                                  gpu_notes[b][string])
+                np.testing.assert_array_equal(p_gpu, p_cpu)
+                np.testing.assert_array_equal(i_gpu, i_cpu)
+                compared += 1
+    assert compared > 0
 
 
 def _logits(model, mel, audio):
@@ -159,3 +264,14 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
     with pytest.raises(ValueError):
         lstm_scan(torch.zeros(1, 4, 4 * 2048, device=cuda),
                   torch.zeros(2048, 4 * 2048, device=cuda))
+
+    cqt_bank = torch.zeros(4096, 8, device=cuda)
+    with pytest.raises(TypeError):
+        cqt_mag(torch.zeros(2, 1000, device=cuda, dtype=torch.float64),
+                cqt_bank.double(), 4096, 512)
+    with pytest.raises(ValueError):
+        cqt_mag(torch.zeros(2, 1000, device=cuda), cqt_bank.cpu(), 4096, 512)
+    with pytest.raises(ValueError):
+        cqt_mag_grouped(torch.zeros(2, 1000, device=cuda),
+                        torch.zeros(33 * 16, 2, device=cuda), (16,) * 33,
+                        (1,) * 33, 512)
