@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the amt_tools_tpu transcription framework.
 
 The JAX package ``amt_tools_tpu`` is the reference; this package mirrors its
-layout (``tools``, ``ops``, ``features``, ``models``, ``serving``) and holds
+layout (``tools``, ``ops``, ``features``, ``models``, ``datasets``,
+``serving``, ``train``) and holds
 each module against its JAX counterpart in ``tests/test_torch_*.py``. It
 imports ``torch`` and numpy only — never JAX, Flax, Optax or anything of
 ``amt_tools_tpu``.
@@ -12,7 +13,7 @@ Pallas kernels of the JAX package become hand-written Hopper kernels
 PyTorch version only for tensors that lie on the CPU.
 """
 
-from . import tools, ops, features, models, datasets, serving, weights
+from . import tools, ops, features, models, datasets, serving, train, weights
 
 __all__ = ['tools', 'ops', 'features', 'models', 'datasets', 'serving',
-           'weights']
+           'train', 'weights']

@@ -1,7 +1,8 @@
-// Whole-sequence LSTM recurrence for Hopper (sm_90a), forward only.
+// Whole-sequence LSTM recurrence for Hopper (sm_90a), forward.
 //
 // Replaces: amt_tools_tpu/ops/pallas_lstm.py, _lstm_kernel (pallas_call in
-// lstm_scan_pallas). From a zero carry, over hoisted input projections
+// lstm_scan_pallas; kernel B) and _lstm_fwd_res_kernel (pallas_call in
+// _lstm_fwd_res; kernel E). From a zero carry, over hoisted input projections
 // xw (B, T, 4H) that already hold the bias, with recurrent weights
 // W_h (H, 4H) in gate order i, f, g, o:
 //   gates = xw[:, t] + h @ W_h;  c = f * c + i * g;  h = o * tanh(c)
@@ -31,6 +32,17 @@
 // so a ragged T needs no padding.
 // Later work: split the 4H columns over a thread-block cluster with h
 // broadcast through distributed shared memory, so W_h stays on chip.
+//
+// Kernel E, the training forward, is the same body with kResiduals set: it
+// also writes, for every step, the four gate activations as float32 (in
+// bf16 mode the bf16-rounded values the step used, widened) and the float32
+// cell state c_t, which the BPTT kernel (lstm_bptt.cu) reads back. Its
+// arithmetic is B's, so its h equals B's bit for bit. At the training shape
+// (B = 8, T = 625, H = 256, float32) it moves about 51 MB (xw and the gates
+// 20.5 MB each, c and h 5.1 MB each), 0.015 ms at 3.35 TB/s, and does
+// 2.6 GFLOP of recurrent products, 0.039 ms at the 67 TFLOP/s float32
+// peak. Neither is the floor: 625 dependent steps are, and with B = 8 only
+// 2 blocks run, each streaming W_h from L2 every step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +79,11 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-template <typename T, bool kBf16>
+template <typename T, bool kBf16, bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
-                 T* __restrict__ out, int batch, int frames, int hidden,
+                 T* __restrict__ out, float* __restrict__ gates_out,
+                 float* __restrict__ c_out, int batch, int frames, int hidden,
                  int reverse) {
   extern __shared__ float smem[];
   float* h_buf = smem;                          // [2][kRows][hidden]
@@ -127,25 +140,33 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
         float go = to_float(x[3 * hidden]) + acc[r][3];
 
         float c = c_buf[r * hidden + u];
-        float h;
+        float i_g, f_g, g_g, o_g;
         if (kBf16) {
           gi = round_bf16(gi);
           gf = round_bf16(gf);
           gg = round_bf16(gg);
           go = round_bf16(go);
-          const float i_g = sigmoid_bf16(gi);
-          const float f_g = sigmoid_bf16(gf);
-          const float g_g = round_bf16(tanhf(gg));
-          const float o_g = sigmoid_bf16(go);
+          i_g = sigmoid_bf16(gi);
+          f_g = sigmoid_bf16(gf);
+          g_g = round_bf16(tanhf(gg));
+          o_g = sigmoid_bf16(go);
           c = f_g * c + round_bf16(i_g * g_g);
-          h = o_g * tanhf(c);
         } else {
-          const float i_g = sigmoid_f32(gi);
-          const float f_g = sigmoid_f32(gf);
-          const float g_g = tanhf(gg);
-          const float o_g = sigmoid_f32(go);
+          i_g = sigmoid_f32(gi);
+          f_g = sigmoid_f32(gf);
+          g_g = tanhf(gg);
+          o_g = sigmoid_f32(go);
           c = f_g * c + i_g * g_g;
-          h = o_g * tanhf(c);
+        }
+        const float h = o_g * tanhf(c);
+
+        if (kResiduals) {
+          float* g = gates_out + step * four_h + u;
+          g[0] = i_g;
+          g[hidden] = f_g;
+          g[2 * hidden] = g_g;
+          g[3 * hidden] = o_g;
+          c_out[step * hidden + u] = c;
         }
 
         c_buf[r * hidden + u] = c;
@@ -157,14 +178,15 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
   }
 }
 
-template <typename T, bool kBf16>
-int launch(const void* xw, const void* w_h, void* out, int batch, int frames,
-           int hidden, int reverse, cudaStream_t stream) {
+template <typename T, bool kBf16, bool kResiduals>
+int launch(const void* xw, const void* w_h, void* out, float* gates,
+           float* c_seq, int batch, int frames, int hidden, int reverse,
+           cudaStream_t stream) {
   const int blocks = (batch + kRows - 1) / kRows;
   const size_t smem = 3 * kRows * static_cast<size_t>(hidden) * sizeof(float);
-  lstm_scan_kernel<T, kBf16><<<blocks, kThreads, smem, stream>>>(
+  lstm_scan_kernel<T, kBf16, kResiduals><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(xw), static_cast<const T*>(w_h),
-      static_cast<T*>(out), batch, frames, hidden, reverse);
+      static_cast<T*>(out), gates, c_seq, batch, frames, hidden, reverse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -178,9 +200,26 @@ extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
                          int batch, int frames, int hidden, int reverse,
                          int bf16, cudaStream_t stream) {
   if (bf16) {
-    return launch<__nv_bfloat16, true>(xw, w_h, out, batch, frames, hidden,
-                                       reverse, stream);
+    return launch<__nv_bfloat16, true, false>(
+        xw, w_h, out, nullptr, nullptr, batch, frames, hidden, reverse,
+        stream);
   }
-  return launch<float, false>(xw, w_h, out, batch, frames, hidden, reverse,
-                              stream);
+  return launch<float, false, false>(xw, w_h, out, nullptr, nullptr, batch,
+                                     frames, hidden, reverse, stream);
+}
+
+// Kernel E: lstm_scan, and also the float32 residuals gates
+// (batch, frames, 4 * hidden) and c_seq (batch, frames, hidden), contiguous
+// on the device.
+extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
+                                   float* gates, float* c_seq, int batch,
+                                   int frames, int hidden, int reverse,
+                                   int bf16, cudaStream_t stream) {
+  if (bf16) {
+    return launch<__nv_bfloat16, true, true>(xw, w_h, out, gates, c_seq,
+                                             batch, frames, hidden, reverse,
+                                             stream);
+  }
+  return launch<float, false, true>(xw, w_h, out, gates, c_seq, batch, frames,
+                                    hidden, reverse, stream);
 }

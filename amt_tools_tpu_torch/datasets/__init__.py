@@ -1,5 +1,8 @@
-"""Synthetic audio for benchmarks and smoke tests."""
+"""Datasets: the transcription dataset base class, the seeded native
+loader and synthetic piano tracks."""
 
-from .synthetic import random_notes, render_notes
+from .common import DataLoader, TranscriptionDataset, collate
+from .synthetic import SyntheticPiano, add_room, random_notes, render_notes
 
-__all__ = ['random_notes', 'render_notes']
+__all__ = ['TranscriptionDataset', 'DataLoader', 'collate', 'SyntheticPiano',
+           'add_room', 'random_notes', 'render_notes']

@@ -1,9 +1,11 @@
 """Feature extraction module base class.
 
 Counterpart of ``amt_tools_tpu/features/common.py``: the frame-count
-algebra (T = 1 + N // hop), frame times, and the dB post-processing that
-maps [-80, 0] dB onto [0, 1]. Concrete modules implement :meth:`process`,
-a function on (..., N) audio tensors that runs on the audio's device.
+algebra (T = 1 + N // hop, ``get_sample_range``), frame times, and the dB
+post-processing that maps [-80, 0] dB onto [0, 1]. Concrete modules
+implement :meth:`process`, a function on (..., N) audio tensors that runs
+on the audio's device; :meth:`process_audio` is the host entry point the
+datasets use.
 """
 
 from abc import abstractmethod
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops import spectral
+from ..tools.utils import resolve_device
 
 
 class FeatureModule(object):
@@ -33,11 +36,44 @@ class FeatureModule(object):
 
         return 1 + num_samples // self.hop_length
 
+    def get_sample_range(self, num_frames):
+        """Audio lengths (in samples) that produce exactly ``num_frames``."""
+
+        if num_frames <= 0:
+            return np.array([0])
+
+        max_samples = num_frames * self.hop_length - 1
+        min_samples = max(1, max_samples - self.hop_length + 1)
+
+        return np.arange(min_samples, max_samples + 1)
+
     @abstractmethod
     def process(self, audio):
         """Feature transform: (..., N) audio tensor -> (..., C, F, T)."""
 
         raise NotImplementedError
+
+    def process_audio(self, audio, device=None):
+        """Host entry point: numpy audio in, numpy float32 features out.
+
+        Runs :meth:`process` on ``device`` (the card unless the caller
+        names one; ``'cpu'`` takes the plain versions). Eager PyTorch does
+        not recompile per length, so the audio is not padded to the JAX
+        package's length buckets; its frames equal an unbucketed run's.
+        """
+
+        # A fresh array: cached tracks are read-only, and a tensor must
+        # own memory it may write
+        audio = np.array(audio, dtype=np.float32)
+        if audio.shape[-1] == 0:
+            return np.zeros((self.get_num_channels(), self.get_feature_size(),
+                             0), dtype=np.float32)
+
+        device = resolve_device(device)
+        with torch.inference_mode():
+            feats = self.process(torch.from_numpy(audio).to(device))
+
+        return feats.cpu().numpy()
 
     def to_decibels(self, feats):
         """Amplitude features to dB, each clip referenced to its own maximum."""
@@ -70,6 +106,12 @@ class FeatureModule(object):
 
     def get_num_channels(self):
         return self.num_channels
+
+    @classmethod
+    def features_name(cls):
+        """Class-name tag of the feature module."""
+
+        return cls.__name__
 
     @abstractmethod
     def get_feature_size(self):

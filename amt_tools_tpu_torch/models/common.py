@@ -1,31 +1,41 @@
 """Transcription model base class and the output heads.
 
 Counterparts of ``amt_tools_tpu/models/common.py`` ``TranscriptionModel``
-(``:42``), ``SoftmaxGroups`` (``:182``) and ``LogisticBank`` (``:246``) in
-inference mode: features arrive as (B, C, F, T) and each model's
-``pre_proc`` lays them out for its forward; ``finalize_output`` turns
-(B, T, O) logits into (B, O, T) activations (``LogisticBank``) or (B, G, T)
-class ids (``SoftmaxGroups``). Computation runs in ``dtype`` (e.g.
-``torch.bfloat16``) while parameters stay float32. Losses come with the
-training slice.
+(``:42``), ``run_on_batch`` (``:122``), ``SoftmaxGroups`` (``:182``) and
+``LogisticBank`` (``:246``): features arrive as (B, C, F, T) and each
+model's ``pre_proc`` lays them out for its forward; ``finalize_output``
+turns (B, T, O) logits into (B, O, T) activations (``LogisticBank``) or
+(B, G, T) class ids (``SoftmaxGroups``). Computation runs in ``dtype``
+(e.g. ``torch.bfloat16``) while parameters stay float32; losses are float32.
+The O&F models train (``LogisticBank.get_loss``); ``SoftmaxGroups`` has no
+loss yet, so TabCNN stays inference only.
 """
 
 from abc import abstractmethod
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from .. import tools
 from ..ops.decode import sigmoid
 from ..ops.layers import lecun_normal_, linear
 
-__all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank']
+__all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank',
+           'run_on_batch']
 
 
 class TranscriptionModel(nn.Module):
-    """Base class for music transcription models (inference forward only)."""
+    """Base class for music transcription models.
+
+    ``dropout=False`` trains without dropout noise (BatchNorm still takes
+    batch statistics), as the JAX package's flag does (``:79-83``): for
+    reproducible fine-tuning and for tests that step two frameworks side by
+    side.
+    """
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
-                 frame_width=1, dtype=None):
+                 frame_width=1, dtype=None, dropout=True):
         super().__init__()
         self.dim_in = dim_in
         self.profile = profile
@@ -33,6 +43,7 @@ class TranscriptionModel(nn.Module):
         self.model_complexity = model_complexity
         self.frame_width = frame_width
         self.dtype = dtype
+        self.dropout = dropout
 
     def pre_proc(self, batch):
         """Model-specific feature pre-processing (default: identity)."""
@@ -42,9 +53,8 @@ class TranscriptionModel(nn.Module):
     def _check_inference(self):
         if self.training:
             raise NotImplementedError(
-                f'{type(self).__name__} has an inference forward only (the '
-                f'training forward comes with the training slice); call '
-                f'.eval() first')
+                f'{type(self).__name__} has an inference forward only (its '
+                f'loss is not ported yet); call .eval() first')
 
     @abstractmethod
     def forward(self, feats):
@@ -61,6 +71,29 @@ class TranscriptionModel(nn.Module):
     @classmethod
     def model_name(cls):
         return cls.__name__
+
+
+def run_on_batch(model, batch, train=False, generator=None):
+    """Full pipeline on one batch: ``pre_proc`` -> forward -> ``post_proc``.
+
+    Sets the model's mode to ``train`` first. In train mode BatchNorm takes
+    batch statistics and updates its running buffers in place (the JAX
+    function returns them as ``mutated``), and dropout draws from
+    ``generator``. Returns the output dict, with ``tools.KEY_LOSS`` when the
+    batch carries ground truth; differentiable through the losses.
+    """
+
+    batch = model.pre_proc(dict(batch))
+    model.train(train)
+
+    kwargs = {} if generator is None else {'generator': generator}
+    batch[tools.KEY_OUTPUT] = model(batch[tools.KEY_FEATS], **kwargs)
+    output = model.post_proc(batch)
+
+    if tools.query_dict(batch, tools.KEY_TIMES):
+        output[tools.KEY_TIMES] = batch[tools.KEY_TIMES]
+
+    return output
 
 
 class SoftmaxGroups(nn.Module):
@@ -128,6 +161,27 @@ class LogisticBank(nn.Module):
 
     def forward(self, feats):
         return linear(feats, self.Dense_0, self.dtype)
+
+    @staticmethod
+    def get_loss(estimated, reference, weights=None):
+        """BCE loss: (B, T, O) logits vs (B, O, T) reference, in float32.
+
+        ``optax.sigmoid_binary_cross_entropy``'s form, ``-y log s(x) -
+        (1 - y) log s(-x)``; averaged over frames, summed over keys,
+        averaged over the batch. ``weights`` (O,) scales each key.
+        """
+
+        logits = estimated.transpose(-1, -2).float()
+        labels = reference.float()
+
+        loss = -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(
+            -logits)
+
+        if weights is not None:
+            loss = loss * torch.as_tensor(weights, dtype=torch.float32,
+                                          device=loss.device)[..., None]
+
+        return loss.mean(dim=-1).sum(dim=-1).mean()
 
     @staticmethod
     def finalize_output(raw_output, threshold=None):

@@ -1,8 +1,10 @@
-"""Onsets & Frames transcription models (V1/V2), inference forward.
+"""Onsets & Frames transcription models (V1/V2).
 
 Counterparts of ``amt_tools_tpu/models/onsetsframes.py``: ``AcousticModel``
 (``:47``), ``LanguageModel`` (``:170``), ``OnsetsFrames`` (``:565``) and
-``OnsetsFrames2`` (``:757``) in eval mode. Submodule and parameter names
+``OnsetsFrames2`` (``:757``), in eval mode and in train mode (batch-statistics
+BatchNorm, dropout from an explicit generator, detached heads, BCE losses in
+``post_proc``). Submodule and parameter names
 follow the Flax tree (``pitch_am.Conv_0``, ``onset_lm.FastBiLSTM_0``,
 ``adjoin_out.Dense_0``, ...), so ``weights.from_flax`` maps one onto the
 other by name.
@@ -18,7 +20,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import tools
-from ..ops.layers import BatchNorm, conv2d_same, conv3x3, lecun_normal_, linear
+from ..ops import decode
+from ..ops.layers import (BatchNorm, conv2d_same, conv3x3, dropout,
+                          lecun_normal_, linear)
 from ..ops.lstm import FastBiLSTM, FastLSTM
 from .common import LogisticBank, TranscriptionModel
 
@@ -29,14 +33,16 @@ class AcousticModel(nn.Module):
     """Kelz-style conv stack: (B, T, F, C) features -> (B, T, dim_out).
 
     Three 3x3 conv + BatchNorm + ReLU blocks, two 1x2 max-pools over
-    frequency (F -> F/4), then a dense projection. Dropout is the identity
-    at inference.
+    frequency (F -> F/4), then a dense projection. In train mode with
+    ``dropout`` on, dropouts of 0.25 follow blocks 2 and 3 and 0.5 the
+    dense, drawn from the forward's ``generator``.
     """
 
     def __init__(self, dim_in, dim_out, in_channels=1, model_complexity=2,
-                 dtype=None, generator=None):
+                 dtype=None, generator=None, dropout=True):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         nf1 = 16 * model_complexity
         nf3 = 32 * model_complexity
 
@@ -55,33 +61,41 @@ class AcousticModel(nn.Module):
         lecun_normal_(self.Dense_0.weight, features, generator)
         nn.init.zeros_(self.Dense_0.bias)
 
-    def _block(self, x, conv, norm, pool):
+    def _dropout(self, x, rate, generator):
+        if self.training and self.dropout:
+            return dropout(x, rate, generator)
+        return x
+
+    def _block(self, x, conv, norm, pool, generator):
         x = conv2d_same(x, conv, self.dtype)
         x = F.relu(norm(x, self.dtype))
         if pool:
             x = F.max_pool2d(x, (1, 2), stride=(1, 2))
+            x = self._dropout(x, 0.25, generator)
         return x
 
-    def forward(self, feats):
+    def forward(self, feats, generator=None):
         # (B, T, F, C) -> (B, C, T, F)
         x = feats.permute(0, 3, 1, 2)
 
-        x = self._block(x, self.Conv_0, self.BatchNorm_0, pool=False)
-        x = self._block(x, self.Conv_1, self.BatchNorm_1, pool=True)
-        x = self._block(x, self.Conv_2, self.BatchNorm_2, pool=True)
+        x = self._block(x, self.Conv_0, self.BatchNorm_0, False, generator)
+        x = self._block(x, self.Conv_1, self.BatchNorm_1, True, generator)
+        x = self._block(x, self.Conv_2, self.BatchNorm_2, True, generator)
 
         # (B, C, T, F/4) -> (B, T, F/4, C) -> (B, T, F/4 * C), feature-major
         x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[:2] + (-1,))
 
-        return linear(x, self.Dense_0, self.dtype)
+        return self._dropout(linear(x, self.Dense_0, self.dtype), 0.5,
+                             generator)
 
 
 class LanguageModel(nn.Module):
     """LSTM language model: (B, T, dim_in) -> (B, T, dim_out).
 
     Bidirectional by default, with ``dim_out // 2`` hidden units per
-    direction; the recurrence runs in the Hopper LSTM kernel on CUDA.
+    direction; the recurrence runs in the Hopper LSTM kernels on CUDA
+    (kernel B, or E and F when autograd records).
     """
 
     def __init__(self, dim_in, dim_out, bidirectional=True, dtype=None,
@@ -109,14 +123,18 @@ class OnsetsFrames(TranscriptionModel):
     Heads: onset = AM -> LM -> logistic; pitch = AM -> logistic; refined
     pitch = LM -> logistic over concat(onsets, pitch). ``generator`` seeds
     the random initialization (a fresh generator seeded 0 when omitted).
+    ``detach_heads`` stops the refinement's gradient into the onset (and
+    offset) heads. Losses: pitch + onset BCE.
     """
 
     head_names = ('pitch', 'onset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
-                 dtype=None, generator=None):
+                 dtype=None, generator=None, dropout=True, detach_heads=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
-                         model_complexity=model_complexity, dtype=dtype)
+                         model_complexity=model_complexity, dtype=dtype,
+                         dropout=dropout)
+        self.detach_heads = detach_heads
         if model_complexity < 2:
             raise ValueError('OnsetsFrames requires model_complexity >= 2 '
                              '(the language-model width is 256 * (complexity - 1)).')
@@ -128,7 +146,7 @@ class OnsetsFrames(TranscriptionModel):
             setattr(self, f'{name}_am',
                     AcousticModel(dim_in, self.dim_am, in_channels,
                                   model_complexity, dtype=dtype,
-                                  generator=generator))
+                                  generator=generator, dropout=dropout))
 
         self.onset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
                                       generator=generator)
@@ -167,33 +185,57 @@ class OnsetsFrames(TranscriptionModel):
 
         return batch
 
-    def _embeddings(self, feats):
-        return {name: getattr(self, f'{name}_am')(feats)
+    def _embeddings(self, feats, generator):
+        return {name: getattr(self, f'{name}_am')(feats, generator)
                 for name in self.head_names}
 
-    def forward(self, feats):
-        self._check_inference()
+    def _detach(self, x):
+        return x.detach() if self.detach_heads else x
+
+    def forward(self, feats, generator=None):
+        """(B, T, F, C) features -> raw logits; in train mode dropout draws
+        from ``generator``."""
+
         output = {}
 
-        emb = self._embeddings(feats)
+        emb = self._embeddings(feats, generator)
         multi_pitch = self.pitch_out(emb['pitch'])
 
         onsets = self.onset_out(self.onset_lm(emb['onset']))
         output[tools.KEY_ONSETS] = onsets
 
-        joint = torch.cat((onsets, multi_pitch), dim=-1)
+        joint = torch.cat((self._detach(onsets), multi_pitch), dim=-1)
         output[tools.KEY_MULTIPITCH] = self.adjoin_out(self.adjoin_lm(joint))
 
         return output
 
     def post_proc(self, batch):
-        """Thresholded onset and multi-pitch activations, (B, O, T)."""
+        """Losses, where the batch has a multi-pitch reference (onset
+        targets derived from it when absent), and thresholded onset and
+        multi-pitch activations, (B, O, T)."""
 
         output = dict(batch[tools.KEY_OUTPUT])
-        output[tools.KEY_ONSETS] = LogisticBank.finalize_output(
-            output[tools.KEY_ONSETS], 0.5)
+        onsets_est = output[tools.KEY_ONSETS]
+        multi_pitch_est = output[tools.KEY_MULTIPITCH]
+
+        if tools.KEY_MULTIPITCH in batch:
+            multi_pitch_ref = batch[tools.KEY_MULTIPITCH]
+            onsets_ref = batch.get(tools.KEY_ONSETS)
+            if onsets_ref is None:
+                onsets_ref = decode.multi_pitch_to_onsets(multi_pitch_ref)
+
+            loss = {tools.KEY_LOSS_PITCH: LogisticBank.get_loss(
+                        multi_pitch_est, multi_pitch_ref),
+                    tools.KEY_LOSS_ONSETS: LogisticBank.get_loss(
+                        onsets_est, onsets_ref)}
+            loss[tools.KEY_LOSS_TOTAL] = (loss[tools.KEY_LOSS_PITCH] +
+                                          loss[tools.KEY_LOSS_ONSETS])
+            output[tools.KEY_LOSS] = loss
+
+        output[tools.KEY_ONSETS] = LogisticBank.finalize_output(onsets_est,
+                                                                0.5)
         output[tools.KEY_MULTIPITCH] = LogisticBank.finalize_output(
-            output[tools.KEY_MULTIPITCH], 0.5)
+            multi_pitch_est, 0.5)
 
         return output
 
@@ -204,19 +246,21 @@ class OnsetsFrames2(OnsetsFrames):
     Adds an offset head; the refinement stage consumes onsets, offsets and
     the initial pitch estimate. At complexity 3: three 48/48/96-channel
     acoustic stacks with a 5472 -> 768 dense (229 mels), three BiLSTMs of
-    256 units per direction, 88-key logistic heads.
+    256 units per direction, 88-key logistic heads. The heads are detached
+    by default; losses: pitch + onset + offset BCE.
     """
 
     head_names = ('pitch', 'onset', 'offset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=3,
-                 dtype=None, generator=None):
+                 dtype=None, generator=None, dropout=True, detach_heads=True):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
-                         generator=generator)
+                         generator=generator, dropout=dropout,
+                         detach_heads=detach_heads)
 
         self.offset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
                                        generator=generator)
@@ -229,11 +273,10 @@ class OnsetsFrames2(OnsetsFrames):
 
         return 3 * self.dim_out
 
-    def forward(self, feats):
-        self._check_inference()
+    def forward(self, feats, generator=None):
         output = {}
 
-        emb = self._embeddings(feats)
+        emb = self._embeddings(feats, generator)
         multi_pitch = self.pitch_out(emb['pitch'])
 
         onsets = self.onset_out(self.onset_lm(emb['onset']))
@@ -242,14 +285,28 @@ class OnsetsFrames2(OnsetsFrames):
         offsets = self.offset_out(self.offset_lm(emb['offset']))
         output[tools.KEY_OFFSETS] = offsets
 
-        joint = torch.cat((onsets, offsets, multi_pitch), dim=-1)
+        joint = torch.cat((self._detach(onsets), self._detach(offsets),
+                           multi_pitch), dim=-1)
         output[tools.KEY_MULTIPITCH] = self.adjoin_out(self.adjoin_lm(joint))
 
         return output
 
     def post_proc(self, batch):
         output = super().post_proc(batch)
-        output[tools.KEY_OFFSETS] = LogisticBank.finalize_output(
-            output[tools.KEY_OFFSETS])
+        offsets_est = output[tools.KEY_OFFSETS]
+
+        if tools.KEY_LOSS in output:
+            offsets_ref = batch.get(tools.KEY_OFFSETS)
+            if offsets_ref is None:
+                offsets_ref = decode.multi_pitch_to_offsets(
+                    batch[tools.KEY_MULTIPITCH])
+
+            loss = output[tools.KEY_LOSS]
+            loss[tools.KEY_LOSS_OFFSETS] = LogisticBank.get_loss(offsets_est,
+                                                                 offsets_ref)
+            loss[tools.KEY_LOSS_TOTAL] = (loss[tools.KEY_LOSS_TOTAL] +
+                                          loss[tools.KEY_LOSS_OFFSETS])
+
+        output[tools.KEY_OFFSETS] = LogisticBank.finalize_output(offsets_est)
 
         return output

@@ -4,8 +4,8 @@ The JAX models compute in ``dtype`` (e.g. bf16) while their parameters stay
 float32: Flax's ``Dense`` and ``Conv`` cast inputs, kernel and bias to
 ``dtype`` before the product, and ``BatchNorm`` normalizes in float32 and
 casts its result. These helpers give ``nn.Linear``/``nn.Conv2d`` weights the
-same treatment, and initialize parameters like Flax's defaults from an
-explicit ``torch.Generator``.
+same treatment, initialize parameters like Flax's defaults from an explicit
+``torch.Generator``, and draw Flax's dropout from one.
 """
 
 import math
@@ -15,7 +15,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ['linear', 'conv2d_same', 'conv2d_valid', 'conv3x3', 'BatchNorm',
-           'lecun_normal_', 'orthogonal_']
+           'dropout', 'lecun_normal_', 'orthogonal_']
+
+# Running-average decay of every Flax BatchNorm the JAX models build
+# (amt_tools_tpu/models/onsetsframes.py:99)
+_MOMENTUM = 0.9
 
 
 def _compute_dtype(x, dtype):
@@ -49,10 +53,19 @@ def conv2d_valid(x, layer, dtype=None):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode batch norm over channel dim 1, Flax's arithmetic.
+    """Batch norm over channel dim 1 with Flax's arithmetic.
 
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast to
     ``dtype`` (default: x's). Parameter names follow ``nn.BatchNorm2d``.
+    In eval mode the statistics are the running ones. In train mode they
+    are the batch's, as Flax 0.12 takes them
+    (``flax/linen/normalization.py:60-145``): the float32 mean over every
+    axis but the channel's, and the fast variance ``max(0, E[x^2] -
+    E[x]^2)``; gradients flow through both. Each train-mode forward then
+    updates the running buffers once, ``0.9 * ra + 0.1 * stat`` with the
+    biased variance (``:402-404``). ``F.batch_norm`` would update
+    ``running_var`` with the unbiased variance, so the arithmetic is
+    written out.
     """
 
     def __init__(self, num_features, eps=1e-5):
@@ -67,6 +80,9 @@ class BatchNorm(nn.Module):
         dtype = _compute_dtype(x, dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)
 
+        if self.training:
+            return self._forward_train(x, dtype, shape)
+
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
 
         # One float32 buffer updated in place: at serving shapes the
@@ -76,6 +92,40 @@ class BatchNorm(nn.Module):
         y.add_(self.bias.view(shape))
 
         return y.to(dtype)
+
+    def _forward_train(self, x, dtype, shape):
+        axes = (0,) + tuple(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+
+        with torch.no_grad():
+            self.running_mean.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * mean)
+            self.running_var.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * var)
+
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+        return y.to(dtype)
+
+
+def dropout(x, rate, generator):
+    """Flax's ``nn.Dropout`` in train mode: keep each value with probability
+    ``1 - rate`` (a uniform draw below it) and scale it by ``1 / (1 -
+    rate)``. The noise comes from ``generator``, a ``torch.Generator`` on
+    x's device; ``torch.nn.functional.dropout`` takes none."""
+
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in train mode needs an explicit '
+                         'torch.Generator (Flax needs a dropout rng)')
+
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def lecun_normal_(tensor, fan_in, generator):

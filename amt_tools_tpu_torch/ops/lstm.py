@@ -3,8 +3,11 @@
 Counterparts of ``amt_tools_tpu/ops/lstm.py`` ``FastLSTM`` (``:208``) and
 ``FastBiLSTM`` (``:260``) on their whole-sequence path (no mask, zero
 carry): the input projection for every step is one ``nn.Linear`` over
-(B, T, E), and the recurrence runs in :func:`ops.lstm_kernel.lstm_scan`,
-the Hopper kernel on CUDA tensors. Parameter names match the Flax tree
+(B, T, E), and the recurrence runs in the Hopper kernels on CUDA tensors:
+:func:`ops.lstm_kernel.lstm_scan` (kernel B) when nothing differentiates
+it, :func:`ops.lstm_kernel.lstm_scan_grad` (kernels E and F) when autograd
+records, as ``lstm_scan_pallas_grad`` forwards to ``lstm_scan_pallas``
+outside ``jax.grad``. Parameter names match the Flax tree
 (``input_proj[_fwd|_bwd]``, ``recurrent_kernel[_fwd|_bwd]`` in the (H, 4H)
 layout, gate order i, f, g, o).
 """
@@ -13,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from .layers import lecun_normal_, linear, orthogonal_
-from .lstm_kernel import lstm_scan
+from .lstm_kernel import lstm_scan, lstm_scan_grad
 
 __all__ = ['FastLSTM', 'FastBiLSTM']
 
@@ -27,9 +30,14 @@ def _recurrence(xw, w_h, reverse=False):
     # The Pallas path's compute dtype: bf16 projections keep a bf16 W_h,
     # anything else runs in float32
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
+    xw = xw.to(dtype).contiguous()
 
-    return lstm_scan(xw.to(dtype).contiguous(), w_h.to(dtype).contiguous(),
-                     reverse=reverse)
+    if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
+        # W_h goes in uncast: the Function casts it, so dW_h reaches the
+        # float32 parameter unrounded
+        return lstm_scan_grad(xw, w_h, reverse)
+
+    return lstm_scan(xw, w_h.to(dtype).contiguous(), reverse=reverse)
 
 
 class FastLSTM(nn.Module):

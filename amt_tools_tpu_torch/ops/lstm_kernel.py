@@ -1,16 +1,28 @@
-"""LSTM recurrence: the Hopper kernel and its plain PyTorch version.
+"""LSTM recurrence: the Hopper kernels and their plain PyTorch versions.
 
-Port of the fused Pallas kernel ``amt_tools_tpu/ops/pallas_lstm.py``
-(``_lstm_kernel``, called through ``lstm_scan_pallas``), forward only:
-the whole-sequence recurrence from a zero carry over hoisted input
-projections. :func:`lstm_scan` launches ``csrc/lstm_scan.cu`` for CUDA
-tensors and runs :func:`lstm_scan_plain` for CPU tensors.
+Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 
-Numerics follow the Pallas kernel (``pallas_lstm.py:71-109``): the carry is
-float32; with bf16 projections the recurrent product reads bf16 ``h`` and
-``W_h`` with float32 accumulation, the gates round to bf16 and the sigmoid
-takes the tanh form ``0.5 * tanh(0.5 x) + 0.5``. The JAX XLA scan instead
-rounds the carry to bf16; the port follows the kernel.
+- :func:`lstm_scan` (kernel B, ``_lstm_kernel`` through
+  ``lstm_scan_pallas``): the whole-sequence recurrence from a zero carry
+  over hoisted input projections, forward only;
+- :func:`lstm_scan_residuals` (kernel E, ``_lstm_fwd_res_kernel`` through
+  ``_lstm_fwd_res``): the same recurrence, which also returns the float32
+  gate activations and cell states;
+- :func:`lstm_bptt` (kernel F, ``_lstm_bwd_kernel`` through
+  ``_lstm_grad_bwd``): backpropagation through time from those residuals;
+- :func:`lstm_scan_grad`: the custom VJP ``lstm_scan_pallas_grad``
+  (``:369-440``) as a ``torch.autograd.Function`` over E and F.
+
+B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
+tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
+repeat the kernels' arithmetic.
+
+Numerics follow the Pallas kernels (``pallas_lstm.py:71-109``, ``:260-288``):
+the carries are float32; with bf16 projections the recurrent product reads
+bf16 ``h`` and ``W_h`` with float32 accumulation, the gates round to bf16,
+the sigmoid takes the tanh form ``0.5 * tanh(0.5 x) + 0.5``, and the BPTT
+product reads ``da`` rounded to bf16 and a bf16 ``W_h^T``. The JAX XLA scan
+instead rounds the carry to bf16; the port follows the kernels.
 """
 
 import ctypes
@@ -19,14 +31,20 @@ import torch
 
 from . import cuda_build
 
-__all__ = ['lstm_scan', 'lstm_scan_plain']
+__all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
+           'lstm_scan_residuals_plain', 'lstm_bptt', 'lstm_bptt_plain',
+           'lstm_scan_grad', 'LSTMScanGrad']
 
-MAX_HIDDEN = 1024  # the kernel's carry (3 x 4 rows x H floats) fits 48 KB
+MAX_HIDDEN = 1024  # B/E: the carry (3 x 4 rows x H floats) fits 48 KB
 
-_SIGNATURES = {
-    'lstm_scan': [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_void_p],
+_POINTER, _INT = ctypes.c_void_p, ctypes.c_int
+
+_SCAN_SIGNATURES = {
+    'lstm_scan': [_POINTER] * 3 + [_INT] * 5 + [_POINTER],
+    'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 5 + [_POINTER],
+}
+_BPTT_SIGNATURES = {
+    'lstm_bptt': [_POINTER] * 5 + [_INT] * 5 + [_POINTER],
 }
 
 
@@ -34,8 +52,8 @@ def _sigmoid_tanh_form(x):
     return 0.5 * torch.tanh(0.5 * x) + 0.5
 
 
-def lstm_scan_plain(xw, w_h, reverse=False):
-    """(B, T, 4H) projections, (H, 4H) weights -> (B, T, H): a loop over T."""
+def _scan_plain(xw, w_h, reverse, residuals):
+    """The recurrence of kernels B and E, step by step."""
 
     batch, frames, four_h = xw.shape
     hidden = four_h // 4
@@ -48,6 +66,11 @@ def lstm_scan_plain(xw, w_h, reverse=False):
     c = torch.zeros_like(h)
     out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
                       device=xw.device)
+    if residuals:
+        gates_seq = torch.empty((batch, frames, four_h), dtype=torch.float32,
+                                device=xw.device)
+        c_seq = torch.empty((batch, frames, hidden), dtype=torch.float32,
+                            device=xw.device)
 
     steps = range(frames - 1, -1, -1) if reverse else range(frames)
     for t in steps:
@@ -68,8 +91,67 @@ def lstm_scan_plain(xw, w_h, reverse=False):
             c = f_g * c + i_g * g_g
             h = o_g * torch.tanh(c)
         out[:, t] = h.to(xw.dtype)
+        if residuals:
+            gates_seq[:, t] = torch.cat([i_g, f_g, g_g, o_g], dim=-1).float()
+            c_seq[:, t] = c
 
-    return out
+    return (out, gates_seq, c_seq) if residuals else out
+
+
+def lstm_scan_plain(xw, w_h, reverse=False):
+    """(B, T, 4H) projections, (H, 4H) weights -> (B, T, H): a loop over T."""
+
+    return _scan_plain(xw, w_h, reverse, residuals=False)
+
+
+def lstm_scan_residuals_plain(xw, w_h, reverse=False):
+    """:func:`lstm_scan_plain` that also returns the float32 gate
+    activations (B, T, 4H) and cell states (B, T, H)."""
+
+    return _scan_plain(xw, w_h, reverse, residuals=True)
+
+
+def lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse=False):
+    """BPTT from the residuals -> da (B, T, 4H) float32: a loop over T,
+    opposite to the forward's direction ``reverse``.
+
+    ``dout`` (B, T, H) and ``w_h_t`` (4H, H) are in the forward's compute
+    dtype; the carry product reads ``da`` rounded to that dtype.
+    """
+
+    batch, frames, four_h = gates.shape
+    hidden = four_h // 4
+    w = w_h_t.float()
+
+    dh_carry = torch.zeros((batch, hidden), dtype=torch.float32,
+                           device=gates.device)
+    dc_carry = torch.zeros_like(dh_carry)
+    zero = torch.zeros_like(dh_carry)
+    da = torch.empty((batch, frames, four_h), dtype=torch.float32,
+                     device=gates.device)
+
+    steps = range(frames) if reverse else range(frames - 1, -1, -1)
+    for t in steps:
+        t_prev = t + 1 if reverse else t - 1
+        c_prev = c_seq[:, t_prev] if 0 <= t_prev < frames else zero
+
+        i_g, f_g, g_g, o_g = gates[:, t].split(hidden, dim=-1)
+        c_t = c_seq[:, t]
+        tanh_c = torch.tanh(c_t)
+
+        dh = dout[:, t].float() + dh_carry
+        da_o = dh * tanh_c * o_g * (1.0 - o_g)
+        dc = dc_carry + dh * o_g * (1.0 - tanh_c * tanh_c)
+        da_i = dc * g_g * i_g * (1.0 - i_g)
+        da_g = dc * i_g * (1.0 - g_g * g_g)
+        da_f = dc * c_prev * f_g * (1.0 - f_g)
+        dc_carry = dc * f_g
+
+        step = torch.cat([da_i, da_f, da_g, da_o], dim=-1)
+        da[:, t] = step
+        dh_carry = step.to(w_h_t.dtype).float() @ w
+
+    return da
 
 
 def _check_inputs(xw, w_h):
@@ -89,6 +171,46 @@ def _check_inputs(xw, w_h):
         raise ValueError('lstm_scan takes contiguous xw and w_h')
 
 
+def _check_cuda(x, name, hidden):
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name} runs on CUDA or CPU tensors, not '
+                         f'{x.device}')
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f'{name} kernel supports hidden <= {MAX_HIDDEN}, '
+                         f'got {hidden}')
+
+
+def _launch_scan(xw, w_h, reverse, residuals):
+    """Kernel B, or E with ``residuals``, on CUDA tensors."""
+
+    batch, frames, four_h = xw.shape
+    hidden = four_h // 4
+    name = 'lstm_scan_residuals' if residuals else 'lstm_scan'
+    _check_cuda(xw, name, hidden)
+
+    out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
+                      device=xw.device)
+    outputs = [out]
+    if residuals:
+        outputs += [torch.empty((batch, frames, four_h), dtype=torch.float32,
+                                device=xw.device),
+                    torch.empty((batch, frames, hidden), dtype=torch.float32,
+                                device=xw.device)]
+    if batch == 0 or frames == 0:
+        return tuple(outputs) if residuals else out
+
+    lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, name)(
+            xw.data_ptr(), w_h.data_ptr(), *(t.data_ptr() for t in outputs),
+            batch, frames, hidden, int(reverse),
+            int(xw.dtype == torch.bfloat16), stream)
+    cuda_build.check(status, name)
+
+    return tuple(outputs) if residuals else out
+
+
 def lstm_scan(xw, w_h, reverse=False):
     """Whole-sequence LSTM from a zero carry: (B, T, 4H) -> (B, T, H).
 
@@ -103,31 +225,161 @@ def lstm_scan(xw, w_h, reverse=False):
 
     if xw.device.type == 'cpu':
         return lstm_scan_plain(xw, w_h, reverse)
-    if xw.device.type != 'cuda':
-        raise ValueError(f'lstm_scan runs on CUDA or CPU tensors, not '
-                         f'{xw.device}')
 
-    batch, frames, four_h = xw.shape
-    hidden = four_h // 4
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f'lstm_scan kernel supports hidden <= {MAX_HIDDEN}, '
-                         f'got {hidden}')
-
-    out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
-                      device=xw.device)
-    if batch == 0 or frames == 0:
-        return out
-
-    lib = cuda_build.library('lstm_scan', _SIGNATURES)
-    with torch.cuda.device(xw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.lstm_scan(xw.data_ptr(), w_h.data_ptr(), out.data_ptr(),
-                               batch, frames, hidden, int(reverse),
-                               int(xw.dtype == torch.bfloat16), stream)
-    cuda_build.check(status, 'lstm_scan')
+    out = _launch_scan(xw, w_h, reverse, residuals=False)
     lstm_scan.launches += 1
 
     return out
 
 
 lstm_scan.launches = 0
+
+
+def lstm_scan_residuals(xw, w_h, reverse=False):
+    """:func:`lstm_scan` that also returns the residuals of the backward:
+    ``(out, gates, c)`` with float32 gate activations (B, T, 4H) in order
+    i, f, g, o and float32 cell states (B, T, H). CUDA tensors go through
+    kernel E (or raise); CPU tensors through
+    :func:`lstm_scan_residuals_plain`."""
+
+    _check_inputs(xw, w_h)
+
+    if xw.device.type == 'cpu':
+        return lstm_scan_residuals_plain(xw, w_h, reverse)
+
+    outputs = _launch_scan(xw, w_h, reverse, residuals=True)
+    lstm_scan_residuals.launches += 1
+
+    return outputs
+
+
+lstm_scan_residuals.launches = 0
+
+
+def _check_bptt_inputs(gates, c_seq, dout, w_h_t):
+    if gates.dim() != 3 or gates.shape[-1] % 4:
+        raise ValueError(f'gates must be (B, T, 4H), got shape '
+                         f'{tuple(gates.shape)}')
+    batch, frames, four_h = gates.shape
+    hidden = four_h // 4
+    shapes = {'c_seq': (c_seq, (batch, frames, hidden)),
+              'dout': (dout, (batch, frames, hidden)),
+              'w_h_t': (w_h_t, (four_h, hidden))}
+    for name, (tensor, shape) in shapes.items():
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f'{name} must be {shape}, got '
+                             f'{tuple(tensor.shape)}')
+    if gates.dtype != torch.float32 or c_seq.dtype != torch.float32:
+        raise TypeError('lstm_bptt takes float32 gates and c_seq')
+    if dout.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'lstm_bptt takes float32 or bf16 dout, got '
+                        f'{dout.dtype}')
+    if w_h_t.dtype != dout.dtype:
+        raise TypeError(f'w_h_t ({w_h_t.dtype}) must match dout '
+                        f'({dout.dtype})')
+    tensors = (gates, c_seq, dout, w_h_t)
+    if any(t.device != gates.device for t in tensors):
+        raise ValueError('lstm_bptt takes its tensors on one device')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError('lstm_bptt takes contiguous tensors')
+
+
+def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
+    """BPTT over the residuals of :func:`lstm_scan_residuals` -> d(xw) as
+    float32 (B, T, 4H).
+
+    ``gates`` (B, T, 4H) and ``c_seq`` (B, T, H) are float32; ``dout``
+    (B, T, H) and the transposed recurrent kernel ``w_h_t`` (4H, H) are in
+    the forward's compute dtype (float32 or bf16). ``reverse`` names the
+    forward's direction. CUDA tensors go through kernel F (or raise); CPU
+    tensors through :func:`lstm_bptt_plain`.
+    """
+
+    _check_bptt_inputs(gates, c_seq, dout, w_h_t)
+
+    if gates.device.type == 'cpu':
+        return lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
+
+    batch, frames, four_h = gates.shape
+    hidden = four_h // 4
+    _check_cuda(gates, 'lstm_bptt', hidden)
+
+    da = torch.empty((batch, frames, four_h), dtype=torch.float32,
+                     device=gates.device)
+    if batch == 0 or frames == 0:
+        return da
+
+    lib = cuda_build.library('lstm_bptt', _BPTT_SIGNATURES)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.lstm_bptt(gates.data_ptr(), c_seq.data_ptr(),
+                               dout.data_ptr(), w_h_t.data_ptr(),
+                               da.data_ptr(), batch, frames, hidden,
+                               int(reverse),
+                               int(dout.dtype == torch.bfloat16), stream)
+    cuda_build.check(status, 'lstm_bptt')
+    lstm_bptt.launches += 1
+
+    return da
+
+
+lstm_bptt.launches = 0
+
+
+def _shift_prev(x, reverse):
+    """The previous step's value at each t (zero at the sequence's start):
+    t - 1 for a forward scan, t + 1 for a reverse one."""
+
+    zero = torch.zeros_like(x[:, :1])
+    if reverse:
+        return torch.cat([x[:, 1:], zero], dim=1)
+
+    return torch.cat([zero, x[:, :-1]], dim=1)
+
+
+class LSTMScanGrad(torch.autograd.Function):
+    """The differentiable recurrence: kernel E forward, kernel F backward.
+
+    Takes ``w_h`` in its parameter dtype and casts it to the compute dtype
+    inside (bf16 when ``xw`` is bf16, else float32), so ``dW_h`` comes back
+    in the parameter's own dtype, as ``_lstm_grad_bwd`` returns it
+    (``pallas_lstm.py:406-437``).
+    """
+
+    @staticmethod
+    def forward(ctx, xw, w_h, reverse):
+        out, gates, c_seq = lstm_scan_residuals(
+            xw.contiguous(), w_h.to(xw.dtype).contiguous(), reverse)
+        ctx.reverse = reverse
+        ctx.w_dtype = w_h.dtype
+        ctx.save_for_backward(w_h, out, gates, c_seq)
+
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        w_h, out, gates, c_seq = ctx.saved_tensors
+        hidden = out.shape[-1]
+
+        w_h_t = w_h.t().to(out.dtype).contiguous()
+        da = lstm_bptt(gates, c_seq, dout.to(out.dtype).contiguous(), w_h_t,
+                       ctx.reverse)
+
+        # dW_h = sum_t h_prev^T da: one float32 matmul outside the kernel
+        h_prev = _shift_prev(out, ctx.reverse).float()
+        dw_h = h_prev.reshape(-1, hidden).t() @ da.reshape(-1, 4 * hidden)
+
+        return da.to(out.dtype), dw_h.to(ctx.w_dtype), None
+
+
+def lstm_scan_grad(xw, w_h, reverse=False):
+    """Differentiable :func:`lstm_scan`: (B, T, 4H) float32 or bf16 ``xw``,
+    (H, 4H) ``w_h`` in any float dtype -> (B, T, H) in xw's dtype.
+
+    The same outputs as :func:`lstm_scan` (kernel E is kernel B's body);
+    under autograd the backward runs kernel F and returns ``d(xw)`` in xw's
+    dtype and ``dW_h`` in w_h's.
+    """
+
+    return LSTMScanGrad.apply(xw, w_h, reverse)

@@ -1,30 +1,67 @@
-"""Track-dictionary keys and instrument defaults used on the serving paths.
+"""Track-dictionary keys, file names and instrument defaults.
 
-The same strings as ``amt_tools_tpu/tools/constants.py``, so batches and
-outputs carry interchangeable keys in both packages.
+The same strings as ``amt_tools_tpu/tools/constants.py``, so batches,
+outputs and losses carry interchangeable keys in both packages.
 """
 
 __all__ = [
+    'KEY_TRACK',
+    'KEY_AUDIO',
+    'KEY_FS',
+    'KEY_HOP',
     'KEY_FEATS',
     'KEY_MULTIPITCH',
+    'KEY_PITCHLIST',
     'KEY_ONSETS',
     'KEY_OFFSETS',
     'KEY_TIMES',
+    'KEY_NOTES',
+    'KEY_VELOCITY',
     'KEY_OUTPUT',
     'KEY_TABLATURE',
+    'KEY_LOSS',
+    'KEY_LOSS_TOTAL',
+    'KEY_LOSS_ONSETS',
+    'KEY_LOSS_OFFSETS',
+    'KEY_LOSS_PITCH',
+    'TRAIN',
+    'MODEL_STATE',
+    'CKPT_EXT',
+    'FLOAT32',
     'DEFAULT_PIANO_LOWEST_PITCH',
     'DEFAULT_PIANO_HIGHEST_PITCH',
     'DEFAULT_GUITAR_TUNING',
     'DEFAULT_GUITAR_NUM_FRETS',
 ]
 
+KEY_TRACK = 'track'
+KEY_AUDIO = 'audio'
+KEY_FS = 'fs'
+KEY_HOP = 'hop_length'
 KEY_FEATS = 'features'
 KEY_MULTIPITCH = 'multi_pitch'
+KEY_PITCHLIST = 'pitch_list'
 KEY_ONSETS = 'onsets'
 KEY_OFFSETS = 'offsets'
 KEY_TIMES = 'times'
+KEY_NOTES = 'notes'
+KEY_VELOCITY = 'velocity'
 KEY_OUTPUT = 'model_output'
 KEY_TABLATURE = 'tablature'
+
+KEY_LOSS = 'loss'
+KEY_LOSS_TOTAL = 'loss_total'
+KEY_LOSS_ONSETS = 'loss_onsets'
+KEY_LOSS_OFFSETS = 'loss_offsets'
+KEY_LOSS_PITCH = 'loss_pitch'
+
+TRAIN = 'train'
+
+# Checkpoints are <MODEL_STATE>-<iteration>.<CKPT_EXT>
+MODEL_STATE = 'model'
+CKPT_EXT = 'ckpt'
+
+FLOAT32 = 'float32'
 
 DEFAULT_PIANO_LOWEST_PITCH = 21
 DEFAULT_PIANO_HIGHEST_PITCH = 108

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, serve, train.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -9,10 +9,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. build every hand-written kernel from ``amt_tools_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-3. the STFT power kernel against its plain version at the serving shape
+3. the STFT power kernel (A) against its plain version at the serving shape
    (128 clips x 60 s at 16 kHz), on power and on the [0, 1] mel features,
    timed beside the plain version and ``torch.stft`` (cuFFT);
-4. the LSTM kernel against its plain version at B = 128, T = 1876,
+4. the LSTM kernel (B) against its plain version at B = 128, T = 1876,
    H = 256, both directions, float32 and bf16, timed beside the plain
    version and cuDNN ``torch.nn.LSTM``;
 5. the piano serving path: Onsets & Frames v2 at complexity 3 (full
@@ -39,15 +39,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    before and read after: kernel C must have run. 8b: a float32 TabCNN
    behind the serving CQT, card (kernel D) against the CPU (plain
    versions);
-9. one piano and one guitar batch under ``torch.profiler``, in one
-   session: the device time by kernel and the busy share of each, whose
-   path's kernels must appear in it.
+10. the LSTM forward with residuals (E) against its plain version at the
+    training shape B = 8, T = 625, H = 256, both directions, float32 and
+    bf16, its h bit for bit against kernel B's; timed beside kernel B, the
+    plain version and a training-mode cuDNN ``nn.LSTM`` forward;
+11. the BPTT kernel (F) against its plain version at the same shapes, on
+    d(xw) and dW_h, and the float32 ``lstm_scan_grad`` against autograd
+    through the plain recurrence; timed beside the plain version and cuDNN
+    ``nn.LSTM``'s backward;
+12. the training path: O&F2 at complexity 3 through ``train()`` on 16
+    SyntheticPiano tracks of 30 s cropped to 625 frames (HTK mels on the
+    card, kernel A), batch 8, Adam 6e-4, 3 passes in float32 and 3 in bf16,
+    each with a checkpoint; then 30 float32 steps on one batch, whose loss
+    must fall. Counts are reset before each run and read after it: E and F
+    six times a step, B never; every loss finite. 12b: one float32
+    training step of a narrow O&F2 on each of three seeds, card (kernels)
+    against the CPU (plain versions), on the losses, the gradients and the
+    parameters after one SGD step, with the ReLU and max-pool decisions
+    that the two forwards took differently counted per acoustic stack;
+9 and 13. one piano batch, one guitar batch and one float32 training step
+   under ``torch.profiler``, in one session: the device time by kernel and
+   the busy share of each, whose path's kernels must appear in it.
 
-The last lines are the card, one ``kernels`` JSON line (A, B, C, D), and
-one JSON line ``{"ok": true, "device": {...}}``.
+The last lines are the card, one ``kernels`` JSON line (A to F), and one
+JSON line ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -82,6 +101,46 @@ LOGIT_TOL = 2e-3         # float32 logits, card vs CPU (PARITY.md bound)
 CQT_TOL = 1e-5           # of each clip's peak magnitude: float32, sum order
 CQT_FEATURE_TOL = 2e-4   # [0, 1] features (amt_tools_tpu/features/cqt.py:29)
 TAB_MARGIN = 2 * LOGIT_TOL  # tablature may differ where the top two are closer
+TRAIN_BATCH = 8          # the O&F2 recipe (examples/papers/of_2.py)
+TRAIN_FRAMES = 625
+# Kernel E's gates and c against the plain version: max over the largest
+# value, and mean absolute (a bf16 gate that rounds the other way moves by
+# one ulp, 2^-8 relative, and the carry keeps it for a few steps)
+RESIDUAL_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+RESIDUAL_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 1e-4}
+# Kernel F's da and dW_h against the plain version on the same residuals:
+# the max over the largest value, and the mean over the mean magnitude. In
+# bf16 the carry product reads da rounded to bf16, so a sum in another order
+# moves an occasional element by one bf16 ulp; forming the product from
+# unrounded da or a float32 W_h^T moves every element and exceeds the mean
+# (tests/test_torch_lstm_grad.py::test_card_bptt_bf16_tolerance_catches_
+# numerics_faults)
+BPTT_TOL = {'float32': 1e-4, 'bfloat16': 5e-4}
+BPTT_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 1e-4}
+TRAIN_PASSES = 3
+FIT_STEPS = 30
+LEARNING_RATE = 6e-4
+# A float32 training step, card vs CPU (phase 12b, seeds 8 to 19).
+# Gradients are held to the largest gradient of the same module (a conv
+# bias ahead of a train-mode BatchNorm has a gradient of rounding noise):
+# 1e-4. One thing can move a gradient further: a ReLU or 1x2 max-pool
+# decision that the two forwards take differently, because its inputs
+# differ by a rounding error. The whole gradient element then goes another
+# way, into the conv blocks at and before that decision, so in a stack
+# where such a decision differs those blocks are held to 3e-2. Read on the
+# card (NVIDIA H100 80GB HBM3) over these seeds: the stacks whose decisions
+# all agreed were within 4.2e-5 in every conv block; with one to three
+# differing decisions a stack was off by up to 1.4e-2 (a single max-pool
+# pair, onset stack, seed 8).
+# After one SGD step a parameter may differ by the learning rate times its
+# gradient's tolerance, plus its own rounding; a running statistic by 1e-6.
+LOSS_TOL = 1e-5          # relative
+GRAD_TOL = 1e-4
+CONV_BLOCK_GRAD_TOL = 3e-2
+TRAIN_CHECK_SEEDS = tuple(range(8, 20))
+SGD_LR = 0.05
+STAT_TOL = 1e-6
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def require(condition, message):
@@ -142,11 +201,14 @@ def kernel_counters():
     """Every hand-written kernel's wrapper, by kernel name."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_grouped
-    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan
+    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_bptt, lstm_scan,
+                                                     lstm_scan_residuals)
     from amt_tools_tpu_torch.ops.stft_kernel import stft_power
 
     return {'stft_power': stft_power, 'lstm_scan': lstm_scan,
-            'cqt_mag': cqt_mag, 'cqt_mag_grouped': cqt_mag_grouped}
+            'cqt_mag': cqt_mag, 'cqt_mag_grouped': cqt_mag_grouped,
+            'lstm_scan_residuals': lstm_scan_residuals,
+            'lstm_bptt': lstm_bptt}
 
 
 def reset_launches():
@@ -384,6 +446,222 @@ def check_lstm(frames):
     return result['bfloat16']
 
 
+def lstm_inputs(batch, frames, dtype, seed):
+    """Training-shape LSTM inputs on the card: projections of random
+    features through a random dense, and an orthogonal W_h."""
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    dim_in = 768
+    x = torch.rand(batch, frames, dim_in, generator=g)
+    w_x = torch.randn(dim_in, 4 * HIDDEN, generator=g) / dim_in ** 0.5
+    w_h = torch.nn.init.orthogonal_(torch.empty(HIDDEN, 4 * HIDDEN),
+                                    generator=g)
+    x, w_x, w_h = x.cuda(), w_x.cuda(), w_h.cuda()
+    xw = (x.to(dtype) @ w_x.to(dtype)).contiguous()
+
+    return x, w_x, w_h, xw, w_h.to(dtype).contiguous()
+
+
+def cudnn_lstm(x, w_x, w_h, dtype):
+    """A training-mode ``torch.nn.LSTM`` with the same weights (it also runs
+    the input projection): the yardstick for kernels E and F."""
+
+    import torch
+
+    module = torch.nn.LSTM(x.shape[-1], HIDDEN, batch_first=True).cuda()
+    with torch.no_grad():
+        module.weight_ih_l0.copy_(w_x.t())
+        module.weight_hh_l0.copy_(w_h.t())
+        module.bias_ih_l0.zero_()
+        module.bias_hh_l0.zero_()
+    module = module.to(dtype).train()
+    module.flatten_parameters()
+
+    return module, x.to(dtype).requires_grad_()
+
+
+def lstm_errors(got, ref):
+    """Max and mean |got - ref|, the max over the largest |ref| and the mean
+    over the mean |ref|."""
+
+    diff = (got.float() - ref.float()).abs()
+    magnitude = ref.float().abs()
+    scale = magnitude.max().clamp(min=1e-30)
+
+    return (diff.max().item(), diff.mean().item(), (diff.max() / scale).item(),
+            (diff.mean() / magnitude.mean().clamp(min=1e-30)).item())
+
+
+def check_lstm_residuals():
+    """Phase 10: kernel E vs its plain version, and its h vs kernel B's."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.lstm_kernel import (
+        lstm_scan, lstm_scan_residuals, lstm_scan_residuals_plain)
+
+    result = {}
+    with tools.exact_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            x, w_x, w_h, xw, wh = lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES,
+                                              dtype, seed=5)
+            worst = {key: (0.0,) * 4 for key in ('out', 'gates', 'c')}
+            for reverse in (False, True):
+                got = lstm_scan_residuals(xw, wh, reverse)
+                ref = lstm_scan_residuals_plain(xw, wh, reverse)
+                serving = lstm_scan(xw, wh, reverse)
+                torch.cuda.synchronize()
+                require(torch.equal(got[0], serving),
+                        f'kernel E {name} h differs from kernel B '
+                        f'(reverse={reverse})')
+                for key, a, b in zip(('out', 'gates', 'c'), got, ref):
+                    worst[key] = tuple(max(u, v) for u, v in
+                                       zip(worst[key], lstm_errors(a, b)))
+            log(f'lstm_scan_residuals {name}: h equals kernel B bit for bit; '
+                + '; '.join(f'{key} |kernel - plain| max {m:.6g}, mean '
+                            f'{mean:.6g}, {rel:.3g} of the largest'
+                            for key, (m, mean, rel, _) in worst.items()))
+            require(worst['out'][0] <= LSTM_TOL[name] and
+                    worst['out'][1] <= LSTM_MEAN_TOL[name],
+                    f'lstm_scan_residuals {name} h disagrees with its plain '
+                    f'version')
+            for key in ('gates', 'c'):
+                require(worst[key][2] <= RESIDUAL_TOL[name] and
+                        worst[key][1] <= RESIDUAL_MEAN_TOL[name],
+                        f'lstm_scan_residuals {name} {key} disagree with '
+                        f'the plain version')
+
+            ms = time_ms(lambda: lstm_scan_residuals(xw, wh), reps=5)
+            serving_ms = time_ms(lambda: lstm_scan(xw, wh), reps=5)
+            plain_ms = time_ms(lambda: lstm_scan_residuals_plain(xw, wh),
+                               reps=1)
+            module, xd = cudnn_lstm(x, w_x, w_h, dtype)
+            library_ms = time_ms(lambda: module(xd), reps=5)
+
+            size = torch.finfo(dtype).bits // 8
+            rows = TRAIN_BATCH * TRAIN_FRAMES
+            num_bytes = (size * (xw.numel() + wh.numel() + rows * HIDDEN) +
+                         4 * rows * 5 * HIDDEN)
+            flops = 2.0 * rows * HIDDEN * 4 * HIDDEN
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            bound, bound_by = bound_ms(num_bytes, flops, peak)
+            log(f'lstm_scan_residuals {name}: kernel {ms:.3f} ms (kernel B '
+                f'{serving_ms:.3f} ms), plain {plain_ms:.3f} ms, cuDNN '
+                f'nn.LSTM training forward {library_ms:.3f} ms (with its '
+                f'input projection), bound {bound:.3f} ms ({bound_by}) per '
+                f'direction at B={TRAIN_BATCH}, T={TRAIN_FRAMES}, H={HIDDEN}')
+            result[name] = {'name': 'lstm_scan_residuals', 'route': 'cuda',
+                            'source': 'amt_tools_tpu_torch/csrc/lstm_scan.cu',
+                            'replaces': 'amt_tools_tpu/ops/pallas_lstm.py:192',
+                            'max_abs_err': worst['out'][0], 'ms': ms,
+                            'plain_ms': plain_ms, 'bound_ms': bound,
+                            'bound_by': bound_by, 'library_ms': library_ms}
+
+    # The recipe trains in float32
+    return result['float32']
+
+
+def check_lstm_bptt():
+    """Phase 11: kernel F vs its plain version on da and dW_h, and the
+    float32 Function's gradients vs autograd through the plain forward."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.lstm_kernel import (
+        _shift_prev, lstm_bptt, lstm_bptt_plain, lstm_scan_grad,
+        lstm_scan_plain, lstm_scan_residuals)
+
+    def dw_h(out, da, reverse):
+        h_prev = _shift_prev(out, reverse).float()
+        return h_prev.reshape(-1, HIDDEN).t() @ da.reshape(-1, 4 * HIDDEN)
+
+    result = {}
+    with tools.exact_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            x, w_x, w_h, xw, wh = lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES,
+                                              dtype, seed=6)
+            g = torch.Generator().manual_seed(7)
+            dout = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                               generator=g).cuda().to(dtype)
+            w_h_t = w_h.t().to(dtype).contiguous()
+            worst = {'da': (0.0,) * 4, 'dW_h': (0.0,) * 4}
+            for reverse in (False, True):
+                out, gates, c_seq = lstm_scan_residuals(xw, wh, reverse)
+                got = lstm_bptt(gates, c_seq, dout, w_h_t, reverse)
+                ref = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
+                torch.cuda.synchronize()
+                pairs = (('da', got, ref),
+                         ('dW_h', dw_h(out, got, reverse),
+                          dw_h(out, ref, reverse)))
+                for key, a, b in pairs:
+                    worst[key] = tuple(max(u, v) for u, v in
+                                       zip(worst[key], lstm_errors(a, b)))
+            log(f'lstm_bptt {name}: ' + '; '.join(
+                f'{key} |kernel - plain| max {m:.6g} ({rel:.3g} of the '
+                f'largest), mean {mean:.6g} ({mean_rel:.3g} of the mean '
+                f'magnitude)' for key, (m, mean, rel, mean_rel) in
+                worst.items()))
+            for key in ('da', 'dW_h'):
+                require(worst[key][2] <= BPTT_TOL[name] and
+                        worst[key][3] <= BPTT_MEAN_TOL[name],
+                        f'lstm_bptt {name} {key} disagrees with its plain '
+                        f'version')
+
+            if dtype == torch.float32:
+                grad_err = 0.0
+                for reverse in (False, True):
+                    grads = []
+                    for fn in (lstm_scan_grad, lstm_scan_plain):
+                        xi = xw.clone().requires_grad_()
+                        wi = w_h.clone().requires_grad_()
+                        (fn(xi, wi, reverse) * dout).sum().backward()
+                        grads.append((xi.grad, wi.grad))
+                    for a, b in zip(*grads):
+                        grad_err = max(grad_err, lstm_errors(a, b)[2])
+                log(f'lstm_scan_grad float32 vs autograd through '
+                    f'lstm_scan_plain: {grad_err:.3g} of the largest '
+                    f'gradient (tolerance {BPTT_TOL[name]})')
+                require(grad_err <= BPTT_TOL[name],
+                        'lstm_scan_grad disagrees with autograd through the '
+                        'plain recurrence')
+
+            out, gates, c_seq = lstm_scan_residuals(xw, wh)
+            ms = time_ms(lambda: lstm_bptt(gates, c_seq, dout, w_h_t), reps=5)
+            plain_ms = time_ms(
+                lambda: lstm_bptt_plain(gates, c_seq, dout, w_h_t), reps=1)
+            module, xd = cudnn_lstm(x, w_x, w_h, dtype)
+            lib_out, _ = module(xd)
+            params = [xd] + list(module.parameters())
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, params, dout, retain_graph=True), reps=5)
+
+            size = torch.finfo(dtype).bits // 8
+            rows = TRAIN_BATCH * TRAIN_FRAMES
+            num_bytes = (4 * (gates.numel() + c_seq.numel() + gates.numel()) +
+                         size * (dout.numel() + w_h_t.numel()))
+            flops = 2.0 * rows * HIDDEN * 4 * HIDDEN
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            bound, bound_by = bound_ms(num_bytes, flops, peak)
+            log(f'lstm_bptt {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
+                f'ms, cuDNN nn.LSTM backward {library_ms:.3f} ms (with its '
+                f'input projection), bound {bound:.3f} ms ({bound_by}) per '
+                f'direction at B={TRAIN_BATCH}, T={TRAIN_FRAMES}, H={HIDDEN}')
+            result[name] = {'name': 'lstm_bptt', 'route': 'cuda',
+                            'source': 'amt_tools_tpu_torch/csrc/lstm_bptt.cu',
+                            'replaces': 'amt_tools_tpu/ops/pallas_lstm.py:245',
+                            'max_abs_err': worst['da'][0], 'ms': ms,
+                            'plain_ms': plain_ms, 'bound_ms': bound,
+                            'bound_by': bound_by, 'library_ms': library_ms}
+
+    return result['float32']
+
+
 def serve(clips, profile, card):
     """Phase 5: the port's serving path at full width, 3 requests."""
 
@@ -438,7 +716,8 @@ def serve(clips, profile, card):
                 bool(torch.isfinite(logits).all()),
                 f'bf16 {key} logits are not finite of shape (2, {frames}, 88)')
 
-    return launches, ('piano batch', pipeline, requests[0],
+    return launches, (f'piano batch of {BATCH} clips',
+                      lambda: pipeline(requests[0]),
                       ('stft_power_kernel', 'lstm_scan_kernel'))
 
 
@@ -461,39 +740,41 @@ def serve_requests(pipeline, requests):
 
 
 def profile_batches(batches):
-    """Device time by kernel over one served batch of each path.
+    """Device time by kernel over one batch of each path.
 
-    ``batches`` holds (label, pipeline, audio, kernel name fragments). All
-    batches run in one ``torch.profiler`` session, after every kernel's
-    library is loaded: a kernel whose module was loaded after an earlier
-    session ended went missing from a later session's trace. Each batch
-    runs in its own ``record_function`` range, and a device event belongs
-    to the range its start falls in (the profiler keeps host and device
-    events on one clock). Each path's kernels must appear in its range.
+    ``batches`` holds (label, run, kernel name fragments), ``run`` a
+    callable that does one batch's work. All batches run in one
+    ``torch.profiler`` session, after every kernel's library is loaded: a
+    kernel whose module was loaded after an earlier session ended went
+    missing from a later session's trace. Each batch runs in its own
+    ``record_function`` range, and a device event belongs to the range its
+    start falls in (the profiler keeps host and device events on one
+    clock). Each path's kernels must appear in its range.
     """
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    labels = [label for label, _, _, _ in batches]
+    labels = [label for label, _, _ in batches]
     walls = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for label, pipeline, audio, _ in batches:
+        for label, run, _ in batches:
             torch.cuda.synchronize()
             with record_function(label):
                 start = time.perf_counter()
-                pipeline(audio)
+                run()
                 torch.cuda.synchronize()
                 walls[label] = (time.perf_counter() - start) * 1e3
 
     events = prof.events()
     ranges = {e.name: e.time_range for e in events
               if e.name in labels and e.device_type == DeviceType.CPU}
-    for label, _, audio, kernels in batches:
+    for label, _, kernels in batches:
         span = ranges[label]
         by_kernel = {}
+        intervals = []
         # Device-side events only, without the ranges' own annotations
         for e in events:
             if (e.device_type == DeviceType.CUDA and e.name not in labels and
@@ -501,15 +782,26 @@ def profile_batches(batches):
                 ms, count = by_kernel.get(e.name, (0.0, 0))
                 by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                      count + 1)
+                intervals.append((e.time_range.start, e.time_range.end))
         rows = sorted(((ms, count, name)
                        for name, (ms, count) in by_kernel.items()),
                       reverse=True)
-        busy_ms = sum(ms for ms, _, _ in rows)
-        log(f'{label} of {audio.shape[0]} clips under the profiler: '
-            f'{walls[label]:.1f} ms wall, {busy_ms:.1f} ms on the device '
-            f'({100 * busy_ms / walls[label]:.1f}% busy)')
+        kernel_ms = sum(ms for ms, _, _ in rows)
+        # Busy: the union of the kernels' intervals (kernels may overlap)
+        busy_us, end = 0.0, None
+        for start, stop in sorted(intervals):
+            if end is None or start > end:
+                busy_us += stop - start
+                end = stop
+            elif stop > end:
+                busy_us += stop - end
+                end = stop
+        log(f'{label} under the profiler: {walls[label]:.1f} ms wall, '
+            f'{kernel_ms:.1f} ms of kernel time, the device busy '
+            f'{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / walls[label]:.1f}'
+            f'% of the wall time)')
         for ms, count, name in rows[:15]:
-            log(f'  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} '
+            log(f'  {ms:9.3f} ms {100 * ms / kernel_ms:5.1f}% x{count:<4d} '
                 f'{name[:200]}')
         for kernel in kernels:
             require(any(kernel in name for _, _, name in rows),
@@ -574,6 +866,288 @@ def check_against_cpu(clips, profile):
         f'{LOGIT_TOL}); notes identical in {88 * len(audio) - int(rows.sum())}'
         f' of {88 * len(audio)} pitch rows, {compared} of '
         f'{sum(len(p) for p, _ in cpu_notes)} notes compared')
+
+
+class FixedLoader:
+    """A re-iterable loader over fixed batches."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0):
+    """One ``train()`` run on the card with fresh launch counts: E and F six
+    times a step, B never; every loss finite. Returns (result, launches,
+    steps per second)."""
+
+    import torch
+
+    from amt_tools_tpu_torch.train import train
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    result = train(model, loader, optimizer, iterations,
+                   checkpoints=checkpoints, log_dir=log_dir, seed=0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = read_launches()
+
+    steps = result['step']
+    losses = result['losses']
+    log(f'{label}: {steps} steps in {elapsed:.3f} s, {steps / elapsed:.3f} '
+        f'steps/s; launches {launches}')
+    for key, values in sorted(losses.items()):
+        log(f'  {key}: ' + ' '.join(f'{v:.6g}' for v in values))
+    require(launches['lstm_scan_residuals'] == 6 * steps and
+            launches['lstm_bptt'] == 6 * steps,
+            f'{label}: kernels E and F did not run six times a step')
+    require(launches['lstm_scan'] == 0,
+            f'{label}: kernel B ran inside a training step')
+    require(all(np.isfinite(values).all() for values in losses.values()),
+            f'{label}: a loss is not finite')
+
+    return result, launches, steps / elapsed
+
+
+def train_piano(card):
+    """Phase 12: OnsetsFrames2 at complexity 3 trained through ``train()``
+    on the recipe's data (16 kHz SyntheticPiano crops of 625 frames, HTK
+    mels computed on the card by kernel A, batch 8, Adam 6e-4): float32
+    and bf16 runs with a checkpoint, then 30 float32 steps on one batch.
+    Returns the float32 run's launch counts, the steps, and a profiler
+    entry for one float32 step."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import DataLoader, SyntheticPiano
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.train import (_place_batch, latest_checkpoint,
+                                           make_train_step, step_generator)
+
+    tools.use_exact_fp32()
+    dataset = SyntheticPiano(num_tracks=16, track_duration=30.0,
+                             num_frames=TRAIN_FRAMES,
+                             data_proc=MelSpec(n_mels=N_MELS, htk=True))
+    loader = DataLoader(dataset, batch_size=TRAIN_BATCH, seed=0)
+
+    def model(dtype, seed):
+        return OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                             model_complexity=3, dtype=dtype,
+                             generator=torch.Generator().manual_seed(seed))
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix='_chip_smoke_train_',
+                                     dir=ROOT) as log_dir:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            run_dir = f'{log_dir}/{name}'
+            result, launches, rate = train_run(
+                model(dtype, 0), loader, TRAIN_PASSES,
+                f'training O&F2 complexity 3 in {name}, {TRAIN_PASSES} '
+                f'passes over {len(dataset)} tracks ({card})',
+                log_dir=run_dir, checkpoints=1)
+            require(latest_checkpoint(run_dir)[1] == TRAIN_PASSES,
+                    f'the {name} run saved no checkpoint')
+            runs[name] = result, launches
+    require(runs['float32'][1]['stft_power'] >= 1,
+            'the dataset features did not run kernel A')
+
+    batch = next(iter(loader))
+    result, _, _ = train_run(model(torch.float32, 1), FixedLoader([batch]),
+                             FIT_STEPS, f'{FIT_STEPS} float32 steps on one '
+                             f'batch')
+    losses = result['losses'][tools.KEY_LOSS_TOTAL]
+    log(f'fixed batch: total loss {losses[0]:.6g} -> {losses[-1]:.6g}')
+    require(losses[-1] < losses[0], 'the float32 loss did not fall on a '
+                                    'fixed batch')
+
+    # One float32 step for the profiler, on a model that has stepped
+    profiled = model(torch.float32, 2).cuda()
+    step = make_train_step(profiled, torch.optim.Adam(profiled.parameters(),
+                                                      lr=LEARNING_RATE))
+    device_batch = _place_batch(batch, torch.device('cuda'))
+    step(device_batch, step_generator(0, 0, 'cuda'))
+
+    steps = runs['float32'][0]['step']
+    return (runs['float32'][1], steps,
+            (f'float32 training step of {TRAIN_BATCH} x {TRAIN_FRAMES} '
+             f'frames',
+             lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+             ('lstm_scan_kernel', 'lstm_bptt_kernel')))
+
+
+def conv_block(name):
+    """(stack, block) of an acoustic conv block's parameter or buffer, as
+    ('onset_am', 1) for ``onset_am.Conv_1.weight``; None elsewhere."""
+
+    stack, layer = name.split('.')[:2]
+    if not stack.endswith('_am') or not layer.startswith(('Conv_',
+                                                          'BatchNorm_')):
+        return None
+
+    return stack, int(layer.rsplit('_', 1)[1])
+
+
+def record_pre_relu(model, store):
+    """Forward hooks that keep each acoustic BatchNorm's output, the input
+    of its block's ReLU (and, in blocks 1 and 2, of its 1x2 max-pool)."""
+
+    def keep(name):
+        return lambda _module, _inputs, out: store.__setitem__(
+            name, out.detach().cpu())
+
+    return [module.register_forward_hook(keep(name))
+            for name, module in model.named_modules()
+            if '_am.BatchNorm_' in name]
+
+
+def decision_flips(cpu, gpu, pooled):
+    """The ReLU and max-pool decisions that two forwards of one block took
+    differently, from their pre-ReLU values (B, C, T, F): a ReLU that passes
+    on one side only, and a frequency pair whose larger member differs
+    (pairs that are zero on both sides have no gradient to route)."""
+
+    relu = int(((cpu > 0) != (gpu > 0)).sum())
+    if not pooled:
+        return relu, 0
+
+    def picks(x):
+        x = x.clamp(min=0)
+        width = 2 * (x.shape[-1] // 2)
+        first, second = x[..., 0:width:2], x[..., 1:width:2]
+        return first >= second, (first > 0) | (second > 0)
+
+    pick_cpu, live_cpu = picks(cpu)
+    pick_gpu, live_gpu = picks(gpu)
+
+    return relu, int(((pick_cpu != pick_gpu) & (live_cpu | live_gpu)).sum())
+
+
+def train_step_both(seed):
+    """One float32 training step of a narrow O&F2 (batch from ``seed``,
+    weights from ``seed + 1``) on the CPU and on the card: losses,
+    gradients, state after one SGD step and pre-ReLU values, by device."""
+
+    import copy
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import OnsetsFrames2, run_on_batch
+
+    rng = np.random.RandomState(seed)
+    batch = {
+        tools.KEY_FEATS: rng.rand(2, 1, N_MELS, 128).astype(np.float32),
+        tools.KEY_MULTIPITCH: (rng.rand(2, 88, 128) < 0.05).astype(
+            np.float32),
+    }
+    model = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                          model_complexity=2, dropout=False,
+                          generator=torch.Generator().manual_seed(seed + 1))
+
+    results = {}
+    with tools.exact_fp32():
+        for device in ('cpu', 'cuda'):
+            local = copy.deepcopy(model).to(device)
+            pre_relu = {}
+            hooks = record_pre_relu(local, pre_relu)
+            optimizer = torch.optim.SGD(local.parameters(), lr=SGD_LR)
+            output = run_on_batch(local, {k: torch.from_numpy(v).to(device)
+                                          for k, v in batch.items()},
+                                  train=True)
+            for hook in hooks:
+                hook.remove()
+            loss = output[tools.KEY_LOSS]
+            loss[tools.KEY_LOSS_TOTAL].backward()
+            grads = {n: p.grad.cpu() for n, p in local.named_parameters()}
+            optimizer.step()
+            results[device] = ({k: v.item() for k, v in loss.items()}, grads,
+                               {k: v.cpu() for k, v in
+                                local.state_dict().items()}, pre_relu)
+
+    return results['cpu'], results['cuda']
+
+
+def train_against_cpu():
+    """Phase 12b: one float32 training step of a narrow O&F2 on each of
+    ``TRAIN_CHECK_SEEDS``, the card (kernels) vs the CPU (plain versions):
+    the losses, every gradient against the largest gradient of its module,
+    the parameters and statistics after one SGD step (tolerances above),
+    and the ReLU and max-pool decisions each acoustic block took on the two
+    devices. A conv block is held to ``GRAD_TOL`` unless a decision of its
+    stack differs in it or after it."""
+
+    import torch
+
+    eps = torch.finfo(torch.float32).eps
+    for seed in TRAIN_CHECK_SEEDS:
+        ((cpu_loss, cpu_grads, cpu_state, cpu_pre),
+         (gpu_loss, gpu_grads, gpu_state, gpu_pre)) = train_step_both(seed)
+        loss_err = max(abs(gpu_loss[k] - cpu_loss[k]) / abs(cpu_loss[k])
+                       for k in cpu_loss)
+
+        # Differing decisions (ReLU, max-pool) by acoustic stack and block
+        flips = {}
+        for name, ref in cpu_pre.items():
+            block = conv_block(name)
+            flips[block] = decision_flips(ref, gpu_pre[name],
+                                          pooled=block[1] > 0)
+
+        # Each tensor's gradient error and parameter error over its
+        # tolerance; a conv block is held to CONV_BLOCK_GRAD_TOL where a
+        # decision of its stack differs at or after it
+        grad_ratios, param_ratios, block_errs = [], [], {}
+        for name, ref in cpu_grads.items():
+            module = name.rsplit('.', 1)[0]
+            scale = max(g.abs().max().item() for n, g in cpu_grads.items()
+                        if n.rsplit('.', 1)[0] == module)
+            grad_err = (gpu_grads[name] - ref).abs().max().item() / scale
+            tol = GRAD_TOL
+            block = conv_block(name)
+            if block is not None:
+                stack, index = block
+                block_errs[stack] = max(block_errs.get(stack, 0.0), grad_err)
+                if any(sum(counts) for (other, later), counts in flips.items()
+                       if other == stack and later >= index):
+                    tol = CONV_BLOCK_GRAD_TOL
+            grad_ratios.append((grad_err / tol, grad_err, name))
+
+            param = cpu_state[name]
+            param_tol = (SGD_LR * tol * scale +
+                         2 * eps * param.abs().max().item())
+            param_ratios.append(
+                (gpu_state[name] - param).abs().max().item() / param_tol)
+        grad_ratio, grad_err, grad_name = max(grad_ratios)
+        param_ratio = max(param_ratios)
+        stat_err = max((gpu_state[k].float() - v.float()).abs().max().item()
+                       for k, v in cpu_state.items() if k not in cpu_grads)
+
+        log(f'training step float32 card vs CPU, seed {seed}: losses within '
+            f'{loss_err:.3g} (relative; tolerance {LOSS_TOL}); differing '
+            f'ReLU/max-pool decisions in blocks 0-2, and the conv blocks\' '
+            f'worst gradient error over their module\'s largest: ' +
+            ', '.join(f'{stack} ' + ' '.join(
+                f'{flips[stack, i][0]}/{flips[stack, i][1]}'
+                for i in range(3)) + f' {block_errs[stack]:.3g}'
+                for stack in sorted(block_errs)) +
+            f'; gradients at most {grad_ratio:.3g} of their tolerance (worst '
+            f'{grad_name}, {grad_err:.3g} of its module\'s largest); '
+            f'parameters after one SGD step at most {param_ratio:.3g} of '
+            f'theirs; running statistics within {stat_err:.3g} (tolerance '
+            f'{STAT_TOL})')
+        require(loss_err <= LOSS_TOL, 'training losses differ card vs CPU')
+        require(grad_ratio <= 1.0, 'gradients differ card vs CPU')
+        require(param_ratio <= 1.0 and stat_err <= STAT_TOL,
+                'parameters or statistics after a step differ card vs CPU')
 
 
 def guitar_cqt(grouped):
@@ -878,7 +1452,8 @@ def serve_guitar(clips, card):
 
     return ({'cqt_mag_grouped': launches['cqt_mag_grouped'],
              'cqt_mag': full_launches['cqt_mag']},
-            ('guitar batch', pipeline, requests[0], ('cqt_mag_kernel',)))
+            (f'guitar batch of {GUITAR_BATCH} clips',
+             lambda: pipeline(requests[0]), ('cqt_mag_kernel',)))
 
 
 def check_guitar_against_cpu(clips):
@@ -1002,14 +1577,26 @@ def main():
 
     launches, guitar_batch = serve_guitar(guitar, card)
     check_guitar_against_cpu(guitar)
-    profile_batches([piano_batch, guitar_batch])
+    del guitar
+    torch.cuda.empty_cache()
 
     cqt_full['launches'] = launches['cqt_mag']
     cqt_grouped['launches'] = launches['cqt_mag_grouped']
 
+    residuals = check_lstm_residuals()
+    bptt = check_lstm_bptt()
+    torch.cuda.empty_cache()
+    launches, steps, train_batch = train_piano(card)
+    train_against_cpu()
+    for entry in (residuals, bptt):
+        entry['launches'] = launches[entry['name']]
+        entry['launches_per_step'] = launches[entry['name']] / steps
+
+    profile_batches([piano_batch, guitar_batch, train_batch])
+
     log(card)
-    print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped]}),
-          flush=True)
+    print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
+                                  residuals, bptt]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -21,7 +21,17 @@ Tolerances:
   (2^-8 relative) and the recurrence carries the difference for a few
   steps. Every output rounds to bf16, so the max alone cannot tell sound
   numerics from a bf16 carry or the logistic sigmoid; the mean can
-  (``tests/test_torch_lstm_kernel.py`` shows both faults exceed it).
+  (``tests/test_torch_lstm_kernel.py`` shows both faults exceed it);
+- LSTM with residuals (kernel E): h as for B and bit for bit equal to
+  kernel B's; gates and c within 1e-4 (float32) or 2e-2 (bf16) of their
+  largest value, and 1e-5 or 1e-4 absolute on the mean;
+- BPTT (kernel F): da and dW_h = h_prev^T da within 1e-4 (float32) or
+  5e-4 (bf16) of their largest value, and 1e-5 or 1e-4 of their mean
+  magnitude on the mean, on residuals that both versions share. In bf16 a
+  sum in another order moves an occasional carry-product operand by one
+  bf16 ulp; unrounded da or a float32 W_h^T in the carry product moves
+  every one and exceeds the mean (``tests/test_torch_lstm_grad.py`` shows
+  both faults do).
 """
 
 import numpy as np
@@ -35,7 +45,12 @@ from amt_tools_tpu_torch.ops import decode, spectral
 from amt_tools_tpu_torch.ops.cqt_kernel import (cqt_mag, cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
                                                 cqt_mag_plain)
-from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+from amt_tools_tpu_torch.ops.lstm_kernel import (_shift_prev, lstm_bptt,
+                                                 lstm_bptt_plain,
+                                                 lstm_scan, lstm_scan_grad,
+                                                 lstm_scan_plain,
+                                                 lstm_scan_residuals,
+                                                 lstm_scan_residuals_plain)
 from amt_tools_tpu_torch.ops.stft_kernel import stft_power, stft_power_plain
 from amt_tools_tpu_torch.serving import (TablaturePipeline,
                                          TranscriptionPipeline,
@@ -101,6 +116,89 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, mean_atol, reverse):
     diff = (got.float() - ref.float()).abs()
     assert diff.max().item() <= atol
     assert diff.mean().item() <= mean_atol
+
+
+# (batch, frames, hidden): small and ragged (B not a multiple of the
+# kernels' 4 rows, T of the Pallas kernels' 16), and the training shape
+TRAIN_SHAPES = [(3, 37, 64), (8, 625, 256)]
+RESIDUAL_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-4)}
+BPTT_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (5e-4, 1e-4)}
+
+
+def _lstm_inputs(batch, frames, hidden, dtype, device, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(batch, frames, 4 * hidden, generator=g) * 0.5
+    w_h = torch.nn.init.orthogonal_(torch.empty(hidden, 4 * hidden),
+                                    generator=g)
+    dout = torch.randn(batch, frames, hidden, generator=g)
+    return xw.to(device, dtype), w_h.to(device, dtype), dout.to(device, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', TRAIN_SHAPES)
+def test_lstm_residuals_kernel_matches_plain(cuda, dtype, reverse, shape):
+    xw, w_h, _ = _lstm_inputs(*shape, dtype, cuda)
+
+    launches = lstm_scan_residuals.launches
+    got = lstm_scan_residuals(xw, w_h, reverse)
+    torch.cuda.synchronize()
+    assert lstm_scan_residuals.launches == launches + 1
+
+    assert torch.equal(got[0], lstm_scan(xw, w_h, reverse))
+    ref = lstm_scan_residuals_plain(xw, w_h, reverse)
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    diff = (got[0].float() - ref[0].float()).abs()
+    assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+
+    rel, mean_tol = RESIDUAL_TOL[dtype]
+    for a, b in zip(got[1:], ref[1:]):
+        assert a.dtype == torch.float32
+        diff = (a - b).abs()
+        assert diff.max().item() <= rel * b.abs().max().item()
+        assert diff.mean().item() <= mean_tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', TRAIN_SHAPES)
+def test_lstm_bptt_kernel_matches_plain(cuda, dtype, reverse, shape):
+    xw, w_h, dout = _lstm_inputs(*shape, dtype, cuda)
+    out, gates, c_seq = lstm_scan_residuals(xw, w_h, reverse)
+    w_h_t = w_h.t().contiguous()
+
+    launches = lstm_bptt.launches
+    got = lstm_bptt(gates, c_seq, dout, w_h_t, reverse)
+    torch.cuda.synchronize()
+    assert lstm_bptt.launches == launches + 1
+
+    ref = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
+    assert got.dtype == ref.dtype == torch.float32
+
+    hidden = shape[-1]
+    h_prev = _shift_prev(out, reverse).float().reshape(-1, hidden).t()
+    max_rel, mean_rel = BPTT_TOL[dtype]
+    for a, b in ((got, ref), (h_prev @ got.reshape(-1, 4 * hidden),
+                              h_prev @ ref.reshape(-1, 4 * hidden))):
+        diff = (a - b).abs()
+        assert diff.max().item() <= max_rel * b.abs().max().item()
+        assert diff.mean().item() <= mean_rel * b.abs().mean().item()
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_lstm_grad_on_cuda_matches_autograd_through_plain(cuda, reverse):
+    xw, w_h, dout = _lstm_inputs(3, 37, 64, torch.float32, cuda)
+
+    grads = []
+    for fn in (lstm_scan_grad, lstm_scan_plain):
+        x = xw.clone().requires_grad_()
+        w = w_h.clone().requires_grad_()
+        (fn(x, w, reverse) * dout).sum().backward()
+        grads.append((x.grad, w.grad))
+
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def _close_to_peak(got, ref):
@@ -264,6 +362,18 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
     with pytest.raises(ValueError):
         lstm_scan(torch.zeros(1, 4, 4 * 2048, device=cuda),
                   torch.zeros(2048, 4 * 2048, device=cuda))
+    with pytest.raises(ValueError):
+        lstm_scan_residuals(torch.zeros(1, 4, 4 * 2048, device=cuda),
+                            torch.zeros(2048, 4 * 2048, device=cuda))
+    with pytest.raises(TypeError):
+        lstm_bptt(torch.zeros(1, 4, 8, device=cuda),
+                  torch.zeros(1, 4, 2, device=cuda),
+                  torch.zeros(1, 4, 2, device=cuda, dtype=torch.float16),
+                  torch.zeros(8, 2, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        lstm_bptt(torch.zeros(1, 4, 8, device=cuda),
+                  torch.zeros(1, 4, 2, device=cuda),
+                  torch.zeros(1, 4, 2, device=cuda), torch.zeros(8, 2))
 
     cqt_bank = torch.zeros(4096, 8, device=cuda)
     with pytest.raises(TypeError):

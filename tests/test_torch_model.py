@@ -19,7 +19,7 @@ from amt_tools_tpu.models import OnsetsFrames as JaxOnsetsFrames
 from amt_tools_tpu.models import OnsetsFrames2 as JaxOnsetsFrames2
 
 from amt_tools_tpu_torch import tools
-from amt_tools_tpu_torch.models import OnsetsFrames, OnsetsFrames2
+from amt_tools_tpu_torch.models import OnsetsFrames, OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.weights import from_flax
 
 # The suite runs in several worker processes that share the cores
@@ -128,7 +128,9 @@ def test_state_dict_covers_every_flax_leaf():
 
 
 def test_training_forward_is_refused():
-    model = OnsetsFrames2(dim_in=16, profile=tools.PianoProfile(),
-                          model_complexity=2)
+    """O&F trains now (tests/test_torch_train_model.py); TabCNN has no loss
+    yet, so its forward stays inference only."""
+
+    model = TabCNN(dim_in=192, profile=tools.GuitarProfile(), fullseq=True)
     with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 4, 16, 1))
+        model(torch.zeros(1, 1, 192, 12))
