@@ -23,34 +23,66 @@
 // is the real floor: the 1876 steps depend on each other, so the time is
 // 1876 times the latency of one step.
 //
-// Design (the simple first version): batch rows are independent, so one
-// block owns kRows rows for the whole sequence and no block ever waits on
-// another. h (double-buffered) and c for its rows live in shared memory.
-// Each step, thread u computes gates u, H+u, 2H+u and 3H+u of every row,
-// streaming W_h through L1/L2 (0.5 MB in bf16 stays resident in L2), then
-// one __syncthreads hands the new h to the next step. Exactly T steps run,
-// so a ragged T needs no padding.
-// Later work: split the 4H columns over a thread-block cluster with h
-// broadcast through distributed shared memory, so W_h stays on chip.
+// Design: a thread-block cluster of 8 CTAs owns R batch rows for the whole
+// sequence, and the clusters never wait on each other.
+//   - CTA j owns hidden units [j H/8, (j+1) H/8): their 4 x H/8 gate
+//     columns i, f, g, o, so the cell update of its units needs nothing
+//     from another CTA. Its slice of W_h, H x 4H/8 (64 KiB in bf16, 128 KiB
+//     in float32 at H = 256), is loaded once into shared memory. Where it
+//     does not fit (float32 above H = 256, bf16 above H = 448) the same
+//     body streams it from L2 every step in chunks of rows through two
+//     shared buffers (kResident = false), 8x less per SM than all of W_h.
+//   - Each step, the CTA takes the gates of its R rows x 4H/8 columns
+//     against the h of all H units, held in shared memory:
+//       bf16: mma.sync m16n8k16 with float32 accumulation, operands
+//       swapped so the W_h slice (ldmatrix.trans from shared memory) is the
+//       16-row operand and the batch rows are n = 8 (two n-tiles for
+//       R > 8); each warp owns 8 units, so the i, f, g, o of one unit for
+//       two rows land in one thread's accumulators;
+//       float32: FFMA, no TF32, in the same thread-to-(unit, rows) map;
+//       with the slice resident, k is split over up to 4 groups of warps
+//       (512 threads at H = 256), whose partial sums group 0 adds in a
+//       fixed order.
+//   - xw for the next step (R x 4H/8 values) is copied by cp.async into a
+//     second buffer while the current step runs.
+//   - The cell update keeps c in registers; the new h of the CTA's units
+//     goes to a staging buffer (bf16 in bf16 mode: exactly the value the
+//     next product reads; float32 otherwise), and from there, in 16-byte
+//     pieces, into the next-step h buffer of all 8 CTAs through distributed
+//     shared memory.
+//   - One cluster barrier a step; h is double-buffered, so one barrier
+//     suffices. Its arrive (release) follows the DSMEM stores; the stores to
+//     device memory (h to the output, E's residuals) are issued between the
+//     arrive and the wait, so the release does not wait on them.
+//   - R is chosen by the wrapper (ops/lstm_kernel.py) so that every cluster
+//     is resident in one wave (cudaOccupancyMaxActiveClusters); at B = 128,
+//     R = 8 gives 16 clusters on 128 SMs.
+// Exactly T steps run, so a ragged T needs no padding. H is a multiple of
+// 16 up to 1024.
 //
 // Kernel E, the training forward, is the same body with kResiduals set: it
 // also writes, for every step, the four gate activations as float32 (in
 // bf16 mode the bf16-rounded values the step used, widened) and the float32
-// cell state c_t, which the BPTT kernel (lstm_bptt.cu) reads back. Its
-// arithmetic is B's, so its h equals B's bit for bit. At the training shape
-// (B = 8, T = 625, H = 256, float32) it moves about 51 MB (xw and the gates
-// 20.5 MB each, c and h 5.1 MB each), 0.015 ms at 3.35 TB/s, and does
-// 2.6 GFLOP of recurrent products, 0.039 ms at the 67 TFLOP/s float32
-// peak. Neither is the floor: 625 dependent steps are, and with B = 8 only
-// 2 blocks run, each streaming W_h from L2 every step.
+// cell state c_t, which the BPTT kernel (lstm_bptt.cu) reads back, from the
+// same registers. Its arithmetic is B's, so its h equals B's bit for bit.
+// At the training shape (B = 8, T = 625, H = 256, float32) it moves about
+// 51 MB, 0.015 ms at 3.35 TB/s, and does 2.6 GFLOP of recurrent products,
+// 0.039 ms at the 67 TFLOP/s float32 peak; 625 dependent steps are the floor.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 4;
-constexpr int kThreads = 256;
+constexpr int kCluster = 8;
+constexpr int kMaxRows = 16;
+constexpr int kMaxThreads = 512;  // H = 1024: 128 units a CTA, 16 warps
+constexpr int kMaxSharedBytes = 232448;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -79,133 +111,591 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-template <typename T, bool kBf16, bool kResiduals>
-__global__ void __launch_bounds__(kThreads)
-lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
-                 T* __restrict__ out, float* __restrict__ gates_out,
-                 float* __restrict__ c_out, int batch, int frames, int hidden,
-                 int reverse) {
-  extern __shared__ float smem[];
-  float* h_buf = smem;                          // [2][kRows][hidden]
-  float* c_buf = smem + 2 * kRows * hidden;     // [kRows][hidden]
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  const int row0 = blockIdx.x * kRows;
-  const int four_h = 4 * hidden;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
 
-  for (int i = threadIdx.x; i < 3 * kRows * hidden; i += blockDim.x) {
-    smem[i] = 0.f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
 
-  for (int s = 0; s < frames; ++s) {
-    const int t = reverse ? frames - 1 - s : s;
-    const float* h_cur = h_buf + (s & 1) * kRows * hidden;
-    float* h_next = h_buf + ((s & 1) ^ 1) * kRows * hidden;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-    for (int u = threadIdx.x; u < hidden; u += blockDim.x) {
-      float acc[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-      }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
 
-      const T* w = w_h + u;
-#pragma unroll 4
-      for (int k = 0; k < hidden; ++k) {
-        const T* wk = w + static_cast<size_t>(k) * four_h;
-        const float w0 = to_float(wk[0]);
-        const float w1 = to_float(wk[hidden]);
-        const float w2 = to_float(wk[2 * hidden]);
-        const float w3 = to_float(wk[3 * hidden]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hk = h_cur[r * hidden + k];
-          acc[r][0] = fmaf(hk, w0, acc[r][0]);
-          acc[r][1] = fmaf(hk, w1, acc[r][1]);
-          acc[r][2] = fmaf(hk, w2, acc[r][2]);
-          acc[r][3] = fmaf(hk, w3, acc[r][3]);
-        }
-      }
+// The two halves of a cluster barrier: arrive publishes this thread's
+// writes (to distributed shared memory) to the cluster, wait acquires
+// everyone's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
 
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int b = row0 + r;
-        if (b >= batch) continue;
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-        const size_t step = static_cast<size_t>(b) * frames + t;
-        const T* x = xw + step * four_h + u;
-        float gi = to_float(x[0]) + acc[r][0];
-        float gf = to_float(x[hidden]) + acc[r][1];
-        float gg = to_float(x[2 * hidden]) + acc[r][2];
-        float go = to_float(x[3 * hidden]) + acc[r][3];
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
-        float c = c_buf[r * hidden + u];
-        float i_g, f_g, g_g, o_g;
-        if (kBf16) {
-          gi = round_bf16(gi);
-          gf = round_bf16(gf);
-          gg = round_bf16(gg);
-          go = round_bf16(go);
-          i_g = sigmoid_bf16(gi);
-          f_g = sigmoid_bf16(gf);
-          g_g = round_bf16(tanhf(gg));
-          o_g = sigmoid_bf16(go);
-          c = f_g * c + round_bf16(i_g * g_g);
-        } else {
-          i_g = sigmoid_f32(gi);
-          f_g = sigmoid_f32(gf);
-          g_g = tanhf(gg);
-          o_g = sigmoid_f32(go);
-          c = f_g * c + i_g * g_g;
-        }
-        const float h = o_g * tanhf(c);
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-        if (kResiduals) {
-          float* g = gates_out + step * four_h + u;
-          g[0] = i_g;
-          g[hidden] = f_g;
-          g[2 * hidden] = g_g;
-          g[3 * hidden] = o_g;
-          c_out[step * hidden + u] = c;
-        }
+// Shared-memory layout of one CTA, shared by the host launch and the kernel
+// (ops/lstm_kernel.py scan_geometry mirrors it, and a card test holds the
+// two equal). The kernel computes it rather than taking it from the
+// wrapper: with the dtype and residency known at compile time part of it
+// folds to constants, and passed as a kernel parameter it made B's bf16
+// step about 10% slower on an H100. Offsets and sizes are in bytes and
+// multiples of 16.
+//   w:     the W_h slice, rows k x (4 * units_pad) local columns, padded
+//          by 16 bytes a row; local column 32 w + 8 q + g is gate q of
+//          unit 8 w + g (warp w owns units 8 w .. 8 w + 7). Resident: all H
+//          rows; streamed: two chunks of `chunk` rows.
+//   h:     two buffers of row_pad x H values (+16 bytes a row), row r the
+//          h of batch row r of the cluster.
+//   xw:    two buffers of R x 4 x units values.
+//   stage: R x units values, the new h of the CTA's units.
+//   red:   float32 resident only, where k is split over `slices` groups of
+//          warps: the partial gate sums of groups 1.. for group 0 to add.
+struct ScanGeometry {
+  int units;
+  int units_pad;
+  int slices;  // float32 resident: k is split over this many warp groups
+  int threads;
+  int chunk;
+  int w_stride;  // elements
+  int h_stride;  // elements
+  int row_pad;
+  size_t w_off, h_off, x_off, stage_off, red_off, bytes;
+};
 
-        c_buf[r * hidden + u] = c;
-        out[step * hidden + u] = from_float<T>(h);
-        h_next[r * hidden + u] = kBf16 ? round_bf16(h) : h;
-      }
+__host__ __device__ inline ScanGeometry scan_geometry(int hidden, int size,
+                                                      int rows, bool resident) {
+  ScanGeometry g;
+  g.units = hidden / kCluster;
+  g.units_pad = (g.units + 7) / 8 * 8;
+  g.slices = 1;
+  if (size == 4 && resident) {
+    while (g.slices < 4 && 8 * g.units_pad * g.slices <= kMaxThreads &&
+           hidden % (8 * g.slices) == 0) {
+      g.slices *= 2;
     }
-    __syncthreads();
+  }
+  g.threads = 4 * g.units_pad * g.slices;
+  g.chunk = resident ? hidden : (size == 2 ? 32 : 16);
+  if (g.chunk > hidden) g.chunk = hidden;
+  g.w_stride = 4 * g.units_pad + 16 / size;
+  g.h_stride = hidden + 16 / size;
+  g.row_pad = rows <= 8 ? 8 : 16;
+  const size_t w_rows = resident ? hidden : 2 * g.chunk;
+  g.w_off = 0;
+  g.h_off = g.w_off + w_rows * g.w_stride * size;
+  g.x_off = g.h_off + 2 * static_cast<size_t>(g.row_pad) * g.h_stride * size;
+  g.stage_off = g.x_off + 2 * static_cast<size_t>(rows) * 4 * g.units * size;
+  g.red_off = g.stage_off +
+              (static_cast<size_t>(rows) * g.units * size + 15) / 16 * 16;
+  g.bytes = g.red_off + static_cast<size_t>(g.slices - 1) * 4 * g.units_pad *
+                            4 * (rows <= 8 ? 2 : 4) * sizeof(float);
+  return g;
+}
+
+// Issue the copy of `elems` consecutive values (16 bytes or 4 bytes)
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, bool wide) {
+  if (wide) {
+    cp_async16(dst, src);
+  } else {
+    cp_async4(dst, src);
   }
 }
 
-template <typename T, bool kBf16, bool kResiduals>
+// One 16-byte or 4-byte piece
+__device__ __forceinline__ void copy_piece(unsigned char* dst,
+                                           const unsigned char* src,
+                                           bool wide) {
+  if (wide) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+    *reinterpret_cast<unsigned*>(dst) = *reinterpret_cast<const unsigned*>(src);
+  }
+}
+
+// Copy W_h rows [k0, k0 + rows) of this CTA's columns into `dst`, laid out
+// as ScanGeometry says. Columns of units past `units` are never written.
+template <typename T>
+__device__ __forceinline__ void load_w_rows(T* dst, const T* w_h, int hidden,
+                                            const ScanGeometry& geo, int rank,
+                                            int k0, int rows, bool wide) {
+  const int vec = (wide ? 16 : 4) / static_cast<int>(sizeof(T));
+  const int per_gate = geo.units / vec;
+  const int per_row = 4 * per_gate;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
+    const int kk = idx / per_row;
+    const int rem = idx - kk * per_row;
+    const int q = rem / per_gate;
+    const int u = (rem - q * per_gate) * vec;
+    const int col = 32 * (u >> 3) + 8 * q + (u & 7);
+    copy_async(dst + kk * geo.w_stride + col,
+               w_h + static_cast<size_t>(k0 + kk) * 4 * hidden + q * hidden +
+                   rank * geo.units + u,
+               wide);
+  }
+}
+
+// Copy xw of step t for the cluster's rows into `dst` (R x 4 x units)
+template <typename T>
+__device__ __forceinline__ void load_xw(T* dst, const T* xw, int batch,
+                                        int frames, int hidden, int row0,
+                                        int rows, int t,
+                                        const ScanGeometry& geo, int rank,
+                                        bool wide) {
+  const int vec = (wide ? 16 : 4) / static_cast<int>(sizeof(T));
+  const int per_gate = geo.units / vec;
+  const int per_row = 4 * per_gate;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
+    const int r = idx / per_row;
+    if (row0 + r >= batch) break;
+    const int rem = idx - r * per_row;
+    const int q = rem / per_gate;
+    const int u = (rem - q * per_gate) * vec;
+    copy_async(dst + (r * 4 + q) * geo.units + u,
+               xw + (static_cast<size_t>(row0 + r) * frames + t) * 4 * hidden +
+                   q * hidden + rank * geo.units + u,
+               wide);
+  }
+}
+
+// Accumulate the recurrent products of W rows [k0, k0 + rows) (chunk-local
+// in `w`) into gate[q][i] for this thread's unit and rows
+template <bool kBf16, int kRowTiles, typename T>
+__device__ __forceinline__ void gate_products(float (&gate)[4][2 * kRowTiles],
+                                              const T* w, const T* h,
+                                              const ScanGeometry& geo,
+                                              int k0, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) % (geo.units_pad / 8);
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  if constexpr (kBf16) {
+    // A from ldmatrix.trans: lanes 0-7 / 8-15 / 16-23 / 24-31 address the
+    // (k 0-7, m 0-7) / (k 0-7, m 8-15) / (k 8-15, m 0-7) / (k 8-15, m 8-15)
+    // 8x8 matrices of the 16 x 16 tile, stored k-major
+    const int a_row = (lane & 7) + ((lane >> 4) << 3);
+    const int a_col = 32 * warp + ((lane >> 3) & 1) * 8;
+    const T* a_base = w + a_row * geo.w_stride + a_col;
+    float acc[2][kRowTiles][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < kRowTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+    for (int kk = 0; kk < rows; kk += 16) {
+      unsigned a0[4], a1[4];
+      const T* a = a_base + kk * geo.w_stride;
+      ldmatrix_x4_trans(a0, smem_addr(a));
+      ldmatrix_x4_trans(a1, smem_addr(a + 16));
+#pragma unroll
+      for (int n = 0; n < kRowTiles; ++n) {
+        const T* hb = h + (8 * n + g) * geo.h_stride + k0 + kk + 2 * tq;
+        const unsigned b0 = *reinterpret_cast<const unsigned*>(hb);
+        const unsigned b1 = *reinterpret_cast<const unsigned*>(hb + 8);
+        mma_bf16(acc[0][n], a0, b0, b1);
+        mma_bf16(acc[1][n], a1, b0, b1);
+      }
+    }
+    // m-tile 0 rows 0-7 / 8-15: gates i / f; m-tile 1: g / o. Columns
+    // (batch rows) 2 tq, 2 tq + 1 of each n-tile
+#pragma unroll
+    for (int n = 0; n < kRowTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        gate[0][2 * n + e] += acc[0][n][e];
+        gate[1][2 * n + e] += acc[0][n][2 + e];
+        gate[2][2 * n + e] += acc[1][n][e];
+        gate[3][2 * n + e] += acc[1][n][2 + e];
+      }
+  } else {
+    const T* wc = w + 32 * warp + g;
+    for (int kk = 0; kk < rows; kk += 4) {
+      float4 hv[2 * kRowTiles];
+#pragma unroll
+      for (int i = 0; i < 2 * kRowTiles; ++i) {
+        const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+        hv[i] = *reinterpret_cast<const float4*>(h + r * geo.h_stride + k0 +
+                                                 kk);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const T* wr = wc + (kk + s) * geo.w_stride;
+        const float wq[4] = {wr[0], wr[8], wr[16], wr[24]};
+#pragma unroll
+        for (int i = 0; i < 2 * kRowTiles; ++i) {
+          const float hk = s == 0 ? hv[i].x
+                         : s == 1 ? hv[i].y
+                         : s == 2 ? hv[i].z
+                                  : hv[i].w;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gate[q][i] = fmaf(hk, wq[q], gate[q][i]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool kBf16, bool kResiduals, bool kResident,
+          int kRowTiles>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
+                 T* __restrict__ out, float* __restrict__ gates_out,
+                 float* __restrict__ c_out, int batch, int frames, int hidden,
+                 int reverse, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
+  T* w_buf = reinterpret_cast<T*>(smem + geo.w_off);
+  T* h_buf = reinterpret_cast<T*>(smem + geo.h_off);
+  T* x_buf = reinterpret_cast<T*>(smem + geo.x_off);
+  T* stage = reinterpret_cast<T*>(smem + geo.stage_off);
+  float* red = reinterpret_cast<float*>(smem + geo.red_off);
+
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = (blockIdx.x / kCluster) * rows;
+  const int units = geo.units;
+  const int lane = threadIdx.x & 31;
+  const int warps = geo.units_pad / 8;  // warps a slice
+  const int slice = (threadIdx.x >> 5) / warps;
+  const int u = 8 * ((threadIdx.x >> 5) % warps) + (lane >> 2);
+  const int tq = lane & 3;
+  const bool unit_ok = u < units;
+  const int slice_k = hidden / geo.slices;
+  const int slice_threads = 4 * geo.units_pad;
+  const bool wide = (units * sizeof(T)) % 16 == 0;
+  const int h_size = geo.row_pad * geo.h_stride;
+  const int x_size = rows * 4 * units;
+  const int n_chunks = (hidden + geo.chunk - 1) / geo.chunk;
+  const int w_chunk = geo.chunk * geo.w_stride;
+
+  // Zero everything (padding columns of W, h and the rows past the batch
+  // stay zero), then start the copies of W (all of it, or the first
+  // chunk) and of step 0's xw
+  for (size_t i = threadIdx.x; i < geo.bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  load_w_rows(w_buf, w_h, hidden, geo, rank, 0, geo.chunk, wide);
+  load_xw(x_buf, xw, batch, frames, hidden, row0, rows,
+          reverse ? frames - 1 : 0, geo, rank, wide);
+  cp_async_commit();
+  cp_async_wait<0>();
+  // Every CTA of the cluster is running and zeroed before any remote write
+  cluster.sync();
+
+  float c[2 * kRowTiles];
+#pragma unroll
+  for (int i = 0; i < 2 * kRowTiles; ++i) c[i] = 0.f;
+
+  for (int s = 0; s < frames; ++s) {
+    const int t = reverse ? frames - 1 - s : s;
+    const T* h_cur = h_buf + (s & 1) * h_size;
+    T* h_next = h_buf + ((s & 1) ^ 1) * h_size;
+
+    // Next step's xw into the other buffer, during this step
+    if (s + 1 < frames) {
+      load_xw(x_buf + ((s + 1) & 1) * x_size, xw, batch, frames, hidden, row0,
+              rows, reverse ? frames - 2 - s : s + 1, geo, rank, wide);
+    }
+    cp_async_commit();
+
+    float gate[4][2 * kRowTiles];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 2 * kRowTiles; ++i) gate[q][i] = 0.f;
+
+    if constexpr (kResident) {
+      const int k0 = slice * slice_k;
+      gate_products<kBf16, kRowTiles>(gate, w_buf + k0 * geo.w_stride, h_cur,
+                                      geo, k0, slice_k);
+      if (slice > 0) {  // hand the partial sums to slice 0
+        float* dst = red + (slice - 1) * 8 * kRowTiles * slice_threads +
+                     (threadIdx.x - slice * slice_threads);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < 2 * kRowTiles; ++i)
+            dst[(q * 2 * kRowTiles + i) * slice_threads] = gate[q][i];
+      }
+    } else {
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int slot = (s * n_chunks + ci) & 1;
+        cp_async_wait<0>();
+        __syncthreads();
+        // The next chunk (the first again after the last, for the next
+        // step) into the slot everyone has finished with
+        const int next = ci + 1 < n_chunks ? ci + 1 : 0;
+        if (ci + 1 < n_chunks || s + 1 < frames) {
+          const int k_next = next * geo.chunk;
+          load_w_rows(w_buf + (slot ^ 1) * w_chunk, w_h, hidden, geo, rank,
+                      k_next, min(geo.chunk, hidden - k_next), wide);
+        }
+        cp_async_commit();
+        const int k0 = ci * geo.chunk;
+        gate_products<kBf16, kRowTiles>(gate, w_buf + slot * w_chunk, h_cur,
+                                        geo, k0, min(geo.chunk, hidden - k0));
+      }
+    }
+
+    // This step's xw has landed (only the next step's may be in flight)
+    if constexpr (kResident) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (slice == 0) {
+      for (int other = 1; other < geo.slices; ++other) {
+        const float* src = red + (other - 1) * 8 * kRowTiles * slice_threads +
+                           threadIdx.x;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < 2 * kRowTiles; ++i)
+            gate[q][i] += src[(q * 2 * kRowTiles + i) * slice_threads];
+      }
+    }
+
+    // The cell update of this thread's unit and rows (slice 0). The
+    // residuals stay in registers until the step's h is published.
+    float res_gate[4][2 * kRowTiles];
+    float res_c[2 * kRowTiles];
+    const T* x_cur = x_buf + (s & 1) * x_size;
+#pragma unroll
+    for (int i = 0; i < 2 * kRowTiles; ++i) {
+      const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+      const bool live = slice == 0 && unit_ok && r < rows;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (live) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = to_float(x_cur[(r * 4 + q) * units + u]);
+      }
+      float gi = x[0] + gate[0][i];
+      float gf = x[1] + gate[1][i];
+      float gg = x[2] + gate[2][i];
+      float go = x[3] + gate[3][i];
+      float i_g, f_g, g_g, o_g;
+      if (kBf16) {
+        gi = round_bf16(gi);
+        gf = round_bf16(gf);
+        gg = round_bf16(gg);
+        go = round_bf16(go);
+        i_g = sigmoid_bf16(gi);
+        f_g = sigmoid_bf16(gf);
+        g_g = round_bf16(tanhf(gg));
+        o_g = sigmoid_bf16(go);
+        c[i] = f_g * c[i] + round_bf16(i_g * g_g);
+      } else {
+        i_g = sigmoid_f32(gi);
+        f_g = sigmoid_f32(gf);
+        g_g = tanhf(gg);
+        o_g = sigmoid_f32(go);
+        c[i] = f_g * c[i] + i_g * g_g;
+      }
+      const float h = o_g * tanhf(c[i]);
+      if (live) stage[r * units + u] = from_float<T>(h);
+      res_gate[0][i] = i_g;
+      res_gate[1][i] = f_g;
+      res_gate[2][i] = g_g;
+      res_gate[3][i] = o_g;
+      res_c[i] = c[i];
+    }
+    __syncthreads();
+
+    // The staged h, through distributed shared memory, into the next-step
+    // h buffer of every CTA of the cluster, then released to the cluster
+    const int piece = wide ? 16 : 4;
+    const int per_row = units * static_cast<int>(sizeof(T)) / piece;
+    const int per_dest = rows * per_row;
+    for (int idx = threadIdx.x; idx < kCluster * per_dest; idx += blockDim.x) {
+      const int dest = idx / per_dest;
+      const int rem = idx - dest * per_dest;
+      const int r = rem / per_row;
+      const int v = rem - r * per_row;
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(stage + r * units) + v * piece;
+      T* remote = cluster.map_shared_rank(h_next, dest);
+      unsigned char* dst = reinterpret_cast<unsigned char*>(
+                               remote + r * geo.h_stride + rank * units) +
+                           v * piece;
+      copy_piece(dst, src, wide);
+    }
+    cluster_arrive();
+
+    // Device-memory stores after the arrive, so its release does not wait
+    // on them: the staged h to the output, and E's residuals
+    for (int idx = threadIdx.x; idx < per_dest; idx += blockDim.x) {
+      const int r = idx / per_row;
+      const int v = idx - r * per_row;
+      if (row0 + r >= batch) continue;
+      copy_piece(reinterpret_cast<unsigned char*>(
+                     out + (static_cast<size_t>(row0 + r) * frames + t) *
+                               hidden +
+                     rank * units) +
+                     v * piece,
+                 reinterpret_cast<const unsigned char*>(stage + r * units) +
+                     v * piece,
+                 wide);
+    }
+    if (kResiduals && slice == 0 && unit_ok) {
+#pragma unroll
+      for (int i = 0; i < 2 * kRowTiles; ++i) {
+        const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+        if (r >= rows || row0 + r >= batch) continue;
+        const size_t step = static_cast<size_t>(row0 + r) * frames + t;
+        float* gp = gates_out + step * 4 * hidden + rank * units + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gp[q * hidden] = res_gate[q][i];
+        c_out[step * hidden + rank * units + u] = res_c[i];
+      }
+    }
+    cluster_wait();
+  }
+}
+
+template <typename T, bool kBf16, bool kResiduals, bool kResident,
+          int kRowTiles>
 int launch(const void* xw, const void* w_h, void* out, float* gates,
            float* c_seq, int batch, int frames, int hidden, int reverse,
-           cudaStream_t stream) {
-  const int blocks = (batch + kRows - 1) / kRows;
-  const size_t smem = 3 * kRows * static_cast<size_t>(hidden) * sizeof(float);
-  lstm_scan_kernel<T, kBf16, kResiduals><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(xw), static_cast<const T*>(w_h),
-      static_cast<T*>(out), gates, c_seq, batch, frames, hidden, reverse);
+           int rows, cudaStream_t stream, int* active_clusters) {
+  const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
+  if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = lstm_scan_kernel<T, kBf16, kResiduals, kResident, kRowTiles>;
+  cudaError_t status = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(geo.bytes));
+  if (status != cudaSuccess) return static_cast<int>(status);
+
+  const int clusters = (batch + rows - 1) / rows;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = kCluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster * (clusters > 0 ? clusters : 1));
+  config.blockDim = dim3(geo.threads);
+  config.dynamicSmemBytes = geo.bytes;
+  config.stream = stream;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+
+  if (active_clusters != nullptr) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(active_clusters, kernel, &config));
+  }
+  status = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(xw),
+                              static_cast<const T*>(w_h), static_cast<T*>(out),
+                              gates, c_seq, batch, frames, hidden, reverse,
+                              rows);
+  if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kBf16, bool kResiduals>
+int dispatch(const void* xw, const void* w_h, void* out, float* gates,
+             float* c_seq, int batch, int frames, int hidden, int reverse,
+             int rows, int resident, cudaStream_t stream,
+             int* active_clusters) {
+  if (hidden % 16 || hidden < 16 || rows < 1 || rows > kMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (resident) {
+    if (rows <= 8) {
+      return launch<T, kBf16, kResiduals, true, 1>(
+          xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+          stream, active_clusters);
+    }
+    return launch<T, kBf16, kResiduals, true, 2>(
+        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+        stream, active_clusters);
+  }
+  if (rows <= 8) {
+    return launch<T, kBf16, kResiduals, false, 1>(
+        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+        stream, active_clusters);
+  }
+  return launch<T, kBf16, kResiduals, false, 2>(
+      xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+      stream, active_clusters);
+}
+
+int run(const void* xw, const void* w_h, void* out, float* gates,
+        float* c_seq, int batch, int frames, int hidden, int reverse,
+        int bf16, int residuals, int rows, int resident, cudaStream_t stream,
+        int* active_clusters) {
+  if (bf16) {
+    if (residuals) {
+      return dispatch<__nv_bfloat16, true, true>(
+          xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+          resident, stream, active_clusters);
+    }
+    return dispatch<__nv_bfloat16, true, false>(
+        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
+        resident, stream, active_clusters);
+  }
+  if (residuals) {
+    return dispatch<float, false, true>(xw, w_h, out, gates, c_seq, batch,
+                                        frames, hidden, reverse, rows,
+                                        resident, stream, active_clusters);
+  }
+  return dispatch<float, false, false>(xw, w_h, out, gates, c_seq, batch,
+                                       frames, hidden, reverse, rows, resident,
+                                       stream, active_clusters);
 }
 
 }  // namespace
 
 // xw (batch, frames, 4 * hidden), w_h (hidden, 4 * hidden) and out
-// (batch, frames, hidden), contiguous on the device, all float32 or all
-// bf16 (`bf16` != 0). hidden <= 1024 keeps the carry within 48 KB of shared
-// memory. Launches on `stream` and returns cudaGetLastError() of the launch.
+// (batch, frames, hidden), contiguous and 16-byte aligned on the device,
+// all float32 or all bf16 (`bf16` != 0). hidden is a multiple of 16; each
+// cluster of 8 CTAs takes `rows` (1..16) batch rows; `resident` keeps the
+// W_h slice in shared memory (else it is streamed each step). Launches on
+// `stream` and returns the first CUDA error of the set-up or the launch.
 extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
                          int batch, int frames, int hidden, int reverse,
-                         int bf16, cudaStream_t stream) {
-  if (bf16) {
-    return launch<__nv_bfloat16, true, false>(
-        xw, w_h, out, nullptr, nullptr, batch, frames, hidden, reverse,
-        stream);
-  }
-  return launch<float, false, false>(xw, w_h, out, nullptr, nullptr, batch,
-                                     frames, hidden, reverse, stream);
+                         int bf16, int rows, int resident,
+                         cudaStream_t stream) {
+  return run(xw, w_h, out, nullptr, nullptr, batch, frames, hidden, reverse,
+             bf16, 0, rows, resident, stream, nullptr);
 }
 
 // Kernel E: lstm_scan, and also the float32 residuals gates
@@ -214,12 +704,25 @@ extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
 extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
                                    float* gates, float* c_seq, int batch,
                                    int frames, int hidden, int reverse,
-                                   int bf16, cudaStream_t stream) {
-  if (bf16) {
-    return launch<__nv_bfloat16, true, true>(xw, w_h, out, gates, c_seq,
-                                             batch, frames, hidden, reverse,
-                                             stream);
-  }
-  return launch<float, false, true>(xw, w_h, out, gates, c_seq, batch, frames,
-                                    hidden, reverse, stream);
+                                   int bf16, int rows, int resident,
+                                   cudaStream_t stream) {
+  return run(xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, bf16,
+             1, rows, resident, stream, nullptr);
+}
+
+// How many clusters of the launch configuration for (hidden, dtype, rows,
+// resident) the card holds at once (cudaOccupancyMaxActiveClusters), into
+// *clusters. Returns the CUDA error of the query.
+extern "C" int lstm_scan_max_active_clusters(int hidden, int bf16,
+                                             int residuals, int rows,
+                                             int resident, int* clusters) {
+  *clusters = 0;
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, kCluster * rows, 1,
+             hidden, 0, bf16, residuals, rows, resident, nullptr, clusters);
+}
+
+// Shared-memory bytes of one CTA; ops/lstm_kernel.py computes the same.
+extern "C" int lstm_scan_smem(int hidden, int bf16, int rows, int resident) {
+  return static_cast<int>(
+      scan_geometry(hidden, bf16 ? 2 : 4, rows, resident != 0).bytes);
 }

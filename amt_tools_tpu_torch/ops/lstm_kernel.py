@@ -15,7 +15,11 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 
 B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
 tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
-repeat the kernels' arithmetic.
+repeat the kernels' arithmetic. B and E run as thread-block clusters of 8
+CTAs, each CTA holding its H/8 units' slice of W_h on chip; what sets their
+launch (rows a cluster, clusters, a resident or streamed slice, shared
+memory) is computed here, by :func:`scan_geometry` and :func:`cluster_plan`,
+from the card's answer to ``cudaOccupancyMaxActiveClusters``.
 
 Numerics follow the Pallas kernels (``pallas_lstm.py:71-109``, ``:260-288``):
 the carries are float32; with bf16 projections the recurrent product reads
@@ -33,19 +37,127 @@ from . import cuda_build
 
 __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'lstm_scan_residuals_plain', 'lstm_bptt', 'lstm_bptt_plain',
-           'lstm_scan_grad', 'LSTMScanGrad']
+           'lstm_scan_grad', 'LSTMScanGrad', 'scan_geometry',
+           'scan_resident', 'scan_max_rows', 'cluster_plan',
+           'scan_launch_plan']
 
-MAX_HIDDEN = 1024  # B/E: the carry (3 x 4 rows x H floats) fits 48 KB
+MAX_HIDDEN = 1024  # B, E: 16 warps a CTA; F: its carries fit 48 KB
+CLUSTER = 8        # B, E: CTAs a cluster, each owning H / 8 hidden units
+MAX_ROWS = 16      # B, E: batch rows a cluster (two mma n-tiles)
+MAX_THREADS = 512  # B, E: threads a CTA
+MAX_SHARED_BYTES = 232448  # 227 KB, the most a block may use on Hopper
 
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 
 _SCAN_SIGNATURES = {
-    'lstm_scan': [_POINTER] * 3 + [_INT] * 5 + [_POINTER],
-    'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 5 + [_POINTER],
+    'lstm_scan': [_POINTER] * 3 + [_INT] * 7 + [_POINTER],
+    'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
+    'lstm_scan_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
+    'lstm_scan_smem': [_INT] * 4,
 }
 _BPTT_SIGNATURES = {
     'lstm_bptt': [_POINTER] * 5 + [_INT] * 5 + [_POINTER],
 }
+
+_active_clusters = {}
+
+
+def scan_geometry(hidden, dtype, rows, resident):
+    """One CTA of kernels B and E, as ``csrc/lstm_scan.cu``
+    ``scan_geometry`` lays it out: units owned, the groups of warps k is
+    split over, threads, the rows of W_h a chunk (all H when resident) and
+    the shared-memory bytes of the W_h slice (resident, or two streamed
+    chunks), the two h buffers, the two xw buffers, the staged h and the
+    partial sums of a split k."""
+
+    size = torch.finfo(dtype).bits // 8
+    units = hidden // CLUSTER
+    units_pad = -(-units // 8) * 8
+    # float32 resident: k split over up to 4 groups of warps (512 threads)
+    slices = 1
+    if size == 4 and resident:
+        while (slices < 4 and 8 * units_pad * slices <= MAX_THREADS and
+               hidden % (8 * slices) == 0):
+            slices *= 2
+    chunk = min(hidden, hidden if resident else (32 if size == 2 else 16))
+    w_stride = 4 * units_pad + 16 // size
+    h_stride = hidden + 16 // size
+    row_pad = 8 if rows <= 8 else 16
+    w_rows = hidden if resident else 2 * chunk
+    parts = {'w': w_rows * w_stride * size,
+             'h': 2 * row_pad * h_stride * size,
+             'xw': 2 * rows * 4 * units * size,
+             'stage': -(-rows * units * size // 16) * 16,
+             'partial_sums': ((slices - 1) * 4 * units_pad * 4 *
+                              (2 if rows <= 8 else 4) * 4)}
+
+    return {'units': units, 'slices': slices,
+            'threads': 4 * units_pad * slices, 'chunk': chunk,
+            'parts': parts, 'bytes': sum(parts.values())}
+
+
+def scan_resident(hidden, dtype):
+    """Whether kernels B and E keep the CTA's W_h slice (H x 4H/8) in shared
+    memory, which they do where it fits beside 8 rows' buffers: float32 up
+    to H = 256, bf16 up to H = 448. Above that they stream it each step."""
+
+    return scan_geometry(hidden, dtype, 8, True)['bytes'] <= MAX_SHARED_BYTES
+
+
+def scan_max_rows(hidden, dtype, resident):
+    """The most batch rows (up to ``MAX_ROWS``) a cluster's buffers fit."""
+
+    rows = MAX_ROWS
+    while rows > 1 and scan_geometry(hidden, dtype, rows,
+                                     resident)['bytes'] > MAX_SHARED_BYTES:
+        rows -= 1
+
+    return rows
+
+
+def cluster_plan(batch, hidden, dtype, active_clusters):
+    """Rows a cluster and clusters for a batch, given how many clusters the
+    card holds at once: the fewest rows that put every cluster in one wave
+    (at B = 128 and 16 active clusters, 8 rows and 16 clusters; at B = 8,
+    one row and 8 clusters), within what the buffers fit. ``waves`` is 1
+    unless the batch needs more rows than fit."""
+
+    resident = scan_resident(hidden, dtype)
+    max_rows = scan_max_rows(hidden, dtype, resident)
+    rows = min(max_rows, max(1, -(-batch // active_clusters)))
+    clusters = -(-batch // rows)
+
+    return {'rows': rows, 'clusters': clusters, 'ctas': CLUSTER * clusters,
+            'resident': resident, 'max_rows': max_rows,
+            'active_clusters': active_clusters,
+            'waves': -(-clusters // active_clusters),
+            'smem_bytes': scan_geometry(hidden, dtype, rows,
+                                        resident)['bytes']}
+
+
+def scan_launch_plan(batch, hidden, dtype, device, residuals=False):
+    """:func:`cluster_plan` for a launch on ``device``, with the card's
+    answer to ``cudaOccupancyMaxActiveClusters`` at the largest rows the
+    buffers fit (cached per device and configuration)."""
+
+    resident = scan_resident(hidden, dtype)
+    max_rows = scan_max_rows(hidden, dtype, resident)
+    bf16 = int(dtype == torch.bfloat16)
+    key = (device, hidden, bf16, residuals)
+    if key not in _active_clusters:
+        lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
+        count = _INT(0)
+        with torch.cuda.device(device):
+            status = lib.lstm_scan_max_active_clusters(
+                hidden, bf16, int(residuals), max_rows, int(resident),
+                ctypes.byref(count))
+        cuda_build.check(status, 'lstm_scan occupancy query')
+        if count.value < 1:
+            raise RuntimeError(f'the card holds no cluster of the LSTM '
+                               f'kernel at hidden={hidden}, {dtype}')
+        _active_clusters[key] = count.value
+
+    return cluster_plan(batch, hidden, dtype, _active_clusters[key])
 
 
 def _sigmoid_tanh_form(x):
@@ -180,6 +292,12 @@ def _check_cuda(x, name, hidden):
                          f'got {hidden}')
 
 
+def _aligned(x):
+    """``x``, or a copy of it where its data does not start on 16 bytes."""
+
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch_scan(xw, w_h, reverse, residuals):
     """Kernel B, or E with ``residuals``, on CUDA tensors."""
 
@@ -187,6 +305,9 @@ def _launch_scan(xw, w_h, reverse, residuals):
     hidden = four_h // 4
     name = 'lstm_scan_residuals' if residuals else 'lstm_scan'
     _check_cuda(xw, name, hidden)
+    if hidden % 16:
+        raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
+                         f'(8 CTAs of whole bf16 pairs), got {hidden}')
 
     out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
                       device=xw.device)
@@ -199,13 +320,16 @@ def _launch_scan(xw, w_h, reverse, residuals):
     if batch == 0 or frames == 0:
         return tuple(outputs) if residuals else out
 
+    plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals)
+    xw, w_h = _aligned(xw), _aligned(w_h)
     lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, name)(
             xw.data_ptr(), w_h.data_ptr(), *(t.data_ptr() for t in outputs),
             batch, frames, hidden, int(reverse),
-            int(xw.dtype == torch.bfloat16), stream)
+            int(xw.dtype == torch.bfloat16), plan['rows'],
+            int(plan['resident']), stream)
     cuda_build.check(status, name)
 
     return tuple(outputs) if residuals else out

@@ -8,18 +8,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. build every hand-written kernel from ``amt_tools_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), printing ``ptxas -v`` for
+   each (registers, shared memory, spills);
 3. the STFT power kernel (A) against its plain version at the serving shape
    (128 clips x 60 s at 16 kHz), on power and on the [0, 1] mel features,
-   timed beside the plain version and ``torch.stft`` (cuFFT);
+   timed beside the plain version and ``torch.stft`` (cuFFT); the shape
+   must take the FFT route, whose frames a block and shared memory it
+   prints;
 4. the LSTM kernel (B) against its plain version at B = 128, T = 1876,
    H = 256, both directions, float32 and bf16, timed beside the plain
-   version and cuDNN ``torch.nn.LSTM``;
+   version and cuDNN ``torch.nn.LSTM`` (bf16, and float16 with flat
+   weights); it prints the cluster launch (clusters, rows a cluster, the
+   card's count of resident clusters, a resident or streamed W_h slice,
+   shared memory) and a step's time beside launches with one row a cluster
+   and with H = 64;
 5. the piano serving path: Onsets & Frames v2 at complexity 3 (full
    width) in bf16 with seeded random weights, activity calibration on 4
    clips, then 3 requests of 128 x 60 s clips with overlapped
    dispatch/finalize. Every kernel's launch count is reset just before the
-   requests and read just after; kernels A and B must have run. 5b: a
+   requests and read just after; kernels A (on its FFT route) and B must
+   have run. 5b: a
    narrow float32 copy checks notes and logits on the card against the CPU
    (plain versions);
 6. the full-bank CQT kernel (C) against its plain version at the serving
@@ -41,8 +49,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    versions);
 10. the LSTM forward with residuals (E) against its plain version at the
     training shape B = 8, T = 625, H = 256, both directions, float32 and
-    bf16, its h bit for bit against kernel B's; timed beside kernel B, the
-    plain version and a training-mode cuDNN ``nn.LSTM`` forward;
+    bf16, its h bit for bit against kernel B's, with its cluster launch;
+    timed beside kernel B, the plain version and a training-mode cuDNN
+    ``nn.LSTM`` forward;
 11. the BPTT kernel (F) against its plain version at the same shapes, on
     d(xw) and dW_h, and the float32 ``lstm_scan_grad`` against autograd
     through the plain recurrence; timed beside the plain version and cuDNN
@@ -214,11 +223,18 @@ def kernel_counters():
 def reset_launches():
     for wrapper in kernel_counters().values():
         wrapper.launches = 0
+    kernel_counters()['stft_power'].fft_launches = 0
 
 
 def read_launches():
-    return {name: wrapper.launches
-            for name, wrapper in kernel_counters().items()}
+    """Launch counts by kernel, and ``stft_power_fft``: kernel A's launches
+    on its FFT route."""
+
+    counters = kernel_counters()
+    launches = {name: wrapper.launches for name, wrapper in counters.items()}
+    launches['stft_power_fft'] = counters['stft_power'].fft_launches
+
+    return launches
 
 
 def check_stft(audio):
@@ -228,15 +244,32 @@ def check_stft(audio):
 
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.features import MelSpec
-    from amt_tools_tpu_torch.ops.stft_kernel import stft_power, stft_power_plain
+    from amt_tools_tpu_torch.ops import spectral
+    from amt_tools_tpu_torch.ops.stft_kernel import (fft_geometry,
+                                                     fft_tile_frames,
+                                                     fft_twiddles, stft_power,
+                                                     stft_power_plain,
+                                                     stft_route)
 
     mel = MelSpec(n_mels=N_MELS)
     bank = mel._bank(audio.device)
+    route = stft_route(N_FFT, HOP, bank.shape[1] // 2)
+    tile = fft_tile_frames(N_FFT, HOP)
+    smem = fft_geometry(N_FFT, HOP, tile)['bytes']
+    design = (f'{route} route: radix-4 FFT of n_fft/2 complex points in '
+              f'shared memory, {tile} frames a block of 512 threads, '
+              f'{smem} bytes of shared memory')
+    log(f'stft_power at n_fft {N_FFT}, hop {HOP}: {design}')
+    require(route == 'fft', 'the serving STFT shape does not take the FFT '
+                            'route')
 
     with tools.exact_fp32():
+        fft = stft_power.fft_launches
         got = stft_power(audio, bank, N_FFT, HOP)
         ref = stft_power_plain(audio, bank, N_FFT, HOP)
         torch.cuda.synchronize()
+        require(stft_power.fft_launches == fft + 1,
+                'kernel A did not run its FFT route')
 
         peak = ref.amax(dim=(1, 2), keepdim=True)
         abs_err = (got - ref).abs().max().item()
@@ -245,7 +278,18 @@ def check_stft(audio):
         fb = mel._filterbank(audio.device)
         feat_err = (mel.post_proc(torch.matmul(fb, got)) -
                     mel.post_proc(torch.matmul(fb, ref))).abs().max().item()
-        del ref
+
+        # Both against a float64 FFT (cuFFT) of the same windowed frames,
+        # on the first 4 clips: which of the two float32 sums is nearer
+        few = audio[:4].double()
+        frames_64 = (spectral.frame_signal(few, N_FFT, HOP) *
+                     bank[:, 0].double())
+        truth = torch.fft.rfft(frames_64, dim=-1).abs().pow(2).transpose(-1,
+                                                                         -2)
+        peak_64 = truth.amax(dim=(1, 2), keepdim=True)
+        kernel_64 = ((got[:4].double() - truth).abs() / peak_64).max().item()
+        plain_64 = ((ref[:4].double() - truth).abs() / peak_64).max().item()
+        del ref, few, frames_64, truth
 
         window = torch.hann_window(N_FFT, periodic=True, device=audio.device)
 
@@ -264,23 +308,30 @@ def check_stft(audio):
     log(f'stft_power: max |kernel - plain| = {abs_err:.6g} '
         f'({rel_err:.3g} of the clip peak, tolerance {STFT_POWER_TOL}); '
         f'mel features {feat_err:.3g} (tolerance {MEL_FEATURE_TOL}); '
-        f'torch.stft vs kernel {lib_err:.3g} of the clip peak')
+        f'torch.stft vs kernel {lib_err:.3g} of the clip peak; against a '
+        f'float64 FFT of 4 clips: kernel {kernel_64:.3g}, plain '
+        f'{plain_64:.3g} of the clip peak')
     require(rel_err <= STFT_POWER_TOL, 'stft_power disagrees with its plain version')
     require(feat_err <= MEL_FEATURE_TOL, 'stft_power mel features disagree')
 
     batch, num_samples = audio.shape
     frames, n_bins = got.shape[-1], got.shape[1]
-    num_bytes = 4 * (audio.numel() + bank.numel() + got.numel())
+    # The FFT route reads the audio, the window (the bank's bin-0 column)
+    # and the twiddle table, and writes the power
+    table_bytes = fft_twiddles(N_FFT).nbytes
+    num_bytes = 4 * (audio.numel() + N_FFT + got.numel()) + table_bytes
     # The least work that gives STFT power is a real FFT of each windowed
     # frame (about 2.5 n log2 n operations), then re^2 + im^2
     fft_flops = batch * frames * (2.5 * N_FFT * np.log2(N_FFT) + N_FFT +
                                   3.0 * n_bins)
     bound, bound_by = bound_ms(num_bytes, fft_flops, PEAK_FP32_FLOPS)
-    # What a DFT-matmul design (this kernel's) cannot beat
+    # What the DFT route (an implicit GEMM) cannot beat at this shape
     dft_flops = 2.0 * batch * frames * N_FFT * 2 * n_bins
     log(f'stft_power: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'torch.stft {library_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}, '
-        f'FFT work) at ({batch}, {num_samples}) -> {tuple(got.shape)}; '
+        f'torch.stft {library_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}: '
+        f'{num_bytes / 1e9:.4f} GB of audio, window, {table_bytes} bytes of '
+        f'twiddles and power on the {route} route; FFT work) at '
+        f'({batch}, {num_samples}) -> {tuple(got.shape)}; '
         f'a DFT-matmul does {dft_flops / 1e12:.3f} TFLOP: at least '
         f'{dft_flops / PEAK_FP32_FLOPS * 1e3:.3f} ms in float32, '
         f'{3 * dft_flops / PEAK_BF16_FLOPS * 1e3:.3f} ms as 3 bf16 passes')
@@ -290,7 +341,9 @@ def check_stft(audio):
             'replaces': 'amt_tools_tpu/ops/pallas_stft.py:119',
             'max_abs_err': abs_err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms, 'design': design,
+            'geometry': {'path': route, 'tile_frames': tile,
+                         'smem_bytes': smem}}
 
 
 def lstm_bf16_fault(xw, w_h, fault):
@@ -322,6 +375,27 @@ def lstm_bf16_fault(xw, w_h, fault):
         out[:, t] = h.bfloat16()
 
     return out
+
+
+def lstm_design(batch, hidden, dtype, residuals=False):
+    """The cluster launch of kernels B and E for a batch, as a line of text
+    and a dict for the ``kernels`` line."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.lstm_kernel import scan_launch_plan
+
+    plan = scan_launch_plan(batch, hidden, dtype, torch.device('cuda'),
+                            residuals)
+    text = (f'{plan["clusters"]} clusters of 8 CTAs ({plan["ctas"]} CTAs), '
+            f'{plan["rows"]} rows a cluster, the card holds '
+            f'{plan["active_clusters"]} clusters at once '
+            f'(cudaOccupancyMaxActiveClusters), {plan["waves"]} wave(s), '
+            f'W_h slice {"resident in" if plan["resident"] else "streamed through"}'
+            f' shared memory, {plan["smem_bytes"]} bytes of shared memory a '
+            f'CTA')
+
+    return plan, text
 
 
 def check_lstm_tolerance(xw, w_h, ref):
@@ -410,6 +484,10 @@ def check_lstm(frames):
             if dtype == torch.bfloat16:
                 check_lstm_tolerance(xw, wh, ref=lstm_scan_plain(xw, wh))
 
+            plan, design = lstm_design(BATCH, HIDDEN, dtype)
+            log(f'lstm_scan {name} at B={BATCH}, H={HIDDEN}: {design}')
+            require(plan['resident'] and plan['waves'] == 1,
+                    'the serving LSTM is not one wave with W_h on chip')
             ms = time_ms(lambda: lstm_scan(xw, wh), reps=5)
             plain_ms = time_ms(lambda: lstm_scan_plain(xw, wh), reps=1)
             library_ms, backend = torch_lstm(dtype)
@@ -422,6 +500,7 @@ def check_lstm(frames):
                 half_ms, half_backend = torch_lstm(torch.float16)
                 log(f'torch.nn.LSTM float16 ran on {half_backend}: '
                     f'{half_ms:.3f} ms (with its input projection)')
+                step_anatomy(xw, wh, ms, frames)
 
             size = torch.finfo(dtype).bits // 8
             num_bytes = size * (xw.numel() + wh.numel() +
@@ -440,10 +519,33 @@ def check_lstm(frames):
                             'replaces': 'amt_tools_tpu/ops/pallas_lstm.py:60',
                             'max_abs_err': err, 'ms': ms,
                             'plain_ms': plain_ms, 'bound_ms': bound,
-                            'bound_by': bound_by, 'library_ms': library_ms}
+                            'bound_by': bound_by, 'library_ms': library_ms,
+                            'design': f'thread-block clusters: {design}',
+                            'geometry': plan}
 
     # The serving path runs the recurrence in bf16
     return result['bfloat16']
+
+
+def step_anatomy(xw, w_h, ms, frames):
+    """Kernel B's time a dependent step at the serving shape, beside two
+    launches that keep the cluster barrier and shrink the rest: one row a
+    cluster (B = 16: the same mma chain, the rows being the n = 8 side,
+    but one row's xw copies and h exchange) and H = 64 (a quarter of each
+    warp's mma chain, of the xw copies and of the exchange)."""
+
+    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan
+
+    rows_one = xw[:16].contiguous()
+    narrow = xw[..., :256].contiguous()
+    narrow_w = w_h[:64, :256].contiguous()
+    one_ms = time_ms(lambda: lstm_scan(rows_one, w_h), reps=5)
+    narrow_ms = time_ms(lambda: lstm_scan(narrow, narrow_w), reps=5)
+    _, one = lstm_design(16, HIDDEN, xw.dtype)
+    _, small = lstm_design(BATCH, 64, xw.dtype)
+    log(f'lstm_scan bf16 a step: {1e3 * ms / frames:.3f} us at B={BATCH}, '
+        f'H={HIDDEN}; {1e3 * one_ms / frames:.3f} us at B=16 ({one}); '
+        f'{1e3 * narrow_ms / frames:.3f} us at H=64 ({small})')
 
 
 def lstm_inputs(batch, frames, dtype, seed):
@@ -535,6 +637,10 @@ def check_lstm_residuals():
                         f'lstm_scan_residuals {name} {key} disagree with '
                         f'the plain version')
 
+            plan, design = lstm_design(TRAIN_BATCH, HIDDEN, dtype,
+                                       residuals=True)
+            log(f'lstm_scan_residuals {name} at B={TRAIN_BATCH}, '
+                f'H={HIDDEN}: {design}')
             ms = time_ms(lambda: lstm_scan_residuals(xw, wh), reps=5)
             serving_ms = time_ms(lambda: lstm_scan(xw, wh), reps=5)
             plain_ms = time_ms(lambda: lstm_scan_residuals_plain(xw, wh),
@@ -559,7 +665,10 @@ def check_lstm_residuals():
                             'replaces': 'amt_tools_tpu/ops/pallas_lstm.py:192',
                             'max_abs_err': worst['out'][0], 'ms': ms,
                             'plain_ms': plain_ms, 'bound_ms': bound,
-                            'bound_by': bound_by, 'library_ms': library_ms}
+                            'bound_by': bound_by, 'library_ms': library_ms,
+                            'design': 'kernel B\'s cluster body with '
+                                      f'kResiduals: {design}',
+                            'geometry': plan}
 
     # The recipe trains in float32
     return result['float32']
@@ -702,6 +811,8 @@ def serve(clips, profile, card):
 
     require(launches['stft_power'] >= REQUESTS,
             'the STFT kernel did not run once per dispatch')
+    require(launches['stft_power_fft'] == launches['stft_power'],
+            'the STFT kernel left its FFT route on the serving path')
     require(launches['lstm_scan'] >= 6 * REQUESTS,
             'the LSTM kernel did not run six times per dispatch')
     require(len(notes) == REQUESTS * BATCH and min(notes) > 0,
@@ -718,7 +829,7 @@ def serve(clips, profile, card):
 
     return launches, (f'piano batch of {BATCH} clips',
                       lambda: pipeline(requests[0]),
-                      ('stft_power_kernel', 'lstm_scan_kernel'))
+                      ('stft_power_fft_kernel', 'lstm_scan_kernel'))
 
 
 def serve_requests(pipeline, requests):
@@ -800,7 +911,10 @@ def profile_batches(batches):
             f'{kernel_ms:.1f} ms of kernel time, the device busy '
             f'{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / walls[label]:.1f}'
             f'% of the wall time)')
-        for ms, count, name in rows[:15]:
+        # The 15 largest, and the path's own kernels wherever they rank
+        shown = rows[:15] + [row for row in rows[15:]
+                             if any(kernel in row[2] for kernel in kernels)]
+        for ms, count, name in shown:
             log(f'  {ms:9.3f} ms {100 * ms / kernel_ms:5.1f}% x{count:<4d} '
                 f'{name[:200]}')
         for kernel in kernels:

@@ -7,8 +7,8 @@ only PyTorch and the CUDA toolkit, without the repository's JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances:
-- STFT power: 1e-5 of each clip's peak power (both float32, sums in
-  another order);
+- STFT power: 1e-5 of each clip's peak power on both routes (both float32,
+  an FFT or a DFT sum against the plain matmul's order);
 - CQT magnitudes (kernels C and D): 1e-5 of each clip's peak magnitude
   against the plain versions, in every ``exact`` mode (float32 sums in
   another order; ``exact=False`` rounds the same operands to bf16 on both
@@ -41,7 +41,7 @@ import torch
 from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
-from amt_tools_tpu_torch.ops import decode, spectral
+from amt_tools_tpu_torch.ops import cuda_build, decode, lstm_kernel, spectral
 from amt_tools_tpu_torch.ops.cqt_kernel import (cqt_mag, cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
                                                 cqt_mag_plain)
@@ -50,8 +50,12 @@ from amt_tools_tpu_torch.ops.lstm_kernel import (_shift_prev, lstm_bptt,
                                                  lstm_scan, lstm_scan_grad,
                                                  lstm_scan_plain,
                                                  lstm_scan_residuals,
-                                                 lstm_scan_residuals_plain)
-from amt_tools_tpu_torch.ops.stft_kernel import stft_power, stft_power_plain
+                                                 lstm_scan_residuals_plain,
+                                                 scan_geometry,
+                                                 scan_launch_plan,
+                                                 scan_max_rows, scan_resident)
+from amt_tools_tpu_torch.ops.stft_kernel import (stft_power, stft_power_plain,
+                                                 stft_route)
 from amt_tools_tpu_torch.serving import (TablaturePipeline,
                                          TranscriptionPipeline,
                                          calibrate_tablature_activity)
@@ -76,21 +80,44 @@ def _audio(batch, num_samples, seed=0):
     return audio + 1e-3 * torch.randn(batch, num_samples, generator=g)
 
 
-@pytest.mark.parametrize('n_fft,hop,center,num_samples',
-                         [(2048, 512, True, 48000),
-                          (512, 160, True, 12345),
-                          (400, 128, False, 9000)])
-def test_stft_kernel_matches_plain(cuda, n_fft, hop, center, num_samples):
+@pytest.mark.parametrize('n_fft,hop,center,num_samples,route', [
+    (2048, 512, True, 48000, 'fft'), (2048, 512, False, 48001, 'fft'),
+    (512, 160, True, 12345, 'fft'), (512, 128, False, 9001, 'fft'),
+    (256, 64, True, 7777, 'fft'), (256, 100, False, 9000, 'fft'),
+    (400, 128, False, 9000, 'dft'), (400, 160, True, 12345, 'dft')])
+def test_stft_kernel_matches_plain(cuda, n_fft, hop, center, num_samples,
+                                   route):
+    """Both routes, centred and not, at frame counts that leave the last
+    tile ragged; the route counter shows which one ran."""
+
     audio = _audio(3, num_samples).to(cuda)
     bank = torch.from_numpy(spectral.dft_bank(n_fft)).to(cuda)
+    assert stft_route(n_fft, hop, n_fft // 2 + 1) == route
 
-    launches = stft_power.launches
+    launches, fft = stft_power.launches, stft_power.fft_launches
     got = stft_power(audio, bank, n_fft, hop, center=center)
     torch.cuda.synchronize()
     assert stft_power.launches == launches + 1
+    assert stft_power.fft_launches == fft + (route == 'fft')
 
     ref = stft_power_plain(audio, bank, n_fft, hop, center=center)
     assert got.shape == ref.shape
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    assert ((got - ref).abs() / peak).max().item() <= 1e-5
+
+
+def test_stft_fft_route_takes_the_window_from_the_bank(cuda):
+    """win_length < n_fft: the bank's bin-0 column is the centre-padded
+    window, which the FFT route reads."""
+
+    window = spectral.hann_window(300)
+    bank = torch.from_numpy(spectral.dft_bank(512, 300, window)).to(cuda)
+    audio = _audio(2, 8000, seed=6).to(cuda)
+
+    fft = stft_power.fft_launches
+    got = stft_power(audio, bank, 512, 128)
+    assert stft_power.fft_launches == fft + 1
+    ref = stft_power_plain(audio, bank, 512, 128)
     peak = ref.amax(dim=(1, 2), keepdim=True)
     assert ((got - ref).abs() / peak).max().item() <= 1e-5
 
@@ -118,8 +145,64 @@ def test_lstm_kernel_matches_plain(cuda, dtype, atol, mean_atol, reverse):
     assert diff.mean().item() <= mean_atol
 
 
-# (batch, frames, hidden): small and ragged (B not a multiple of the
-# kernels' 4 rows, T of the Pallas kernels' 16), and the training shape
+# The cluster kernels at batches below, at and above one cluster of 8 rows
+# and one wave (130 rows), ragged and long T, H resident (16, 48, 64, 256)
+# and streamed (512, 1024) in both dtypes; at H = 16 and 48 a CTA owns
+# fewer units than a warp's 8, so padded unit columns run
+CLUSTER_SHAPES = [(batch, frames, hidden) for batch in (1, 3, 8, 130)
+                  for frames in (37, 300)
+                  for hidden in (16, 48, 64, 256, 512, 1024)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', CLUSTER_SHAPES)
+def test_cluster_lstm_matches_plain_and_e_equals_b(cuda, dtype, reverse,
+                                                   shape):
+    batch, frames, hidden = shape
+    g = torch.Generator().manual_seed(batch * 7 + hidden)
+    xw = torch.randn(batch, frames, 4 * hidden, generator=g) * 0.5
+    w_h = torch.nn.init.orthogonal_(torch.empty(hidden, 4 * hidden),
+                                    generator=g)
+    xw, w_h = xw.to(cuda, dtype), w_h.to(cuda, dtype)
+    assert scan_launch_plan(batch, hidden, dtype, cuda)['resident'] == (
+        hidden <= 256)
+
+    got = lstm_scan(xw, w_h, reverse=reverse)
+    ref = lstm_scan_plain(xw, w_h, reverse=reverse)
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    diff = (got.float() - ref.float()).abs()
+    assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+
+    assert torch.equal(lstm_scan_residuals(xw, w_h, reverse)[0], got)
+
+
+def test_lstm_geometry_matches_the_kernel(cuda):
+    """The shared-memory layout of kernels B and E is computed twice: in
+    the kernel, and by the wrapper to size the launch and plan the
+    clusters. The two agree."""
+
+    lib = cuda_build.library('lstm_scan', lstm_kernel._SCAN_SIGNATURES)
+    for hidden in (16, 48, 64, 256, 384, 512, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            resident = scan_resident(hidden, dtype)
+            for rows in (1, 8, scan_max_rows(hidden, dtype, resident)):
+                assert lib.lstm_scan_smem(
+                    hidden, int(dtype == torch.bfloat16), rows,
+                    int(resident)) == scan_geometry(hidden, dtype, rows,
+                                                    resident)['bytes']
+
+
+def test_lstm_serving_batch_runs_in_one_wave(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = scan_launch_plan(128, 256, dtype, cuda)
+        assert plan['resident'] and plan['waves'] == 1
+        assert plan['clusters'] <= plan['active_clusters']
+
+
+# (batch, frames, hidden): small and ragged (B not a multiple of 8 rows, T
+# not of the Pallas kernels' 16), and the training shape
 TRAIN_SHAPES = [(3, 37, 64), (8, 625, 256)]
 RESIDUAL_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-4)}
 BPTT_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (5e-4, 1e-4)}
@@ -365,6 +448,9 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
     with pytest.raises(ValueError):
         lstm_scan_residuals(torch.zeros(1, 4, 4 * 2048, device=cuda),
                             torch.zeros(2048, 4 * 2048, device=cuda))
+    with pytest.raises(ValueError):  # H = 24: not whole bf16 pairs a CTA
+        lstm_scan(torch.zeros(1, 4, 4 * 24, device=cuda),
+                  torch.zeros(24, 4 * 24, device=cuda))
     with pytest.raises(TypeError):
         lstm_bptt(torch.zeros(1, 4, 8, device=cuda),
                   torch.zeros(1, 4, 2, device=cuda),

@@ -25,7 +25,11 @@ from amt_tools_tpu.ops.lstm import _lstm_scan
 from amt_tools_tpu.ops.pallas_lstm import lstm_scan_pallas
 
 from amt_tools_tpu_torch.ops.lstm import FastBiLSTM
-from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+from amt_tools_tpu_torch.ops.lstm_kernel import (CLUSTER, MAX_ROWS,
+                                                 MAX_SHARED_BYTES, cluster_plan,
+                                                 lstm_scan, lstm_scan_plain,
+                                                 scan_geometry, scan_max_rows,
+                                                 scan_resident)
 from amt_tools_tpu_torch.weights import from_flax
 
 # The suite runs in several worker processes that share the cores
@@ -186,3 +190,96 @@ def test_wrapper_rejects_bad_inputs():
         lstm_scan(xw.bfloat16(), w_h)
     with pytest.raises(ValueError):
         lstm_scan(xw.transpose(0, 1), w_h)
+
+
+# The cluster geometry of kernels B and E (csrc/lstm_scan.cu): what the
+# wrapper computes before a launch, from the card's count of clusters it
+# holds at once (cudaOccupancyMaxActiveClusters), here given by hand.
+
+@pytest.mark.parametrize('batch,dtype,active,rows,clusters', [
+    (128, torch.bfloat16, 16, 8, 16),   # the serving batch, one wave
+    (128, torch.float32, 16, 8, 16),
+    (128, torch.bfloat16, 15, 9, 15),   # a card that holds 15 clusters of 8
+    (8, torch.float32, 16, 1, 8),       # the training batch
+    (8, torch.bfloat16, 16, 1, 8),
+    (130, torch.bfloat16, 16, 9, 15),   # more rows than one wave at 8
+    (1, torch.float32, 16, 1, 1),
+    (3, torch.bfloat16, 2, 2, 2)])
+def test_cluster_rows_from_batch_and_active_clusters(batch, dtype, active,
+                                                     rows, clusters):
+    plan = cluster_plan(batch, 256, dtype, active)
+
+    assert (plan['rows'], plan['clusters']) == (rows, clusters)
+    assert plan['ctas'] == CLUSTER * clusters
+    assert plan['waves'] == 1 and plan['resident']
+
+
+@pytest.mark.parametrize('hidden', [16, 256, 512, 1024])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cluster_plan_covers_the_batch(hidden, dtype):
+    for batch in (1, 7, 8, 100, 128, 130, 300):
+        for active in (1, 14, 16):
+            plan = cluster_plan(batch, hidden, dtype, active)
+            rows, clusters = plan['rows'], plan['clusters']
+
+            assert 1 <= rows <= plan['max_rows'] <= MAX_ROWS
+            # every row has a cluster, no cluster is empty
+            assert rows * clusters >= batch > rows * (clusters - 1)
+            # one wave whenever the buffers allow it
+            if batch <= active * plan['max_rows']:
+                assert plan['waves'] == 1 and clusters <= active
+            assert plan['smem_bytes'] <= MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize('hidden,dtype,resident', [
+    (64, torch.float32, True), (256, torch.float32, True),
+    (320, torch.float32, False), (512, torch.float32, False),
+    (1024, torch.float32, False), (64, torch.bfloat16, True),
+    (256, torch.bfloat16, True), (384, torch.bfloat16, True),
+    (512, torch.bfloat16, False), (1024, torch.bfloat16, False)])
+def test_w_slice_resident_or_streamed(hidden, dtype, resident):
+    assert scan_resident(hidden, dtype) == resident
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_shared_memory_fits_for_every_supported_hidden(dtype):
+    for hidden in range(16, 1025, 16):
+        _check_fits(hidden, dtype)
+
+
+def _check_fits(hidden, dtype):
+    resident = scan_resident(hidden, dtype)
+    max_rows = scan_max_rows(hidden, dtype, resident)
+    size = torch.finfo(dtype).bits // 8
+
+    assert max_rows >= 8
+    for rows in range(1, max_rows + 1):
+        geo = scan_geometry(hidden, dtype, rows, resident)
+        assert geo['bytes'] <= MAX_SHARED_BYTES
+        assert all(part % 16 == 0 for part in geo['parts'].values())
+    geo = scan_geometry(hidden, dtype, max_rows, resident)
+    assert geo['threads'] <= 512 and geo['threads'] % 32 == 0
+    assert geo['units'] * CLUSTER == hidden
+    # the slice on chip: all of H x 4H/8 when resident, two chunks of rows
+    # that tile H in whole mma k-steps when streamed
+    slice_bytes = hidden * 4 * geo['units'] * size
+    if resident:
+        assert geo['parts']['w'] >= slice_bytes
+    else:
+        assert geo['parts']['w'] < slice_bytes and geo['chunk'] % 16 == 0
+
+
+def test_serving_and_training_shapes():
+    """H = 256: the W_h slice is 64 KiB in bf16 and 128 KiB in float32,
+    resident beside 8 rows' buffers."""
+
+    for dtype, slice_kib in ((torch.bfloat16, 64), (torch.float32, 128)):
+        geo = scan_geometry(256, dtype, 8, True)
+        size = torch.finfo(dtype).bits // 8
+        assert 256 * 128 * size == slice_kib * 1024
+        assert geo['parts']['w'] == 256 * (128 * size + 16)
+    # bf16: 4 warps of mma; float32: k split over 4 groups of 4 warps
+    assert scan_geometry(256, torch.bfloat16, 8, True)['threads'] == 128
+    assert scan_geometry(256, torch.float32, 8, True)['threads'] == 512
+    assert scan_geometry(256, torch.float32, 8, True)['slices'] == 4
+    assert scan_geometry(512, torch.float32, 8, False)['slices'] == 1
