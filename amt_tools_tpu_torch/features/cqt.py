@@ -27,14 +27,20 @@ _SUPPORT_TILE = 2048
 class VQT(FeatureModule):
     """Variable-Q transform magnitude features -> (1, n_bins, T).
 
-    ``exact``: ``True`` and ``'high'`` contract in IEEE float32 (the JAX
-    package's 6-pass f32 and bf16x3 modes; the port's kernels give both the
-    float32 result), ``False`` as one bf16 pass. ``grouped``: ``True``
-    always splits the bank into ``group_size``-bin groups when there are at
-    least two groups' worth of bins, ``'auto'`` only when the split drops
-    support tiles. The JAX class's ``frame_chunk`` and ``use_pallas`` have
-    no counterpart: CUDA audio always takes the kernels, and the CPU path
-    frames 256 frames at a time.
+    ``exact`` selects the kernels' contraction on CUDA audio, as it selects
+    the Pallas kernel's passes on the TPU: ``True`` IEEE float32 FMAs (the
+    TPU's 6-pass HIGHEST), ``'high'`` three bf16 tensor-core passes of a
+    hi/lo split (``hi*hi + hi*lo + lo*hi``, float32 accumulation: the TPU's
+    bf16x3, within 2e-4 of each clip's peak magnitude of float32; the dB
+    scale magnifies that in the quietest bins above its -80 dB floor),
+    ``False`` one bf16 pass (``hi*hi``). CPU audio contracts in IEEE
+    float32 in every mode, as the JAX class's XLA route does on its CPU.
+    ``grouped``: ``True`` always splits the bank into ``group_size``-bin
+    groups when there are at least two groups' worth of bins, ``'auto'``
+    only when the split drops support tiles. The JAX class's
+    ``frame_chunk`` and ``use_pallas`` have no counterpart: CUDA audio
+    always takes the kernels, and the CPU path frames 256 frames at a
+    time.
     """
 
     def __init__(self, sample_rate=22050, hop_length=512, decibels=True,
@@ -111,13 +117,16 @@ class VQT(FeatureModule):
         flat = audio.reshape((-1, audio.shape[-1])).contiguous()
         bank = self._bank(audio.device)
 
+        # The CPU contracts in IEEE float32 whatever ``exact`` says, as the
+        # JAX class's XLA route does: ``exact`` selects the kernel's passes
+        exact = self.exact if flat.device.type == 'cuda' else True
         if self._groups is not None:
             mag = cqt_mag_grouped(flat, bank, self._group_supports,
                                   self._group_bins, self.hop_length,
-                                  exact=self.exact)
+                                  exact=exact)
         else:
             mag = cqt_mag(flat, bank, self._support, self.hop_length,
-                          exact=self.exact)
+                          exact=exact)
 
         return self.post_proc(mag.reshape(lead + mag.shape[1:]))
 

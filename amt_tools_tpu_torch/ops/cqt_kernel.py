@@ -12,10 +12,23 @@ Port of the fused Pallas kernels ``amt_tools_tpu/ops/pallas_cqt.py``:
   into its rows of the (B, n_bins, T) output.
 
 Both launch ``csrc/cqt_mag.cu`` for CUDA tensors and run their plain
-version for CPU tensors. ``exact`` follows the JAX package: ``True`` and
-``'high'`` contract in IEEE float32 (at least as accurate as the TPU's
-bf16x3 'high' split), ``False`` rounds both operands to bf16 and sums in
-float32, what one bf16 matrix-unit pass computes. Nothing here takes TF32.
+version for CPU tensors. ``exact`` selects the contraction, as it selects
+the Pallas kernel's passes (``pallas_cqt.py:88-113``), and the kernel's
+route (:func:`cqt_route`):
+
+- ``True`` (``'ffma'``): IEEE float32 FMAs, the TPU's 6-pass HIGHEST;
+- ``'high'`` (``'bf16x3'``): each float32 patch and bank value splits into
+  ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest even), and
+  ``hi*hi + hi*lo + lo*hi`` accumulates in float32 on the tensor cores: the
+  TPU's bf16x3;
+- ``False`` (``'bf16'``): the same body with one pass, ``hi*hi``.
+
+The plain versions compute the same function: the split widens hi and lo
+to float32 and takes one IEEE float32 framed matmul a pass. The product of
+two bf16 values is exact in float32, so only the order of the sums differs
+from the kernel. Nothing here takes TF32. Each wrapper counts its launches
+(``launches``) and its launches by route (``ffma_launches``,
+``bf16x3_launches``, ``bf16_launches``).
 """
 
 import ctypes
@@ -25,14 +38,22 @@ import torch
 from . import cuda_build, spectral
 
 __all__ = ['cqt_mag', 'cqt_mag_plain', 'cqt_mag_grouped',
-           'cqt_mag_grouped_plain']
+           'cqt_mag_grouped_plain', 'cqt_route', 'split_bf16', 'ROUTES',
+           'CHUNK_TAPS']
 
 # The kernel's group table holds at most this many groups
 MAX_GROUPS = 32
 
+# Taps a chunk of the tensor-core route (csrc/cqt_mag.cu kTcChunk): what
+# lands in shared memory and is split at once
+CHUNK_TAPS = 32
+
 # Frames a plain-version matmul takes at once: at 64 clips of 60 s and a
 # 24,576-sample support the whole frame matrix would be about 16 GB
 FRAME_CHUNK = 256
+
+# exact -> the kernel's route and its bf16 passes (0: IEEE float32 FMAs)
+ROUTES = {'ffma': 0, 'bf16x3': 3, 'bf16': 1}
 
 _SIGNATURES = {
     'cqt_mag_f32': [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -49,10 +70,36 @@ _SIGNATURES = {
 }
 
 
-def _round_bf16(exact):
-    """Whether ``exact`` asks for one bf16 pass (operands rounded)."""
+def cqt_route(exact):
+    """The kernel route of an ``exact`` mode, read as the Pallas kernel
+    reads it: ``'bf16x3'`` for 'high', else ``'ffma'`` when true and
+    ``'bf16'`` when false."""
 
-    return exact != 'high' and not exact
+    if exact == 'high':
+        return 'bf16x3'
+    return 'ffma' if exact else 'bf16'
+
+
+def split_bf16(x):
+    """float32 -> (hi, lo) bf16 with ``hi = bf16(x)``, ``lo = bf16(x - hi)``,
+    both rounded to nearest even (``pallas_cqt.py:97-105``)."""
+
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _contract(chunk, bank, passes):
+    """Framed contraction of one chunk of frames in the route's passes."""
+
+    if not passes:
+        return torch.matmul(chunk, bank)
+    c_hi, c_lo = (part.float() for part in split_bf16(chunk))
+    b_hi, b_lo = (part.float() for part in split_bf16(bank))
+    acc = torch.matmul(c_hi, b_hi)
+    if passes == 3:
+        acc = acc + torch.matmul(c_hi, b_lo)
+        acc = acc + torch.matmul(c_lo, b_hi)
+    return acc
 
 
 def cqt_mag_plain(audio, bank, support, hop_length, exact=True):
@@ -61,24 +108,20 @@ def cqt_mag_plain(audio, bank, support, hop_length, exact=True):
     Frames the audio at the bank's support (centred) and contracts
     :data:`FRAME_CHUNK` frames at a time, so at most a (B, chunk, support)
     frame block is materialized (the JAX package's ``spectral.cqt_mag``).
-    ``exact=False`` rounds both operands to bf16 first and still sums in
-    float32.
+    ``exact='high'`` splits both operands into bf16 hi and lo and sums
+    ``hi*hi + hi*lo + lo*hi`` in float32, ``exact=False`` takes ``hi*hi``.
     """
 
     n_bins = bank.shape[-1] // 2
-    round_bf16 = _round_bf16(exact)
-    if round_bf16:
-        bank = bank.to(torch.bfloat16).float()
+    passes = ROUTES[cqt_route(exact)]
 
     frames = spectral.frame_signal(audio, support, hop_length, center=True)
     num_frames = frames.shape[-2]
 
     out = audio.new_empty(frames.shape[:-2] + (n_bins, num_frames))
     for start in range(0, num_frames, FRAME_CHUNK):
-        chunk = frames[..., start: start + FRAME_CHUNK, :]
-        if round_bf16:
-            chunk = chunk.to(torch.bfloat16).float()
-        resp = torch.matmul(chunk, bank)
+        resp = _contract(frames[..., start: start + FRAME_CHUNK, :], bank,
+                         passes)
         re, im = resp[..., :n_bins], resp[..., n_bins:]
         out[..., start: start + FRAME_CHUNK] = torch.sqrt(
             re * re + im * im).transpose(-1, -2)
@@ -122,28 +165,31 @@ def _check_inputs(audio, bank, rows, name):
                          f'{audio.device}')
 
 
-def _launch(function, audio, bank, num_bins, hop_length, *args):
-    """Allocate the (B, num_bins, T) output and launch ``function`` on it.
-
-    Returns the output and whether a kernel was launched (not for B = 0).
-    """
+def _launch(wrapper, function, exact, audio, bank, num_bins, hop_length,
+            *args):
+    """Allocate the (B, num_bins, T) output, launch ``function`` on it in
+    the route of ``exact`` and count the launch on ``wrapper``."""
 
     batch, num_samples = audio.shape
     frames = 1 + num_samples // hop_length
     out = torch.empty((batch, num_bins, frames), dtype=torch.float32,
                       device=audio.device)
     if batch == 0:
-        return out, False
+        return out
 
+    route = cqt_route(exact)
     lib = cuda_build.library('cqt_mag', _SIGNATURES)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, function)(audio.data_ptr(), bank.data_ptr(),
                                         out.data_ptr(), batch, num_samples,
-                                        *args, stream)
+                                        *args, ROUTES[route], stream)
     cuda_build.check(status, function)
+    wrapper.launches += 1
+    setattr(wrapper, f'{route}_launches',
+            getattr(wrapper, f'{route}_launches') + 1)
 
-    return out, True
+    return out
 
 
 def cqt_mag(audio, bank, support, hop_length, exact=True):
@@ -151,8 +197,8 @@ def cqt_mag(audio, bank, support, hop_length, exact=True):
 
     ``bank`` is ``spectral.wavelet_bank(...)[0]``, (support, 2 * n_bins),
     as a float32 tensor on the audio's device. CUDA tensors go through
-    kernel C (or raise); CPU tensors through :func:`cqt_mag_plain`. Any hop
-    works.
+    kernel C on the route of ``exact`` (or raise); CPU tensors through
+    :func:`cqt_mag_plain` with the same ``exact``. Any hop works.
     """
 
     _check_inputs(audio, bank, support, 'cqt_mag')
@@ -162,13 +208,8 @@ def cqt_mag(audio, bank, support, hop_length, exact=True):
 
     n_bins = bank.shape[1] // 2
     frames = 1 + audio.shape[1] // hop_length
-    out, launched = _launch('cqt_mag_f32', audio, bank, n_bins, hop_length,
-                            support, hop_length, frames, n_bins,
-                            int(_round_bf16(exact)))
-    if launched:
-        cqt_mag.launches += 1
-
-    return out
+    return _launch(cqt_mag, 'cqt_mag_f32', exact, audio, bank, n_bins,
+                   hop_length, support, hop_length, frames, n_bins)
 
 
 def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
@@ -179,8 +220,8 @@ def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
     (``spectral.wavelet_bank`` on its bins), column-padded to the widest
     group ``gb`` and row-concatenated in group order, as ``CQT`` builds it.
     ``bins_per_group`` gives each group's true bin count. CUDA tensors go
-    through kernel D (or raise); CPU tensors through
-    :func:`cqt_mag_grouped_plain`.
+    through kernel D on the route of ``exact`` (or raise); CPU tensors
+    through :func:`cqt_mag_grouped_plain` with the same ``exact``.
     """
 
     supports = tuple(int(s) for s in supports)
@@ -204,16 +245,13 @@ def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
     groups = len(supports)
     n_bins = sum(bins_per_group)
     frames = 1 + audio.shape[1] // hop_length
-    out, launched = _launch('cqt_mag_grouped_f32', audio, bank_stack, n_bins,
-                            hop_length, hop_length, frames, n_bins, gb,
-                            groups, (ctypes.c_int * groups)(*supports),
-                            (ctypes.c_int * groups)(*bins_per_group),
-                            int(_round_bf16(exact)))
-    if launched:
-        cqt_mag_grouped.launches += 1
-
-    return out
+    return _launch(cqt_mag_grouped, 'cqt_mag_grouped_f32', exact, audio,
+                   bank_stack, n_bins, hop_length, hop_length, frames, n_bins,
+                   gb, groups, (ctypes.c_int * groups)(*supports),
+                   (ctypes.c_int * groups)(*bins_per_group))
 
 
-cqt_mag.launches = 0
-cqt_mag_grouped.launches = 0
+for _wrapper in (cqt_mag, cqt_mag_grouped):
+    _wrapper.launches = 0
+    for _route in ROUTES:
+        setattr(_wrapper, f'{_route}_launches', 0)

@@ -15,11 +15,13 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 
 B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
 tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
-repeat the kernels' arithmetic. B and E run as thread-block clusters of 8
-CTAs, each CTA holding its H/8 units' slice of W_h on chip; what sets their
-launch (rows a cluster, clusters, a resident or streamed slice, shared
-memory) is computed here, by :func:`scan_geometry` and :func:`cluster_plan`,
-from the card's answer to ``cudaOccupancyMaxActiveClusters``.
+repeat the kernels' arithmetic. All three run as thread-block clusters of 8
+CTAs, each CTA owning H/8 hidden units and holding their slice of W_h (B,
+E: H x 4H/8) or of W_h^T (F: 4H x H/8) on chip; B and E exchange h, F
+exchanges da. What sets a launch (rows a cluster, clusters, a resident or
+streamed slice, shared memory) is computed here, by :func:`scan_geometry`
+or :func:`bptt_geometry` and :func:`cluster_plan`, from the card's answer
+to ``cudaOccupancyMaxActiveClusters``.
 
 Numerics follow the Pallas kernels (``pallas_lstm.py:71-109``, ``:260-288``):
 the carries are float32; with bf16 projections the recurrent product reads
@@ -38,13 +40,14 @@ from . import cuda_build
 __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'lstm_scan_residuals_plain', 'lstm_bptt', 'lstm_bptt_plain',
            'lstm_scan_grad', 'LSTMScanGrad', 'scan_geometry',
-           'scan_resident', 'scan_max_rows', 'cluster_plan',
-           'scan_launch_plan']
+           'scan_resident', 'scan_max_rows', 'bptt_geometry',
+           'bptt_resident', 'bptt_max_rows', 'cluster_plan',
+           'scan_launch_plan', 'bptt_launch_plan']
 
-MAX_HIDDEN = 1024  # B, E: 16 warps a CTA; F: its carries fit 48 KB
-CLUSTER = 8        # B, E: CTAs a cluster, each owning H / 8 hidden units
-MAX_ROWS = 16      # B, E: batch rows a cluster (two mma n-tiles)
-MAX_THREADS = 512  # B, E: threads a CTA
+MAX_HIDDEN = 1024  # 16 warps a CTA
+CLUSTER = 8        # CTAs a cluster, each owning H / 8 hidden units
+MAX_ROWS = 16      # batch rows a cluster (two mma n-tiles)
+MAX_THREADS = 512  # threads a CTA
 MAX_SHARED_BYTES = 232448  # 227 KB, the most a block may use on Hopper
 
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
@@ -56,7 +59,9 @@ _SCAN_SIGNATURES = {
     'lstm_scan_smem': [_INT] * 4,
 }
 _BPTT_SIGNATURES = {
-    'lstm_bptt': [_POINTER] * 5 + [_INT] * 5 + [_POINTER],
+    'lstm_bptt': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
+    'lstm_bptt_max_active_clusters': [_INT] * 4 + [ctypes.POINTER(_INT)],
+    'lstm_bptt_smem': [_INT] * 4,
 }
 
 _active_clusters = {}
@@ -96,34 +101,116 @@ def scan_geometry(hidden, dtype, rows, resident):
             'parts': parts, 'bytes': sum(parts.values())}
 
 
+def bptt_geometry(hidden, dtype, rows, resident):
+    """One CTA of kernel F, as ``csrc/lstm_bptt.cu`` ``bptt_geometry`` lays
+    it out: units owned (padded to an mma tile of 16), the groups of warps
+    the k steps are dealt over, threads, the rows of W_h^T a chunk (all 4H
+    when resident) and the shared-memory bytes of the W_h^T slice
+    (resident, or two streamed chunks), the two da buffers, the two
+    residual buffers, the float32 and exchanged da of the step, the
+    partial sums of dh_carry and the dc carry."""
+
+    size = torch.finfo(dtype).bits // 8
+    four_h = 4 * hidden
+    units = hidden // CLUSTER
+    units_pad = -(-units // 16) * 16
+    chunk = min(four_h, four_h if resident else (128 if size == 2 else 64))
+    slices = 1
+    if size == 2:  # warps: m-tiles of 16 units x slices of whole k steps
+        m_tiles = units_pad // 16
+        while (2 * slices * m_tiles <= MAX_THREADS // 32 and
+               (chunk // 16) % (2 * slices) == 0):
+            slices *= 2
+        threads = 32 * m_tiles * slices
+    else:  # one thread a (unit, slice)
+        while (2 * slices * units_pad <= MAX_THREADS and
+               chunk % (8 * slices) == 0):
+            slices *= 2
+        threads = units_pad * slices
+    row_pad = (8 if rows <= 8 else 16) if size == 2 else rows
+
+    def round16(num_bytes):
+        return -(-num_bytes // 16) * 16
+
+    gates = round16(rows * 4 * units * 4)
+    carry = round16(rows * units * 4)
+    parts = {'w': ((four_h if resident else 2 * chunk) *
+                   (units_pad + 16 // size) * size),
+             'da': 2 * row_pad * (four_h + 16 // size) * size,
+             'residuals': 2 * (gates + 2 * carry +
+                               round16(rows * units * size)),
+             'stage': gates,
+             'exchange_stage': round16(rows * 4 * units * 2) if size == 2
+             else 0,
+             'partial_sums': slices * row_pad * units_pad * 4,
+             'dc': carry}
+
+    return {'units': units, 'slices': slices, 'threads': threads,
+            'chunk': chunk, 'parts': parts, 'bytes': sum(parts.values())}
+
+
+def _fits(geometry, hidden, dtype, rows, resident):
+    return geometry(hidden, dtype, rows, resident)['bytes'] <= MAX_SHARED_BYTES
+
+
 def scan_resident(hidden, dtype):
     """Whether kernels B and E keep the CTA's W_h slice (H x 4H/8) in shared
     memory, which they do where it fits beside 8 rows' buffers: float32 up
     to H = 256, bf16 up to H = 448. Above that they stream it each step."""
 
-    return scan_geometry(hidden, dtype, 8, True)['bytes'] <= MAX_SHARED_BYTES
+    return _fits(scan_geometry, hidden, dtype, 8, True)
 
 
-def scan_max_rows(hidden, dtype, resident):
-    """The most batch rows (up to ``MAX_ROWS``) a cluster's buffers fit."""
+def bptt_resident(hidden, dtype):
+    """Whether kernel F keeps the CTA's W_h^T slice (4H x H/8) in shared
+    memory, which it does where it fits beside 4 rows' buffers (its da
+    buffers hold 4H values a row, four times B's h): float32 up to H = 256,
+    bf16 up to H = 352. Above that it streams the slice each step."""
 
+    return _fits(bptt_geometry, hidden, dtype, 4, True)
+
+
+def _max_rows(geometry, hidden, dtype, resident):
     rows = MAX_ROWS
-    while rows > 1 and scan_geometry(hidden, dtype, rows,
-                                     resident)['bytes'] > MAX_SHARED_BYTES:
+    while rows > 1 and not _fits(geometry, hidden, dtype, rows, resident):
         rows -= 1
 
     return rows
 
 
-def cluster_plan(batch, hidden, dtype, active_clusters):
+def scan_max_rows(hidden, dtype, resident):
+    """The most batch rows (up to ``MAX_ROWS``) a cluster's buffers fit."""
+
+    return _max_rows(scan_geometry, hidden, dtype, resident)
+
+
+def bptt_max_rows(hidden, dtype, resident):
+    """The most batch rows (up to ``MAX_ROWS``) kernel F's buffers fit."""
+
+    return _max_rows(bptt_geometry, hidden, dtype, resident)
+
+
+# kernel -> (its geometry, its residency rule, its library and occupancy
+# query)
+_CLUSTER_KERNELS = {
+    'scan': (scan_geometry, scan_resident, 'lstm_scan',
+             'lstm_scan_max_active_clusters'),
+    'bptt': (bptt_geometry, bptt_resident, 'lstm_bptt',
+             'lstm_bptt_max_active_clusters'),
+}
+
+
+def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan'):
     """Rows a cluster and clusters for a batch, given how many clusters the
     card holds at once: the fewest rows that put every cluster in one wave
     (at B = 128 and 16 active clusters, 8 rows and 16 clusters; at B = 8,
     one row and 8 clusters), within what the buffers fit. ``waves`` is 1
-    unless the batch needs more rows than fit."""
+    unless the batch needs more rows than fit. ``kernel`` is ``'scan'`` (B,
+    E) or ``'bptt'`` (F)."""
 
-    resident = scan_resident(hidden, dtype)
-    max_rows = scan_max_rows(hidden, dtype, resident)
+    geometry, resident_rule = _CLUSTER_KERNELS[kernel][:2]
+    resident = resident_rule(hidden, dtype)
+    max_rows = _max_rows(geometry, hidden, dtype, resident)
     rows = min(max_rows, max(1, -(-batch // active_clusters)))
     clusters = -(-batch // rows)
 
@@ -131,33 +218,47 @@ def cluster_plan(batch, hidden, dtype, active_clusters):
             'resident': resident, 'max_rows': max_rows,
             'active_clusters': active_clusters,
             'waves': -(-clusters // active_clusters),
-            'smem_bytes': scan_geometry(hidden, dtype, rows,
-                                        resident)['bytes']}
+            'smem_bytes': geometry(hidden, dtype, rows, resident)['bytes'],
+            'threads': geometry(hidden, dtype, rows, resident)['threads']}
 
 
-def scan_launch_plan(batch, hidden, dtype, device, residuals=False):
+def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False):
     """:func:`cluster_plan` for a launch on ``device``, with the card's
     answer to ``cudaOccupancyMaxActiveClusters`` at the largest rows the
     buffers fit (cached per device and configuration)."""
 
-    resident = scan_resident(hidden, dtype)
-    max_rows = scan_max_rows(hidden, dtype, resident)
+    geometry, resident_rule, library, query = _CLUSTER_KERNELS[kernel]
+    resident = resident_rule(hidden, dtype)
+    max_rows = _max_rows(geometry, hidden, dtype, resident)
     bf16 = int(dtype == torch.bfloat16)
-    key = (device, hidden, bf16, residuals)
+    key = (kernel, device, hidden, bf16, residuals)
     if key not in _active_clusters:
-        lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
+        signatures = _SCAN_SIGNATURES if kernel == 'scan' else _BPTT_SIGNATURES
+        lib = cuda_build.library(library, signatures)
         count = _INT(0)
+        flags = (int(residuals),) if kernel == 'scan' else ()
         with torch.cuda.device(device):
-            status = lib.lstm_scan_max_active_clusters(
-                hidden, bf16, int(residuals), max_rows, int(resident),
-                ctypes.byref(count))
-        cuda_build.check(status, 'lstm_scan occupancy query')
+            status = getattr(lib, query)(hidden, bf16, *flags, max_rows,
+                                         int(resident), ctypes.byref(count))
+        cuda_build.check(status, f'{library} occupancy query')
         if count.value < 1:
-            raise RuntimeError(f'the card holds no cluster of the LSTM '
+            raise RuntimeError(f'the card holds no cluster of the {library} '
                                f'kernel at hidden={hidden}, {dtype}')
         _active_clusters[key] = count.value
 
-    return cluster_plan(batch, hidden, dtype, _active_clusters[key])
+    return cluster_plan(batch, hidden, dtype, _active_clusters[key], kernel)
+
+
+def scan_launch_plan(batch, hidden, dtype, device, residuals=False):
+    """The launch of kernel B (E with ``residuals``) on ``device``."""
+
+    return _launch_plan('scan', batch, hidden, dtype, device, residuals)
+
+
+def bptt_launch_plan(batch, hidden, dtype, device):
+    """The launch of kernel F on ``device``."""
+
+    return _launch_plan('bptt', batch, hidden, dtype, device)
 
 
 def _sigmoid_tanh_form(x):
@@ -427,12 +528,18 @@ def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
     batch, frames, four_h = gates.shape
     hidden = four_h // 4
     _check_cuda(gates, 'lstm_bptt', hidden)
+    if hidden % 16:
+        raise ValueError(f'lstm_bptt kernel supports hidden a multiple of 16 '
+                         f'(8 CTAs of whole bf16 pairs), got {hidden}')
 
     da = torch.empty((batch, frames, four_h), dtype=torch.float32,
                      device=gates.device)
     if batch == 0 or frames == 0:
         return da
 
+    plan = bptt_launch_plan(batch, hidden, dout.dtype, gates.device)
+    gates, c_seq, dout, w_h_t = (_aligned(t) for t in (gates, c_seq, dout,
+                                                       w_h_t))
     lib = cuda_build.library('lstm_bptt', _BPTT_SIGNATURES)
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -440,7 +547,8 @@ def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
                                dout.data_ptr(), w_h_t.data_ptr(),
                                da.data_ptr(), batch, frames, hidden,
                                int(reverse),
-                               int(dout.dtype == torch.bfloat16), stream)
+                               int(dout.dtype == torch.bfloat16),
+                               plan['rows'], int(plan['resident']), stream)
     cuda_build.check(status, 'lstm_bptt')
     lstm_bptt.launches += 1
 

@@ -30,23 +30,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    have run. 5b: a
    narrow float32 copy checks notes and logits on the card against the CPU
    (plain versions);
-6. the full-bank CQT kernel (C) against its plain version at the serving
-   shape, 64 guitar clips of 60 s at 22.05 kHz (192 bins at 24 per octave
-   from C1, support 24,576), on magnitudes and on the [0, 1] features, and
-   in its bf16 mode on the first 5 s of each clip; then timed at that shape
-   beside the plain version and cuDNN ``conv1d`` over the same bank;
-7. the support-grouped CQT kernel (D) against kernel C on the full bank and
-   against its own plain version at the same shape, then timed the same
-   way;
+6. the full-bank CQT kernel (C) against its plain version of the same
+   ``exact`` at the serving shape, 64 guitar clips of 60 s at 22.05 kHz
+   (192 bins at 24 per octave from C1, support 24,576): 'high' (the bf16x3
+   split on the tensor cores) at that shape, and within the JAX
+   package's bound of the float32 plain version; False (one bf16 pass) and
+   True (float32 FMAs) on the first 5 s of each clip, and True at the full
+   shape as [0, 1] features against the float32 plain version; each
+   route's launches counted; then 'high' timed at that shape beside the plain version and
+   cuDNN ``conv1d`` over the same bank;
+7. the support-grouped CQT kernel (D) the same way, and against kernel C
+   on the full bank;
 8. the guitar serving path: TabCNN (fullseq, paper width) in bf16 with
    seeded random weights behind the serving CQT (exact='high',
    grouped='auto'), tablature activity calibration on 4 clips, then 3
    requests of 64 x 60 s with overlapped dispatch/finalize, counts reset
-   before and read after: kernel D must have run. One more request goes
-   through the class-default full-bank CQT (grouped=False), counts reset
-   before and read after: kernel C must have run. 8b: a float32 TabCNN
-   behind the serving CQT, card (kernel D) against the CPU (plain
-   versions);
+   before and read after: kernel D must have run on its bf16x3 route. One
+   more request goes through the full-bank CQT (grouped=False), counts
+   reset before and read after: kernel C must have run on that route. 8b:
+   a float32 TabCNN behind the serving CQT, card (kernel D, bf16x3)
+   against the CPU (plain versions, float32), on the logits and the notes;
 10. the LSTM forward with residuals (E) against its plain version at the
     training shape B = 8, T = 625, H = 256, both directions, float32 and
     bf16, its h bit for bit against kernel B's, with its cluster launch;
@@ -54,8 +57,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``nn.LSTM`` forward;
 11. the BPTT kernel (F) against its plain version at the same shapes, on
     d(xw) and dW_h, and the float32 ``lstm_scan_grad`` against autograd
-    through the plain recurrence; timed beside the plain version and cuDNN
-    ``nn.LSTM``'s backward;
+    through the plain recurrence; with its cluster launch (as phase 4),
+    timed beside the plain version and cuDNN ``nn.LSTM``'s backward;
 12. the training path: O&F2 at complexity 3 through ``train()`` on 16
     SyntheticPiano tracks of 30 s cropped to 625 frames (HTK mels on the
     card, kernel A), batch 8, Adam 6e-4, 3 passes in float32 and 3 in bf16,
@@ -107,8 +110,12 @@ MEL_FEATURE_TOL = 4e-4   # [0, 1] features (ops/pallas_stft.py:30)
 LSTM_TOL = {'float32': 1e-4, 'bfloat16': 1e-2}
 LSTM_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 8e-5}
 LOGIT_TOL = 2e-3         # float32 logits, card vs CPU (PARITY.md bound)
-CQT_TOL = 1e-5           # of each clip's peak magnitude: float32, sum order
+CQT_TOL = 1e-5           # of each clip's peak magnitude: the same exact on
+                         # both sides, sums in another order
 CQT_FEATURE_TOL = 2e-4   # [0, 1] features (amt_tools_tpu/features/cqt.py:29)
+# 'high' (bf16x3) against float32, of each clip's peak magnitude: the JAX
+# package's bound for its split (tests/test_pallas_cqt.py:119)
+CQT_HIGH_TOL = 2e-4
 TAB_MARGIN = 2 * LOGIT_TOL  # tablature may differ where the top two are closer
 TRAIN_BATCH = 8          # the O&F2 recipe (examples/papers/of_2.py)
 TRAIN_FRAMES = 625
@@ -220,19 +227,34 @@ def kernel_counters():
             'lstm_bptt': lstm_bptt}
 
 
+def route_counters():
+    """(kernel, route, attribute) of every counter of a kernel's route:
+    kernel A's FFT route, kernels C and D by ``exact``."""
+
+    from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
+
+    return ([('stft_power', 'fft', 'fft_launches')] +
+            [(name, route, f'{route}_launches')
+             for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
+
+
 def reset_launches():
-    for wrapper in kernel_counters().values():
+    counters = kernel_counters()
+    for wrapper in counters.values():
         wrapper.launches = 0
-    kernel_counters()['stft_power'].fft_launches = 0
+    for name, _, attribute in route_counters():
+        setattr(counters[name], attribute, 0)
 
 
 def read_launches():
-    """Launch counts by kernel, and ``stft_power_fft``: kernel A's launches
-    on its FFT route."""
+    """Launch counts by kernel, and by route as ``<kernel>_<route>``:
+    ``stft_power_fft`` (kernel A's FFT route), ``cqt_mag_bf16x3`` and the
+    other routes of kernels C and D."""
 
     counters = kernel_counters()
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
-    launches['stft_power_fft'] = counters['stft_power'].fft_launches
+    for name, route, attribute in route_counters():
+        launches[f'{name}_{route}'] = getattr(counters[name], attribute)
 
     return launches
 
@@ -377,23 +399,26 @@ def lstm_bf16_fault(xw, w_h, fault):
     return out
 
 
-def lstm_design(batch, hidden, dtype, residuals=False):
-    """The cluster launch of kernels B and E for a batch, as a line of text
-    and a dict for the ``kernels`` line."""
+def lstm_design(batch, hidden, dtype, residuals=False, bptt=False):
+    """The cluster launch of kernels B and E (F with ``bptt``) for a batch,
+    as a line of text and a dict for the ``kernels`` line."""
 
     import torch
 
-    from amt_tools_tpu_torch.ops.lstm_kernel import scan_launch_plan
+    from amt_tools_tpu_torch.ops.lstm_kernel import (bptt_launch_plan,
+                                                     scan_launch_plan)
 
-    plan = scan_launch_plan(batch, hidden, dtype, torch.device('cuda'),
-                            residuals)
+    device = torch.device('cuda')
+    plan = (bptt_launch_plan(batch, hidden, dtype, device) if bptt else
+            scan_launch_plan(batch, hidden, dtype, device, residuals))
     text = (f'{plan["clusters"]} clusters of 8 CTAs ({plan["ctas"]} CTAs), '
             f'{plan["rows"]} rows a cluster, the card holds '
             f'{plan["active_clusters"]} clusters at once '
             f'(cudaOccupancyMaxActiveClusters), {plan["waves"]} wave(s), '
-            f'W_h slice {"resident in" if plan["resident"] else "streamed through"}'
-            f' shared memory, {plan["smem_bytes"]} bytes of shared memory a '
-            f'CTA')
+            f'{"W_h^T" if bptt else "W_h"} slice '
+            f'{"resident in" if plan["resident"] else "streamed through"}'
+            f' shared memory, {plan["smem_bytes"]} bytes of shared memory and '
+            f'{plan["threads"]} threads a CTA')
 
     return plan, text
 
@@ -740,6 +765,8 @@ def check_lstm_bptt():
                         'lstm_scan_grad disagrees with autograd through the '
                         'plain recurrence')
 
+            plan, design = lstm_design(TRAIN_BATCH, HIDDEN, dtype, bptt=True)
+            log(f'lstm_bptt {name} at B={TRAIN_BATCH}, H={HIDDEN}: {design}')
             out, gates, c_seq = lstm_scan_residuals(xw, wh)
             ms = time_ms(lambda: lstm_bptt(gates, c_seq, dout, w_h_t), reps=5)
             plain_ms = time_ms(
@@ -757,16 +784,20 @@ def check_lstm_bptt():
             flops = 2.0 * rows * HIDDEN * 4 * HIDDEN
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
             bound, bound_by = bound_ms(num_bytes, flops, peak)
-            log(f'lstm_bptt {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
-                f'ms, cuDNN nn.LSTM backward {library_ms:.3f} ms (with its '
-                f'input projection), bound {bound:.3f} ms ({bound_by}) per '
-                f'direction at B={TRAIN_BATCH}, T={TRAIN_FRAMES}, H={HIDDEN}')
+            log(f'lstm_bptt {name}: kernel {ms:.3f} ms '
+                f'({1e3 * ms / TRAIN_FRAMES:.3f} us a step), plain '
+                f'{plain_ms:.3f} ms, cuDNN nn.LSTM backward {library_ms:.3f} '
+                f'ms (with its input projection), bound {bound:.3f} ms '
+                f'({bound_by}) per direction at B={TRAIN_BATCH}, '
+                f'T={TRAIN_FRAMES}, H={HIDDEN}')
             result[name] = {'name': 'lstm_bptt', 'route': 'cuda',
                             'source': 'amt_tools_tpu_torch/csrc/lstm_bptt.cu',
                             'replaces': 'amt_tools_tpu/ops/pallas_lstm.py:245',
                             'max_abs_err': worst['da'][0], 'ms': ms,
                             'plain_ms': plain_ms, 'bound_ms': bound,
-                            'bound_by': bound_by, 'library_ms': library_ms}
+                            'bound_by': bound_by, 'library_ms': library_ms,
+                            'design': f'clusters of 8 CTAs: {design}',
+                            'geometry': plan}
 
     return result['float32']
 
@@ -1343,7 +1374,7 @@ def time_library(fn, name):
 
 def report_cqt(name, ms, plain_ms, library_ms, cqt, audio, bank, out,
                contraction):
-    """Log the times beside both bounds and the contraction's floor."""
+    """Log the times beside both bounds and the contraction's floors."""
 
     batch, frames = out.shape[0], out.shape[-1]
     num_bytes = 4 * (audio.numel() + bank.numel() + out.numel())
@@ -1357,10 +1388,71 @@ def report_cqt(name, ms, plain_ms, library_ms, cqt, audio, bank, out,
         f'{fft_flops / 1e12:.4f} TFLOP {fft_flops / PEAK_FP32_FLOPS * 1e3:.3f}'
         f' ms) at {tuple(audio.shape)} -> {tuple(out.shape)}; the '
         f'contraction is {contraction / 1e12:.3f} TFLOP: at least '
-        f'{contraction / PEAK_FP32_FLOPS * 1e3:.3f} ms in float32 '
-        f'({contraction / 1e9 / ms:.1f} TFLOP/s achieved)')
+        f'{contraction / PEAK_FP32_FLOPS * 1e3:.3f} ms in float32, '
+        f'{3 * contraction / PEAK_BF16_FLOPS * 1e3:.3f} ms as three bf16 '
+        f'passes ({3 * contraction / 1e9 / ms:.1f} TFLOP/s of bf16 passes '
+        f'achieved)')
 
     return bound, bound_by
+
+
+def check_cqt_routes(name, run, plain, short):
+    """Kernel C or D on its three routes against the plain version of the
+    same ``exact``: 'high' (bf16x3) at the full shape, False (one bf16
+    pass) and True (float32 FMAs) on the first 5 s of each clip, with each
+    route's launches counted. Returns the 'high' output and its error."""
+
+    from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
+
+    out = run(None, 'high')
+    abs_err, rel_err = cqt_errors(out, plain(None, 'high'))
+    errors = {'high': rel_err}
+    for exact in (False, True):
+        _, errors[exact] = cqt_errors(run(short, exact), plain(short, exact))
+    counts = read_launches()
+    launches = {f'{name}_{r}': counts[f'{name}_{r}'] for r in ROUTES}
+    log(f'{name}: |kernel - plain| of the same exact, as a share of the clip '
+        f'peak (tolerance {CQT_TOL}): high (bf16x3) {errors["high"]:.3g} '
+        f'({abs_err:.6g} absolute) at the full shape; False (one bf16 pass) '
+        f'{errors[False]:.3g}, True (float32 FMAs) {errors[True]:.3g} on the '
+        f'first 5 s; launches by route {launches}')
+    for exact, err in errors.items():
+        require(err <= CQT_TOL, f'{name} exact={exact!r} disagrees with its '
+                                f'plain version')
+    require(launches[f'{name}_bf16x3'] >= 1 and launches[f'{name}_bf16'] >= 1
+            and launches[f'{name}_ffma'] >= 1,
+            f'{name} did not take each route it was asked for')
+
+    return out, abs_err
+
+
+def check_cqt_float32(name, cqt, out, f32_out, ref_high, ref_f32):
+    """At the full shape, against the float32 plain version: the kernel's
+    float32 route (exact=True) as [0, 1] features within the JAX package's
+    feature bound, and its 'high' route (bf16x3) within the JAX package's
+    bound for the split, of each clip's peak. Logged beside them: the
+    distance of the 'high' features from float32's, the kernel's and the
+    bf16x3 plain version's; the JAX package's feature comment
+    (features/cqt.py:29-32) puts it within 2e-4, which these clips'
+    quietest bins above the -80 dB floor do not keep."""
+
+    feats = cqt.post_proc(ref_f32)
+    f32_err = (cqt.post_proc(f32_out) - feats).abs().max().item()
+    _, high_err = cqt_errors(out, ref_f32)
+    gap = (cqt.post_proc(out) - feats).abs()
+    plain_gap = (cqt.post_proc(ref_high) - feats).abs()
+    loud = feats > 0.2  # above -64 dB
+    log(f'{name} vs the float32 plain version: True (float32 FMAs) as '
+        f'[0, 1] features {f32_err:.3g} (tolerance {CQT_FEATURE_TOL}); high '
+        f'(bf16x3) {high_err:.3g} of the clip peak (tolerance '
+        f'{CQT_HIGH_TOL}), as features {gap.max().item():.3g} '
+        f'({gap[loud].max().item():.3g} above -64 dB), the bf16x3 plain '
+        f'version {plain_gap.max().item():.3g} '
+        f'({plain_gap[loud].max().item():.3g})')
+    require(f32_err <= CQT_FEATURE_TOL,
+            f'{name} float32 features disagree with the plain version')
+    require(high_err <= CQT_HIGH_TOL,
+            f'{name} bf16x3 disagrees with float32')
 
 
 def check_cqt(clips):
@@ -1374,37 +1466,32 @@ def check_cqt(clips):
     cqt = guitar_cqt(grouped=False)
     support = cqt._support
     audio = torch.from_numpy(clips).cuda()
+    short = audio[:, :5 * GUITAR_SAMPLE_RATE].contiguous()
     bank = torch.from_numpy(cqt._kernel).cuda()
 
+    def clip(part):
+        return audio if part is None else part
+
     with tools.exact_fp32():
-        out = cqt_mag(audio, bank, support, HOP, exact='high')
-        ref = cqt_mag_plain(audio, bank, support, HOP, exact='high')
-        abs_err, rel_err = cqt_errors(out, ref)
-        feat_err = (cqt.post_proc(out) -
-                    cqt.post_proc(ref)).abs().max().item()
-
-        short = audio[:, :5 * GUITAR_SAMPLE_RATE].contiguous()
-        low = cqt_mag(short, bank, support, HOP, exact=False)
-        _, bf16_err = cqt_errors(low, cqt_mag_plain(short, bank, support, HOP,
-                                                    exact=False))
-        _, bf16_off = cqt_errors(low, cqt_mag(short, bank, support, HOP))
-        del ref, low
-
-        log(f'cqt_mag: max |kernel - plain| = {abs_err:.6g} ({rel_err:.3g} '
-            f'of the clip peak, tolerance {CQT_TOL}) on {tuple(audio.shape)};'
-            f' [0, 1] features {feat_err:.3g} (tolerance {CQT_FEATURE_TOL}); '
-            f'exact=False vs its bf16-rounded plain version {bf16_err:.3g} of '
-            f'the peak (tolerance {CQT_TOL}) on {tuple(short.shape)}, '
-            f'{bf16_off:.3g} off the float32 result')
-        require(rel_err <= CQT_TOL, 'cqt_mag disagrees with its plain version')
-        require(feat_err <= CQT_FEATURE_TOL, 'cqt_mag features disagree')
-        require(bf16_err <= CQT_TOL,
-                'cqt_mag exact=False disagrees with its plain version')
+        reset_launches()
+        out, abs_err = check_cqt_routes(
+            'cqt_mag',
+            lambda part, exact: cqt_mag(clip(part), bank, support, HOP,
+                                        exact=exact),
+            lambda part, exact: cqt_mag_plain(clip(part), bank, support, HOP,
+                                              exact=exact),
+            short)
+        check_cqt_float32(
+            'cqt_mag', cqt, out,
+            cqt_mag(audio, bank, support, HOP, exact=True),
+            cqt_mag_plain(audio, bank, support, HOP, exact='high'),
+            cqt_mag_plain(audio, bank, support, HOP))
 
         ms = time_ms(lambda: cqt_mag(audio, bank, support, HOP, exact='high'),
                      reps=5)
-        plain_ms = time_ms(lambda: cqt_mag_plain(audio, bank, support, HOP),
-                           reps=2)
+        plain_ms = time_ms(
+            lambda: cqt_mag_plain(audio, bank, support, HOP, exact='high'),
+            reps=2)
         weights = [(bank.t().contiguous()[:, None, :], support)]
         library_ms, lib_out = time_library(
             lambda: conv1d_cqt(audio, weights), 'cqt_mag yardstick')
@@ -1422,7 +1509,8 @@ def check_cqt(clips):
             'replaces': 'amt_tools_tpu/ops/pallas_cqt.py:51',
             'max_abs_err': abs_err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms, 'exact': 'high',
+            'design': 'bf16x3 split on the tensor cores (mma.sync)'}
 
 
 def check_cqt_grouped(clips):
@@ -1438,40 +1526,61 @@ def check_cqt_grouped(clips):
     cqt = guitar_cqt(grouped='auto')
     require(cqt._groups is not None, "grouped='auto' built no groups")
     audio = torch.from_numpy(clips).cuda()
+    short = audio[:, :5 * GUITAR_SAMPLE_RATE].contiguous()
     stack = torch.from_numpy(cqt._bank_stack).cuda()
     args = (stack, cqt._group_supports, cqt._group_bins, HOP)
 
+    def clip(part):
+        return audio if part is None else part
+
     with tools.exact_fp32():
-        out = cqt_mag_grouped(audio, *args, exact='high')
+        reset_launches()
+        out, abs_err = check_cqt_routes(
+            'cqt_mag_grouped',
+            lambda part, exact: cqt_mag_grouped(clip(part), *args,
+                                                exact=exact),
+            lambda part, exact: cqt_mag_grouped_plain(clip(part), *args,
+                                                      exact=exact),
+            short)
+        check_cqt_float32(
+            'cqt_mag_grouped', cqt, out,
+            cqt_mag_grouped(audio, *args, exact=True),
+            cqt_mag_grouped_plain(audio, *args, exact='high'),
+            cqt_mag_grouped_plain(audio, *args))
         full = cqt_mag(audio, torch.from_numpy(cqt._kernel).cuda(),
                        cqt._support, HOP, exact='high')
         _, full_err = cqt_errors(out, full)
         del full
-        abs_err, rel_err = cqt_errors(
-            out, cqt_mag_grouped_plain(audio, *args, exact='high'))
-
         log(f'cqt_mag_grouped: groups of {cqt._group_bins} bins at supports '
-            f'{cqt._group_supports}; on {tuple(audio.shape)}: vs kernel C on '
-            f'the full bank {full_err:.3g} of the clip peak; max |kernel - '
-            f'plain| = {abs_err:.6g} ({rel_err:.3g} of the clip peak); '
-            f'tolerance {CQT_TOL}')
+            f'{cqt._group_supports}; vs kernel C on the full bank, both '
+            f'high (bf16x3), {full_err:.3g} of the clip peak (tolerance '
+            f'{CQT_TOL})')
         require(full_err <= CQT_TOL,
                 'cqt_mag_grouped disagrees with the full-bank kernel')
-        require(rel_err <= CQT_TOL,
-                'cqt_mag_grouped disagrees with its plain version')
 
         ms = time_ms(lambda: cqt_mag_grouped(audio, *args, exact='high'),
                      reps=5)
-        plain_ms = time_ms(lambda: cqt_mag_grouped_plain(audio, *args),
-                           reps=2)
+        plain_ms = time_ms(
+            lambda: cqt_mag_grouped_plain(audio, *args, exact='high'), reps=2)
+        one_pass_ms = time_ms(
+            lambda: cqt_mag_grouped(audio, *args, exact=False), reps=5)
         gb = stack.shape[1] // 2
-        weights = []
+        weights, group_ms = [], []
         row0 = 0
         for support, bins in zip(cqt._group_supports, cqt._group_bins):
             rows = stack[row0: row0 + support]
+            group_ms.append(time_ms(
+                lambda rows=rows, group=((support,), (bins,)):
+                cqt_mag_grouped(audio, rows, *group, HOP, exact='high'),
+                reps=3))
             bank = torch.cat([rows[:, :bins], rows[:, gb: gb + bins]], dim=1)
             weights.append((bank.t().contiguous()[:, None, :], support))
             row0 += support
+        log(f'cqt_mag_grouped: high (three bf16 passes) {ms:.3f} ms, False '
+            f'(one pass, the same body) {one_pass_ms:.3f} ms; each group '
+            f'alone on high ' + ', '.join(f'{t:.3f}' for t in group_ms) +
+            f' ms (sum {sum(group_ms):.3f}: the groups in one launch leave '
+            f'{max(0.0, ms - sum(group_ms)):.3f} ms of tail beyond it)')
         library_ms, lib_out = time_library(
             lambda: conv1d_cqt(audio, weights), 'cqt_mag_grouped yardstick')
         if lib_out is not None:
@@ -1490,7 +1599,8 @@ def check_cqt_grouped(clips):
             'replaces': 'amt_tools_tpu/ops/pallas_cqt.py:115',
             'max_abs_err': abs_err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': bound_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms, 'exact': 'high',
+            'design': 'bf16x3 split on the tensor cores (mma.sync)'}
 
 
 def serve_guitar(clips, card):
@@ -1533,8 +1643,9 @@ def serve_guitar(clips, card):
         f'{audio_seconds / elapsed:.1f} audio-s per wall-s ({card}); notes '
         f'per clip min {min(notes)} median {int(np.median(notes))} max '
         f'{max(notes)}; launches {launches}')
-    require(launches['cqt_mag_grouped'] >= REQUESTS,
-            'the grouped CQT kernel did not run once per dispatch')
+    require(launches['cqt_mag_grouped_bf16x3'] >= REQUESTS,
+            'the grouped CQT kernel did not run once per dispatch on its '
+            'bf16x3 route')
     require(len(notes) == REQUESTS * GUITAR_BATCH and min(notes) > 0,
             'a served guitar clip decoded no notes')
 
@@ -1560,19 +1671,45 @@ def serve_guitar(clips, card):
         f'{CLIP_SECONDS:.0f} s in {full_elapsed:.3f} s; {sum(full_notes)} '
         f'notes (the grouped bank gave {sum(notes[:GUITAR_BATCH])}); '
         f'launches {full_launches}')
-    require(full_launches['cqt_mag'] >= 1,
-            'the full-bank CQT kernel did not run')
+    require(full_launches['cqt_mag_bf16x3'] >= 1,
+            'the full-bank CQT kernel did not run on its bf16x3 route')
     require(min(full_notes) > 0, 'a full-bank guitar clip decoded no notes')
 
     return ({'cqt_mag_grouped': launches['cqt_mag_grouped'],
              'cqt_mag': full_launches['cqt_mag']},
             (f'guitar batch of {GUITAR_BATCH} clips',
-             lambda: pipeline(requests[0]), ('cqt_mag_kernel',)))
+             lambda: pipeline(requests[0]), ('cqt_mag_tc_kernel',)))
+
+
+def guitar_card_and_cpu(audio, model, cqt):
+    """Notes, float32 logits and features of the guitar pipeline on the CPU
+    and on the card, by device."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.serving import TablaturePipeline
+
+    outputs = {}
+    for device in ('cpu', 'cuda'):
+        pipeline = TablaturePipeline(model, cqt, capacity=GUITAR_CAPACITY,
+                                     device=device)
+        notes = pipeline(audio)
+        with torch.inference_mode(), tools.exact_fp32():
+            feats = cqt.process(torch.from_numpy(audio).to(device))
+            raw = model(model.pre_proc({tools.KEY_FEATS: feats})[
+                tools.KEY_FEATS])[tools.KEY_TABLATURE]
+        outputs[device] = notes, raw.float().cpu(), feats.cpu()
+
+    return outputs
 
 
 def check_guitar_against_cpu(clips):
-    """Phase 8b: a float32 TabCNN behind the serving CQT, card (kernel D)
-    vs CPU (plain versions)."""
+    """Phase 8b: a float32 TabCNN behind the serving CQT, card (kernel D on
+    'high', its bf16x3 route) vs CPU (plain versions, float32 whatever
+    ``exact`` says, as JAX's CPU route): the logits within the piano check's
+    bound, the tablature equal wherever the CPU's top-two margin allows,
+    notes identical on every equal string; the features' distance logged."""
 
     import torch
 
@@ -1597,9 +1734,11 @@ def check_guitar_against_cpu(clips):
             feats = cqt.process(torch.from_numpy(audio).to(device))
             raw = model(model.pre_proc({tools.KEY_FEATS: feats})[
                 tools.KEY_FEATS])[tools.KEY_TABLATURE]
-        outputs[device] = notes, raw.float().cpu()
+        outputs[device] = notes, raw.float().cpu(), feats.cpu()
 
-    (cpu_notes, cpu_raw), (gpu_notes, gpu_raw) = outputs['cpu'], outputs['cuda']
+    (cpu_notes, cpu_raw, cpu_feats), (gpu_notes, gpu_raw, gpu_feats) = (
+        outputs['cpu'], outputs['cuda'])
+    feat_err = (gpu_feats - cpu_feats).abs().max().item()
     worst = (gpu_raw - cpu_raw).abs().max().item()
     require(worst <= LOGIT_TOL, f'float32 tablature logits card vs CPU '
                                 f'{worst} > {LOGIT_TOL}')
@@ -1627,7 +1766,8 @@ def check_guitar_against_cpu(clips):
             compared += 1
             notes_compared += len(p_cpu)
     require(compared > 0, 'no string was compared')
-    log(f'guitar float32 card vs CPU: logits within {worst:.3g} (tolerance '
+    log(f'guitar float32 card (bf16x3 CQT) vs CPU (float32 CQT): features '
+        f'within {feat_err:.3g}; logits within {worst:.3g} (tolerance '
         f'{LOGIT_TOL}); {int(differ.sum())} of {differ.numel()} tablature '
         f'cells differ (all within a top-two margin of {TAB_MARGIN}); notes '
         f'identical on {compared} of {6 * len(audio)} strings, '

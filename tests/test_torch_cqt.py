@@ -10,12 +10,17 @@ package's own tests do) and its XLA ``cqt_mag``.
 Tolerances, relative to each clip's peak magnitude (quiet bins carry an
 absolute error set by the frame energy, not by their own value):
 - ``exact=True``: 1e-5 (both float32, sums in another order);
-- ``exact='high'``: 2e-4, the JAX package's bound for its bf16x3 split
-  (``tests/test_pallas_cqt.py:119``); the port computes it in float32;
+- ``exact='high'``: 1e-5. Both sides split the operands into bf16 hi and
+  lo and sum ``hi*hi + hi*lo + lo*hi`` in float32; the products of bf16
+  values are exact, so only the order of the sums differs.
+  ``test_high_tolerance_tells_the_passes_apart`` shows that 1e-5 rejects
+  two passes and one;
 - ``exact=False``: 1e-5 against a float64 numpy product of bf16-rounded
   operands. JAX's interpret mode runs that dot in float32 on the CPU, so it
   cannot be the reference there;
-- [0, 1] dB features: 2e-4 (``features/cqt.py:29-33``).
+- [0, 1] dB features: 2e-4 (``features/cqt.py:29-33``) where the port's
+  and JAX's contractions differ ('high' on JAX's side), 1e-5 where both
+  contract in float32 (the CPU route, every ``exact``).
 The bank builders and the group layout must agree bit for bit.
 """
 
@@ -32,10 +37,10 @@ from amt_tools_tpu.ops.pallas_cqt import cqt_mag_pallas, cqt_mag_pallas_grouped
 
 from amt_tools_tpu_torch.features import CQT, VQT
 from amt_tools_tpu_torch.ops import spectral
-from amt_tools_tpu_torch.ops.cqt_kernel import (FRAME_CHUNK, cqt_mag,
-                                                cqt_mag_grouped,
+from amt_tools_tpu_torch.ops.cqt_kernel import (CHUNK_TAPS, FRAME_CHUNK,
+                                                cqt_mag, cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
-                                                cqt_mag_plain)
+                                                cqt_mag_plain, split_bf16)
 
 # The suite runs in several worker processes that share the cores
 torch.set_num_threads(1)
@@ -112,7 +117,7 @@ def test_bank_builders_bit_for_bit(n_bins, bpo, fmin, gamma):
     np.testing.assert_array_equal(kernel, ref)
 
 
-@pytest.mark.parametrize('exact,tol', [(True, 1e-5), ('high', 2e-4)])
+@pytest.mark.parametrize('exact,tol', [(True, 1e-5), ('high', 1e-5)])
 def test_plain_matches_pallas_kernel_interpret(exact, tol):
     freqs, alpha = _bank()
     kernel, support = spectral.wavelet_bank(freqs, SR, alpha)
@@ -178,6 +183,108 @@ def test_single_bf16_pass_matches_rounded_reference():
     assert np.abs(got - exact).max() / peak > 1e-4
 
 
+def _passes_variant(audio, kernel, support, passes, acc=torch.float32):
+    """The split contraction with the passes named in ``passes`` (of 'hh',
+    'hl', 'lh'), summed in ``acc``: the plain 'high' takes all three."""
+
+    frames = spectral.frame_signal(torch.from_numpy(audio), support, HOP)
+    c_hi, c_lo = (p.to(acc) for p in split_bf16(frames))
+    b_hi, b_lo = (p.to(acc) for p in split_bf16(torch.from_numpy(kernel)))
+    pairs = {'hh': (c_hi, b_hi), 'hl': (c_hi, b_lo), 'lh': (c_lo, b_hi)}
+    resp = sum(pairs[p][0] @ pairs[p][1] for p in passes).float()
+    n = kernel.shape[-1] // 2
+    return torch.sqrt(resp[..., :n] ** 2 + resp[..., n:] ** 2).transpose(
+        -1, -2).numpy()
+
+
+def test_high_tolerance_tells_the_passes_apart():
+    """The 1e-5 bound that holds 'high' to its split (here, on the card and
+    in ``chip_smoke.py``): the three passes summed in float64 stay within
+    it; dropping hi*lo, dropping lo*hi or taking hi*hi alone exceeds it."""
+
+    freqs, alpha = _bank(192, 24, 32.70319566257483)  # guitar recipe
+    kernel, support = spectral.wavelet_bank(freqs, SR, alpha)
+    audio = _tonal(2, SR // 2, seed=7)
+    ref = cqt_mag_plain(torch.from_numpy(audio), torch.from_numpy(kernel),
+                        support, HOP, exact='high').numpy()
+    peak = ref.max()
+
+    def error(passes, acc=torch.float32):
+        got = _passes_variant(audio, kernel, support, passes, acc)
+        return np.abs(got - ref).max() / peak
+
+    assert error(('hh', 'hl', 'lh')) == 0.0
+    assert error(('hh', 'hl', 'lh'), torch.float64) <= 1e-5
+    for faulty in (('hh', 'lh'), ('hh', 'hl'), ('hh',)):
+        assert error(faulty) > 1e-5, faulty
+
+
+def _emulate_tensor_core_body(audio, bank, support, passes):
+    """Kernel C's tensor-core body step for step, for every frame at once
+    (its block tile changes no output's arithmetic): the taps in chunks of
+    ``CHUNK_TAPS``; each chunk's patch and bank values split once as the
+    chunk lands; then each 16-tap mma step forms hi*hi, hi*lo and lo*hi of
+    its 16 taps, in that order, in a zeroed fragment, which one float32
+    add joins to the accumulator."""
+
+    frames = spectral.frame_signal(audio, support, HOP)
+    acc = torch.zeros(frames.shape[:-1] + (bank.shape[-1],))
+    for k0 in range(0, support, CHUNK_TAPS):
+        p_hi, p_lo = (p.float() for p in split_bf16(
+            frames[..., k0: k0 + CHUNK_TAPS]))
+        b_hi, b_lo = (p.float() for p in split_bf16(
+            bank[k0: k0 + CHUNK_TAPS]))
+        for kk in range(0, p_hi.shape[-1], 16):
+            step = slice(kk, kk + 16)
+            part = p_hi[..., step] @ b_hi[step]
+            if passes == 3:
+                part = part + p_hi[..., step] @ b_lo[step]
+                part = part + p_lo[..., step] @ b_hi[step]
+            acc = acc + part
+    n = bank.shape[-1] // 2
+    return torch.sqrt(acc[..., :n] ** 2 + acc[..., n:] ** 2).transpose(-1, -2)
+
+
+@pytest.mark.parametrize('exact,passes', [('high', 3), (False, 1)])
+def test_tensor_core_emulation_matches_plain(exact, passes):
+    """Kernels C and D's tensor-core route, emulated chunk for chunk, agree
+    with the plain version of the same ``exact`` within 1e-5 of the peak,
+    on the full bank and group by group."""
+
+    freqs, alpha = _bank(80, 24)
+    kernel, support = spectral.wavelet_bank(freqs, SR, alpha)
+    stack, supports, bins = _stack(freqs, alpha, 32)
+    audio = torch.from_numpy(_tonal(2, SR // 2, seed=8))
+
+    got = _emulate_tensor_core_body(audio, torch.from_numpy(kernel), support,
+                                    passes)
+    ref = cqt_mag(audio, torch.from_numpy(kernel), support, HOP, exact=exact)
+    _assert_close_to_peak(got.numpy(), ref.numpy(), 1e-5)
+
+    parts, row0, gb = [], 0, stack.shape[1] // 2
+    for sup, nb in zip(supports, bins):
+        rows = torch.from_numpy(stack[row0: row0 + sup])
+        bank = torch.cat([rows[:, :nb], rows[:, gb: gb + nb]], dim=1)
+        parts.append(_emulate_tensor_core_body(audio, bank, sup, passes))
+        row0 += sup
+    ref = cqt_mag_grouped(audio, torch.from_numpy(stack), supports, bins, HOP,
+                          exact=exact)
+    _assert_close_to_peak(torch.cat(parts, dim=-2).numpy(), ref.numpy(), 1e-5)
+
+
+def test_grouped_high_matches_pallas_grouped():
+    freqs, alpha = _bank(80, 24)
+    stack, supports, bins = _stack(freqs, alpha, 32)
+    audio = _tonal(2, SR // 2, seed=9)
+
+    got = cqt_mag_grouped(torch.from_numpy(audio), torch.from_numpy(stack),
+                          supports, bins, HOP, exact='high').numpy()
+    ref = np.stack([np.asarray(cqt_mag_pallas_grouped(
+        jnp.asarray(clip), jnp.asarray(stack), supports, bins, HOP,
+        exact='high', **PALLAS)) for clip in audio])
+    _assert_close_to_peak(got, ref, 1e-5)
+
+
 @pytest.mark.parametrize('n_bins,group_size', [(80, 32), (96, 32), (192, 64)])
 def test_grouped_plain_matches_pallas_grouped_and_full_bank(n_bins,
                                                             group_size):
@@ -239,6 +346,28 @@ def test_cqt_process_matches_jax():
     # One clip without a batch axis, as process_jax takes it
     np.testing.assert_allclose(port.process(torch.from_numpy(audio[0])).numpy(),
                                got[0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('exact', [False, 'high'])
+def test_cqt_process_on_cpu_contracts_in_float32(exact):
+    """On the CPU the module contracts in IEEE float32 whatever ``exact``
+    says, as the JAX class's XLA route does (``exact`` selects only the
+    kernel's passes): the features equal those of ``exact=True`` bit for
+    bit, and match JAX's ``process_jax`` in the same mode within the 2e-4
+    that holds ``exact=True``. Passing ``exact=False`` on to the plain
+    version put them 0.19 apart. Two float32 contractions in another order
+    are themselves about 1.3e-4 apart here: the dB scale magnifies the
+    relative error of the quietest bins."""
+
+    audio = _tonal(2, SR, seed=10)
+    kw = dict(sample_rate=SR, hop_length=HOP, n_bins=192, bins_per_octave=24,
+              grouped='auto')
+    got = CQT(exact=exact, **kw).process(torch.from_numpy(audio)).numpy()
+    np.testing.assert_array_equal(
+        got, CQT(exact=True, **kw).process(torch.from_numpy(audio)).numpy())
+    want = np.asarray(JaxCQT(exact=exact, **kw).process_jax(
+        jnp.asarray(audio)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
 
 
 @pytest.mark.parametrize('kw', [dict(n_bins=192, bins_per_octave=24,

@@ -10,9 +10,10 @@ Tolerances:
 - STFT power: 1e-5 of each clip's peak power on both routes (both float32,
   an FFT or a DFT sum against the plain matmul's order);
 - CQT magnitudes (kernels C and D): 1e-5 of each clip's peak magnitude
-  against the plain versions, in every ``exact`` mode (float32 sums in
-  another order; ``exact=False`` rounds the same operands to bf16 on both
-  sides), and D within 1e-5 of C on the full bank;
+  against the plain versions, on every route (``exact=True``: float32 sums
+  in another order; 'high' and False: the same bf16 hi/lo split on both
+  sides, whose products are exact in float32, summed in another order), and
+  D within 1e-5 of C on the full bank in the same mode;
 - LSTM float32: 1e-4 absolute after hundreds of steps (float32 products in
   another order, compounded through the recurrence);
 - LSTM bf16: 1e-2 absolute at most and 8e-5 absolute on the mean, on
@@ -42,11 +43,14 @@ from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.ops import cuda_build, decode, lstm_kernel, spectral
-from amt_tools_tpu_torch.ops.cqt_kernel import (cqt_mag, cqt_mag_grouped,
+from amt_tools_tpu_torch.ops.cqt_kernel import (ROUTES, cqt_mag,
+                                                cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
-                                                cqt_mag_plain)
-from amt_tools_tpu_torch.ops.lstm_kernel import (_shift_prev, lstm_bptt,
-                                                 lstm_bptt_plain,
+                                                cqt_mag_plain, cqt_route)
+from amt_tools_tpu_torch.ops.lstm_kernel import (_shift_prev, bptt_geometry,
+                                                 bptt_launch_plan,
+                                                 bptt_max_rows, bptt_resident,
+                                                 lstm_bptt, lstm_bptt_plain,
                                                  lstm_scan, lstm_scan_grad,
                                                  lstm_scan_plain,
                                                  lstm_scan_residuals,
@@ -269,6 +273,72 @@ def test_lstm_bptt_kernel_matches_plain(cuda, dtype, reverse, shape):
         assert diff.mean().item() <= mean_rel * b.abs().mean().item()
 
 
+def _bptt_errors(got, ref, out, reverse):
+    """Max over the largest and mean over the mean magnitude, of da and of
+    dW_h = h_prev^T da."""
+
+    hidden = out.shape[-1]
+    h_prev = _shift_prev(out, reverse).float().reshape(-1, hidden).t()
+    errors = []
+    for a, b in ((got, ref), (h_prev @ got.reshape(-1, 4 * hidden),
+                              h_prev @ ref.reshape(-1, 4 * hidden))):
+        diff = (a - b).abs()
+        errors.append(((diff.max() / b.abs().max()).item(),
+                       (diff.mean() / b.abs().mean()).item()))
+    return errors
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', CLUSTER_SHAPES)
+def test_cluster_bptt_matches_plain(cuda, dtype, reverse, shape):
+    """Kernel F's clusters at the shapes of kernel B's: rows a cluster from
+    1 to a full wave and past it, ragged T, the W_h^T slice resident (H up
+    to 256) and streamed (512, 1024), padded units (H = 16, 48)."""
+
+    batch, frames, hidden = shape
+    xw, w_h, dout = _lstm_inputs(batch, frames, hidden, dtype, cuda,
+                                 seed=batch * 7 + hidden)
+    out, gates, c_seq = lstm_scan_residuals(xw, w_h, reverse)
+    w_h_t = w_h.t().contiguous()
+    assert bptt_launch_plan(batch, hidden, dtype, cuda)['resident'] == (
+        hidden <= 256)
+
+    launches = lstm_bptt.launches
+    got = lstm_bptt(gates, c_seq, dout, w_h_t, reverse)
+    torch.cuda.synchronize()
+    assert lstm_bptt.launches == launches + 1
+    ref = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
+
+    max_rel, mean_rel = BPTT_TOL[dtype]
+    for worst, mean in _bptt_errors(got, ref, out, reverse):
+        assert worst <= max_rel and mean <= mean_rel, (worst, mean)
+
+
+def test_bptt_geometry_matches_the_kernel(cuda):
+    """Kernel F's shared-memory layout, computed in the kernel and by the
+    wrapper, agrees."""
+
+    lib = cuda_build.library('lstm_bptt', lstm_kernel._BPTT_SIGNATURES)
+    for hidden in (16, 48, 64, 256, 384, 512, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            resident = bptt_resident(hidden, dtype)
+            for rows in (1, 8, bptt_max_rows(hidden, dtype, resident)):
+                assert lib.lstm_bptt_smem(
+                    hidden, int(dtype == torch.bfloat16), rows,
+                    int(resident)) == bptt_geometry(hidden, dtype, rows,
+                                                    resident)['bytes']
+
+
+def test_bptt_training_batch_runs_in_one_wave(cuda):
+    """At the recipe's B = 8: 8 clusters of one row, 64 SMs, one wave."""
+
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = bptt_launch_plan(8, 256, dtype, cuda)
+        assert plan['resident'] and plan['waves'] == 1
+        assert (plan['rows'], plan['clusters'], plan['ctas']) == (1, 8, 64)
+
+
 @pytest.mark.parametrize('reverse', [False, True])
 def test_lstm_grad_on_cuda_matches_autograd_through_plain(cuda, reverse):
     xw, w_h, dout = _lstm_inputs(3, 37, 64, torch.float32, cuda)
@@ -301,34 +371,49 @@ def test_cqt_kernel_matches_plain(cuda, exact, num_samples):
     audio = _audio(3, num_samples).to(cuda)
     bank = torch.from_numpy(cqt._kernel).to(cuda)
 
+    route = cqt_route(exact)
+    counts = {r: getattr(cqt_mag, f'{r}_launches') for r in ROUTES}
     launches = cqt_mag.launches
     got = cqt_mag(audio, bank, cqt._support, 512, exact=exact)
     torch.cuda.synchronize()
     assert cqt_mag.launches == launches + 1
+    for r in ROUTES:
+        assert getattr(cqt_mag, f'{r}_launches') == counts[r] + (r == route)
 
     ref = cqt_mag_plain(audio, bank, cqt._support, 512, exact=exact)
     assert got.shape == ref.shape == (3, 192, 1 + num_samples // 512)
     assert _close_to_peak(got, ref) <= 1e-5
 
 
-@pytest.mark.parametrize('n_bins,group_size', [(192, 64), (80, 32)])
-def test_cqt_grouped_kernel_matches_plain_and_full_bank(cuda, n_bins,
-                                                        group_size):
-    """(80, 32) gives groups of 32, 32 and 16: the last is column padded."""
+@pytest.mark.parametrize('exact', [True, 'high', False])
+@pytest.mark.parametrize('n_bins,group_size,num_samples',
+                         [(192, 64, 22050 * 2), (80, 32, 22050 * 2),
+                          (192, 64, 12345)])
+def test_cqt_grouped_kernel_matches_plain_and_full_bank(cuda, exact, n_bins,
+                                                        group_size,
+                                                        num_samples):
+    """(80, 32) gives groups of 32, 32 and 16: the last is column padded;
+    12,345 samples take the 4-byte copies of the tensor-core route."""
 
     cqt = _guitar_cqt(grouped=True, group_size=group_size, n_bins=n_bins)
-    audio = _audio(2, 22050 * 2, seed=4).to(cuda)
+    audio = _audio(2, num_samples, seed=4).to(cuda)
     stack = torch.from_numpy(cqt._bank_stack).to(cuda)
     args = (stack, cqt._group_supports, cqt._group_bins, 512)
 
+    route = cqt_route(exact)
+    counts = {r: getattr(cqt_mag_grouped, f'{r}_launches') for r in ROUTES}
     launches = cqt_mag_grouped.launches
-    got = cqt_mag_grouped(audio, *args)
+    got = cqt_mag_grouped(audio, *args, exact=exact)
     torch.cuda.synchronize()
     assert cqt_mag_grouped.launches == launches + 1
+    for r in ROUTES:
+        assert getattr(cqt_mag_grouped, f'{r}_launches') == (
+            counts[r] + (r == route))
 
-    assert _close_to_peak(got, cqt_mag_grouped_plain(audio, *args)) <= 1e-5
+    assert _close_to_peak(
+        got, cqt_mag_grouped_plain(audio, *args, exact=exact)) <= 1e-5
     full = cqt_mag(audio, torch.from_numpy(cqt._kernel).to(cuda),
-                   cqt._support, 512)
+                   cqt._support, 512, exact=exact)
     assert _close_to_peak(got, full) <= 1e-5
 
 
@@ -460,6 +545,11 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
         lstm_bptt(torch.zeros(1, 4, 8, device=cuda),
                   torch.zeros(1, 4, 2, device=cuda),
                   torch.zeros(1, 4, 2, device=cuda), torch.zeros(8, 2))
+    with pytest.raises(ValueError):  # H = 24: not whole bf16 pairs a CTA
+        lstm_bptt(torch.zeros(1, 4, 96, device=cuda),
+                  torch.zeros(1, 4, 24, device=cuda),
+                  torch.zeros(1, 4, 24, device=cuda),
+                  torch.zeros(96, 24, device=cuda))
 
     cqt_bank = torch.zeros(4096, 8, device=cuda)
     with pytest.raises(TypeError):
