@@ -1,8 +1,9 @@
 """Feature extraction module base class.
 
 Counterpart of ``amt_tools_tpu/features/common.py``: the frame-count
-algebra (T = 1 + N // hop, ``get_sample_range``), frame times, and the dB
-post-processing that maps [-80, 0] dB onto [0, 1]. Concrete modules
+algebra (T = 1 + N // hop, ``get_sample_range``, the padding of audio to
+whole frames, ``:50-85``), frame times, and the dB post-processing that maps
+[-80, 0] dB onto [0, 1]. Concrete modules
 implement :meth:`process`, a function on (..., N) audio tensors that runs
 on the audio's device; :meth:`process_audio` is the host entry point the
 datasets use.
@@ -47,6 +48,46 @@ class FeatureModule(object):
 
         return np.arange(min_samples, max_samples + 1)
 
+    def get_num_samples_required(self):
+        """Number of samples required to extract one full frame of features."""
+
+        return self.get_sample_range(1)[-1]
+
+    @staticmethod
+    def divisor_pad(audio, divisor):
+        """Zero-pad audio so its length is divisible by ``divisor``.
+
+        A numpy array is padded as the JAX package pads it (``np.append``
+        of a 1-D zero run); a tensor is padded on its last axis on its own
+        device.
+        """
+
+        pad_amt = divisor - (audio.shape[-1] % divisor)
+
+        if 0 < pad_amt < divisor:
+            if isinstance(audio, torch.Tensor):
+                return torch.nn.functional.pad(audio, (0, int(pad_amt)))
+            audio = np.append(audio, np.zeros(pad_amt, dtype=np.float32),
+                              axis=-1)
+
+        return audio
+
+    def frame_pad(self, audio):
+        """Zero-pad audio to fill out the final frame."""
+
+        divisor = self.get_num_samples_required()
+
+        if audio.shape[-1] > divisor:
+            divisor = self.hop_length
+
+        return self.divisor_pad(audio, divisor)
+
+    def get_null_features(self):
+        """Features for empty audio: a zero-frame array of the right shape."""
+
+        return np.zeros((self.get_num_channels(), self.get_feature_size(), 0),
+                        dtype=np.float32)
+
     @abstractmethod
     def process(self, audio):
         """Feature transform: (..., N) audio tensor -> (..., C, F, T)."""
@@ -66,8 +107,7 @@ class FeatureModule(object):
         # own memory it may write
         audio = np.array(audio, dtype=np.float32)
         if audio.shape[-1] == 0:
-            return np.zeros((self.get_num_channels(), self.get_feature_size(),
-                             0), dtype=np.float32)
+            return self.get_null_features()
 
         device = resolve_device(device)
         with torch.inference_mode():

@@ -10,6 +10,7 @@ import torch
 
 from ..ops import spectral
 from ..ops.stft_kernel import stft_power
+from .common import FeatureModule
 from .waveform import WaveformWrapper
 
 
@@ -50,6 +51,9 @@ class STFT(WaveformWrapper):
 
     def process(self, audio):
         return self.post_proc(torch.sqrt(self._stft_power(audio)))
+
+    # (C, F, 0), not the raw frames' (win_length, 0)
+    get_null_features = FeatureModule.get_null_features
 
     def get_feature_size(self):
         return self.n_fft // 2 + 1

@@ -32,10 +32,18 @@ class TranscriptionModel(nn.Module):
     batch statistics), as the JAX package's flag does (``:79-83``): for
     reproducible fine-tuning and for tests that step two frameworks side by
     side.
+
+    Serving only (``:66-78``): ``quant_acoustic`` runs the acoustic conv
+    stacks, ``quant_lm`` the language models' hoisted input projections, as
+    int8 contractions (``ops.qconv``). Each is ``False``, ``True`` (dynamic
+    activation scales) or ``'static'`` (calibrated scales, filled by
+    ``serving.calibrate_quant_stats``). The parameters keep the float
+    model's names; do not train with these.
     """
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
-                 frame_width=1, dtype=None, dropout=True):
+                 frame_width=1, dtype=None, dropout=True, quant_acoustic=False,
+                 quant_lm=False):
         super().__init__()
         self.dim_in = dim_in
         self.profile = profile
@@ -44,6 +52,8 @@ class TranscriptionModel(nn.Module):
         self.frame_width = frame_width
         self.dtype = dtype
         self.dropout = dropout
+        self.quant_acoustic = quant_acoustic
+        self.quant_lm = quant_lm
 
     def pre_proc(self, batch):
         """Model-specific feature pre-processing (default: identity)."""

@@ -9,6 +9,11 @@ follow the Flax tree (``pitch_am.Conv_0``, ``onset_lm.FastBiLSTM_0``,
 ``adjoin_out.Dense_0``, ...), so ``weights.from_flax`` maps one onto the
 other by name.
 
+With ``quant_acoustic`` the acoustic stacks' ``Conv_1``, ``Conv_2`` and
+``Dense_0`` are int8 layers (``ops.qconv``; ``Conv_0`` stays float, JAX
+``:92-98``), and with ``quant_lm`` the language models' input projections
+are; the names and the random initialization stay the float model's.
+
 The acoustic stacks run NCHW as (B, C, T, F); the JAX package runs NHWC
 (B, T, F, C). Before the dense projection the port permutes back to
 (B, T, F/4, C), so the flatten is feature-major (index f * C + c) exactly
@@ -24,6 +29,7 @@ from ..ops import decode
 from ..ops.layers import (BatchNorm, conv2d_same, conv3x3, dropout,
                           lecun_normal_, linear)
 from ..ops.lstm import FastBiLSTM, FastLSTM
+from ..ops.qconv import Int8Conv, Int8Dense
 from .common import LogisticBank, TranscriptionModel
 
 __all__ = ['AcousticModel', 'LanguageModel', 'OnsetsFrames', 'OnsetsFrames2']
@@ -35,31 +41,44 @@ class AcousticModel(nn.Module):
     Three 3x3 conv + BatchNorm + ReLU blocks, two 1x2 max-pools over
     frequency (F -> F/4), then a dense projection. In train mode with
     ``dropout`` on, dropouts of 0.25 follow blocks 2 and 3 and 0.5 the
-    dense, drawn from the forward's ``generator``.
+    dense, drawn from the forward's ``generator``. ``quant`` (serving only:
+    ``False``, ``True`` or ``'static'``) makes ``Conv_1``, ``Conv_2`` and
+    ``Dense_0`` int8 layers; ``Conv_0`` stays float (JAX ``:92-98``).
     """
 
     def __init__(self, dim_in, dim_out, in_channels=1, model_complexity=2,
-                 dtype=None, generator=None, dropout=True):
+                 dtype=None, generator=None, dropout=True, quant=False):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
         nf1 = 16 * model_complexity
         nf3 = 32 * model_complexity
+        static = quant == 'static'
 
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
+        def conv(in_channels, out_channels):
+            if quant:
+                return Int8Conv(in_channels, out_channels, dtype=dtype,
+                                static_scale=static, generator=generator)
+            return conv3x3(in_channels, out_channels, generator)
+
         self.Conv_0 = conv3x3(in_channels, nf1, generator)
         self.BatchNorm_0 = BatchNorm(nf1)
-        self.Conv_1 = conv3x3(nf1, nf1, generator)
+        self.Conv_1 = conv(nf1, nf1)
         self.BatchNorm_1 = BatchNorm(nf1)
-        self.Conv_2 = conv3x3(nf1, nf3, generator)
+        self.Conv_2 = conv(nf1, nf3)
         self.BatchNorm_2 = BatchNorm(nf3)
 
         features = nf3 * (dim_in // 2 // 2)
-        self.Dense_0 = nn.Linear(features, dim_out)
-        lecun_normal_(self.Dense_0.weight, features, generator)
-        nn.init.zeros_(self.Dense_0.bias)
+        if quant:
+            self.Dense_0 = Int8Dense(features, dim_out, dtype=dtype,
+                                     static_scale=static, generator=generator)
+        else:
+            self.Dense_0 = nn.Linear(features, dim_out)
+            lecun_normal_(self.Dense_0.weight, features, generator)
+            nn.init.zeros_(self.Dense_0.bias)
 
     def _dropout(self, x, rate, generator):
         if self.training and self.dropout:
@@ -95,20 +114,22 @@ class LanguageModel(nn.Module):
 
     Bidirectional by default, with ``dim_out // 2`` hidden units per
     direction; the recurrence runs in the Hopper LSTM kernels on CUDA
-    (kernel B, or E and F when autograd records).
+    (kernel B, or E and F when autograd records; zero-padded to a multiple
+    of 16 for a width they do not take). ``quant`` makes the input
+    projections int8.
     """
 
     def __init__(self, dim_in, dim_out, bidirectional=True, dtype=None,
-                 generator=None):
+                 generator=None, quant=False):
         super().__init__()
         self.bidirectional = bidirectional
 
         if bidirectional:
             self.FastBiLSTM_0 = FastBiLSTM(dim_in, dim_out // 2, dtype=dtype,
-                                           generator=generator)
+                                           generator=generator, quant=quant)
         else:
             self.FastLSTM_0 = FastLSTM(dim_in, dim_out, dtype=dtype,
-                                       generator=generator)
+                                       generator=generator, quant=quant)
 
     def forward(self, feats):
         if self.bidirectional:
@@ -130,10 +151,12 @@ class OnsetsFrames(TranscriptionModel):
     head_names = ('pitch', 'onset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
-                 dtype=None, generator=None, dropout=True, detach_heads=False):
+                 dtype=None, generator=None, dropout=True, detach_heads=False,
+                 quant_acoustic=False, quant_lm=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
-                         dropout=dropout)
+                         dropout=dropout, quant_acoustic=quant_acoustic,
+                         quant_lm=quant_lm)
         self.detach_heads = detach_heads
         if model_complexity < 2:
             raise ValueError('OnsetsFrames requires model_complexity >= 2 '
@@ -146,16 +169,17 @@ class OnsetsFrames(TranscriptionModel):
             setattr(self, f'{name}_am',
                     AcousticModel(dim_in, self.dim_am, in_channels,
                                   model_complexity, dtype=dtype,
-                                  generator=generator, dropout=dropout))
+                                  generator=generator, dropout=dropout,
+                                  quant=quant_acoustic))
 
         self.onset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
-                                      generator=generator)
+                                      generator=generator, quant=quant_lm)
         self.onset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                       generator=generator)
         self.pitch_out = LogisticBank(self.dim_am, self.dim_out, dtype=dtype,
                                       generator=generator)
         self.adjoin_lm = LanguageModel(self.dim_aj, self.dim_lm, dtype=dtype,
-                                       generator=generator)
+                                       generator=generator, quant=quant_lm)
         self.adjoin_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
 
@@ -253,17 +277,19 @@ class OnsetsFrames2(OnsetsFrames):
     head_names = ('pitch', 'onset', 'offset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=3,
-                 dtype=None, generator=None, dropout=True, detach_heads=True):
+                 dtype=None, generator=None, dropout=True, detach_heads=True,
+                 quant_acoustic=False, quant_lm=False):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
                          generator=generator, dropout=dropout,
-                         detach_heads=detach_heads)
+                         detach_heads=detach_heads,
+                         quant_acoustic=quant_acoustic, quant_lm=quant_lm)
 
         self.offset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
-                                       generator=generator)
+                                       generator=generator, quant=quant_lm)
         self.offset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
 

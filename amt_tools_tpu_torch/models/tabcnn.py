@@ -11,6 +11,11 @@ W = T becomes the OIHW weight by the usual transpose. Before the flatten
 into ``dense1`` the port permutes to (B, T, F', C) (or (N, F', W', C) for
 windows), so the flatten is frequency-major exactly as in the JAX package
 (``tabcnn.py:158-160``) and the dense rows need no permutation.
+
+With ``quant_acoustic`` (serving only) ``conv1``-``conv3`` and ``dense1``
+are int8 layers (``ops.qconv``, JAX ``:104-117``). In the dynamic mode a
+conv's per-sample scale covers what its batch axis holds: a whole clip in
+``fullseq``, one context window in the windowed forward, as in JAX.
 """
 
 import torch
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from .. import tools
 from ..ops import frames as frame_ops
 from ..ops.layers import conv2d_valid, conv3x3, lecun_normal_, linear
+from ..ops.qconv import Int8Conv, Int8Dense
 from .common import SoftmaxGroups, TranscriptionModel
 
 __all__ = ['TabCNN']
@@ -40,10 +46,11 @@ class TabCNN(TranscriptionModel):
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
                  frame_width=9, online=False, fullseq=False, dtype=None,
-                 generator=None):
+                 generator=None, quant_acoustic=False, quant_lm=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity,
-                         frame_width=frame_width, dtype=dtype)
+                         frame_width=frame_width, dtype=dtype,
+                         quant_acoustic=quant_acoustic, quant_lm=quant_lm)
         self.online = online
         self.fullseq = fullseq
         # Three 3x3 VALID convs leave frame_width - 6 window positions; the
@@ -62,15 +69,28 @@ class TabCNN(TranscriptionModel):
         nf2 = 64 * model_complexity
         embedding = 128 * model_complexity
 
-        self.conv1 = conv3x3(in_channels, nf1, generator)
-        self.conv2 = conv3x3(nf1, nf2, generator)
-        self.conv3 = conv3x3(nf2, nf2, generator)
+        static = quant_acoustic == 'static'
+
+        def conv(in_channels, out_channels):
+            if quant_acoustic:
+                return Int8Conv(in_channels, out_channels, padding='VALID',
+                                dtype=dtype, static_scale=static,
+                                generator=generator)
+            return conv3x3(in_channels, out_channels, generator)
+
+        self.conv1 = conv(in_channels, nf1)
+        self.conv2 = conv(nf1, nf2)
+        self.conv3 = conv(nf2, nf2)
 
         # Three VALID 3x3 convs take 6 from each spatial axis, the pool halves
         features = nf2 * ((dim_in - 6) // 2) * ((frame_width - 6) // 2)
-        self.dense1 = nn.Linear(features, embedding)
-        lecun_normal_(self.dense1.weight, features, generator)
-        nn.init.zeros_(self.dense1.bias)
+        if quant_acoustic:
+            self.dense1 = Int8Dense(features, embedding, dtype=dtype,
+                                    static_scale=static, generator=generator)
+        else:
+            self.dense1 = nn.Linear(features, embedding)
+            lecun_normal_(self.dense1.weight, features, generator)
+            nn.init.zeros_(self.dense1.bias)
 
         self.tablature_out = SoftmaxGroups(
             embedding, self.num_groups * self.num_classes,

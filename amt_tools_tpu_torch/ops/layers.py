@@ -5,7 +5,11 @@ float32: Flax's ``Dense`` and ``Conv`` cast inputs, kernel and bias to
 ``dtype`` before the product, and ``BatchNorm`` normalizes in float32 and
 casts its result. These helpers give ``nn.Linear``/``nn.Conv2d`` weights the
 same treatment, initialize parameters like Flax's defaults from an explicit
-``torch.Generator``, and draw Flax's dropout from one.
+``torch.Generator``, and draw Flax's dropout from one. An int8 layer of
+``ops.qconv`` (``quantized = True``) passed to ``linear``, ``conv2d_same``
+or ``conv2d_valid`` runs its own forward: it quantizes its input, carries
+its padding and casts to its own dtype, so a model calls the same helper
+whichever layer it built.
 """
 
 import math
@@ -29,6 +33,9 @@ def _compute_dtype(x, dtype):
 def linear(x, layer, dtype=None):
     """``layer`` (an ``nn.Linear``) applied in ``dtype`` (default: x's)."""
 
+    if getattr(layer, 'quantized', False):
+        return layer(x)
+
     dtype = _compute_dtype(x, dtype)
 
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
@@ -36,6 +43,9 @@ def linear(x, layer, dtype=None):
 
 def conv2d_same(x, layer, dtype=None):
     """``layer`` (an odd-kernel ``nn.Conv2d``) with SAME padding in ``dtype``."""
+
+    if getattr(layer, 'quantized', False):
+        return layer(x)
 
     dtype = _compute_dtype(x, dtype)
     padding = tuple(k // 2 for k in layer.kernel_size)
@@ -46,6 +56,9 @@ def conv2d_same(x, layer, dtype=None):
 
 def conv2d_valid(x, layer, dtype=None):
     """``layer`` (an ``nn.Conv2d``) with VALID (no) padding in ``dtype``."""
+
+    if getattr(layer, 'quantized', False):
+        return layer(x)
 
     dtype = _compute_dtype(x, dtype)
 

@@ -7,23 +7,89 @@ carry): the input projection for every step is one ``nn.Linear`` over
 :func:`ops.lstm_kernel.lstm_scan` (kernel B) when nothing differentiates
 it, :func:`ops.lstm_kernel.lstm_scan_grad` (kernels E and F) when autograd
 records, as ``lstm_scan_pallas_grad`` forwards to ``lstm_scan_pallas``
-outside ``jax.grad``. Parameter names match the Flax tree
+outside ``jax.grad``. A CUDA width the kernels do not take
+(:func:`ops.lstm_kernel.scan_supported` is false, e.g. H = 24) runs them
+zero-padded to the next multiple of 16 (:func:`kernel_width`,
+:func:`padded_recurrence`), where the JAX layers fall back to their XLA
+scan (``ops/lstm.py:235-240``); above ``MAX_HIDDEN`` (1024, wider than
+any model of the repo) the kernels raise. Parameter names match the Flax tree
 (``input_proj[_fwd|_bwd]``, ``recurrent_kernel[_fwd|_bwd]`` in the (H, 4H)
-layout, gate order i, f, g, o).
+layout, gate order i, f, g, o). ``quant`` (``False``, ``True`` or
+``'static'``) makes the hoisted projections ``ops.qconv.Int8Dense`` layers
+under the same names, as JAX's ``_input_proj`` (``:34-50``); the recurrence
+stays float.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .layers import lecun_normal_, linear, orthogonal_
-from .lstm_kernel import lstm_scan, lstm_scan_grad
+from .lstm_kernel import lstm_scan, lstm_scan_grad, scan_supported
+from .qconv import Int8Dense
 
-__all__ = ['FastLSTM', 'FastBiLSTM']
+__all__ = ['FastLSTM', 'FastBiLSTM', 'kernel_width', 'padded_recurrence']
 
 
-def _reset_projection(layer, generator):
-    lecun_normal_(layer.weight, layer.in_features, generator)
+def _input_proj(input_size, features, dtype, quant, generator):
+    """The hoisted (B*T, E) @ (E, 4H) projection: an ``nn.Linear`` (LeCun
+    normal, zero bias) or its int8 drop-in, drawing the same numbers."""
+
+    if quant:
+        return Int8Dense(input_size, features, dtype=dtype,
+                         static_scale=quant == 'static', generator=generator)
+
+    layer = nn.Linear(input_size, features)
+    lecun_normal_(layer.weight, input_size, generator)
     nn.init.zeros_(layer.bias)
+
+    return layer
+
+
+def _pad_units(x, hidden, padded):
+    """(..., 4H) in gate blocks i, f, g, o -> (..., 4 * padded), each block
+    zero-padded from ``hidden`` to ``padded`` units."""
+
+    lead = x.shape[:-1]
+    x = F.pad(x.reshape(lead + (4, hidden)), (0, padded - hidden))
+
+    return x.reshape(lead + (4 * padded,))
+
+
+def _scan(xw, w_h, reverse):
+    if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
+        # W_h goes in uncast: the Function casts it, so dW_h reaches the
+        # float32 parameter unrounded
+        return lstm_scan_grad(xw, w_h, reverse)
+
+    return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse)
+
+
+def kernel_width(hidden, dtype):
+    """The width the layers run kernels B, E and F at for ``hidden`` units
+    a direction on the card: ``hidden`` where they take it, else the next
+    multiple of 16 where they take that. Above ``MAX_HIDDEN`` it is
+    ``hidden`` itself, and the kernels raise."""
+
+    if scan_supported(hidden, dtype):
+        return hidden
+    padded = -(-hidden // 16) * 16
+
+    return padded if scan_supported(padded, dtype) else hidden
+
+
+def padded_recurrence(xw, w_h, reverse, padded):
+    """The recurrence at ``padded`` units, cut back to H: zero xw columns
+    and zero W_h rows and columns for the added units keep their gates at
+    (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step; they add
+    nothing to any sum of the real units, and the slice drops their
+    gradients."""
+
+    hidden = w_h.shape[0]
+    w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
+    out = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse)
+
+    return out[..., :hidden]
 
 
 def _recurrence(xw, w_h, reverse=False):
@@ -32,27 +98,29 @@ def _recurrence(xw, w_h, reverse=False):
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
     xw = xw.to(dtype).contiguous()
 
-    if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
-        # W_h goes in uncast: the Function casts it, so dW_h reaches the
-        # float32 parameter unrounded
-        return lstm_scan_grad(xw, w_h, reverse)
+    # Decided from the shape, before any launch
+    hidden = w_h.shape[0]
+    if xw.device.type == 'cuda' and kernel_width(hidden, dtype) != hidden:
+        return padded_recurrence(xw, w_h, reverse,
+                                 kernel_width(hidden, dtype))
 
-    return lstm_scan(xw, w_h.to(dtype).contiguous(), reverse=reverse)
+    return _scan(xw, w_h, reverse)
 
 
 class FastLSTM(nn.Module):
     """Unidirectional LSTM: (B, T, E) -> (B, T, H)."""
 
-    def __init__(self, input_size, features, dtype=None, generator=None):
+    def __init__(self, input_size, features, dtype=None, generator=None,
+                 quant=False):
         super().__init__()
         self.features = features
         self.dtype = dtype
-        self.input_proj = nn.Linear(input_size, 4 * features)
-        self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
 
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        _reset_projection(self.input_proj, generator)
+        self.input_proj = _input_proj(input_size, 4 * features, dtype, quant,
+                                      generator)
+        self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
         orthogonal_(self.recurrent_kernel, generator)
 
     def forward(self, inputs):
@@ -64,21 +132,22 @@ class FastLSTM(nn.Module):
 class FastBiLSTM(nn.Module):
     """Bidirectional LSTM: (B, T, E) -> (B, T, 2H), [forward | backward]."""
 
-    def __init__(self, input_size, features, dtype=None, generator=None):
+    def __init__(self, input_size, features, dtype=None, generator=None,
+                 quant=False):
         super().__init__()
         self.features = features
         self.dtype = dtype
-        self.input_proj_fwd = nn.Linear(input_size, 4 * features)
-        self.input_proj_bwd = nn.Linear(input_size, 4 * features)
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.input_proj_fwd = _input_proj(input_size, 4 * features, dtype,
+                                          quant, generator)
+        self.input_proj_bwd = _input_proj(input_size, 4 * features, dtype,
+                                          quant, generator)
         self.recurrent_kernel_fwd = nn.Parameter(
             torch.empty(features, 4 * features))
         self.recurrent_kernel_bwd = nn.Parameter(
             torch.empty(features, 4 * features))
-
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        _reset_projection(self.input_proj_fwd, generator)
-        _reset_projection(self.input_proj_bwd, generator)
         orthogonal_(self.recurrent_kernel_fwd, generator)
         orthogonal_(self.recurrent_kernel_bwd, generator)
 

@@ -42,7 +42,7 @@ __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'lstm_scan_grad', 'LSTMScanGrad', 'scan_geometry',
            'scan_resident', 'scan_max_rows', 'bptt_geometry',
            'bptt_resident', 'bptt_max_rows', 'cluster_plan',
-           'scan_launch_plan', 'bptt_launch_plan']
+           'scan_launch_plan', 'bptt_launch_plan', 'scan_supported']
 
 MAX_HIDDEN = 1024  # 16 warps a CTA
 CLUSTER = 8        # CTAs a cluster, each owning H / 8 hidden units
@@ -259,6 +259,23 @@ def bptt_launch_plan(batch, hidden, dtype, device):
     """The launch of kernel F on ``device``."""
 
     return _launch_plan('bptt', batch, hidden, dtype, device)
+
+
+def scan_supported(hidden, dtype):
+    """Whether kernels B, E and F take ``hidden`` units a direction in
+    ``dtype`` (float32 or bf16) on the card, from the shape alone: H a
+    multiple of 16 (8 CTAs of whole bf16 pairs), at most ``MAX_HIDDEN``,
+    and one row's buffers of each kernel within a block's shared memory,
+    so that :func:`cluster_plan` can place a cluster. The counterpart of
+    ``pallas_lstm_supported`` (``pallas_lstm.py:45-57``); the layers run
+    other widths up to ``MAX_HIDDEN`` zero-padded to a multiple of 16
+    (``ops/lstm.py``)."""
+
+    if hidden <= 0 or hidden % 16 or hidden > MAX_HIDDEN:
+        return False
+
+    return all(_fits(geometry, hidden, dtype, 1, resident(hidden, dtype))
+               for geometry, resident, _, _ in _CLUSTER_KERNELS.values())
 
 
 def _sigmoid_tanh_form(x):

@@ -1,9 +1,11 @@
 """Production serving: audio batches in, per-clip notes out.
 
-Counterpart of ``amt_tools_tpu/serving.py``: :func:`calibrate_activity`
-(``:71``), :func:`calibrate_tablature_activity` (``:116``),
-``_ServingPipeline`` (``:167``) with its asynchronous dispatch/finalize
-protocol and overflow re-decode (``:265-301``), :class:`TranscriptionPipeline`
+Counterpart of ``amt_tools_tpu/serving.py``: :func:`calibrate_quant_stats`
+(``:32``), :func:`calibrate_activity` (``:71``),
+:func:`calibrate_tablature_activity` (``:116``), ``_ServingPipeline``
+(``:167``) with its check of static int8 scales at construction
+(``:184-189``), its asynchronous dispatch/finalize protocol and overflow
+re-decode (``:265-301``), :class:`TranscriptionPipeline`
 (``:312``) and :class:`TablaturePipeline` (``:378``). One piano dispatch
 runs feature extraction (the STFT kernel), the model forward (the LSTM
 kernel), the sigmoid threshold and the full note decode on the device; one
@@ -21,9 +23,10 @@ import torch
 
 from . import tools
 from .ops import decode
+from .ops.qconv import int8_layers, validate_quant_stats
 
 __all__ = ['TranscriptionPipeline', 'TablaturePipeline', 'calibrate_activity',
-           'calibrate_tablature_activity']
+           'calibrate_tablature_activity', 'calibrate_quant_stats']
 
 
 def _as_audio(audio, device):
@@ -54,6 +57,41 @@ def _forward(model, data_proc, audio):
         feats = data_proc.process(audio)
         batch = model.pre_proc({tools.KEY_FEATS: feats})
         return model(batch[tools.KEY_FEATS])
+
+
+def calibrate_quant_stats(model, data_proc, audio_batches, device=None):
+    """Fill the calibrated activation scales for static int8 serving.
+
+    A model built with ``quant_acoustic='static'`` (or ``quant_lm``) reads
+    one activation scale per int8 layer from its ``act_amax`` buffer. This
+    runs the eval forward once per audio batch with every int8 layer
+    calibrating: each folds the abs-max it sees into ``act_amax`` before it
+    quantizes, so the scales are the running maximum over the batches (and
+    over what the buffers held before). Mutates the model in place, moved
+    to ``device`` (CUDA unless given), and returns the scales by layer name.
+
+    Activations louder than the calibrated range saturate at the int8
+    limit, so calibrate on audio at the loudness you serve.
+    """
+
+    device = tools.resolve_device(device)
+    tools.use_exact_fp32()
+    model = model.to(device).eval()
+    if not isinstance(audio_batches, (list, tuple)):
+        audio_batches = [audio_batches]
+
+    layers = int8_layers(model)
+    for _, layer in layers:
+        layer.calibrating = True
+    try:
+        for audio in audio_batches:
+            _forward(model, data_proc, _as_audio(audio, device))
+    finally:
+        for _, layer in layers:
+            layer.calibrating = False
+
+    return {name: float(layer.act_amax) for name, layer in layers
+            if layer.static_scale}
 
 
 def calibrate_activity(model, data_proc, audio,
@@ -135,9 +173,16 @@ class _ServingPipeline:
     """Shared serving machinery: per-length frame-time cache and the
     asynchronous dispatch/finalize protocol. Subclasses provide
     ``_decode(audio, capacity)`` (the device function) and
-    ``_finalize_clip`` (host decode of one clip's buffers)."""
+    ``_finalize_clip`` (host decode of one clip's buffers).
+
+    A model with static int8 layers must carry calibrated scales
+    (:func:`calibrate_quant_stats`): construction raises otherwise, since
+    zero scales would decode garbage."""
 
     def __init__(self, model, data_proc, capacity, device=None):
+        if 'static' in (model.quant_acoustic, model.quant_lm):
+            validate_quant_stats(model, type(self).__name__)
+
         self.device = tools.resolve_device(device)
         tools.use_exact_fp32()
         self.model = model.to(self.device).eval()

@@ -11,6 +11,8 @@ and changes only leaf names and layouts:
 - ``params/.../kernel`` of a dense, (in, out) -> ``weight`` (out, in);
 - ``params/.../scale`` of a batch norm -> ``weight``; ``bias`` stays;
 - ``batch_stats/.../mean`` and ``var`` -> ``running_mean``, ``running_var``;
+- ``quant_stats/.../act_amax`` (the calibrated scales of static int8
+  layers) -> the layer's ``act_amax`` buffer, a scalar;
 - ``recurrent_kernel_{fwd,bwd}`` keep their (H, 4H) layout (gate order
   i, f, g, o), which is what the LSTM kernel reads.
 
@@ -50,12 +52,13 @@ def _param(name, value):
 
 
 def from_flax(variables):
-    """Convert ``{'params': ..., 'batch_stats': ...}`` nested dicts of arrays
-    into a ``state_dict`` of float32 CPU tensors for the port's model."""
+    """Convert ``{'params': ..., 'batch_stats': ..., 'quant_stats': ...}``
+    nested dicts of arrays into a ``state_dict`` of float32 CPU tensors for
+    the port's model."""
 
     state = {}
     for collection, tree in variables.items():
-        if collection not in ('params', 'batch_stats'):
+        if collection not in ('params', 'batch_stats', 'quant_stats'):
             raise ValueError(f'unsupported variable collection {collection!r}')
 
         for path, value in _leaves(tree):
@@ -64,10 +67,12 @@ def from_flax(variables):
 
             if collection == 'params':
                 name, value = _param(name, value)
-            else:
+            elif collection == 'batch_stats':
                 name = _STAT_NAMES[name]
 
             key = '.'.join(modules + [name])
-            state[key] = torch.from_numpy(np.ascontiguousarray(value))
+            # ascontiguousarray makes a 0-d scale 1-d; keep its shape
+            state[key] = torch.from_numpy(
+                np.ascontiguousarray(value).reshape(value.shape))
 
     return state

@@ -69,14 +69,40 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     against the CPU (plain versions), on the losses, the gradients and the
     parameters after one SGD step, with the ReLU and max-pool decisions
     that the two forwards took differently counted per acoustic stack;
-9 and 13. one piano batch, one guitar batch and one float32 training step
-   under ``torch.profiler``, in one session: the device time by kernel and
-   the busy share of each, whose path's kernels must appear in it.
+14. int8-static piano serving at the JAX headline recipe (``bench.py:52-
+    113``, ``quant='static'``): O&F2 complexity 3 in bf16 with Conv_1,
+    Conv_2 and Dense_0 of each acoustic stack in int8 (``ops/qconv.py``:
+    an im2col into ``torch._int_mm``), scales calibrated on 4 clips
+    (``calibrate_quant_stats``), then activity; 3 requests of 128 x 60 s
+    with overlapped dispatch/finalize, in turns with the bf16 pipeline on
+    the same weights (bf16, int8, int8, bf16); the note agreement (F1)
+    with bf16 as ``bench.py:242-271`` computes it; each batch's peak
+    memory, int8 and bf16; counts reset before and read after each run:
+    A once and B six times a dispatch on the int8 route; and 5 clips of
+    the batch, in every int8 layer (Conv_1 over 26 chunks), equal bit for
+    bit to the same clips run alone in one chunk;
+15. int8-static guitar: one 64 x 60 s batch through TabCNN (fullseq) with
+    conv1-conv3 and dense1 in int8 behind the serving CQT (kernel D must
+    run), in turns with bf16; the tablature cells and the notes it shares
+    with bf16;
+16. int8-static O&F2 (complexity 3, float32, acoustic stacks and LM
+    projections in int8) on a short clip, card against CPU: every int8
+    layer's int32 accumulators bit for bit on the CPU's int8 operands, the
+    operands the two devices quantize differently counted by steps, the
+    logits within ``INT8_LOGIT_TOL``;
+17. the piano batch's int8 layers (Conv_1, Conv_2, Dense_0 at 128 x 60 s,
+    bf16 in and out) timed against cuDNN's bf16 conv and a bf16
+    ``F.linear`` at the same shapes;
+9 and 13. one piano batch (bf16 and int8-static), one guitar batch and one
+   float32 training step under ``torch.profiler``, in one session: the
+   device time by kernel and the busy share of each, whose path's kernels
+   must appear in it.
 
 The last lines are the card, one ``kernels`` JSON line (A to F), and one
 JSON line ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -133,6 +159,13 @@ RESIDUAL_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 1e-4}
 # numerics_faults)
 BPTT_TOL = {'float32': 1e-4, 'bfloat16': 5e-4}
 BPTT_MEAN_TOL = {'float32': 1e-5, 'bfloat16': 1e-4}
+# Int8-static logits, card vs CPU (phase 16): the features differ by
+# float32 sums in another order, so an activation at a rounding boundary
+# may quantize one step apart on the two devices, which moves the logits
+# further than float sums do (tests/test_torch_int8_pipeline.py: 1e-2 and
+# 2e-4 on the mean between the port and the JAX package)
+INT8_LOGIT_TOL = 1e-2
+INT8_LOGIT_MEAN_TOL = 2e-4
 TRAIN_PASSES = 3
 FIT_STEPS = 30
 LEARNING_RATE = 6e-4
@@ -1774,6 +1807,424 @@ def check_guitar_against_cpu(clips):
         f'{notes_compared} notes compared')
 
 
+def note_agreement(notes, reference):
+    """Precision, recall and F1 of ``notes`` against ``reference``: per
+    clip, sets of (pitch, onset, offset) rounded to 4 decimals
+    (``bench.py:242-271``); guitar clips carry one set per string."""
+
+    def note_set(clip):
+        if isinstance(clip, dict):
+            return {(string,) + note for string, notes in clip.items()
+                    for note in note_set(notes)}
+        pitches, intervals = clip
+        return {(int(p), round(float(on), 4), round(float(off), 4))
+                for p, (on, off) in zip(pitches, intervals)}
+
+    matched = total = total_ref = 0
+    for clip, ref in zip(notes, reference):
+        got, want = note_set(clip), note_set(ref)
+        matched += len(got & want)
+        total += len(got)
+        total_ref += len(want)
+    precision = matched / max(1, total)
+    recall = matched / max(1, total_ref)
+
+    return (precision, recall,
+            2 * precision * recall / max(1e-12, precision + recall),
+            total, total_ref)
+
+
+def batch_peaks(pipeline, requests):
+    """Peak device memory (GB) of each request served alone."""
+
+    import torch
+
+    peaks = []
+    for request in requests:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pipeline(request)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+
+    return peaks
+
+
+def check_int8_chunks(model, mel, audio, picks):
+    """Every int8 layer of ``model`` over the whole batch ``audio``, against
+    the same layer run alone on the clips ``picks``: static scales do not
+    depend on the batch, so each picked clip's output must be equal bit for
+    bit. Over 128 x 60 s Conv_1 runs in chunks of 5 clips, Conv_2 of 11 and
+    Dense_0 of about 26, so the picks sit in first, later, straddling and
+    last chunks. Returns the layers' chunk counts."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.qconv import int8_layers
+
+    index = torch.tensor(picks, device=audio.device)
+    seen, chunks = {}, {}
+
+    def keep(layer, args, out, name):
+        x = args[0]
+        rows = x.shape[0] if x.dim() == 4 else x[..., 0].numel()
+        flat = x if x.dim() == 4 else x.reshape(-1, x.shape[-1])
+        chunks[name] = -(-rows // layer.chunk_rows(flat))
+        seen[name] = (x.index_select(0, index).clone(),
+                      out.index_select(0, index).clone())
+
+    hooks = [layer.register_forward_hook(
+                 lambda layer, args, out, name=name: keep(layer, args, out,
+                                                          name))
+             for name, layer in int8_layers(model)]
+    try:
+        with torch.inference_mode():
+            feats = mel.process(audio)
+            model(model.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS])
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+    layers = dict(int8_layers(model))
+    require(len(seen) == len(layers), 'an int8 layer did not run')
+    for name, (x, out) in seen.items():
+        with torch.inference_mode():
+            alone = layers[name](x)
+        require(torch.equal(alone, out),
+                f'{name}: clips {picks} of the batch differ from the same '
+                f'clips run alone')
+
+    return chunks
+
+
+def serve_int8(clips, profile, card):
+    """Phase 14: int8-static piano serving at the JAX headline recipe
+    (``bench.py:52-113`` with ``quant='static'``): O&F2 complexity 3 in
+    bf16 with Conv_1, Conv_2 and Dense_0 of each acoustic stack in int8,
+    scales calibrated on 4 clips, then activity; 3 requests of 128 x 60 s
+    with overlapped dispatch/finalize, beside the bf16 pipeline on the same
+    weights in this process; the note agreement with bf16 as ``bench.py``
+    computes it; each batch's peak memory; A and B must launch on the int8
+    route; picked clips of the batch equal, layer by layer, the same clips
+    run alone (:func:`check_int8_chunks`)."""
+
+    import torch
+
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.serving import (TranscriptionPipeline,
+                                             calibrate_activity,
+                                             calibrate_quant_stats)
+
+    mel = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HOP, n_mels=N_MELS)
+    model = OnsetsFrames2(dim_in=N_MELS, profile=profile, model_complexity=3,
+                          dtype=torch.bfloat16, quant_acoustic='static',
+                          generator=torch.Generator().manual_seed(0))
+    scales = calibrate_quant_stats(model, mel, clips[:4])
+    log(f'int8-static scales {({k: round(v, 4) for k, v in scales.items()})}')
+    require(len(scales) == 9 and min(scales.values()) > 0,
+            'calibration did not fill the 9 scales')
+    shifts = calibrate_activity(model, mel, clips[:4])
+    log(f'int8-static: calibrated head biases by {shifts}')
+
+    # The bf16 reference serves the same (calibrated) weights
+    bf16_model = OnsetsFrames2(dim_in=N_MELS, profile=profile,
+                               model_complexity=3, dtype=torch.bfloat16)
+    bf16_model.load_state_dict({k: v for k, v in model.state_dict().items()
+                                if not k.endswith('act_amax')})
+
+    pipeline = TranscriptionPipeline(model, mel, capacity=CAPACITY)
+    reference = TranscriptionPipeline(bf16_model, mel, capacity=CAPACITY)
+    audio = torch.from_numpy(clips).cuda()
+    requests = [torch.roll(audio, shifts=43 * r, dims=0)
+                for r in range(REQUESTS)]
+    for pipe in (pipeline, reference):
+        pipe(requests[0][:8])  # warm-up
+    torch.cuda.synchronize()
+
+    audio_seconds = REQUESTS * BATCH * CLIP_SECONDS
+    rates, notes = {}, {}
+    for label, pipe in (('bf16', reference), ('int8-static', pipeline),
+                        ('int8-static again', pipeline),
+                        ('bf16 again', reference)):
+        reset_launches()
+        results, elapsed = serve_requests(pipe, requests)
+        launches = read_launches()
+        rates[label] = audio_seconds / elapsed
+        notes.setdefault(label.split()[0], results)
+        log(f'{label}: {REQUESTS} requests of {BATCH} x {CLIP_SECONDS:.0f} s '
+            f'in {elapsed:.3f} s: {rates[label]:.1f} audio-s per wall-s '
+            f'({card}); launches {launches}')
+        if label.startswith('int8'):
+            int8_launches = launches
+    require(int8_launches['stft_power_fft'] == REQUESTS,
+            'kernel A did not run once per int8 dispatch on its FFT route')
+    require(int8_launches['lstm_scan'] == 6 * REQUESTS,
+            'kernel B did not run six times per int8 dispatch')
+
+    flat = [clip for result in notes['int8-static'] for clip in result]
+    flat_ref = [clip for result in notes['bf16'] for clip in result]
+    precision, recall, f1, total, total_ref = note_agreement(flat, flat_ref)
+    counts = [len(p) for p, _ in flat]
+    log(f'int8-static vs bf16 note agreement: P {precision:.4f} R '
+        f'{recall:.4f} F1 {f1:.4f} ({total} vs {total_ref} notes; per clip '
+        f'min {min(counts)} median {int(np.median(counts))} max '
+        f'{max(counts)})')
+    require(len(counts) == REQUESTS * BATCH and min(counts) > 0,
+            'an int8 clip decoded no notes')
+    picks = [0, 5, 26, 64, BATCH - 1]
+    chunks = check_int8_chunks(model, mel, requests[0], picks)
+    log(f'int8-static chunks: clips {picks} of the {BATCH}-clip batch equal '
+        f'bit for bit, in every int8 layer, the same clips run alone; chunks '
+        f'a layer over the batch {chunks}')
+    require(max(chunks.values()) > 1,
+            'no int8 layer ran in more than one chunk over the batch')
+
+    peaks = batch_peaks(pipeline, requests)
+    ref_peaks = batch_peaks(reference, requests)
+    log(f'peak device memory a batch, GB: int8-static '
+        f'{[round(p, 3) for p in peaks]}, bf16 '
+        f'{[round(p, 3) for p in ref_peaks]} ({card})')
+    log(f'int8-static / bf16 audio-s per wall-s, in turns: '
+        f'{rates["bf16"]:.1f}, {rates["int8-static"]:.1f}, '
+        f'{rates["int8-static again"]:.1f}, {rates["bf16 again"]:.1f}')
+
+    return ({'stft_power': int8_launches['stft_power'],
+             'lstm_scan': int8_launches['lstm_scan']},
+            ('int8-static piano batch of 128 clips',
+             lambda: pipeline(requests[0]),
+             ('stft_power_fft_kernel', 'lstm_scan_kernel')))
+
+
+def serve_guitar_int8(clips, card):
+    """Phase 15: one int8-static guitar batch of 64 x 60 s (TabCNN
+    fullseq with conv1-conv3 and dense1 in int8, behind the serving CQT,
+    kernel D) beside the bf16 pipeline on the same weights; the tablature
+    cells and the notes it shares with bf16."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.serving import (TablaturePipeline,
+                                             calibrate_quant_stats,
+                                             calibrate_tablature_activity)
+
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = guitar_cqt(grouped='auto')
+    model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                   fullseq=True, dtype=torch.bfloat16,
+                   quant_acoustic='static',
+                   generator=torch.Generator().manual_seed(0))
+    scales = calibrate_quant_stats(model, cqt, clips[:4])
+    require(len(scales) == 4 and min(scales.values()) > 0,
+            'calibration did not fill the 4 TabCNN scales')
+    calibrate_tablature_activity(model, cqt, clips[:4])
+    bf16_model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                        fullseq=True, dtype=torch.bfloat16)
+    bf16_model.load_state_dict({k: v for k, v in model.state_dict().items()
+                                if not k.endswith('act_amax')})
+
+    pipeline = TablaturePipeline(model, cqt, capacity=GUITAR_CAPACITY)
+    reference = TablaturePipeline(bf16_model, cqt, capacity=GUITAR_CAPACITY)
+    audio = torch.from_numpy(clips).cuda()
+    for pipe in (pipeline, reference):
+        pipe(audio[:8])  # warm-up
+    torch.cuda.synchronize()
+
+    rates, notes = {}, {}
+    for label, pipe in (('bf16', reference), ('int8-static', pipeline),
+                        ('int8-static again', pipeline),
+                        ('bf16 again', reference)):
+        reset_launches()
+        results, elapsed = serve_requests(pipe, [audio])
+        launches = read_launches()
+        rates[label] = GUITAR_BATCH * CLIP_SECONDS / elapsed
+        notes.setdefault(label.split()[0], results[0])
+        log(f'guitar {label}: 1 request of {GUITAR_BATCH} x '
+            f'{CLIP_SECONDS:.0f} s in {elapsed:.3f} s: {rates[label]:.1f} '
+            f'audio-s per wall-s ({card}); launches {launches}')
+        if label.startswith('int8'):
+            require(launches['cqt_mag_grouped_bf16x3'] == 1,
+                    'kernel D did not run on the int8 guitar batch')
+            int8_launches = launches
+
+    with torch.inference_mode():
+        feats = cqt.process(audio[:16])
+        logits = {name: m(m.pre_proc({tools.KEY_FEATS: feats})[
+            tools.KEY_FEATS])[tools.KEY_TABLATURE]
+            for name, m in (('int8', model), ('bf16', bf16_model))}
+    head = model.tablature_out
+    tab, tab_ref = (head.finalize_output(logits[k]) for k in ('int8', 'bf16'))
+    cells = (tab == tab_ref).float().mean().item()
+    precision, recall, f1, total, total_ref = note_agreement(
+        notes['int8-static'], notes['bf16'])
+    log(f'guitar int8-static vs bf16: tablature cells equal {cells:.4f} '
+        f'(16 clips); notes P {precision:.4f} R {recall:.4f} F1 {f1:.4f} '
+        f'({total} vs {total_ref}); in turns {rates["bf16"]:.1f}, '
+        f'{rates["int8-static"]:.1f}, {rates["int8-static again"]:.1f}, '
+        f'{rates["bf16 again"]:.1f} audio-s per wall-s')
+    require(total > 0, 'the int8 guitar batch decoded no notes')
+
+    return {'cqt_mag_grouped': int8_launches['cqt_mag_grouped']}
+
+
+def int8_against_cpu(clips, profile):
+    """Phase 16: a short clip through the int8-static O&F2 (complexity 3,
+    float32, acoustic stacks and LM projections in int8) on the card and on
+    the CPU: every int8 layer's accumulator bit for bit on the CPU's int8
+    operands, the operands that differ between the two devices counted by
+    steps, and the logits within ``INT8_LOGIT_TOL``."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.ops.qconv import int8_layers
+    from amt_tools_tpu_torch.serving import calibrate_quant_stats
+
+    audio = np.ascontiguousarray(clips[:2, :10 * SAMPLE_RATE])
+    mel = MelSpec(n_mels=N_MELS)
+    model = OnsetsFrames2(dim_in=N_MELS, profile=profile, model_complexity=3,
+                          quant_acoustic='static', quant_lm='static',
+                          generator=torch.Generator().manual_seed(3))
+    calibrate_quant_stats(model, mel, audio, device='cpu')
+
+    inputs, raw = {}, {}
+    for device in ('cpu', 'cuda'):
+        model = model.to(device)
+        hooks = [layer.register_forward_pre_hook(
+                     lambda layer, args, name=name:
+                     inputs.setdefault(device, {}).__setitem__(
+                         name, args[0].detach().float().cpu()))
+                 for name, layer in int8_layers(model)]
+        with torch.inference_mode(), tools.exact_fp32():
+            feats = mel.process(torch.from_numpy(audio).to(device))
+            out = model(model.pre_proc({tools.KEY_FEATS: feats})[
+                tools.KEY_FEATS])
+        raw[device] = {k: v.float().cpu() for k, v in out.items()}
+        for hook in hooks:
+            hook.remove()
+
+    layers = int8_layers(model)  # on the card now
+    one_step = more = values = 0
+    for name, layer in layers:
+        cpu_layer = copy.deepcopy(layer).cpu()
+        with torch.inference_mode():
+            x8_cpu, _ = cpu_layer.quantize(inputs['cpu'][name])
+            x8_gpu, _ = layer.quantize(inputs['cuda'][name].cuda())
+            acc_cpu = cpu_layer.accumulate(x8_cpu)
+            acc_gpu = layer.accumulate(x8_cpu.cuda()).cpu()
+        steps = (x8_cpu.int() - x8_gpu.cpu().int()).abs()
+        one_step += int((steps == 1).sum())
+        more += int((steps > 1).sum())
+        values += steps.numel()
+        require(torch.equal(acc_gpu, acc_cpu),
+                f'{name}: the int32 accumulators differ between the card and '
+                f'the CPU on identical int8 operands')
+
+    worst = max((raw['cuda'][k] - raw['cpu'][k]).abs().max().item()
+                for k in raw['cpu'])
+    mean = max((raw['cuda'][k] - raw['cpu'][k]).abs().mean().item()
+               for k in raw['cpu'])
+    log(f'int8-static card vs CPU: the {len(layers)} int8 layers\' int32 '
+        f'accumulators equal bit for bit on the CPU\'s operands; of '
+        f'{values} int8 operands {one_step} differ by one step and {more} by '
+        f'more (their float inputs differ by float32 sums in another order '
+        f'upstream); logits within {worst:.3g} (tolerance {INT8_LOGIT_TOL}), '
+        f'mean {mean:.3g} (tolerance {INT8_LOGIT_MEAN_TOL})')
+    require(worst <= INT8_LOGIT_TOL and mean <= INT8_LOGIT_MEAN_TOL,
+            'int8-static logits on the card disagree with the CPU')
+
+
+def time_int8_layers(card):
+    """Phase 17: the int8 layers of the piano batch (quantize, im2col,
+    ``torch._int_mm``, rescale) against cuDNN's bf16 conv and a bf16
+    ``F.linear`` at the same shapes: O&F2 complexity 3's Conv_1, Conv_2
+    and Dense_0 over 128 x 60 s, static scales, bf16 in and out."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from amt_tools_tpu_torch.ops.qconv import Int8Conv, Int8Dense
+
+    frames = 1 + int(CLIP_SECONDS * SAMPLE_RATE) // HOP
+    g = torch.Generator().manual_seed(0)
+    rows = []
+    for name, layer, shape in (
+            ('Conv_1', Int8Conv(48, 48, dtype=torch.bfloat16,
+                                static_scale=True, generator=g),
+             (BATCH, 48, frames, N_MELS)),
+            ('Conv_2', Int8Conv(48, 96, dtype=torch.bfloat16,
+                                static_scale=True, generator=g),
+             (BATCH, 48, frames, N_MELS // 2)),
+            ('Dense_0', Int8Dense(96 * (N_MELS // 4), 768,
+                                  dtype=torch.bfloat16, static_scale=True,
+                                  generator=g),
+             (BATCH, frames, 96 * (N_MELS // 4)))):
+        layer = layer.cuda()
+        x = torch.rand(shape, device='cuda', dtype=torch.bfloat16)
+        layer.act_amax.fill_(1.0)
+        weight = layer.weight.to(torch.bfloat16)
+        bias = layer.bias.to(torch.bfloat16)
+        if isinstance(layer, Int8Conv):
+            def library(x=x, weight=weight, bias=bias):
+                return F.conv2d(x, weight, bias, padding=1)
+        else:
+            def library(x=x, weight=weight, bias=bias):
+                return F.linear(x, weight, bias)
+        with torch.inference_mode():
+            ms = time_ms(lambda: layer(x), reps=3)
+            library_ms = time_ms(library, reps=3)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            layer(x)
+            extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+            parts = int8_parts(layer, x)
+        rows.append((name, shape, ms, library_ms, extra, parts))
+        del x
+        torch.cuda.empty_cache()
+    for name, shape, ms, library_ms, extra, parts in rows:
+        log(f'int8 {name} {shape}: {ms:.3f} ms ({extra:.3f} GB above its '
+            f'input), bf16 library {library_ms:.3f} ms ({card}); one chunk '
+            f'of {parts.pop("rows")} rows: ' +
+            ', '.join(f'{part} {part_ms:.3f} ms'
+                      for part, part_ms in parts.items()))
+
+
+def int8_parts(layer, x):
+    """Device ms of each step of the first chunk of an int8 layer's forward
+    (:meth:`chunk_rows` of ``x``): the float32 quantize, the im2col (convs),
+    ``torch._int_mm`` and the float32 rescale with the cast to bf16."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops import qconv
+
+    conv = isinstance(layer, qconv.Int8Conv)
+    if not conv:
+        x = x.reshape(-1, x.shape[-1])
+    rows = layer.chunk_rows(x)
+    chunk = x[:rows]
+    w8, s_w = layer.quantized_weights()
+    x8, scale = layer.quantize(chunk)
+    cols = layer.operand(x8)
+    acc = qconv.int8_matmul(cols, w8)
+
+    parts = {'rows': rows,
+             'quantize': time_ms(lambda: layer.quantize(chunk), reps=3)}
+    if conv:
+        parts['im2col'] = time_ms(lambda: layer.operand(x8), reps=3)
+    parts['_int_mm'] = time_ms(lambda: qconv.int8_matmul(cols, w8), reps=3)
+    parts['rescale'] = time_ms(
+        lambda: layer.rescale(acc, rows, scale, s_w).to(torch.bfloat16),
+        reps=3)
+
+    return parts
+
+
 def main():
     import torch
 
@@ -1812,11 +2263,19 @@ def main():
 
     launches, piano_batch = serve(clips, profile, card)
     check_against_cpu(clips, profile)
+    torch.cuda.empty_cache()
+    int8_launches, int8_batch = serve_int8(clips, profile, card)
+    torch.cuda.empty_cache()
+    int8_against_cpu(clips, profile)
     del clips
+    torch.cuda.empty_cache()
+    time_int8_layers(card)
     torch.cuda.empty_cache()
 
     stft['launches'] = launches['stft_power']
     lstm['launches'] = launches['lstm_scan']
+    stft['launches_int8_static'] = int8_launches['stft_power']
+    lstm['launches_int8_static'] = int8_launches['lstm_scan']
 
     start = time.perf_counter()
     guitar = render_clips(tools.GuitarProfile(num_frets=19), GUITAR_BATCH,
@@ -1831,11 +2290,14 @@ def main():
 
     launches, guitar_batch = serve_guitar(guitar, card)
     check_guitar_against_cpu(guitar)
+    torch.cuda.empty_cache()
+    int8_guitar = serve_guitar_int8(guitar, card)
     del guitar
     torch.cuda.empty_cache()
 
     cqt_full['launches'] = launches['cqt_mag']
     cqt_grouped['launches'] = launches['cqt_mag_grouped']
+    cqt_grouped['launches_int8_static'] = int8_guitar['cqt_mag_grouped']
 
     residuals = check_lstm_residuals()
     bptt = check_lstm_bptt()
@@ -1846,7 +2308,7 @@ def main():
         entry['launches'] = launches[entry['name']]
         entry['launches_per_step'] = launches[entry['name']] / steps
 
-    profile_batches([piano_batch, guitar_batch, train_batch])
+    profile_batches([piano_batch, int8_batch, guitar_batch, train_batch])
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,

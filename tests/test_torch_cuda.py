@@ -26,6 +26,13 @@ Tolerances:
 - LSTM with residuals (kernel E): h as for B and bit for bit equal to
   kernel B's; gates and c within 1e-4 (float32) or 2e-2 (bf16) of their
   largest value, and 1e-5 or 1e-4 absolute on the mean;
+- int8 layers (``ops/qconv.py``): none. The same float32 input gives the
+  same int8 operands (an IEEE division and round half to even on both
+  devices), the same int32 accumulators and the same outputs (one multiply
+  and one add a value, in the same order), bit for bit;
+- a LSTM width the kernels do not take (H = 24, 40), run zero-padded to a
+  multiple of 16: 1e-4 on outputs, as kernel B float32, and 1e-4 of the
+  largest value on gradients, as the Function's (card against CPU);
 - BPTT (kernel F): da and dW_h = h_prev^T da within 1e-4 (float32) or
   5e-4 (bf16) of their largest value, and 1e-5 or 1e-4 of their mean
   magnitude on the mean, on residuals that both versions share. In bf16 a
@@ -35,6 +42,8 @@ Tolerances:
   both faults do).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +51,10 @@ import torch
 from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
-from amt_tools_tpu_torch.ops import cuda_build, decode, lstm_kernel, spectral
+from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
+from amt_tools_tpu_torch.ops.lstm import FastLSTM
+from amt_tools_tpu_torch.ops import (cuda_build, decode, lstm_kernel, qconv,
+                                     spectral)
 from amt_tools_tpu_torch.ops.cqt_kernel import (ROUTES, cqt_mag,
                                                 cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
@@ -561,3 +573,130 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
         cqt_mag_grouped(torch.zeros(2, 1000, device=cuda),
                         torch.zeros(33 * 16, 2, device=cuda), (16,) * 33,
                         (1,) * 33, 512)
+
+
+# -- int8 layers and the padded LSTM widths --------------------------------
+
+
+def _card_and_cpu(layer, x, cuda):
+    """A layer's int8 operands, int32 accumulators and outputs on the CPU
+    and on the card from the same float32 input."""
+
+    on_card = copy.deepcopy(layer).to(cuda)
+    with torch.no_grad():
+        x8, _ = layer.quantize(x)
+        x8_card, _ = on_card.quantize(x.to(cuda))
+        acc = layer.accumulate(x8)
+        # The CPU's operands on the card
+        acc_card = on_card.accumulate(x8.to(cuda))
+        out, out_card = layer(x), on_card(x.to(cuda))
+
+    return (x8, x8_card.cpu()), (acc, acc_card.cpu()), (out, out_card.cpu())
+
+
+@pytest.mark.parametrize('static', [False, True])
+@pytest.mark.parametrize('c_in,padding', [
+    (48, 'SAME'),   # K = 432 meets torch._int_mm's rules (O&F2's Conv_1)
+    (1, 'VALID'),   # K = 9, padded to 16 (TabCNN's conv1)
+])
+def test_int8_conv_card_equals_cpu(cuda, c_in, padding, static):
+    g = torch.Generator().manual_seed(c_in)
+    conv = qconv.Int8Conv(c_in, 32, padding=padding, static_scale=static,
+                          generator=g)
+    conv.bias.data = torch.randn(32, generator=g)
+    x = torch.rand(3, c_in, 40, 33, generator=g) * torch.tensor(
+        [0.2, 1.0, 3.0]).view(3, 1, 1, 1)
+    if static:
+        conv.act_amax.fill_(0.8 * float(x.abs().max()))  # some saturate
+
+    (x8, x8_card), (acc, acc_card), (out, out_card) = _card_and_cpu(
+        conv, x, cuda)
+    assert acc.dtype == acc_card.dtype == torch.int32
+    assert acc.shape[-1] == 32 and acc.abs().max() > 0
+    assert torch.equal(x8_card, x8)
+    assert torch.equal(acc_card, acc)
+    assert torch.equal(out_card, out)
+
+
+@pytest.mark.parametrize('static', [False, True])
+@pytest.mark.parametrize('k,n', [(5472, 768), (264, 1024), (9, 12)])
+def test_int8_dense_card_equals_cpu(cuda, k, n, static):
+    g = torch.Generator().manual_seed(k)
+    dense = qconv.Int8Dense(k, n, static_scale=static, generator=g)
+    x = torch.randn(2, 37, k, generator=g)
+    if static:
+        dense.act_amax.fill_(float(x.abs().max()))
+
+    (x8, x8_card), (acc, acc_card), (out, out_card) = _card_and_cpu(
+        dense, x, cuda)
+    assert torch.equal(x8_card, x8)
+    assert torch.equal(acc_card, acc)
+    assert torch.equal(out_card, out)
+
+
+@pytest.mark.parametrize('static', [False, True])
+def test_int8_conv_chunks_equal_one_pass_on_the_card(cuda, monkeypatch,
+                                                     static):
+    """O&F2 complexity 3's Conv_2 over 6 clips of 200 frames: one pass, and
+    chunks of 2 whole clips."""
+
+    g = torch.Generator().manual_seed(1)
+    conv = qconv.Int8Conv(48, 96, static_scale=static, dtype=torch.bfloat16,
+                          generator=g).to(cuda)
+    x = torch.rand(6, 48, 200, 114, generator=g).to(cuda, torch.bfloat16)
+    if static:
+        conv.act_amax.fill_(1.0)
+
+    with torch.no_grad():
+        whole = conv(x)
+        clip_bytes = 200 * 114 * 432
+        monkeypatch.setattr(qconv, 'CHUNK_BYTES', 2 * clip_bytes)
+        chunked = conv(x)
+    assert whole.dtype == torch.bfloat16 and whole.shape == (6, 96, 200, 114)
+    assert torch.equal(chunked, whole)
+
+
+@pytest.mark.parametrize('hidden', [24, 40, 48])
+def test_every_lstm_width_runs_the_kernels(cuda, hidden):
+    """A LanguageModel of 24 or 40 units a direction (not a multiple of 16)
+    runs kernels B, E and F zero-padded to the next multiple of 16; 48 runs
+    them as it is. Forward and backward on the card, held to the same layer
+    on the CPU."""
+
+    g = torch.Generator().manual_seed(hidden)
+    model = LanguageModel(40, 2 * hidden, generator=g)
+    x = torch.randn(4, 50, 40, generator=g)
+    dout = torch.randn(4, 50, 2 * hidden, generator=g)
+
+    with torch.no_grad():
+        want = model(x)
+    model.zero_grad()
+    (model(x) * dout).sum().backward()
+    want_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    on_card = copy.deepcopy(model).to(cuda)
+    on_card.zero_grad()
+    counts = (lstm_scan.launches, lstm_scan_residuals.launches,
+              lstm_bptt.launches)
+    with torch.no_grad():
+        got = on_card(x.to(cuda))
+    (on_card(x.to(cuda)) * dout.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+
+    # Two directions: B for the forward, E and F for the trained one
+    assert (lstm_scan.launches, lstm_scan_residuals.launches,
+            lstm_bptt.launches) == tuple(c + 2 for c in counts)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    for name, param in on_card.named_parameters():
+        ref = want_grads[name]
+        assert ((param.grad.cpu() - ref).abs().max().item() <=
+                1e-4 * ref.abs().max().item()), name
+
+    # The kernels themselves still refuse H = 24, and a layer above
+    # MAX_HIDDEN raises rather than leave them
+    with pytest.raises(ValueError):
+        lstm_scan(torch.zeros(1, 4, 96, device=cuda),
+                  torch.zeros(24, 96, device=cuda))
+    with pytest.raises(ValueError):
+        with torch.no_grad():
+            FastLSTM(8, 1040).to(cuda)(torch.zeros(1, 4, 8, device=cuda))
