@@ -2,7 +2,8 @@
 
 The JAX package ``amt_tools_tpu`` is the reference; this package mirrors its
 layout (``tools``, ``ops``, ``features``, ``models``, ``datasets``,
-``serving``, ``train``) and holds
+``serving``, ``train``, ``metrics``, ``transcribe``, ``inference``,
+``evaluate``) and holds
 each module against its JAX counterpart in ``tests/test_torch_*.py``. It
 imports ``torch`` and numpy only — never JAX, Flax, Optax or anything of
 ``amt_tools_tpu``.
@@ -13,7 +14,9 @@ Pallas kernels of the JAX package become hand-written Hopper kernels
 PyTorch version only for tensors that lie on the CPU.
 """
 
-from . import tools, ops, features, models, datasets, serving, train, weights
+from . import (tools, ops, features, models, datasets, serving, train,
+               weights, metrics, transcribe, inference, evaluate)
 
 __all__ = ['tools', 'ops', 'features', 'models', 'datasets', 'serving',
-           'train', 'weights']
+           'train', 'weights', 'metrics', 'transcribe', 'inference',
+           'evaluate']

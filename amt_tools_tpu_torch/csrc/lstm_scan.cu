@@ -60,6 +60,17 @@
 // Exactly T steps run, so a ragged T needs no padding. H is a multiple of
 // 16 up to 1024.
 //
+// Per-row lengths (kMasked, B only): bucketed evaluation pads each track to
+// a multiple of the bucket and passes its true length. At a step with
+// t >= lengths[b], row b keeps its carry (c in registers, h in the
+// exchanged buffer: the h sent through DSMEM is the old one) and writes 0
+// to `out`, as the JAX package's masked scan step (ops/lstm.py,
+// _masked_step_outputs). A reverse scan so starts each row at its true end,
+// and every valid step does the unmasked step's arithmetic, so the valid
+// frames equal an unpadded launch's bit for bit. The schedule, the cp.async
+// prefetch and the one barrier a step are unchanged; the unmasked
+// instantiation compiles to the code without the flag.
+//
 // Kernel E, the training forward, is the same body with kResiduals set: it
 // also writes, for every step, the four gate activations as float32 (in
 // bf16 mode the bf16-rounded values the step used, widened) and the float32
@@ -369,13 +380,22 @@ __device__ __forceinline__ void gate_products(float (&gate)[4][2 * kRowTiles],
   }
 }
 
+// One 16-byte or 4-byte piece of zeros
+__device__ __forceinline__ void zero_piece(unsigned char* dst, bool wide) {
+  if (wide) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else {
+    *reinterpret_cast<unsigned*>(dst) = 0u;
+  }
+}
+
 template <typename T, bool kBf16, bool kResiduals, bool kResident,
-          int kRowTiles>
+          int kRowTiles, bool kMasked>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
                  T* __restrict__ out, float* __restrict__ gates_out,
-                 float* __restrict__ c_out, int batch, int frames, int hidden,
-                 int reverse, int rows) {
+                 float* __restrict__ c_out, const int* __restrict__ lengths,
+                 int batch, int frames, int hidden, int reverse, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
@@ -417,9 +437,25 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
   // Every CTA of the cluster is running and zeroed before any remote write
   cluster.sync();
 
+  // kMasked: the length of the row of the first piece this thread stores
+  // to the output each step (most threads store one piece or none)
+  const int out_pieces = units * static_cast<int>(sizeof(T)) / (wide ? 16 : 4);
+  const int out_row = row0 + static_cast<int>(threadIdx.x) / out_pieces;
+  const int out_len =
+      kMasked && static_cast<int>(threadIdx.x) < rows * out_pieces &&
+              out_row < batch
+          ? lengths[out_row]
+          : frames;
+
   float c[2 * kRowTiles];
+  int row_len[2 * kRowTiles];  // kMasked: the true length of each row
 #pragma unroll
-  for (int i = 0; i < 2 * kRowTiles; ++i) c[i] = 0.f;
+  for (int i = 0; i < 2 * kRowTiles; ++i) {
+    c[i] = 0.f;
+    const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+    row_len[i] = kMasked && r < rows && row0 + r < batch ? lengths[row0 + r]
+                                                         : frames;
+  }
 
   for (int s = 0; s < frames; ++s) {
     const int t = reverse ? frames - 1 - s : s;
@@ -510,7 +546,7 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
       float gf = x[1] + gate[1][i];
       float gg = x[2] + gate[2][i];
       float go = x[3] + gate[3][i];
-      float i_g, f_g, g_g, o_g;
+      float i_g, f_g, g_g, o_g, c_new;
       if (kBf16) {
         gi = round_bf16(gi);
         gf = round_bf16(gf);
@@ -520,16 +556,23 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
         f_g = sigmoid_bf16(gf);
         g_g = round_bf16(tanhf(gg));
         o_g = sigmoid_bf16(go);
-        c[i] = f_g * c[i] + round_bf16(i_g * g_g);
+        c_new = f_g * c[i] + round_bf16(i_g * g_g);
       } else {
         i_g = sigmoid_f32(gi);
         f_g = sigmoid_f32(gf);
         g_g = tanhf(gg);
         o_g = sigmoid_f32(go);
-        c[i] = f_g * c[i] + i_g * g_g;
+        c_new = f_g * c[i] + i_g * g_g;
       }
-      const float h = o_g * tanhf(c[i]);
-      if (live) stage[r * units + u] = from_float<T>(h);
+      const float h = o_g * tanhf(c_new);
+      // A padded step (kMasked) keeps the carry: c as it was, and the h this
+      // row's product read, from this step's buffer
+      const bool keep = kMasked && t >= row_len[i];
+      if (!keep) c[i] = c_new;
+      if (live) {
+        stage[r * units + u] =
+            keep ? h_cur[r * geo.h_stride + rank * units + u] : from_float<T>(h);
+      }
       res_gate[0][i] = i_g;
       res_gate[1][i] = f_g;
       res_gate[2][i] = g_g;
@@ -559,19 +602,27 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
     cluster_arrive();
 
     // Device-memory stores after the arrive, so its release does not wait
-    // on them: the staged h to the output, and E's residuals
+    // on them: the staged h to the output (0 on a padded step), and E's
+    // residuals
     for (int idx = threadIdx.x; idx < per_dest; idx += blockDim.x) {
       const int r = idx / per_row;
       const int v = idx - r * per_row;
       if (row0 + r >= batch) continue;
-      copy_piece(reinterpret_cast<unsigned char*>(
-                     out + (static_cast<size_t>(row0 + r) * frames + t) *
-                               hidden +
-                     rank * units) +
-                     v * piece,
-                 reinterpret_cast<const unsigned char*>(stage + r * units) +
-                     v * piece,
-                 wide);
+      unsigned char* dst = reinterpret_cast<unsigned char*>(
+                               out + (static_cast<size_t>(row0 + r) * frames +
+                                      t) * hidden +
+                               rank * units) +
+                           v * piece;
+      if (kMasked &&
+          t >= (idx == static_cast<int>(threadIdx.x) ? out_len
+                                                     : lengths[row0 + r])) {
+        zero_piece(dst, wide);
+      } else {
+        copy_piece(dst,
+                   reinterpret_cast<const unsigned char*>(stage + r * units) +
+                       v * piece,
+                   wide);
+      }
     }
     if (kResiduals && slice == 0 && unit_ok) {
 #pragma unroll
@@ -590,15 +641,16 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
 }
 
 template <typename T, bool kBf16, bool kResiduals, bool kResident,
-          int kRowTiles>
+          int kRowTiles, bool kMasked>
 int launch(const void* xw, const void* w_h, void* out, float* gates,
-           float* c_seq, int batch, int frames, int hidden, int reverse,
-           int rows, cudaStream_t stream, int* active_clusters) {
+           float* c_seq, const int* lengths, int batch, int frames, int hidden,
+           int reverse, int rows, cudaStream_t stream, int* active_clusters) {
   const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
   if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = lstm_scan_kernel<T, kBf16, kResiduals, kResident, kRowTiles>;
+  auto kernel =
+      lstm_scan_kernel<T, kBf16, kResiduals, kResident, kRowTiles, kMasked>;
   cudaError_t status = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(geo.bytes));
@@ -624,78 +676,94 @@ int launch(const void* xw, const void* w_h, void* out, float* gates,
   }
   status = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(xw),
                               static_cast<const T*>(w_h), static_cast<T*>(out),
-                              gates, c_seq, batch, frames, hidden, reverse,
-                              rows);
+                              gates, c_seq, lengths, batch, frames, hidden,
+                              reverse, rows);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBf16, bool kResiduals>
+template <typename T, bool kBf16, bool kResiduals, bool kMasked>
 int dispatch(const void* xw, const void* w_h, void* out, float* gates,
-             float* c_seq, int batch, int frames, int hidden, int reverse,
-             int rows, int resident, cudaStream_t stream,
-             int* active_clusters) {
+             float* c_seq, const int* lengths, int batch, int frames,
+             int hidden, int reverse, int rows, int resident,
+             cudaStream_t stream, int* active_clusters) {
   if (hidden % 16 || hidden < 16 || rows < 1 || rows > kMaxRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (resident) {
     if (rows <= 8) {
-      return launch<T, kBf16, kResiduals, true, 1>(
-          xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-          stream, active_clusters);
+      return launch<T, kBf16, kResiduals, true, 1, kMasked>(
+          xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
+          rows, stream, active_clusters);
     }
-    return launch<T, kBf16, kResiduals, true, 2>(
-        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-        stream, active_clusters);
+    return launch<T, kBf16, kResiduals, true, 2, kMasked>(
+        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
+        rows, stream, active_clusters);
   }
   if (rows <= 8) {
-    return launch<T, kBf16, kResiduals, false, 1>(
-        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-        stream, active_clusters);
+    return launch<T, kBf16, kResiduals, false, 1, kMasked>(
+        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
+        rows, stream, active_clusters);
   }
-  return launch<T, kBf16, kResiduals, false, 2>(
-      xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-      stream, active_clusters);
+  return launch<T, kBf16, kResiduals, false, 2, kMasked>(
+      xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
+      rows, stream, active_clusters);
+}
+
+// Kernel E (residuals) takes no lengths: masked training is not ported
+template <typename T, bool kBf16>
+int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
+                  float* c_seq, const int* lengths, int batch, int frames,
+                  int hidden, int reverse, int residuals, int rows,
+                  int resident, cudaStream_t stream, int* active_clusters) {
+  if (residuals) {
+    if (lengths != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<T, kBf16, true, false>(xw, w_h, out, gates, c_seq,
+                                           nullptr, batch, frames, hidden,
+                                           reverse, rows, resident, stream,
+                                           active_clusters);
+  }
+  if (lengths != nullptr) {
+    return dispatch<T, kBf16, false, true>(xw, w_h, out, gates, c_seq, lengths,
+                                           batch, frames, hidden, reverse,
+                                           rows, resident, stream,
+                                           active_clusters);
+  }
+  return dispatch<T, kBf16, false, false>(xw, w_h, out, gates, c_seq, nullptr,
+                                          batch, frames, hidden, reverse, rows,
+                                          resident, stream, active_clusters);
 }
 
 int run(const void* xw, const void* w_h, void* out, float* gates,
-        float* c_seq, int batch, int frames, int hidden, int reverse,
-        int bf16, int residuals, int rows, int resident, cudaStream_t stream,
-        int* active_clusters) {
+        float* c_seq, const int* lengths, int batch, int frames, int hidden,
+        int reverse, int bf16, int residuals, int rows, int resident,
+        cudaStream_t stream, int* active_clusters) {
   if (bf16) {
-    if (residuals) {
-      return dispatch<__nv_bfloat16, true, true>(
-          xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-          resident, stream, active_clusters);
-    }
-    return dispatch<__nv_bfloat16, true, false>(
-        xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, rows,
-        resident, stream, active_clusters);
+    return dispatch_type<__nv_bfloat16, true>(
+        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
+        residuals, rows, resident, stream, active_clusters);
   }
-  if (residuals) {
-    return dispatch<float, false, true>(xw, w_h, out, gates, c_seq, batch,
-                                        frames, hidden, reverse, rows,
-                                        resident, stream, active_clusters);
-  }
-  return dispatch<float, false, false>(xw, w_h, out, gates, c_seq, batch,
-                                       frames, hidden, reverse, rows, resident,
-                                       stream, active_clusters);
+  return dispatch_type<float, false>(xw, w_h, out, gates, c_seq, lengths,
+                                     batch, frames, hidden, reverse, residuals,
+                                     rows, resident, stream, active_clusters);
 }
 
 }  // namespace
 
 // xw (batch, frames, 4 * hidden), w_h (hidden, 4 * hidden) and out
 // (batch, frames, hidden), contiguous and 16-byte aligned on the device,
-// all float32 or all bf16 (`bf16` != 0). hidden is a multiple of 16; each
-// cluster of 8 CTAs takes `rows` (1..16) batch rows; `resident` keeps the
-// W_h slice in shared memory (else it is streamed each step). Launches on
-// `stream` and returns the first CUDA error of the set-up or the launch.
+// all float32 or all bf16 (`bf16` != 0). `lengths` is null (every row runs
+// all frames) or int32 (batch) on the device, each in [0, frames]. hidden
+// is a multiple of 16; each cluster of 8 CTAs takes `rows` (1..16) batch
+// rows; `resident` keeps the W_h slice in shared memory (else it is
+// streamed each step). Launches on `stream` and returns the first CUDA
+// error of the set-up or the launch.
 extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
-                         int batch, int frames, int hidden, int reverse,
-                         int bf16, int rows, int resident,
+                         const int* lengths, int batch, int frames, int hidden,
+                         int reverse, int bf16, int rows, int resident,
                          cudaStream_t stream) {
-  return run(xw, w_h, out, nullptr, nullptr, batch, frames, hidden, reverse,
-             bf16, 0, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, nullptr, nullptr, lengths, batch, frames, hidden,
+             reverse, bf16, 0, rows, resident, stream, nullptr);
 }
 
 // Kernel E: lstm_scan, and also the float32 residuals gates
@@ -706,8 +774,8 @@ extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
                                    int frames, int hidden, int reverse,
                                    int bf16, int rows, int resident,
                                    cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, batch, frames, hidden, reverse, bf16,
-             1, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, gates, c_seq, nullptr, batch, frames, hidden,
+             reverse, bf16, 1, rows, resident, stream, nullptr);
 }
 
 // How many clusters of the launch configuration for (hidden, dtype, rows,
@@ -717,8 +785,9 @@ extern "C" int lstm_scan_max_active_clusters(int hidden, int bf16,
                                              int residuals, int rows,
                                              int resident, int* clusters) {
   *clusters = 0;
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, kCluster * rows, 1,
-             hidden, 0, bf16, residuals, rows, resident, nullptr, clusters);
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             kCluster * rows, 1, hidden, 0, bf16, residuals, rows, resident,
+             nullptr, clusters);
 }
 
 // Shared-memory bytes of one CTA; ops/lstm_kernel.py computes the same.

@@ -2,7 +2,8 @@
 
 Counterpart of ``amt_tools_tpu/datasets/common.py`` (``:22-514``):
 :class:`TranscriptionDataset` with its RAM cache, random fixed-length crops
-(``get_item(index, rng)``) and ``get_track_data``; the native
+(``get_item(index, rng)``), ``get_track_data`` and ``get_track_frames``
+(the frame count that bucketed evaluation groups tracks by); the native
 :class:`DataLoader`, whose worker threads draw each item's crop seed in the
 main thread; and :func:`collate`. The loader is kept, not swapped for
 ``torch.utils.data.DataLoader``, so a seed gives the same batches in both
@@ -193,6 +194,30 @@ class TranscriptionDataset(object):
                         tools.KEY_PITCHLIST]
 
         return tools.slice_track(data, frame_start, frame_end, skipped_keys)
+
+    def get_track_frames(self, track_id):
+        """A track's whole-track feature frame count, as cheaply as possible
+        (JAX ``:286-310``): from cached features or audio by the feature
+        module's frame algebra, else from one load of the track; features
+        are computed only when the track has neither."""
+
+        if self.store_data and track_id in getattr(self, 'data', {}):
+            data = self.data[track_id]
+            if tools.query_dict(data, tools.KEY_FEATS):
+                return int(np.asarray(data[tools.KEY_FEATS]).shape[-1])
+            if tools.query_dict(data, tools.KEY_AUDIO):
+                return int(self.data_proc.get_expected_frames(
+                    data[tools.KEY_AUDIO]))
+
+        data = self.load(track_id)
+        if tools.query_dict(data, tools.KEY_FEATS):
+            return int(np.asarray(data[tools.KEY_FEATS]).shape[-1])
+        if tools.query_dict(data, tools.KEY_AUDIO):
+            return int(self.data_proc.get_expected_frames(
+                data[tools.KEY_AUDIO]))
+
+        data.update(self.calculate_feats(data))
+        return int(np.asarray(data[tools.KEY_FEATS]).shape[-1])
 
     @abstractmethod
     def get_tracks(self, split):

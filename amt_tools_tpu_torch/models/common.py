@@ -6,10 +6,14 @@ Counterparts of ``amt_tools_tpu/models/common.py`` ``TranscriptionModel``
 model's ``pre_proc`` lays them out for its forward; ``finalize_output``
 turns (B, T, O) logits into (B, O, T) activations (``LogisticBank``) or
 (B, G, T) class ids (``SoftmaxGroups``). Computation runs in ``dtype``
-(e.g. ``torch.bfloat16``) while parameters stay float32; losses are float32.
-The O&F models train (``LogisticBank.get_loss``); ``SoftmaxGroups`` has no
-loss yet, so TabCNN stays inference only.
+(e.g. ``torch.bfloat16``) while parameters stay float32; losses are float32:
+``LogisticBank.get_loss`` (BCE) and ``SoftmaxGroups.get_loss`` (softmax CE
+over integer tablature labels, ``:203-230``). The O&F models train; TabCNN
+computes its loss in eval mode (validation) and its train-mode forward is
+not ported yet.
 """
+
+import inspect
 
 from abc import abstractmethod
 
@@ -64,7 +68,7 @@ class TranscriptionModel(nn.Module):
         if self.training:
             raise NotImplementedError(
                 f'{type(self).__name__} has an inference forward only (its '
-                f'loss is not ported yet); call .eval() first')
+                f'train-mode forward is not ported yet); call .eval() first')
 
     @abstractmethod
     def forward(self, feats):
@@ -89,14 +93,20 @@ def run_on_batch(model, batch, train=False, generator=None):
     Sets the model's mode to ``train`` first. In train mode BatchNorm takes
     batch statistics and updates its running buffers in place (the JAX
     function returns them as ``mutated``), and dropout draws from
-    ``generator``. Returns the output dict, with ``tools.KEY_LOSS`` when the
-    batch carries ground truth; differentiable through the losses.
+    ``generator``. A batch with ``tools.KEY_VALID_FRAMES`` (bucketed
+    evaluation) passes it as ``lengths`` to a model whose ``forward`` takes
+    them (JAX ``:135-140``). Returns the output dict, with
+    ``tools.KEY_LOSS`` when the batch carries ground truth; differentiable
+    through the losses.
     """
 
     batch = model.pre_proc(dict(batch))
     model.train(train)
 
     kwargs = {} if generator is None else {'generator': generator}
+    if (tools.KEY_VALID_FRAMES in batch and
+            'lengths' in inspect.signature(model.forward).parameters):
+        kwargs['lengths'] = batch[tools.KEY_VALID_FRAMES]
     batch[tools.KEY_OUTPUT] = model(batch[tools.KEY_FEATS], **kwargs)
     output = model.post_proc(batch)
 
@@ -131,6 +141,35 @@ class SoftmaxGroups(nn.Module):
 
     def forward(self, feats):
         return linear(feats, self.Dense_0, self.dtype)
+
+    def get_loss(self, estimated, reference, weights=None):
+        """Softmax CE: (B, T, G*C) logits vs (B, G, T) class ids, float32.
+
+        Silence (-1) is the last class; ``optax.softmax_cross_entropy_with_
+        integer_labels``' form (the max-shifted log-normalizer less the
+        label's logit); ``weights`` (G*C,) scale each (group, class) label.
+        Summed over the groups, averaged over frames, then the batch.
+        """
+
+        num_classes = self.num_classes
+        labels = reference.transpose(-1, -2).long()
+        labels = torch.where(labels == -1, num_classes - 1, labels)
+
+        logits = estimated.float().reshape(
+            estimated.shape[:-1] + (self.num_groups, num_classes))
+        shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+        label_logits = torch.gather(shifted, -1, labels[..., None])[..., 0]
+        loss = torch.log(torch.exp(shifted).sum(dim=-1)) - label_logits
+
+        if weights is not None:
+            weights = torch.as_tensor(weights, dtype=torch.float32,
+                                      device=loss.device).reshape(
+                                          self.num_groups, num_classes)
+            loss = loss * torch.gather(
+                weights.expand(labels.shape[:-1] + weights.shape), -1,
+                labels[..., None])[..., 0]
+
+        return loss.sum(dim=-1).mean(dim=-1).mean()
 
     def finalize_output(self, raw_output, last_negative=True):
         """(B, T, G*C) logits -> (B, G, T) int64 class ids (-1 = silence).

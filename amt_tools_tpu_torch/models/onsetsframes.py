@@ -14,6 +14,12 @@ With ``quant_acoustic`` the acoustic stacks' ``Conv_1``, ``Conv_2`` and
 ``:92-98``), and with ``quant_lm`` the language models' input projections
 are; the names and the random initialization stay the float model's.
 
+``lengths`` (B,) valid frame counts (bucketed evaluation, JAX ``:129-155``,
+``:191-210``, ``:645-710``) zero the padded frames of the features and of
+every conv block's output, so a conv at the valid/padded boundary sees
+exactly the SAME padding of an unpadded run, and mask the language
+models' recurrences.
+
 The acoustic stacks run NCHW as (B, C, T, F); the JAX package runs NHWC
 (B, T, F, C). Before the dense projection the port permutes back to
 (B, T, F/4, C), so the flatten is feature-major (index f * C + c) exactly
@@ -28,7 +34,7 @@ from .. import tools
 from ..ops import decode
 from ..ops.layers import (BatchNorm, conv2d_same, conv3x3, dropout,
                           lecun_normal_, linear)
-from ..ops.lstm import FastBiLSTM, FastLSTM
+from ..ops.lstm import FastBiLSTM, FastLSTM, lengths_to_mask
 from ..ops.qconv import Int8Conv, Int8Dense
 from .common import LogisticBank, TranscriptionModel
 
@@ -93,13 +99,24 @@ class AcousticModel(nn.Module):
             x = self._dropout(x, 0.25, generator)
         return x
 
-    def forward(self, feats, generator=None):
+    def forward(self, feats, generator=None, lengths=None):
         # (B, T, F, C) -> (B, C, T, F)
         x = feats.permute(0, 3, 1, 2)
 
-        x = self._block(x, self.Conv_0, self.BatchNorm_0, False, generator)
-        x = self._block(x, self.Conv_1, self.BatchNorm_1, True, generator)
-        x = self._block(x, self.Conv_2, self.BatchNorm_2, True, generator)
+        mask = None
+        if lengths is not None:
+            # Padded frames zeroed on the input and after every block
+            mask = lengths_to_mask(torch.as_tensor(lengths, device=x.device),
+                                   x.shape[2])[:, None, :, None].to(x.dtype)
+            x = x * mask
+
+        blocks = ((self.Conv_0, self.BatchNorm_0, False),
+                  (self.Conv_1, self.BatchNorm_1, True),
+                  (self.Conv_2, self.BatchNorm_2, True))
+        for conv, norm, pool in blocks:
+            x = self._block(x, conv, norm, pool, generator)
+            if mask is not None:
+                x = x * mask.to(x.dtype)
 
         # (B, C, T, F/4) -> (B, T, F/4, C) -> (B, T, F/4 * C), feature-major
         x = x.permute(0, 2, 3, 1)
@@ -131,11 +148,11 @@ class LanguageModel(nn.Module):
             self.FastLSTM_0 = FastLSTM(dim_in, dim_out, dtype=dtype,
                                        generator=generator, quant=quant)
 
-    def forward(self, feats):
+    def forward(self, feats, lengths=None):
         if self.bidirectional:
-            return self.FastBiLSTM_0(feats)
+            return self.FastBiLSTM_0(feats, lengths)
 
-        return self.FastLSTM_0(feats)
+        return self.FastLSTM_0(feats, lengths)
 
 
 class OnsetsFrames(TranscriptionModel):
@@ -209,27 +226,29 @@ class OnsetsFrames(TranscriptionModel):
 
         return batch
 
-    def _embeddings(self, feats, generator):
-        return {name: getattr(self, f'{name}_am')(feats, generator)
+    def _embeddings(self, feats, generator, lengths):
+        return {name: getattr(self, f'{name}_am')(feats, generator, lengths)
                 for name in self.head_names}
 
     def _detach(self, x):
         return x.detach() if self.detach_heads else x
 
-    def forward(self, feats, generator=None):
+    def forward(self, feats, generator=None, lengths=None):
         """(B, T, F, C) features -> raw logits; in train mode dropout draws
-        from ``generator``."""
+        from ``generator``. ``lengths`` (B,) masks padded frames (inference
+        only: the masked recurrence does not train)."""
 
         output = {}
 
-        emb = self._embeddings(feats, generator)
+        emb = self._embeddings(feats, generator, lengths)
         multi_pitch = self.pitch_out(emb['pitch'])
 
-        onsets = self.onset_out(self.onset_lm(emb['onset']))
+        onsets = self.onset_out(self.onset_lm(emb['onset'], lengths))
         output[tools.KEY_ONSETS] = onsets
 
         joint = torch.cat((self._detach(onsets), multi_pitch), dim=-1)
-        output[tools.KEY_MULTIPITCH] = self.adjoin_out(self.adjoin_lm(joint))
+        output[tools.KEY_MULTIPITCH] = self.adjoin_out(
+            self.adjoin_lm(joint, lengths))
 
         return output
 
@@ -299,21 +318,22 @@ class OnsetsFrames2(OnsetsFrames):
 
         return 3 * self.dim_out
 
-    def forward(self, feats, generator=None):
+    def forward(self, feats, generator=None, lengths=None):
         output = {}
 
-        emb = self._embeddings(feats, generator)
+        emb = self._embeddings(feats, generator, lengths)
         multi_pitch = self.pitch_out(emb['pitch'])
 
-        onsets = self.onset_out(self.onset_lm(emb['onset']))
+        onsets = self.onset_out(self.onset_lm(emb['onset'], lengths))
         output[tools.KEY_ONSETS] = onsets
 
-        offsets = self.offset_out(self.offset_lm(emb['offset']))
+        offsets = self.offset_out(self.offset_lm(emb['offset'], lengths))
         output[tools.KEY_OFFSETS] = offsets
 
         joint = torch.cat((self._detach(onsets), self._detach(offsets),
                            multi_pitch), dim=-1)
-        output[tools.KEY_MULTIPITCH] = self.adjoin_out(self.adjoin_lm(joint))
+        output[tools.KEY_MULTIPITCH] = self.adjoin_out(
+            self.adjoin_lm(joint, lengths))
 
         return output
 

@@ -167,10 +167,18 @@ class TabCNN(TranscriptionModel):
         return {tools.KEY_TABLATURE: self.tablature_out(x)}
 
     def post_proc(self, batch):
-        """Argmax tablature (B, G, T), -1 for silence."""
+        """The tablature CE loss, where the batch has tablature (JAX
+        ``:185-203``), and the argmax tablature (B, G, T), -1 for silence."""
 
         output = dict(batch[tools.KEY_OUTPUT])
+        tablature_est = output[tools.KEY_TABLATURE]
+
+        if tools.KEY_TABLATURE in batch:
+            loss = self.tablature_out.get_loss(tablature_est,
+                                               batch[tools.KEY_TABLATURE])
+            output[tools.KEY_LOSS] = {tools.KEY_LOSS_TOTAL: loss}
+
         output[tools.KEY_TABLATURE] = self.tablature_out.finalize_output(
-            output[tools.KEY_TABLATURE])
+            tablature_est)
 
         return output

@@ -1,8 +1,9 @@
 """LSTM layers with hoisted input projections.
 
 Counterparts of ``amt_tools_tpu/ops/lstm.py`` ``FastLSTM`` (``:208``) and
-``FastBiLSTM`` (``:260``) on their whole-sequence path (no mask, zero
-carry): the input projection for every step is one ``nn.Linear`` over
+``FastBiLSTM`` (``:260``) from a zero carry, whole or masked by per-row
+``lengths`` (bucketed evaluation, ``lengths_to_mask`` ``:202``): the input
+projection for every step is one ``nn.Linear`` over
 (B, T, E), and the recurrence runs in the Hopper kernels on CUDA tensors:
 :func:`ops.lstm_kernel.lstm_scan` (kernel B) when nothing differentiates
 it, :func:`ops.lstm_kernel.lstm_scan_grad` (kernels E and F) when autograd
@@ -18,6 +19,12 @@ layout, gate order i, f, g, o). ``quant`` (``False``, ``True`` or
 ``'static'``) makes the hoisted projections ``ops.qconv.Int8Dense`` layers
 under the same names, as JAX's ``_input_proj`` (``:34-50``); the recurrence
 stays float.
+
+With ``lengths`` each row keeps its carry and outputs 0 past its length
+(kernel B's masked launch on CUDA, its masked plain version on the CPU), so
+its valid frames equal an unpadded run's bit for bit. Masked training
+(kernels E and F with lengths) is not ported: ``lengths`` while autograd
+records raises; no JAX path trains with lengths.
 """
 
 import torch
@@ -28,7 +35,8 @@ from .layers import lecun_normal_, linear, orthogonal_
 from .lstm_kernel import lstm_scan, lstm_scan_grad, scan_supported
 from .qconv import Int8Dense
 
-__all__ = ['FastLSTM', 'FastBiLSTM', 'kernel_width', 'padded_recurrence']
+__all__ = ['FastLSTM', 'FastBiLSTM', 'kernel_width', 'padded_recurrence',
+           'lengths_to_mask']
 
 
 def _input_proj(input_size, features, dtype, quant, generator):
@@ -56,13 +64,27 @@ def _pad_units(x, hidden, padded):
     return x.reshape(lead + (4 * padded,))
 
 
-def _scan(xw, w_h, reverse):
+def lengths_to_mask(lengths, num_frames):
+    """(B,) valid lengths -> (B, T) boolean validity mask."""
+
+    lengths = torch.as_tensor(lengths)
+
+    return (torch.arange(num_frames, device=lengths.device)[None, :] <
+            lengths[:, None])
+
+
+def _scan(xw, w_h, reverse, lengths):
     if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
+        if lengths is not None:
+            raise NotImplementedError(
+                'masked training (kernels E and F with lengths) is not '
+                'ported; run a masked LSTM under torch.no_grad()')
         # W_h goes in uncast: the Function casts it, so dW_h reaches the
         # float32 parameter unrounded
         return lstm_scan_grad(xw, w_h, reverse)
 
-    return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse)
+    return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
+                     lengths=lengths)
 
 
 def kernel_width(hidden, dtype):
@@ -78,7 +100,7 @@ def kernel_width(hidden, dtype):
     return padded if scan_supported(padded, dtype) else hidden
 
 
-def padded_recurrence(xw, w_h, reverse, padded):
+def padded_recurrence(xw, w_h, reverse, padded, lengths=None):
     """The recurrence at ``padded`` units, cut back to H: zero xw columns
     and zero W_h rows and columns for the added units keep their gates at
     (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step; they add
@@ -87,12 +109,13 @@ def padded_recurrence(xw, w_h, reverse, padded):
 
     hidden = w_h.shape[0]
     w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
-    out = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse)
+    out = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse,
+                lengths)
 
     return out[..., :hidden]
 
 
-def _recurrence(xw, w_h, reverse=False):
+def _recurrence(xw, w_h, reverse=False, lengths=None):
     # The Pallas path's compute dtype: bf16 projections keep a bf16 W_h,
     # anything else runs in float32
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
@@ -100,15 +123,18 @@ def _recurrence(xw, w_h, reverse=False):
 
     # Decided from the shape, before any launch
     hidden = w_h.shape[0]
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths).reshape(-1).to(xw.device)
     if xw.device.type == 'cuda' and kernel_width(hidden, dtype) != hidden:
         return padded_recurrence(xw, w_h, reverse,
-                                 kernel_width(hidden, dtype))
+                                 kernel_width(hidden, dtype), lengths)
 
-    return _scan(xw, w_h, reverse)
+    return _scan(xw, w_h, reverse, lengths)
 
 
 class FastLSTM(nn.Module):
-    """Unidirectional LSTM: (B, T, E) -> (B, T, H)."""
+    """Unidirectional LSTM: (B, T, E) -> (B, T, H); ``lengths`` (B,) masks
+    each row's padded tail (inference only)."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -123,14 +149,16 @@ class FastLSTM(nn.Module):
         self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
         orthogonal_(self.recurrent_kernel, generator)
 
-    def forward(self, inputs):
+    def forward(self, inputs, lengths=None):
         xw = linear(inputs, self.input_proj, self.dtype)
 
-        return _recurrence(xw, self.recurrent_kernel)
+        return _recurrence(xw, self.recurrent_kernel, lengths=lengths)
 
 
 class FastBiLSTM(nn.Module):
-    """Bidirectional LSTM: (B, T, E) -> (B, T, 2H), [forward | backward]."""
+    """Bidirectional LSTM: (B, T, E) -> (B, T, 2H), [forward | backward];
+    ``lengths`` (B,) masks each row's padded tail, so the backward
+    direction starts at each row's true end (inference only)."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -151,11 +179,12 @@ class FastBiLSTM(nn.Module):
         orthogonal_(self.recurrent_kernel_fwd, generator)
         orthogonal_(self.recurrent_kernel_bwd, generator)
 
-    def forward(self, inputs):
+    def forward(self, inputs, lengths=None):
         xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
         xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
 
-        out_f = _recurrence(xw_f, self.recurrent_kernel_fwd)
-        out_b = _recurrence(xw_b, self.recurrent_kernel_bwd, reverse=True)
+        out_f = _recurrence(xw_f, self.recurrent_kernel_fwd, lengths=lengths)
+        out_b = _recurrence(xw_b, self.recurrent_kernel_bwd, reverse=True,
+                            lengths=lengths)
 
         return torch.cat([out_f, out_b], dim=-1)

@@ -4,7 +4,11 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 
 - :func:`lstm_scan` (kernel B, ``_lstm_kernel`` through
   ``lstm_scan_pallas``): the whole-sequence recurrence from a zero carry
-  over hoisted input projections, forward only;
+  over hoisted input projections, forward only; with per-row ``lengths``
+  (bucketed evaluation) a row keeps its carry and writes 0 past its
+  length, the JAX masked scan's step (``ops/lstm.py:98-108``) with the
+  kernel's float32 carry, so its valid frames equal an unpadded run's bit
+  for bit (``lstm_scan.masked_launches`` counts these launches);
 - :func:`lstm_scan_residuals` (kernel E, ``_lstm_fwd_res_kernel`` through
   ``_lstm_fwd_res``): the same recurrence, which also returns the float32
   gate activations and cell states;
@@ -53,7 +57,7 @@ MAX_SHARED_BYTES = 232448  # 227 KB, the most a block may use on Hopper
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 
 _SCAN_SIGNATURES = {
-    'lstm_scan': [_POINTER] * 3 + [_INT] * 7 + [_POINTER],
+    'lstm_scan': [_POINTER] * 4 + [_INT] * 7 + [_POINTER],
     'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
     'lstm_scan_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
     'lstm_scan_smem': [_INT] * 4,
@@ -282,8 +286,10 @@ def _sigmoid_tanh_form(x):
     return 0.5 * torch.tanh(0.5 * x) + 0.5
 
 
-def _scan_plain(xw, w_h, reverse, residuals):
-    """The recurrence of kernels B and E, step by step."""
+def _scan_plain(xw, w_h, reverse, residuals, lengths=None):
+    """The recurrence of kernels B and E, step by step. With ``lengths``
+    (B only), a row keeps its carry and outputs 0 at every step
+    ``t >= lengths[row]``."""
 
     batch, frames, four_h = xw.shape
     hidden = four_h // 4
@@ -304,6 +310,7 @@ def _scan_plain(xw, w_h, reverse, residuals):
 
     steps = range(frames - 1, -1, -1) if reverse else range(frames)
     for t in steps:
+        h_prev, c_prev = h, c
         gates = xw[:, t].float() + h.to(xw.dtype).float() @ w
         if bf16:
             gates = gates.to(torch.bfloat16)
@@ -320,6 +327,12 @@ def _scan_plain(xw, w_h, reverse, residuals):
             o_g = torch.sigmoid(gates[:, 3 * hidden: 4 * hidden])
             c = f_g * c + i_g * g_g
             h = o_g * torch.tanh(c)
+        if lengths is not None:
+            valid = (t < lengths)[:, None]
+            c = torch.where(valid, c, c_prev)
+            out[:, t] = torch.where(valid, h, 0.0).to(xw.dtype)
+            h = torch.where(valid, h, h_prev)
+            continue
         out[:, t] = h.to(xw.dtype)
         if residuals:
             gates_seq[:, t] = torch.cat([i_g, f_g, g_g, o_g], dim=-1).float()
@@ -328,10 +341,18 @@ def _scan_plain(xw, w_h, reverse, residuals):
     return (out, gates_seq, c_seq) if residuals else out
 
 
-def lstm_scan_plain(xw, w_h, reverse=False):
-    """(B, T, 4H) projections, (H, 4H) weights -> (B, T, H): a loop over T."""
+def lstm_scan_plain(xw, w_h, reverse=False, lengths=None):
+    """(B, T, 4H) projections, (H, 4H) weights -> (B, T, H): a loop over T.
 
-    return _scan_plain(xw, w_h, reverse, residuals=False)
+    With ``lengths`` (B,), row b keeps its carry and outputs 0 at every step
+    ``t >= lengths[b]``, the JAX masked scan step (``ops/lstm.py:98-108``),
+    so a reverse scan starts at the row's true end.
+    """
+
+    if lengths is not None:
+        lengths = lengths.to(device=xw.device, dtype=torch.int64)
+
+    return _scan_plain(xw, w_h, reverse, residuals=False, lengths=lengths)
 
 
 def lstm_scan_residuals_plain(xw, w_h, reverse=False):
@@ -416,8 +437,9 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_scan(xw, w_h, reverse, residuals):
-    """Kernel B, or E with ``residuals``, on CUDA tensors."""
+def _launch_scan(xw, w_h, reverse, residuals, lengths=None):
+    """Kernel B (with per-row ``lengths``, an int32 tensor, or none), or E
+    with ``residuals``, on CUDA tensors."""
 
     batch, frames, four_h = xw.shape
     hidden = four_h // 4
@@ -441,11 +463,14 @@ def _launch_scan(xw, w_h, reverse, residuals):
     plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals)
     xw, w_h = _aligned(xw), _aligned(w_h)
     lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
+    # kernel B's masked launch takes the lengths' pointer (null: unmasked)
+    masks = () if residuals else (
+        None if lengths is None else lengths.data_ptr(),)
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, name)(
             xw.data_ptr(), w_h.data_ptr(), *(t.data_ptr() for t in outputs),
-            batch, frames, hidden, int(reverse),
+            *masks, batch, frames, hidden, int(reverse),
             int(xw.dtype == torch.bfloat16), plan['rows'],
             int(plan['resident']), stream)
     cuda_build.check(status, name)
@@ -453,28 +478,55 @@ def _launch_scan(xw, w_h, reverse, residuals):
     return tuple(outputs) if residuals else out
 
 
-def lstm_scan(xw, w_h, reverse=False):
+def _check_lengths(lengths, xw):
+    """Per-row lengths as the kernel takes them: int32 (B,) on xw's device,
+    each in [0, T]."""
+
+    batch, frames = xw.shape[:2]
+    if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
+        raise TypeError(f'lengths must be integers, got {lengths.dtype}')
+    if tuple(lengths.shape) != (batch,):
+        raise ValueError(f'lengths must be ({batch},), got '
+                         f'{tuple(lengths.shape)}')
+    lengths = lengths.to(device=xw.device, dtype=torch.int32).contiguous()
+    if batch and not bool(((lengths >= 0) & (lengths <= frames)).all()):
+        raise ValueError(f'lengths must lie in [0, {frames}], got '
+                         f'{lengths.tolist()}')
+
+    return lengths
+
+
+def lstm_scan(xw, w_h, reverse=False, lengths=None):
     """Whole-sequence LSTM from a zero carry: (B, T, 4H) -> (B, T, H).
 
     ``xw`` holds the hoisted input projections including the bias, ``w_h``
     the (H, 4H) recurrent kernel in the same dtype (float32 or bf16; gate
     order i, f, g, o). ``reverse`` walks back to front and writes outputs in
-    natural order. CUDA tensors go through the Hopper kernel (or raise); CPU
-    tensors through :func:`lstm_scan_plain`.
+    natural order. ``lengths`` (B,) integers in [0, T] mask each row's
+    padded tail: from ``t = lengths[b]`` on, row b keeps its carry and
+    writes 0, so its valid frames equal an unpadded run's bit for bit (a
+    reverse scan starts at the row's true end). CUDA tensors go through
+    the Hopper kernel (or raise); CPU tensors through
+    :func:`lstm_scan_plain`.
     """
 
     _check_inputs(xw, w_h)
+    if lengths is not None:
+        lengths = _check_lengths(lengths, xw)
 
     if xw.device.type == 'cpu':
-        return lstm_scan_plain(xw, w_h, reverse)
+        return lstm_scan_plain(xw, w_h, reverse, lengths)
 
-    out = _launch_scan(xw, w_h, reverse, residuals=False)
+    out = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths)
     lstm_scan.launches += 1
+    if lengths is not None:
+        lstm_scan.masked_launches += 1
 
     return out
 
 
 lstm_scan.launches = 0
+lstm_scan.masked_launches = 0  # those of lstm_scan.launches with lengths
 
 
 def lstm_scan_residuals(xw, w_h, reverse=False):

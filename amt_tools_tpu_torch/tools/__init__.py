@@ -3,3 +3,4 @@
 from .constants import *
 from .instrument import *
 from .utils import *
+from .io import *

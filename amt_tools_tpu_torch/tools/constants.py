@@ -19,14 +19,27 @@ __all__ = [
     'KEY_VELOCITY',
     'KEY_OUTPUT',
     'KEY_TABLATURE',
+    'KEY_NOTE_VELOCITY',
+    'KEY_ACCURACY',
+    'KEY_VALID_FRAMES',
     'KEY_LOSS',
     'KEY_LOSS_TOTAL',
     'KEY_LOSS_ONSETS',
     'KEY_LOSS_OFFSETS',
     'KEY_LOSS_PITCH',
     'TRAIN',
+    'VAL',
+    'TEST',
+    'KEY_PRECISION',
+    'KEY_RECALL',
+    'KEY_F1',
+    'KEY_NOTE_ON',
+    'KEY_NOTE_OFF',
+    'KEY_TDR',
     'MODEL_STATE',
     'CKPT_EXT',
+    'TXT_EXT',
+    'FLOAT',
     'FLOAT32',
     'DEFAULT_PIANO_LOWEST_PITCH',
     'DEFAULT_PIANO_HIGHEST_PITCH',
@@ -48,6 +61,9 @@ KEY_NOTES = 'notes'
 KEY_VELOCITY = 'velocity'
 KEY_OUTPUT = 'model_output'
 KEY_TABLATURE = 'tablature'
+KEY_NOTE_VELOCITY = 'note_velocity'
+KEY_ACCURACY = 'accuracy'
+KEY_VALID_FRAMES = 'valid_frames'  # bucketed evaluation: real frames a row
 
 KEY_LOSS = 'loss'
 KEY_LOSS_TOTAL = 'loss_total'
@@ -56,11 +72,24 @@ KEY_LOSS_OFFSETS = 'loss_offsets'
 KEY_LOSS_PITCH = 'loss_pitch'
 
 TRAIN = 'train'
+VAL = 'validation'
+TEST = 'test'
+
+KEY_PRECISION = 'precision'
+KEY_RECALL = 'recall'
+KEY_F1 = 'f1-score'
+
+KEY_NOTE_ON = 'note-on'
+KEY_NOTE_OFF = 'note-off'
+
+KEY_TDR = 'tdr'
 
 # Checkpoints are <MODEL_STATE>-<iteration>.<CKPT_EXT>
 MODEL_STATE = 'model'
 CKPT_EXT = 'ckpt'
+TXT_EXT = 'txt'
 
+FLOAT = 'float'
 FLOAT32 = 'float32'
 
 DEFAULT_PIANO_LOWEST_PITCH = 21

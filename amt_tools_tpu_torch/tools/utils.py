@@ -8,17 +8,27 @@ bit): ``_is_array`` (``:101``), ``notes_to_batched_notes`` (``:113``),
 ``notes_to_onsets`` (``:987``), ``notes_to_offsets`` (``:1037``),
 ``rms_norm`` (``:1086``), ``estimate_hop_length`` (``:1239``),
 ``dict_to_dtype`` (``:1348``), ``query_dict`` (``:1467``) and
-``slice_track`` (``:1481``).
+``slice_track`` (``:1481``). For the estimators, evaluators and inference
+entry points: the notes, pitch-list, multi-pitch, tablature and onset/offset
+conversions (``:183-1075``), ``extract_note_velocities`` (``:728``),
+``multi_pitch_to_notes`` (``:772``), ``framify_activations`` (``:1131``),
+``inhibit_activations`` (``:1161``), and the dict plumbing
+(``:1367-1479``): ``dict_to_array`` brings tensors (any device, bf16 as
+float32) to host numpy, ``dict_to_tensor`` takes the place of
+``dict_to_jax`` with a ``device``.
 """
 
 import contextlib
+from datetime import datetime
 
 import numpy as np
 import torch
 
 from . import constants
+from .instrument import midi_to_hz
 
 __all__ = [
+    'to_numpy',
     'notes_to_batched_notes',
     'batched_notes_to_notes',
     'sort_notes',
@@ -33,10 +43,53 @@ __all__ = [
     'dict_to_dtype',
     'query_dict',
     'slice_track',
+    'notes_to_hz',
+    'notes_to_stacked_notes',
+    'stacked_notes_to_notes',
+    'multi_pitch_to_pitch_list',
+    'pitch_list_to_hz',
+    'cat_pitch_list',
+    'pitch_list_to_stacked_pitch_list',
+    'stacked_pitch_list_to_pitch_list',
+    'stacked_multi_pitch_to_stacked_pitch_list',
+    'extract_note_velocities',
+    'multi_pitch_to_notes',
+    'stacked_multi_pitch_to_multi_pitch',
+    'multi_pitch_to_stacked_multi_pitch',
+    'stacked_notes_to_stacked_multi_pitch',
+    'tablature_to_stacked_multi_pitch',
+    'multi_pitch_to_onsets',
+    'multi_pitch_to_offsets',
+    'stacked_multi_pitch_to_stacked_onsets',
+    'stacked_multi_pitch_to_stacked_offsets',
+    'framify_activations',
+    'inhibit_activations',
+    'dict_to_array',
+    'dict_to_tensor',
+    'dict_squeeze',
+    'dict_unsqueeze',
+    'dict_append',
+    'unpack_dict',
+    'get_tag',
     'resolve_device',
     'use_exact_fp32',
     'exact_fp32',
 ]
+
+
+def to_numpy(data):
+    """A host ``ndarray`` of a tensor (any device; bf16 widened to
+    float32) or anything array-like."""
+
+    if isinstance(data, np.ndarray):
+        return data
+    if isinstance(data, torch.Tensor):
+        data = data.detach()
+        if data.dtype == torch.bfloat16:
+            data = data.float()
+        return data.cpu().numpy()
+
+    return np.asarray(data)
 
 
 def _is_array(entry):
@@ -250,6 +303,339 @@ def notes_to_offsets(pitches, intervals, times, profile, ambiguity=None):
     return notes_to_multi_pitch(pitches, truncated, times, profile)
 
 
+##################################################
+# NOTES, PITCH LISTS, MULTI PITCH, TABLATURE     #
+##################################################
+
+
+def notes_to_hz(pitches):
+    """Convert note pitches from MIDI to Hz."""
+
+    return midi_to_hz(pitches)
+
+
+def notes_to_stacked_notes(pitches, intervals, key=0):
+    """Wrap one collection of notes into a single-slice stacked-notes dict."""
+
+    return {key: (pitches, intervals)}
+
+
+def stacked_notes_to_notes(stacked_notes, sort_by=0):
+    """Collapse a stacked-notes dict into one collection of loose notes."""
+
+    all_pitches, all_intervals = [], []
+    for pitches, intervals in stacked_notes.values():
+        all_pitches.append(np.asarray(pitches, dtype=np.float64))
+        all_intervals.append(np.asarray(intervals, dtype=np.float64).reshape(-1, 2))
+
+    pitches = np.concatenate(all_pitches) if all_pitches else np.empty(0)
+    intervals = (np.concatenate(all_intervals, axis=0)
+                 if all_intervals else np.empty((0, 2)))
+
+    if sort_by is not None:
+        pitches, intervals = sort_notes(pitches, intervals, by=sort_by)
+
+    return pitches, intervals
+
+
+def multi_pitch_to_pitch_list(multi_pitch, profile):
+    """Convert an (F, T) activation map into a ragged per-frame pitch list."""
+
+    multi_pitch = to_numpy(multi_pitch)
+    num_frames = multi_pitch.shape[-1]
+
+    # Single pass: find active (pitch, frame) pairs, then split per frame
+    active_pitch, active_frame = np.where(multi_pitch > 0)
+    order = np.argsort(active_frame, kind='stable')
+    active_pitch, active_frame = active_pitch[order], active_frame[order]
+
+    counts = np.bincount(active_frame, minlength=num_frames)
+    splits = np.cumsum(counts)[:-1]
+    per_frame = np.split((profile.low + active_pitch).astype(float), splits)
+
+    return [np.sort(p) for p in per_frame]
+
+
+def pitch_list_to_hz(pitch_list):
+    """Convert all pitch observations from MIDI to Hz."""
+
+    return [midi_to_hz(p) if len(p) else p for p in pitch_list]
+
+
+def cat_pitch_list(times, pitch_list, new_times, new_pitch_list, decimals=6):
+    """Concatenate two pitch lists, merging observations at coincident times."""
+
+    times_r = np.round(times, decimals)
+    new_times_r = np.round(new_times, decimals)
+
+    merged = {t: np.asarray(p) for t, p in zip(times_r, pitch_list)}
+    for t, p in zip(new_times_r, new_pitch_list):
+        if t in merged:
+            merged[t] = np.unique(np.append(merged[t], p))
+        else:
+            merged[t] = np.asarray(p)
+
+    out_times = np.sort(np.array(list(merged.keys())))
+    out_pitch_list = [merged[t] for t in out_times]
+
+    return out_times, out_pitch_list
+
+
+def pitch_list_to_stacked_pitch_list(times, pitch_list, i=0):
+    """Wrap a single pitch list into a stacked-pitch-list dict."""
+
+    return {i: (times, pitch_list)}
+
+
+def stacked_pitch_list_to_pitch_list(stacked_pitch_list):
+    """Collapse a stacked pitch list into a single (times, pitch_list) pair."""
+
+    out_times, out_pitch_list = np.empty(0), []
+    for times, pitch_list in stacked_pitch_list.values():
+        out_times, out_pitch_list = cat_pitch_list(out_times, out_pitch_list,
+                                                   np.asarray(times), pitch_list)
+
+    return out_times, out_pitch_list
+
+
+def stacked_multi_pitch_to_stacked_pitch_list(stacked_multi_pitch, times, profile):
+    """Convert an (S, F, T) stack into a stacked pitch list."""
+
+    stacked_pitch_list = {}
+    for slc in range(len(stacked_multi_pitch)):
+        pitch_list = multi_pitch_to_pitch_list(stacked_multi_pitch[slc], profile)
+        stacked_pitch_list[slc] = (np.asarray(times), pitch_list)
+
+    return stacked_pitch_list
+
+
+def extract_note_velocities(batched_notes, velocity, times, profile,
+                            window=1):
+    """Read each note's velocity off an (F, T) velocity map at its onset.
+
+    ``batched_notes`` is (N, 3); returns an (N,) array in [0, 1]. ``window``
+    > 1 averages the map over the first ``window`` frames of each note
+    (clipped to the note's own span).
+    """
+
+    batched_notes = np.asarray(batched_notes).reshape(-1, 3)
+    velocity = to_numpy(velocity)
+    times = np.asarray(times)
+
+    if len(batched_notes) == 0:
+        return np.empty(0)
+
+    _times = np.append(times, times[-1] + estimate_hop_length(times))
+
+    num_frames = velocity.shape[1]
+    rows = np.clip(np.round(batched_notes[:, 2] - profile.low).astype(int),
+                   0, velocity.shape[0] - 1)
+    frames = np.clip(np.searchsorted(_times, batched_notes[:, 0], side='right') - 1,
+                     0, num_frames - 1)
+
+    if window <= 1:
+        return velocity[rows, frames]
+
+    # Last frame each note still occupies (its span's inclusive end)
+    ends = np.clip(np.searchsorted(_times, batched_notes[:, 1], side='right') - 1,
+                   frames, num_frames - 1)
+
+    values = np.zeros(len(batched_notes))
+    counts = np.zeros(len(batched_notes))
+    for offset in range(window):
+        cols = frames + offset
+        valid = (cols <= ends) & (cols < num_frames)
+        values += np.where(valid, velocity[rows, np.minimum(cols, num_frames - 1)], 0.0)
+        counts += valid
+
+    return values / np.maximum(counts, 1)
+
+
+def multi_pitch_to_notes(multi_pitch, times, profile, onsets=None, offsets=None):
+    """Decode an (F, T) activation map into loose MIDI note groups.
+
+    Vectorized suffix scans: a note starting at an onset impulse extends
+    until the first frame where the pitch deactivates or a new onset occurs.
+    """
+
+    multi_pitch = to_numpy(multi_pitch)
+    times = np.asarray(times)
+
+    if onsets is None:
+        onsets = multi_pitch_to_onsets(multi_pitch)
+    else:
+        onsets = to_numpy(onsets)
+
+    # Ensure all onsets have corresponding pitch activations
+    active = np.logical_or(onsets > 0, multi_pitch > 0)
+
+    # Collapse onset spans to impulses at their starting frame
+    onset_impulses = multi_pitch_to_onsets(onsets) > 0
+
+    num_pitches, num_frames = active.shape[-2:]
+
+    if num_frames == 0 or not np.any(onset_impulses):
+        return np.empty(0), np.empty((0, 2))
+
+    # Bound final offsets by one hop past the last frame
+    times_ext = np.append(times, times[-1] + estimate_hop_length(times))
+
+    frame_idx = np.arange(num_frames)
+
+    # next_inactive[p, t] : smallest t' >= t with active[p, t'] == 0 (else T)
+    cand = np.where(~active, frame_idx[None, :], num_frames)
+    next_inactive = np.minimum.accumulate(cand[:, ::-1], axis=1)[:, ::-1]
+
+    # next_onset[p, t] : smallest t' >= t with an onset impulse (else T)
+    cand = np.where(onset_impulses, frame_idx[None, :], num_frames)
+    next_onset = np.minimum.accumulate(cand[:, ::-1], axis=1)[:, ::-1]
+
+    # Shift by one so the search starts strictly after the onset frame
+    pad = np.full((num_pitches, 1), num_frames)
+    next_inactive = np.concatenate([next_inactive[:, 1:], pad], axis=1)
+    next_onset = np.concatenate([next_onset[:, 1:], pad], axis=1)
+
+    end_frames = np.minimum(next_inactive, next_onset)
+
+    pitch_rows, onset_frames = np.nonzero(onset_impulses)
+    offset_frames = end_frames[pitch_rows, onset_frames]
+
+    pitches = pitch_rows + profile.low
+    intervals = np.stack([times[onset_frames], times_ext[offset_frames]], axis=-1)
+
+    return sort_notes(pitches.astype(float), intervals)
+
+
+def stacked_multi_pitch_to_multi_pitch(stacked_multi_pitch):
+    """Collapse an (..., S, F, T) stack into (..., F, T) via max."""
+
+    return np.max(to_numpy(stacked_multi_pitch), axis=-3)
+
+
+def multi_pitch_to_stacked_multi_pitch(multi_pitch):
+    """Add a singleton stack dimension to an (F, T) activation map."""
+
+    return np.expand_dims(multi_pitch, axis=-3)
+
+
+def stacked_notes_to_stacked_multi_pitch(stacked_notes, times, profile, include_offsets=True):
+    """Rasterize each slice of stacked notes into an (S, F, T) stack."""
+
+    stack = [notes_to_multi_pitch(p, i, times, profile, include_offsets)
+             for p, i in stacked_notes.values()]
+
+    return np.stack(stack, axis=-3)
+
+
+def tablature_to_stacked_multi_pitch(tablature, profile):
+    """Expand (..., S, T) tablature class indices into an (..., S, F, T) stack."""
+
+    tablature = to_numpy(tablature).astype(int)
+    num_dofs, num_frames = tablature.shape[-2:]
+    num_pitches = profile.get_range_len()
+
+    stacked_multi_pitch = np.zeros(tablature.shape[:-2] + (num_dofs, num_pitches, num_frames))
+
+    tuning = np.asarray(profile.get_midi_tuning())
+    dof_start = np.expand_dims(tuning - profile.low, -1)
+
+    non_silent = tablature >= 0
+    pitch_idcs = (tablature + dof_start)[non_silent].astype(int)
+
+    idcs = np.nonzero(non_silent)
+    stacked_multi_pitch[idcs[:-1] + (pitch_idcs, idcs[-1])] = 1
+
+    return stacked_multi_pitch
+
+
+def multi_pitch_to_onsets(multi_pitch):
+    """Edge-detect where pitch activity begins (first frame counts as onset)."""
+
+    multi_pitch = to_numpy(multi_pitch)
+
+    first_frame = multi_pitch[..., :1]
+    adjacent_diff = multi_pitch[..., 1:] - multi_pitch[..., :-1]
+
+    onsets = np.concatenate([first_frame, adjacent_diff], axis=-1)
+
+    return np.where(onsets > 0, onsets, 0)
+
+
+def multi_pitch_to_offsets(multi_pitch):
+    """Edge-detect where pitch activity ceases (last frame counts as offset)."""
+
+    multi_pitch = to_numpy(multi_pitch)
+
+    last_frame = multi_pitch[..., -1:]
+    adjacent_diff = -1 * (multi_pitch[..., 1:] - multi_pitch[..., :-1])
+
+    offsets = np.concatenate([adjacent_diff, last_frame], axis=-1)
+
+    return np.where(offsets > 0, offsets, 0)
+
+
+def stacked_multi_pitch_to_stacked_onsets(stacked_multi_pitch):
+    """Edge-detect onsets independently on each slice of a stack."""
+
+    return multi_pitch_to_onsets(stacked_multi_pitch)
+
+
+def stacked_multi_pitch_to_stacked_offsets(stacked_multi_pitch):
+    """Edge-detect offsets independently on each slice of a stack."""
+
+    return multi_pitch_to_offsets(stacked_multi_pitch)
+
+
+def framify_activations(activations, win_length, hop_length=1, pad=True):
+    """Chunk activations into overlapping windows along the last axis:
+    (..., T', win_length), the chunk axis at -2."""
+
+    activations = to_numpy(activations)
+    num_frames = activations.shape[-1]
+    pad_length = win_length // 2
+
+    if pad:
+        target = num_frames + 2 * pad_length
+    else:
+        target = max(win_length, num_frames)
+
+    # Center-pad with zeros along the last axis
+    lpad = (target - num_frames) // 2
+    rpad = target - num_frames - lpad
+    padding = [(0, 0)] * (activations.ndim - 1) + [(lpad, rpad)]
+    activations = np.pad(activations, padding)
+
+    num_hops = (target - 2 * pad_length) // hop_length
+
+    windows = np.lib.stride_tricks.sliding_window_view(activations, win_length, axis=-1)
+    windows = windows[..., ::hop_length, :][..., :num_hops, :]
+
+    return np.ascontiguousarray(windows)
+
+
+def inhibit_activations(activations, times, window_length):
+    """Suppress activations within a time window after a kept activation
+    (a row-wise greedy pass over the non-zeros)."""
+
+    activations = np.array(to_numpy(activations), copy=True)
+    times = np.asarray(times)
+
+    pitch_idcs, frame_idcs = activations.nonzero()
+
+    out = np.zeros_like(activations)
+
+    # Non-zeros arrive row-major (sorted by pitch, then frame)
+    for pitch in np.unique(pitch_idcs):
+        frames = frame_idcs[pitch_idcs == pitch]
+        last_kept_time = -np.inf
+        for frame in frames:
+            if times[frame] >= last_kept_time + window_length:
+                out[pitch, frame] = 1
+                last_kept_time = times[frame]
+
+    return out
+
+
 def rms_norm(audio):
     """Normalize audio so its root-mean-square energy is 1."""
 
@@ -303,6 +689,75 @@ def dict_to_dtype(track, dtype, copy=True):
     (``copy=False`` passes matching arrays through)."""
 
     return _map_dict(track, lambda a: np.asarray(a).astype(dtype, copy=copy))
+
+
+def dict_to_array(track):
+    """Bring all array entries of a track dictionary back to host numpy."""
+
+    return _map_dict(track, to_numpy)
+
+
+def dict_to_tensor(track, device):
+    """All array entries of a track dictionary as tensors on ``device``."""
+
+    return _map_dict(track, lambda a: torch.as_tensor(
+        a if isinstance(a, torch.Tensor) else np.asarray(a)).to(device))
+
+
+def dict_squeeze(track, dim=None):
+    """Squeeze a dimension of all array entries of a track dictionary."""
+
+    def _squeeze(a):
+        if dim is None:
+            return a.squeeze()
+        if a.ndim > abs(dim if dim >= 0 else dim + 1) and a.shape[dim] == 1:
+            return a.squeeze(dim)
+        return a
+
+    return _map_dict(track, _squeeze)
+
+
+def dict_unsqueeze(track, dim=0):
+    """Add a (batch) dimension to all array entries of a track dictionary."""
+
+    return _map_dict(track, lambda a: np.expand_dims(a, dim)
+                     if isinstance(a, np.ndarray) else a[None] if dim == 0 else a)
+
+
+def dict_append(track, additions, dim=-1):
+    """Append array entries of ``additions`` to matching entries of ``track``."""
+
+    track = dict(track)
+    for key, entry in additions.items():
+        if key not in track or track[key] is None:
+            track[key] = entry
+        elif isinstance(entry, dict):
+            track[key] = dict_append(track[key], entry, dim)
+        elif _is_array(entry):
+            track[key] = np.concatenate((to_numpy(track[key]), to_numpy(entry)), axis=dim)
+        elif isinstance(entry, list):
+            track[key] = list(track[key]) + entry
+        else:
+            track[key] = entry
+
+    return track
+
+
+def unpack_dict(data, key):
+    """Fetch ``data[key]`` if present, else None."""
+
+    if isinstance(data, dict) and key in data.keys():
+        return data[key]
+
+    return None
+
+
+def get_tag(tag=None):
+    """Default a file tag to the current date and time."""
+
+    date_time = datetime.now().strftime('%m_%d_%Y_%H_%M_%S')
+
+    return date_time if tag is None else tag
 
 
 def query_dict(dictionary, key):

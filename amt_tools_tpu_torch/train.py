@@ -15,8 +15,14 @@ and the scheduler's count, which a checkpoint holds beside them:
   resumed run continues exactly without saving generator state.
 
 On the card the language models' recurrences run kernels E and F (through
-``ops.lstm_kernel.lstm_scan_grad``). Validation inside the loop comes with
-the evaluation slice, data parallelism with ``parallel/``.
+``ops.lstm_kernel.lstm_scan_grad``). With ``val_set``, ``evaluator`` (and
+an ``estimator``) each checkpoint runs ``evaluate.validate`` on the same
+device, bucketed (``val_bucket``, kernel B with lengths) and
+``val_batch_size`` tracks a forward, then ``evaluator.finalize(writer,
+step)``, as JAX ``train.py:402-406``. Validation runs in eval mode without
+autograd and draws no random numbers, so the training steps' losses are
+those of a run without it, bit for bit. Data parallelism comes with
+``parallel/``.
 """
 
 import os
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from . import tools
+from .evaluate import validate
 from .models.common import run_on_batch
 
 __all__ = [
@@ -201,7 +208,7 @@ class _Schedule:
 def train(model, train_loader, optimizer, iterations, checkpoints=0,
           log_dir='.', scheduler=None, resume=True, single_batch=False,
           val_set=None, estimator=None, evaluator=None, seed=0, writer=None,
-          accum_steps=1, device=None):
+          accum_steps=1, device=None, val_bucket=128, val_batch_size=1):
     """Training loop, one pass over ``train_loader`` per iteration.
 
     ``optimizer`` is a ``torch.optim`` optimizer over ``model``'s
@@ -213,15 +220,15 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
     newest checkpoint at most ``iterations`` is loaded first. ``log_dir=None``
     runs ephemerally: no saves, no resume scan. ``writer`` is any object
     with ``add_scalar`` (default: a no-op); each pass's mean losses go to
-    ``train/loss/<key>``.
+    ``train/loss/<key>``. With ``val_set`` and ``evaluator`` every
+    checkpoint (not the final save alone, as in JAX) validates the model:
+    ``evaluate.validate(..., bucket=val_bucket, batch_size=val_batch_size)``
+    with ``estimator``, then ``evaluator.finalize(writer, iteration)``.
 
     Returns ``{'step': steps taken in all, 'losses': {key: [one float per
     step of this call]}}``.
     """
 
-    if val_set is not None or evaluator is not None or estimator is not None:
-        raise NotImplementedError('validation inside train() comes with the '
-                                  'evaluation slice (evaluate.py)')
     if scheduler is not None and not callable(scheduler):
         raise ValueError('scheduler must be a callable mapping the step '
                          'count to an LR multiplier')
@@ -280,6 +287,11 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
         if log_dir is not None and (checkpoint or global_iter + 1 == iterations):
             save_checkpoint(log_dir, global_iter + 1, model, optimizer, step,
                             seed, None if schedule is None else schedule.state())
+
+        if checkpoint and val_set is not None and evaluator is not None:
+            validate(model, val_set, evaluator, estimator, bucket=val_bucket,
+                     batch_size=val_batch_size, device=device)
+            evaluator.finalize(writer, global_iter + 1)
 
     return {'step': step, 'losses': history}
 

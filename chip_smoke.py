@@ -93,13 +93,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 17. the piano batch's int8 layers (Conv_1, Conv_2, Dense_0 at 128 x 60 s,
     bf16 in and out) timed against cuDNN's bf16 conv and a bf16
     ``F.linear`` at the same shapes;
+18. kernel B with per-row lengths at the bucketed validation shape (8
+    tracks padded to the 3840 frames of a 120 s track, H = 256, lengths
+    spread over 20-120 s), float32 and bf16: against its masked plain
+    version on the valid frames, padded outputs exactly 0, lengths = T bit
+    for bit the unmasked launch; masked against unmasked time;
+19. piano validation: O&F2 complexity 3 in float32 (the of_2 recipe)
+    through ``evaluate.validate`` with the recipe's estimator and evaluator
+    over 16 SyntheticPiano tracks of 20-120 s (HTK mels by kernel A on the
+    card), bucketed by 128 frames, at batch sizes 1 and 8: kernel B masked
+    six times a forward, every track scored alike by both passes, every
+    track's notes equal to ``run_offline(bucket=0)``'s; tracks per second,
+    audio-s per wall-s and the host's share;
+20. guitar validation: TabCNN (fullseq, bf16) through ``validate`` with the
+    tabcnn recipe's estimator and evaluator over 8 rendered guitar tracks of
+    10-45 s (kernel D once a track); ``run_online`` on a 5 s track against
+    ``run_offline``'s tablature in float32;
+21. ``train()`` at the of_2 recipe (float32, 8 x 625 frames, complexity
+    3) for 4 steps with ``checkpoints=2`` and a 4-track validation set: two
+    validations, steps/s with and without them;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch and one
    float32 training step under ``torch.profiler``, in one session: the
    device time by kernel and the busy share of each, whose path's kernels
    must appear in it.
 
-The last lines are the card, one ``kernels`` JSON line (A to F), and one
-JSON line ``{"ok": true, "device": {...}}``.
+The last lines are the card, one ``kernels`` JSON line (A to F; B with its
+masked launches of phase 19 and phase 18's times), and one JSON line
+``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -189,6 +209,15 @@ CONV_BLOCK_GRAD_TOL = 3e-2
 TRAIN_CHECK_SEEDS = tuple(range(8, 20))
 SGD_LR = 0.05
 STAT_TOL = 1e-6
+# Bucketed validation (phases 18-21): whole tracks padded to multiples of
+# 128 frames (amt_tools_tpu/train.py:263), a 120 s track to 3840
+VAL_BUCKET = 128
+VAL_BATCH = 8
+VAL_DURATIONS = (20.0, 50.0, 80.0, 120.0)   # x4 piano tracks each
+GUITAR_VAL_DURATIONS = (10.0, 15.0, 20.0, 25.0, 30.0, 35.0, 40.0, 45.0)
+ONLINE_SECONDS = 5.0
+TRAIN_VAL_TRACKS = 4
+RANGE_GAP_S = 0.05  # idle between profiled batches
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -262,11 +291,13 @@ def kernel_counters():
 
 def route_counters():
     """(kernel, route, attribute) of every counter of a kernel's route:
-    kernel A's FFT route, kernels C and D by ``exact``."""
+    kernel A's FFT route, kernel B's masked launches (with lengths),
+    kernels C and D by ``exact``."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
 
-    return ([('stft_power', 'fft', 'fft_launches')] +
+    return ([('stft_power', 'fft', 'fft_launches'),
+             ('lstm_scan', 'masked', 'masked_launches')] +
             [(name, route, f'{route}_launches')
              for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
 
@@ -281,8 +312,9 @@ def reset_launches():
 
 def read_launches():
     """Launch counts by kernel, and by route as ``<kernel>_<route>``:
-    ``stft_power_fft`` (kernel A's FFT route), ``cqt_mag_bf16x3`` and the
-    other routes of kernels C and D."""
+    ``stft_power_fft`` (kernel A's FFT route), ``lstm_scan_masked`` (kernel
+    B with lengths), ``cqt_mag_bf16x3`` and the other routes of kernels C
+    and D."""
 
     counters = kernel_counters()
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
@@ -924,7 +956,10 @@ def profile_batches(batches):
     missing from a later session's trace. Each batch runs in its own
     ``record_function`` range, and a device event belongs to the range its
     start falls in (the profiler keeps host and device events on one
-    clock). Each path's kernels must appear in its range.
+    clock), or within half the idle gap left between ranges of it: in one
+    run the device clock stood far enough ahead of the host's to put the
+    next range's first kernel into the range before. Each path's kernels
+    must appear in its range.
     """
 
     import torch
@@ -937,6 +972,10 @@ def profile_batches(batches):
                              ProfilerActivity.CUDA]) as prof:
         for label, run, _ in batches:
             torch.cuda.synchronize()
+            # An idle gap between the ranges, wider than any offset of the
+            # device clock against the host's: a device event within half
+            # of it outside its range still counts to that range
+            time.sleep(RANGE_GAP_S)
             with record_function(label):
                 start = time.perf_counter()
                 run()
@@ -951,9 +990,11 @@ def profile_batches(batches):
         by_kernel = {}
         intervals = []
         # Device-side events only, without the ranges' own annotations
+        margin = RANGE_GAP_S / 2 * 1e6
         for e in events:
             if (e.device_type == DeviceType.CUDA and e.name not in labels and
-                    span.start <= e.time_range.start <= span.end):
+                    span.start - margin <= e.time_range.start <=
+                    span.end + margin):
                 ms, count = by_kernel.get(e.name, (0.0, 0))
                 by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                      count + 1)
@@ -2225,6 +2266,519 @@ def int8_parts(layer, x):
     return parts
 
 
+def check_masked_lstm(card):
+    """Phase 18: kernel B with per-row lengths at the bucketed validation
+    shape (8 tracks padded to the 3840 frames of a 120 s track, H = 256),
+    float32 and bf16: against its masked plain version on the valid
+    frames, padded outputs exactly 0, lengths = T bit for bit the unmasked
+    launch, and masked against unmasked time."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.lstm import lengths_to_mask
+    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+
+    frames = -(-(1 + int(VAL_DURATIONS[-1] * SAMPLE_RATE) // HOP) //
+               VAL_BUCKET) * VAL_BUCKET
+    # Spread evenly over 20-120 s of frames
+    seconds = np.linspace(VAL_DURATIONS[0], VAL_DURATIONS[-1], VAL_BATCH)
+    lengths = torch.from_numpy(np.minimum(
+        np.round(seconds * SAMPLE_RATE / HOP), frames)).int().cuda()
+    valid = lengths_to_mask(lengths, frames)
+    full = torch.full_like(lengths, frames)
+    result = {}
+    with tools.exact_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            _, _, _, xw, wh = lstm_inputs(VAL_BATCH, frames, dtype, seed=18)
+            err = mean_err = 0.0
+            for reverse in (False, True):
+                got = lstm_scan(xw, wh, reverse=reverse, lengths=lengths)
+                ref = lstm_scan_plain(xw, wh, reverse=reverse,
+                                      lengths=lengths)
+                diff = (got.float() - ref.float()).abs()[valid]
+                err = max(err, diff.max().item())
+                mean_err = max(mean_err, diff.mean().item())
+                require(not bool(got[~valid].any()),
+                        f'masked lstm_scan {name} wrote a padded frame')
+                require(torch.equal(
+                    lstm_scan(xw, wh, reverse=reverse, lengths=full),
+                    lstm_scan(xw, wh, reverse=reverse)),
+                    f'masked lstm_scan {name} with lengths = T is not the '
+                    f'unmasked launch bit for bit')
+            log(f'masked lstm_scan {name} at B={VAL_BATCH}, T={frames}, '
+                f'H={HIDDEN}, lengths {lengths.tolist()}: |kernel - plain| '
+                f'on valid frames max {err:.6g} (tolerance {LSTM_TOL[name]}), '
+                f'mean {mean_err:.6g} (tolerance {LSTM_MEAN_TOL[name]}), '
+                f'worse direction; lengths = T equal the unmasked launch')
+            require(err <= LSTM_TOL[name] and
+                    mean_err <= LSTM_MEAN_TOL[name],
+                    f'masked lstm_scan {name} disagrees with its plain '
+                    f'version')
+
+            # In turns (unmasked, masked, masked, unmasked), so a drift of
+            # the clocks does not fall on one side
+            def unmasked():
+                return time_ms(lambda: lstm_scan(xw, wh), reps=10)
+
+            def masked():
+                return time_ms(lambda: lstm_scan(xw, wh, lengths=lengths),
+                               reps=10)
+
+            turns = [unmasked(), masked(), masked(), unmasked()]
+            unmasked_ms = (turns[0] + turns[3]) / 2
+            masked_ms = (turns[1] + turns[2]) / 2
+            log(f'masked lstm_scan {name} a direction at B={VAL_BATCH}, '
+                f'T={frames}, in turns unmasked, masked, masked, unmasked: '
+                + ', '.join(f'{ms:.3f}' for ms in turns) +
+                f' ms; masked {100 * (masked_ms / unmasked_ms - 1):+.1f}% '
+                f'({card})')
+            result[name] = {'masked_ms': masked_ms,
+                            'unmasked_ms': unmasked_ms,
+                            'masked_max_abs_err': err}
+
+    return result
+
+
+class ValidationTracks:
+    """A duck-typed validation set: whole tracks of unequal lengths from
+    one dataset a duration (each with a split of its own, so its own
+    notes), features computed by the dataset on the card when first read.
+    """
+
+    def __init__(self, datasets):
+        self.sets = {}
+        for dataset in datasets:
+            for track in dataset.tracks:
+                self.sets[track] = dataset
+        self.tracks = list(self.sets)
+
+    def get_track_data(self, track_id):
+        return self.sets[track_id].get_track_data(track_id)
+
+    def get_track_frames(self, track_id):
+        return self.sets[track_id].get_track_frames(track_id)
+
+
+def piano_val_set(mel, durations, per_duration):
+    from amt_tools_tpu_torch.datasets import SyntheticPiano
+
+    return ValidationTracks([
+        SyntheticPiano(splits=[f'val{int(d)}'], num_tracks=per_duration,
+                       track_duration=d, notes_per_track=int(2 * d),
+                       data_proc=mel)
+        for d in durations])
+
+
+def of2_recipe():
+    """The of_2 recipe's validation estimator and evaluator
+    (``examples/papers/of_2.py:135-144``)."""
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.evaluate import (ComboEvaluator, LossWrapper,
+                                              MultipitchEvaluator,
+                                              NoteEvaluator)
+    from amt_tools_tpu_torch.transcribe import (ComboEstimator,
+                                                NoteTranscriber,
+                                                PitchListWrapper)
+
+    profile = tools.PianoProfile()
+    estimator = ComboEstimator([NoteTranscriber(profile=profile),
+                                PitchListWrapper(profile=profile)])
+    evaluator = ComboEvaluator([
+        LossWrapper(), MultipitchEvaluator(),
+        NoteEvaluator(results_key=tools.KEY_NOTE_ON),
+        NoteEvaluator(offset_ratio=0.2, results_key=tools.KEY_NOTE_OFF)])
+    evaluator.set_patterns(['loss', 'pr', 're', 'f1'])
+
+    return estimator, evaluator
+
+
+class HostTimer:
+    """Wraps the estimator's and evaluator's ``process_track``: the host
+    seconds spent in them, each track's estimates and scores."""
+
+    def __init__(self, estimator, evaluator):
+        self.seconds = 0.0
+        self.estimates = {}
+        self.scores = {}
+        self._wrap(estimator, self.estimates, index=1)
+        self._wrap(evaluator, self.scores, index=2)
+
+    def _wrap(self, obj, store, index):
+        process = obj.process_track
+
+        def timed(*args):
+            start = time.perf_counter()
+            out = process(*args)
+            self.seconds += time.perf_counter() - start
+            track = args[index] if len(args) > index else None
+            store[track] = out
+            return out
+
+        obj.process_track = timed
+
+
+def validate_timed(model, dataset, estimator, evaluator, batch_size):
+    """One validation pass on the card with fresh launch counts: (averaged
+    results, launches, wall seconds, host seconds, per-track notes and
+    scores)."""
+
+    import torch
+
+    from amt_tools_tpu_torch.evaluate import validate
+
+    timer = HostTimer(estimator, evaluator)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    results = validate(model, dataset, evaluator, estimator,
+                       bucket=VAL_BUCKET, batch_size=batch_size)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+
+    return results, read_launches(), elapsed, timer
+
+
+def without_loss(scores):
+    from amt_tools_tpu_torch import tools
+
+    return {key: value for key, value in scores.items()
+            if key != tools.KEY_LOSS}
+
+
+def validate_piano(card):
+    """Phase 19: O&F2 complexity 3 in float32 (the of_2 recipe) validates
+    16 SyntheticPiano tracks of 20-120 s, bucketed by 128 frames, at batch
+    sizes 1 and 8, through the recipe's estimator and evaluator. The two
+    passes score every track alike; every track's notes equal
+    ``run_offline(bucket=0)``'s. Returns kernel B's masked launches in the
+    batch-8 pass."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.inference import run_offline
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.serving import calibrate_activity
+
+    mel = MelSpec(n_mels=N_MELS, htk=True)
+    dataset = piano_val_set(mel, VAL_DURATIONS, 4)
+    model = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                          model_complexity=3,
+                          generator=torch.Generator().manual_seed(19))
+    probe_samples = int(min(10.0, VAL_DURATIONS[0]) * SAMPLE_RATE)
+    probe = np.stack([dataset.sets[t].load(t)[tools.KEY_AUDIO][:probe_samples]
+                      for t in dataset.tracks[:4]])
+    calibrate_activity(model, mel, probe)
+    model.eval()
+
+    audio_s = sum(dataset.sets[t].track_duration for t in dataset.tracks)
+    passes = {}
+    for batch_size in (1, VAL_BATCH):
+        estimator, evaluator = of2_recipe()
+        passes[batch_size] = validate_timed(model, dataset, estimator,
+                                            evaluator, batch_size)
+        results, launches, elapsed, timer = passes[batch_size]
+        log(f'validate O&F2 complexity 3 float32, {len(dataset.tracks)} '
+            f'tracks ({audio_s:.0f} s of audio), bucket {VAL_BUCKET}, batch '
+            f'{batch_size}: {elapsed:.3f} s, '
+            f'{len(dataset.tracks) / elapsed:.3f} tracks/s, '
+            f'{audio_s / elapsed:.1f} audio-s per wall-s, host estimators '
+            f'and metrics {timer.seconds:.3f} s '
+            f'({100 * timer.seconds / elapsed:.1f}% of the wall time; the '
+            f'rest: features, forwards, transfers) ({card}); launches '
+            f'{launches}')
+        for group, scores in sorted(results.items()):
+            log(f'  {group}: ' + ', '.join(f'{k} {v:.6g}'
+                                           for k, v in sorted(scores.items())))
+
+    one, eight = passes[1], passes[VAL_BATCH]
+    require(one[1]['stft_power'] == len(dataset.tracks),
+            'the validation features did not run kernel A once a track')
+    require(one[1]['lstm_scan_masked'] == 6 * len(dataset.tracks) and
+            one[1]['lstm_scan'] == one[1]['lstm_scan_masked'],
+            'the batch-1 pass did not run masked kernel B six times a track')
+    groups = sum(-(-4 // VAL_BATCH) for _ in VAL_DURATIONS)
+    require(eight[1]['lstm_scan_masked'] == 6 * groups,
+            f'the batch-{VAL_BATCH} pass did not run masked kernel B six '
+            f'times a bucket group')
+    for track in dataset.tracks:
+        require(without_loss(one[3].scores[track]) ==
+                without_loss(eight[3].scores[track]),
+                f'{track}: batch 1 and batch {VAL_BATCH} score differently')
+
+    # Every track's notes against the unbucketed forward's
+    notes = 0
+    for track in dataset.tracks:
+        want = run_offline(dataset.get_track_data(track), model)
+        got = eight[3].estimates[track][tools.KEY_NOTES]
+        unbucketed = notes_of(want, model)
+        require(np.array_equal(got, unbucketed),
+                f'{track}: bucketed notes differ from run_offline(bucket=0)')
+        notes += len(got)
+    require(notes > 0, 'no validation track decoded a note')
+    log(f'bucketed notes equal run_offline(bucket=0) on all '
+        f'{len(dataset.tracks)} tracks ({notes} notes); the batch-1 and '
+        f'batch-{VAL_BATCH} passes score every track alike')
+
+    return eight[1]['lstm_scan_masked'], one[1]['lstm_scan_masked']
+
+
+def notes_of(predictions, model):
+    """The of_2 estimator's notes of a prediction dict."""
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.transcribe import NoteTranscriber
+
+    return NoteTranscriber(profile=model.profile).process_track(
+        dict(predictions))[tools.KEY_NOTES]
+
+
+def render_guitar_track(cqt, profile, seconds, seed):
+    """A guitar track from random tablature: per string, notes of random
+    frets one after another, rendered as harmonic tones at 22.05 kHz; the
+    tablature and multi-pitch ground truth on the CQT's frame grid."""
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import render_notes
+
+    rng = np.random.RandomState(seed)
+    tuning = profile.get_midi_tuning()
+    notes = []
+    for string, low in enumerate(tuning):
+        start = rng.uniform(0, 1.0)
+        while start < seconds - 0.3:
+            end = min(seconds, start + rng.uniform(0.2, 1.2))
+            notes.append((string, rng.randint(0, profile.num_pitches), start,
+                          end))
+            start = end + rng.uniform(0.05, 1.5)
+    audio = render_notes(np.array([tuning[s] + f for s, f, _, _ in notes],
+                                  float),
+                         np.array([(a, b) for _, _, a, b in notes]),
+                         GUITAR_SAMPLE_RATE, seconds, seed=seed)
+    times = cqt.get_times(audio)
+    tablature = np.full((len(tuning), len(times)), -1)
+    for string, fret, start, end in notes:
+        tablature[string, (times >= start) & (times < end)] = fret
+    stacked = tools.tablature_to_stacked_multi_pitch(tablature, profile)
+
+    return {tools.KEY_AUDIO: audio, tools.KEY_TIMES: times,
+            tools.KEY_TABLATURE: tablature,
+            tools.KEY_MULTIPITCH:
+                tools.stacked_multi_pitch_to_multi_pitch(stacked)}
+
+
+class GuitarTracks:
+    """A duck-typed guitar validation set whose features the serving CQT
+    computes on the card each time a track is read."""
+
+    def __init__(self, cqt, profile, durations):
+        self.cqt = cqt
+        self.data = {f'guitar_{i}': render_guitar_track(cqt, profile, d, i)
+                     for i, d in enumerate(durations)}
+        self.tracks = list(self.data)
+
+    def get_track_data(self, track_id):
+        from amt_tools_tpu_torch import tools
+
+        data = dict(self.data[track_id], **{tools.KEY_TRACK: track_id})
+        data[tools.KEY_FEATS] = self.cqt.process_audio(
+            data[tools.KEY_AUDIO])
+        require(data[tools.KEY_FEATS].shape[-1] == len(data[tools.KEY_TIMES]),
+                'the CQT frames do not match the tablature frames')
+        return data
+
+    def get_track_frames(self, track_id):
+        from amt_tools_tpu_torch import tools
+
+        return len(self.data[track_id][tools.KEY_TIMES])
+
+
+def validate_guitar(card):
+    """Phase 20: TabCNN (fullseq, bf16) validates 8 rendered guitar tracks
+    of 10-45 s through the tabcnn recipe's estimator and evaluator
+    (``examples/papers/tabcnn.py:106-113``), bucketed by 128 frames, the
+    features by kernel D; then ``run_online`` (windowed, one 9-frame
+    window a step) on one 5 s track against ``run_offline``'s tablature,
+    in float32."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.evaluate import (ComboEvaluator, LossWrapper,
+                                              MultipitchEvaluator,
+                                              SoftmaxAccuracy,
+                                              TablatureEvaluator)
+    from amt_tools_tpu_torch.inference import run_offline, run_online
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.serving import calibrate_tablature_activity
+    from amt_tools_tpu_torch.transcribe import (ComboEstimator,
+                                                StackedMultiPitchCollapser,
+                                                TablatureWrapper)
+
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = guitar_cqt(grouped='auto')
+    dataset = GuitarTracks(cqt, profile, GUITAR_VAL_DURATIONS)
+    model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                   fullseq=True, dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(20))
+    probe_samples = int(min(10.0, *GUITAR_VAL_DURATIONS[:4]) *
+                        GUITAR_SAMPLE_RATE)
+    probe = np.stack([dataset.data[t][tools.KEY_AUDIO][:probe_samples]
+                      for t in dataset.tracks[:4]])
+    calibrate_tablature_activity(model, cqt, probe)
+    model.eval()
+
+    estimator = ComboEstimator([TablatureWrapper(profile=profile),
+                                StackedMultiPitchCollapser(profile=profile)])
+    evaluator = ComboEvaluator([LossWrapper(), MultipitchEvaluator(),
+                                TablatureEvaluator(profile=profile),
+                                SoftmaxAccuracy()])
+    results, launches, elapsed, timer = validate_timed(
+        model, dataset, estimator, evaluator, VAL_BATCH)
+    audio_s = sum(GUITAR_VAL_DURATIONS)
+    log(f'validate TabCNN fullseq bf16, {len(dataset.tracks)} guitar tracks '
+        f'({audio_s:.0f} s), bucket {VAL_BUCKET}, batch {VAL_BATCH}: '
+        f'{elapsed:.3f} s, {len(dataset.tracks) / elapsed:.3f} tracks/s, '
+        f'{audio_s / elapsed:.1f} audio-s per wall-s, host estimators and '
+        f'metrics {100 * timer.seconds / elapsed:.1f}% ({card}); launches '
+        f'{launches}')
+    for group, scores in sorted(results.items()):
+        log(f'  {group}: ' + ', '.join(f'{k} {v:.6g}'
+                                       for k, v in sorted(scores.items())))
+    require(launches['cqt_mag_grouped_bf16x3'] == len(dataset.tracks),
+            'the guitar validation features did not run kernel D once a '
+            'track on its bf16x3 route')
+    require(all(np.isfinite(v) for scores in results.values()
+                for v in scores.values()), 'a guitar score is not finite')
+    require(results[tools.KEY_TABLATURE][tools.KEY_PRECISION] > 0,
+            'no tablature cell was predicted right')
+
+    # run_online, windowed, against run_offline in float32
+    track = render_guitar_track(cqt, profile, ONLINE_SECONDS, 99)
+    track[tools.KEY_FEATS] = cqt.process_audio(track.pop(tools.KEY_AUDIO))
+    track[tools.KEY_TRACK] = 'online'
+    state = {k: v.float() for k, v in model.state_dict().items()}
+    offline_model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                           fullseq=True)
+    online_model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                          online=True)
+    for m in (offline_model, online_model):
+        m.load_state_dict(state)
+        m.eval()
+    with tools.exact_fp32():
+        offline = run_offline(dict(track), offline_model)
+        online = run_online({k: track[k] for k in (tools.KEY_FEATS,
+                                                   tools.KEY_TIMES)},
+                            online_model)
+        with torch.no_grad():
+            feats = torch.from_numpy(track[tools.KEY_FEATS][None]).to(
+                next(offline_model.parameters()).device)
+            logits = offline_model(offline_model.pre_proc(
+                {tools.KEY_FEATS: feats})[tools.KEY_FEATS])[
+                    tools.KEY_TABLATURE][0].float().cpu()
+    top2 = logits.reshape(logits.shape[0], 6, -1).topk(2, dim=-1).values
+    close = (top2[..., 0] - top2[..., 1]).T.numpy() <= TAB_MARGIN
+    differ = online[tools.KEY_TABLATURE] != offline[tools.KEY_TABLATURE]
+    require(online[tools.KEY_TABLATURE].shape ==
+            offline[tools.KEY_TABLATURE].shape, 'run_online shape')
+    require(not bool((differ & ~close).any()),
+            'run_online tablature differs from run_offline where the top '
+            f'two logits are more than {TAB_MARGIN} apart')
+    log(f'run_online on {ONLINE_SECONDS:.0f} s ({differ.shape[-1]} windows): '
+        f'tablature equal to run_offline in {differ.size - differ.sum()} of '
+        f'{differ.size} cells ({differ.sum()} differ, all within the '
+        f'{TAB_MARGIN} top-two margin)')
+
+    return launches['cqt_mag_grouped']
+
+
+def train_with_validation(card):
+    """Phase 21: ``train()`` at the of_2 recipe (float32, O&F2 complexity
+    3, 8 x 625-frame crops, Adam 6e-4) for 4 steps with ``checkpoints=2``
+    and a 4-track validation set: it validates twice (``finalize`` at
+    iterations 2 and 4); steps/s with and without the validations, and
+    whether the losses of the runs agree bit for bit (a second run without
+    validation shows the card's own run-to-run spread)."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import DataLoader, SyntheticPiano
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.train import train
+
+    mel = MelSpec(n_mels=N_MELS, htk=True)
+    crops = SyntheticPiano(num_tracks=TRAIN_BATCH, track_duration=30.0,
+                           num_frames=TRAIN_FRAMES, data_proc=mel)
+    batch = next(iter(DataLoader(crops, batch_size=TRAIN_BATCH, seed=0)))
+    val_set = piano_val_set(mel, (20.0,), TRAIN_VAL_TRACKS)
+    for track in val_set.tracks:
+        val_set.get_track_data(track)  # features cached before timing
+
+    class Writer:
+        def __init__(self):
+            self.steps = set()
+
+        def add_scalar(self, tag, value, global_step=None):
+            if tag.startswith(tools.VAL):
+                self.steps.add(global_step)
+
+    runs = {}
+    for validated in (False, True, False):
+        model = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                              model_complexity=3,
+                              generator=torch.Generator().manual_seed(21))
+        optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        estimator, evaluator = of2_recipe() if validated else (None, None)
+        writer = Writer()
+        with tempfile.TemporaryDirectory(prefix='_chip_smoke_train_',
+                                         dir=ROOT) as log_dir:
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            result = train(model, FixedLoader([batch]), optimizer, 4,
+                           checkpoints=2, log_dir=log_dir,
+                           val_set=val_set if validated else None,
+                           estimator=estimator, evaluator=evaluator,
+                           writer=writer)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+        launches = read_launches()
+        runs.setdefault(validated, []).append(result['losses'])
+        label = 'with' if validated else 'without'
+        log(f'train() 4 float32 steps, checkpoints=2, {label} validation: '
+            f'{elapsed:.3f} s, {result["step"] / elapsed:.3f} steps/s '
+            f'({card}); launches {launches}')
+        if validated:
+            require(writer.steps == {2, 4},
+                    f'train() validated at {sorted(writer.steps)}, not at '
+                    f'iterations 2 and 4')
+            require(launches['lstm_scan_masked'] ==
+                    2 * 6 * TRAIN_VAL_TRACKS,
+                    'the validations did not run masked kernel B six times '
+                    'a track')
+        require(launches['lstm_scan_residuals'] == 6 * 4,
+                'kernel E did not run six times a step')
+
+    # Two runs without validation tell the card's own run-to-run spread
+    # (cuDNN's backward may sum in another order each run) from an effect
+    # of the validation
+    plain, validated = runs[False], runs[True][0]
+    log(f'training losses bit for bit equal: with and without validation '
+        f'{validated == plain[0]}, the two runs without validation '
+        f'{plain[0] == plain[1]}; totals with '
+        f'{validated[tools.KEY_LOSS_TOTAL]}, without '
+        f'{plain[0][tools.KEY_LOSS_TOTAL]} and '
+        f'{plain[1][tools.KEY_LOSS_TOTAL]}')
+
+
 def main():
     import torch
 
@@ -2259,6 +2813,7 @@ def main():
     frames = 1 + clips.shape[-1] // HOP
     del audio
     lstm = check_lstm(frames)
+    masked = check_masked_lstm(card)
     torch.cuda.empty_cache()
 
     launches, piano_batch = serve(clips, profile, card)
@@ -2307,6 +2862,15 @@ def main():
     for entry in (residuals, bptt):
         entry['launches'] = launches[entry['name']]
         entry['launches_per_step'] = launches[entry['name']] / steps
+    torch.cuda.empty_cache()
+
+    lstm['launches_masked'], lstm['launches_masked_batch_1'] = \
+        validate_piano(card)
+    lstm['masked'] = masked
+    torch.cuda.empty_cache()
+    cqt_grouped['launches_validation'] = validate_guitar(card)
+    torch.cuda.empty_cache()
+    train_with_validation(card)
 
     profile_batches([piano_batch, int8_batch, guitar_batch, train_batch])
 

@@ -700,3 +700,133 @@ def test_every_lstm_width_runs_the_kernels(cuda, hidden):
     with pytest.raises(ValueError):
         with torch.no_grad():
             FastLSTM(8, 1040).to(cuda)(torch.zeros(1, 4, 8, device=cuda))
+
+
+# Kernel B with per-row lengths (bucketed evaluation): lengths 0, 1, T and
+# between in one batch, H resident (16, 256) and streamed (512)
+MASKED_SHAPES = [(6, 300, 256), (13, 37, 16), (3, 300, 512)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', MASKED_SHAPES)
+def test_masked_lstm_kernel_matches_plain(cuda, dtype, reverse, shape):
+    """Masked B against its masked plain version (B's tolerances), padded
+    outputs exactly 0, each row's valid frames bit for bit the unmasked
+    kernel's on the row cut to its length, and full lengths bit for bit
+    the unmasked launch."""
+
+    batch, frames, hidden = shape
+    g = torch.Generator().manual_seed(batch + hidden)
+    xw = torch.randn(batch, frames, 4 * hidden, generator=g) * 0.5
+    w_h = torch.nn.init.orthogonal_(torch.empty(hidden, 4 * hidden),
+                                    generator=g)
+    xw, w_h = xw.to(cuda, dtype), w_h.to(cuda, dtype)
+    lengths = torch.randint(0, frames + 1, (batch,), generator=g)
+    lengths[:3] = torch.tensor([0, 1, frames])[:batch]
+    lengths = lengths.to(cuda)
+
+    launches, masked = lstm_scan.launches, lstm_scan.masked_launches
+    got = lstm_scan(xw, w_h, reverse=reverse, lengths=lengths)
+    torch.cuda.synchronize()
+    assert lstm_scan.launches == launches + 1
+    assert lstm_scan.masked_launches == masked + 1
+
+    ref = lstm_scan_plain(xw, w_h, reverse=reverse, lengths=lengths)
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    diff = (got.float() - ref.float()).abs()
+    assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+
+    for row, length in enumerate(lengths.tolist()):
+        assert torch.count_nonzero(got[row, length:]) == 0
+        if length:
+            alone = lstm_scan(xw[row: row + 1, :length].contiguous(), w_h,
+                              reverse=reverse)
+            assert torch.equal(got[row: row + 1, :length], alone), row
+
+    full = torch.full((batch,), frames, dtype=torch.int32, device=cuda)
+    assert torch.equal(lstm_scan(xw, w_h, reverse=reverse, lengths=full),
+                       lstm_scan(xw, w_h, reverse=reverse))
+
+
+def test_masked_lstm_at_a_padded_width(cuda):
+    """H = 24 (run zero-padded to 32 units) with lengths: the layer on the
+    card against the same layer on the CPU, 1e-4 as kernel B float32."""
+
+    g = torch.Generator().manual_seed(24)
+    model = LanguageModel(40, 48, generator=g).eval()
+    x = torch.randn(5, 60, 40, generator=g)
+    lengths = torch.tensor([60, 0, 1, 33, 59])
+
+    with torch.no_grad():
+        want = model(x, lengths)
+        masked = lstm_scan.masked_launches
+        got = copy.deepcopy(model).to(cuda)(x.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_scan.masked_launches == masked + 2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+class _Tracks:
+    """A duck-typed validation set of unequal synthetic piano tracks."""
+
+    def __init__(self, mel, durations):
+        from amt_tools_tpu_torch.datasets import SyntheticPiano
+
+        # One set a duration; a split of its own names (and seeds) each
+        self.sets = {f'val{i}_000': SyntheticPiano(
+            splits=[f'val{i}'], num_tracks=1, track_duration=d,
+            data_proc=mel, device='cpu') for i, d in enumerate(durations)}
+        self.tracks = list(self.sets)
+
+    def get_track_data(self, track_id):
+        return self.sets[track_id].get_track_data(track_id)
+
+    def get_track_frames(self, track_id):
+        return self.sets[track_id].get_track_frames(track_id)
+
+
+def test_bucketed_validate_on_the_card_matches_the_cpu(cuda):
+    """A narrow float32 O&F2's bucketed validation (kernel B with lengths)
+    on the card against the CPU's: losses within 1e-4 relative (float32
+    logits within 2e-3), the frame and note scores within 0.02 (a map may
+    differ only where a logit is within 2e-3 of the threshold); the card's
+    batched pass (batch-level losses) against its per-track pass on the
+    scores, equal."""
+
+    from amt_tools_tpu_torch.evaluate import (ComboEvaluator, LossWrapper,
+                                              MultipitchEvaluator,
+                                              NoteEvaluator, validate)
+    from amt_tools_tpu_torch.transcribe import ComboEstimator, NoteTranscriber
+
+    mel = MelSpec(n_mels=64)
+    tracks = _Tracks(mel, [2.1, 3.0, 1.4])
+    profile = tools.PianoProfile()
+    model = OnsetsFrames2(dim_in=64, profile=profile, model_complexity=2,
+                          generator=torch.Generator().manual_seed(3)).eval()
+    with torch.no_grad():
+        model.adjoin_out.Dense_0.bias += 2.0
+        model.onset_out.Dense_0.bias += 2.0
+
+    def run(device, batch_size):
+        evaluator = ComboEvaluator([LossWrapper(), MultipitchEvaluator(),
+                                    NoteEvaluator()])
+        estimator = ComboEstimator([NoteTranscriber(profile=profile)])
+        return validate(copy.deepcopy(model), tracks, evaluator, estimator,
+                        bucket=32, batch_size=batch_size, device=device)
+
+    cpu = run('cpu', 1)
+    masked = lstm_scan.masked_launches
+    card = run(cuda, 1)
+    assert lstm_scan.masked_launches == masked + 6 * 3
+    batched = run(cuda, 2)
+
+    for key, value in cpu[tools.KEY_LOSS].items():
+        assert abs(card[tools.KEY_LOSS][key] - value) <= 1e-4 * abs(value), key
+    for group in (tools.KEY_MULTIPITCH, tools.KEY_NOTES):
+        for key, value in cpu[group].items():
+            assert abs(card[group][key] - value) <= 0.02, (group, key)
+        for key, value in card[group].items():
+            # the same scores, averaged over the tracks in another order
+            assert abs(batched[group][key] - value) <= 1e-12, (group, key)
