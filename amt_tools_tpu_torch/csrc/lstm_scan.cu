@@ -71,6 +71,18 @@
 // prefetch and the one barrier a step are unchanged; the unmasked
 // instantiation compiles to the code without the flag.
 //
+// A carry in and out (kCarry, B only): streaming feeds one frame a launch
+// and threads the state. The kernel starts from a given float32 (c0, h0)
+// (B, H) in place of zeros: c0 into the registers that hold c, h0 into the
+// first h buffer, rounded to bf16 in bf16 mode as every h the product reads
+// is. After the last step it writes the final c and the h the next step
+// would read (the staged value, so in bf16 mode bf16(h) widened) as float32
+// (B, H); the loop itself is the launch's without a carry.
+// So a sequence cut into chunks, each launch given the previous one's
+// carry, equals one whole launch bit for bit in both dtypes. With kMasked, a
+// row's carry is the state at its last valid step. The launch without the
+// flag compiles to the code without it.
+//
 // Kernel E, the training forward, is the same body with kResiduals set: it
 // also writes, for every step, the four gate activations as float32 (in
 // bf16 mode the bf16-rounded values the step used, widened) and the float32
@@ -327,14 +339,21 @@ __device__ __forceinline__ void gate_products(float (&gate)[4][2 * kRowTiles],
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
-    for (int kk = 0; kk < rows; kk += 16) {
+    // The addresses advance as induction variables. Left to the compiler
+    // (a + kk * w_stride), the masked and carried instantiations
+    // recomputed them with multiplies on the ldmatrix's dependency chain
+    // (SASS); written so, masked and carried B in bf16 run 5% faster on an
+    // H100 and the launch without either is level (PERF.md)
+    unsigned a_addr = smem_addr(a_base);
+    const unsigned a_step = 16 * geo.w_stride * sizeof(T);
+    const T* hk = h + g * geo.h_stride + k0 + 2 * tq;
+    for (int kk = 0; kk < rows; kk += 16, a_addr += a_step, hk += 16) {
       unsigned a0[4], a1[4];
-      const T* a = a_base + kk * geo.w_stride;
-      ldmatrix_x4_trans(a0, smem_addr(a));
-      ldmatrix_x4_trans(a1, smem_addr(a + 16));
+      ldmatrix_x4_trans(a0, a_addr);
+      ldmatrix_x4_trans(a1, a_addr + 16 * sizeof(T));
 #pragma unroll
       for (int n = 0; n < kRowTiles; ++n) {
-        const T* hb = h + (8 * n + g) * geo.h_stride + k0 + kk + 2 * tq;
+        const T* hb = hk + 8 * n * geo.h_stride;
         const unsigned b0 = *reinterpret_cast<const unsigned*>(hb);
         const unsigned b1 = *reinterpret_cast<const unsigned*>(hb + 8);
         mma_bf16(acc[0][n], a0, b0, b1);
@@ -389,13 +408,23 @@ __device__ __forceinline__ void zero_piece(unsigned char* dst, bool wide) {
   }
 }
 
+// The carry of kCarry launches: (c0, h0) read at the start, (c_last,
+// h_last) written at the end, each float32 (batch, hidden)
+struct Carry {
+  const float* c0;
+  const float* h0;
+  float* c_last;
+  float* h_last;
+};
+
 template <typename T, bool kBf16, bool kResiduals, bool kResident,
-          int kRowTiles, bool kMasked>
+          int kRowTiles, bool kMasked, bool kCarry>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
                  T* __restrict__ out, float* __restrict__ gates_out,
                  float* __restrict__ c_out, const int* __restrict__ lengths,
-                 int batch, int frames, int hidden, int reverse, int rows) {
+                 Carry carry, int batch, int frames, int hidden, int reverse,
+                 int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
@@ -433,8 +462,19 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
   load_xw(x_buf, xw, batch, frames, hidden, row0, rows,
           reverse ? frames - 1 : 0, geo, rank, wide);
   cp_async_commit();
+  if constexpr (kCarry) {  // h0 of the cluster's rows, all H units
+    for (int idx = threadIdx.x; idx < rows * hidden; idx += blockDim.x) {
+      const int r = idx / hidden;
+      const int k = idx - r * hidden;
+      if (row0 + r < batch) {
+        h_buf[r * geo.h_stride + k] =
+            from_float<T>(carry.h0[static_cast<size_t>(row0 + r) * hidden + k]);
+      }
+    }
+  }
   cp_async_wait<0>();
-  // Every CTA of the cluster is running and zeroed before any remote write
+  // Every CTA of the cluster is running and zeroed (and holds h0) before
+  // any remote write
   cluster.sync();
 
   // kMasked: the length of the row of the first piece this thread stores
@@ -451,8 +491,11 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
   int row_len[2 * kRowTiles];  // kMasked: the true length of each row
 #pragma unroll
   for (int i = 0; i < 2 * kRowTiles; ++i) {
-    c[i] = 0.f;
     const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+    c[i] = kCarry && slice == 0 && unit_ok && r < rows && row0 + r < batch
+               ? carry.c0[static_cast<size_t>(row0 + r) * hidden +
+                          rank * units + u]
+               : 0.f;
     row_len[i] = kMasked && r < rows && row0 + r < batch ? lengths[row0 + r]
                                                          : frames;
   }
@@ -638,19 +681,37 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
     }
     cluster_wait();
   }
+
+  // The final carry, after the loop so that no step pays for it: c from
+  // the registers, and the h the next step would read, which this thread
+  // staged at the last step
+  if constexpr (kCarry) {
+    if (slice == 0 && unit_ok) {
+#pragma unroll
+      for (int i = 0; i < 2 * kRowTiles; ++i) {
+        const int r = 2 * tq + (i & 1) + 8 * (i >> 1);
+        if (r >= rows || row0 + r >= batch) continue;
+        const size_t at =
+            static_cast<size_t>(row0 + r) * hidden + rank * units + u;
+        carry.c_last[at] = c[i];
+        carry.h_last[at] = to_float(stage[r * units + u]);
+      }
+    }
+  }
 }
 
 template <typename T, bool kBf16, bool kResiduals, bool kResident,
-          int kRowTiles, bool kMasked>
+          int kRowTiles, bool kMasked, bool kCarry>
 int launch(const void* xw, const void* w_h, void* out, float* gates,
-           float* c_seq, const int* lengths, int batch, int frames, int hidden,
-           int reverse, int rows, cudaStream_t stream, int* active_clusters) {
+           float* c_seq, const int* lengths, Carry carry, int batch,
+           int frames, int hidden, int reverse, int rows, cudaStream_t stream,
+           int* active_clusters) {
   const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
   if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel =
-      lstm_scan_kernel<T, kBf16, kResiduals, kResident, kRowTiles, kMasked>;
+  auto kernel = lstm_scan_kernel<T, kBf16, kResiduals, kResident, kRowTiles,
+                                 kMasked, kCarry>;
   cudaError_t status = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(geo.bytes));
@@ -676,76 +737,99 @@ int launch(const void* xw, const void* w_h, void* out, float* gates,
   }
   status = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(xw),
                               static_cast<const T*>(w_h), static_cast<T*>(out),
-                              gates, c_seq, lengths, batch, frames, hidden,
-                              reverse, rows);
+                              gates, c_seq, lengths, carry, batch, frames,
+                              hidden, reverse, rows);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBf16, bool kResiduals, bool kMasked>
+template <typename T, bool kBf16, bool kResiduals, bool kMasked, bool kCarry>
 int dispatch(const void* xw, const void* w_h, void* out, float* gates,
-             float* c_seq, const int* lengths, int batch, int frames,
-             int hidden, int reverse, int rows, int resident,
+             float* c_seq, const int* lengths, Carry carry, int batch,
+             int frames, int hidden, int reverse, int rows, int resident,
              cudaStream_t stream, int* active_clusters) {
   if (hidden % 16 || hidden < 16 || rows < 1 || rows > kMaxRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (resident) {
     if (rows <= 8) {
-      return launch<T, kBf16, kResiduals, true, 1, kMasked>(
-          xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
-          rows, stream, active_clusters);
+      return launch<T, kBf16, kResiduals, true, 1, kMasked, kCarry>(
+          xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
+          reverse, rows, stream, active_clusters);
     }
-    return launch<T, kBf16, kResiduals, true, 2, kMasked>(
-        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
-        rows, stream, active_clusters);
+    return launch<T, kBf16, kResiduals, true, 2, kMasked, kCarry>(
+        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
+        reverse, rows, stream, active_clusters);
   }
   if (rows <= 8) {
-    return launch<T, kBf16, kResiduals, false, 1, kMasked>(
-        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
-        rows, stream, active_clusters);
+    return launch<T, kBf16, kResiduals, false, 1, kMasked, kCarry>(
+        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
+        reverse, rows, stream, active_clusters);
   }
-  return launch<T, kBf16, kResiduals, false, 2, kMasked>(
-      xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
-      rows, stream, active_clusters);
+  return launch<T, kBf16, kResiduals, false, 2, kMasked, kCarry>(
+      xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
+      reverse, rows, stream, active_clusters);
 }
 
-// Kernel E (residuals) takes no lengths: masked training is not ported
+// Kernel B with lengths, a carry, both or neither
+template <typename T, bool kBf16, bool kMasked>
+int dispatch_carry(const void* xw, const void* w_h, void* out,
+                   const int* lengths, Carry carry, int batch, int frames,
+                   int hidden, int reverse, int rows, int resident,
+                   cudaStream_t stream, int* active_clusters) {
+  if (carry.c0 != nullptr) {
+    return dispatch<T, kBf16, false, kMasked, true>(
+        xw, w_h, out, nullptr, nullptr, lengths, carry, batch, frames, hidden,
+        reverse, rows, resident, stream, active_clusters);
+  }
+  return dispatch<T, kBf16, false, kMasked, false>(
+      xw, w_h, out, nullptr, nullptr, lengths, carry, batch, frames, hidden,
+      reverse, rows, resident, stream, active_clusters);
+}
+
+// Kernel E (residuals) takes no lengths and no carry: masked and carried
+// training are not ported
 template <typename T, bool kBf16>
 int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
-                  float* c_seq, const int* lengths, int batch, int frames,
-                  int hidden, int reverse, int residuals, int rows,
+                  float* c_seq, const int* lengths, Carry carry, int batch,
+                  int frames, int hidden, int reverse, int residuals, int rows,
                   int resident, cudaStream_t stream, int* active_clusters) {
+  const bool carried = carry.c0 != nullptr;
+  if (carried && (carry.h0 == nullptr || carry.c_last == nullptr ||
+                  carry.h_last == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (residuals) {
-    if (lengths != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch<T, kBf16, true, false>(xw, w_h, out, gates, c_seq,
-                                           nullptr, batch, frames, hidden,
-                                           reverse, rows, resident, stream,
-                                           active_clusters);
+    if (lengths != nullptr || carried) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return dispatch<T, kBf16, true, false, false>(
+        xw, w_h, out, gates, c_seq, nullptr, carry, batch, frames, hidden,
+        reverse, rows, resident, stream, active_clusters);
   }
   if (lengths != nullptr) {
-    return dispatch<T, kBf16, false, true>(xw, w_h, out, gates, c_seq, lengths,
-                                           batch, frames, hidden, reverse,
-                                           rows, resident, stream,
-                                           active_clusters);
-  }
-  return dispatch<T, kBf16, false, false>(xw, w_h, out, gates, c_seq, nullptr,
-                                          batch, frames, hidden, reverse, rows,
+    return dispatch_carry<T, kBf16, true>(xw, w_h, out, lengths, carry, batch,
+                                          frames, hidden, reverse, rows,
                                           resident, stream, active_clusters);
+  }
+  return dispatch_carry<T, kBf16, false>(xw, w_h, out, nullptr, carry, batch,
+                                         frames, hidden, reverse, rows,
+                                         resident, stream, active_clusters);
 }
 
 int run(const void* xw, const void* w_h, void* out, float* gates,
-        float* c_seq, const int* lengths, int batch, int frames, int hidden,
-        int reverse, int bf16, int residuals, int rows, int resident,
-        cudaStream_t stream, int* active_clusters) {
+        float* c_seq, const int* lengths, Carry carry, int batch, int frames,
+        int hidden, int reverse, int bf16, int residuals, int rows,
+        int resident, cudaStream_t stream, int* active_clusters) {
   if (bf16) {
     return dispatch_type<__nv_bfloat16, true>(
-        xw, w_h, out, gates, c_seq, lengths, batch, frames, hidden, reverse,
-        residuals, rows, resident, stream, active_clusters);
+        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
+        reverse, residuals, rows, resident, stream, active_clusters);
   }
   return dispatch_type<float, false>(xw, w_h, out, gates, c_seq, lengths,
-                                     batch, frames, hidden, reverse, residuals,
-                                     rows, resident, stream, active_clusters);
+                                     carry, batch, frames, hidden, reverse,
+                                     residuals, rows, resident, stream,
+                                     active_clusters);
 }
 
 }  // namespace
@@ -762,8 +846,25 @@ extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
                          const int* lengths, int batch, int frames, int hidden,
                          int reverse, int bf16, int rows, int resident,
                          cudaStream_t stream) {
-  return run(xw, w_h, out, nullptr, nullptr, lengths, batch, frames, hidden,
-             reverse, bf16, 0, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, batch, frames,
+             hidden, reverse, bf16, 0, rows, resident, stream, nullptr);
+}
+
+// Kernel B from a carry: lstm_scan starting from c0, h0 in place of zeros,
+// writing the final c_last, h_last (all four float32 (batch, hidden),
+// contiguous on the device; h_last is the h the next step would read, in
+// bf16 mode bf16-rounded). `lengths` as lstm_scan's: a row's final carry is
+// its state at its last valid step.
+extern "C" int lstm_scan_carried(const void* xw, const void* w_h, void* out,
+                                 const int* lengths, const float* c0,
+                                 const float* h0, float* c_last,
+                                 float* h_last, int batch, int frames,
+                                 int hidden, int reverse, int bf16, int rows,
+                                 int resident, cudaStream_t stream) {
+  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(xw, w_h, out, nullptr, nullptr, lengths,
+             Carry{c0, h0, c_last, h_last}, batch, frames, hidden, reverse,
+             bf16, 0, rows, resident, stream, nullptr);
 }
 
 // Kernel E: lstm_scan, and also the float32 residuals gates
@@ -774,8 +875,8 @@ extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
                                    int frames, int hidden, int reverse,
                                    int bf16, int rows, int resident,
                                    cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, nullptr, batch, frames, hidden,
-             reverse, bf16, 1, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, batch, frames,
+             hidden, reverse, bf16, 1, rows, resident, stream, nullptr);
 }
 
 // How many clusters of the launch configuration for (hidden, dtype, rows,
@@ -785,7 +886,7 @@ extern "C" int lstm_scan_max_active_clusters(int hidden, int bf16,
                                              int residuals, int rows,
                                              int resident, int* clusters) {
   *clusters = 0;
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, Carry{},
              kCluster * rows, 1, hidden, 0, bf16, residuals, rows, resident,
              nullptr, clusters);
 }

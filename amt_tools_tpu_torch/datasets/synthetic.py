@@ -1,10 +1,10 @@
-"""Synthetic piano tracks with exactly-known notes (host numpy).
+"""Synthetic piano and guitar tracks with exactly-known notes (host numpy).
 
 Copies of ``amt_tools_tpu/datasets/synthetic.py``: ``render_notes``
-(``:17``, without its ``velocity_range`` knob), ``add_room`` (``:70``),
-``random_notes`` (``:102``) and ``SyntheticPiano`` (``:115``), so training,
-benchmarks and the chip smoke test make the JAX package's tracks, bit for
-bit, without it.
+(``:17``), ``add_room`` (``:70``), ``random_notes`` (``:102``),
+``SyntheticPiano`` (``:115``) and ``SyntheticGuitar`` (``:213``), so
+training, benchmarks and the chip smoke test make the JAX package's tracks,
+bit for bit, without it.
 """
 
 import os
@@ -15,17 +15,21 @@ import numpy as np
 from .. import tools
 from .common import TranscriptionDataset
 
-__all__ = ['render_notes', 'add_room', 'random_notes', 'SyntheticPiano']
+__all__ = ['render_notes', 'add_room', 'random_notes', 'SyntheticPiano',
+           'SyntheticGuitar']
 
 
 def render_notes(pitches, intervals, sample_rate, duration, harmonics=4,
-                 amplitude=0.25, decay=3.0, seed=0, timbre_jitter=0.0,
-                 velocities=None):
+                 amplitude=0.25, decay=3.0, seed=0, velocity_range=None,
+                 timbre_jitter=0.0, velocities=None):
     """Render MIDI notes as decaying harmonic tones (mono float32 audio).
 
-    ``timbre_jitter`` perturbs each note's per-harmonic amplitudes
-    log-normally (sigma in nats); ``velocities`` (in [0, 1]) scale each
-    note's amplitude.
+    ``velocity_range=(lo, hi)`` scales each note's amplitude by a uniform
+    draw; ``timbre_jitter`` perturbs each note's per-harmonic amplitudes
+    log-normally (sigma in nats); explicit per-note ``velocities`` (in
+    [0, 1]) override ``velocity_range``. The draws come in the JAX
+    package's order (phase, velocity, jitter a note), so the audio is its
+    bit for bit.
     """
 
     rng = np.random.RandomState(seed)
@@ -44,7 +48,12 @@ def render_notes(pitches, intervals, sample_rate, duration, harmonics=4,
         envelope = np.exp(-decay * t)
         phase = rng.uniform(0, 2 * np.pi)
 
-        velocity = 1.0 if velocities is None else float(velocities[index])
+        if velocities is not None:
+            velocity = float(velocities[index])
+        elif velocity_range is not None:
+            velocity = rng.uniform(*velocity_range)
+        else:
+            velocity = 1.0
 
         tone = np.zeros_like(t)
         for h in range(1, harmonics + 1):
@@ -202,5 +211,97 @@ class SyntheticPiano(TranscriptionDataset):
                      tools.KEY_VELOCITY: velocity,
                      tools.KEY_NOTES: tools.notes_to_batched_notes(pitches,
                                                                    intervals)})
+
+        return data
+
+
+class SyntheticGuitar(SyntheticPiano):
+    """Synthetic guitar-style dataset (tablature ground truth).
+
+    One monophonic line a string, each note cut before the string's next
+    onset, rendered with a timbre of the string's own (harmonic count and
+    decay grow with the string), so string disambiguation is learnable
+    from the audio; the track's seed is the ``crc32`` of its name. A track
+    holds audio, tablature (S, T), multi-pitch (F, T) and batched notes.
+    """
+
+    def __init__(self, base_dir=None, splits=None, hop_length=512,
+                 sample_rate=22050, data_proc=None, profile=None,
+                 num_frames=None, audio_norm=-1, split_notes=False,
+                 reset_data=False, store_data=True, save_data=False,
+                 save_loc=None, seed=0, num_tracks=4, track_duration=4.0,
+                 notes_per_track=10, noise_snr_db=None, reverb_time=0.0,
+                 velocity_range=None, timbre_jitter=0.0, device=None):
+        if profile is None:
+            profile = tools.GuitarProfile()
+
+        super().__init__(base_dir, splits, hop_length, sample_rate, data_proc,
+                         profile, num_frames, audio_norm, split_notes,
+                         reset_data, store_data, save_data, save_loc, seed,
+                         num_tracks, track_duration, notes_per_track,
+                         noise_snr_db, reverb_time, velocity_range,
+                         timbre_jitter, device=device)
+
+    def _generate_strings(self, track):
+        """Each string's notes and the rendered audio of the track."""
+
+        track_seed = zlib.crc32(track.encode()) % (2 ** 31)
+        rng = np.random.RandomState(track_seed)
+
+        # One monophonic line a string (no overlaps on a string)
+        stacked_notes = {}
+        tuning = self.profile.get_midi_tuning()
+        for string, open_pitch in enumerate(tuning):
+            count = max(1, self.notes_per_track // len(tuning))
+            frets = rng.randint(0, self.profile.num_pitches, count)
+            onsets = np.sort(rng.uniform(0, self.track_duration - 0.5, count))
+            # Each note ends before the next onset
+            offsets = np.minimum(onsets + rng.uniform(0.2, 0.5, count),
+                                 np.append(onsets[1:], self.track_duration))
+            pitches = (open_pitch + frets).astype(float)
+            stacked_notes[string] = (pitches, np.stack([onsets, offsets], -1))
+
+        num_samples = int(self.track_duration * self.sample_rate)
+        audio = np.zeros(num_samples, dtype=np.float32)
+        for string, (pitches, intervals) in stacked_notes.items():
+            audio = audio + render_notes(
+                pitches, intervals, self.sample_rate, self.track_duration,
+                harmonics=2 + string, decay=2.0 + 0.7 * string,
+                seed=track_seed + string, velocity_range=self.velocity_range,
+                timbre_jitter=self.timbre_jitter)
+        peak = np.max(np.abs(audio))
+        if peak > 1.0:
+            audio = audio / peak
+        audio = add_room(audio, self.sample_rate, rng,
+                         noise_snr_db=self.noise_snr_db,
+                         reverb_time=self.reverb_time)
+
+        return stacked_notes, audio
+
+    def load(self, track):
+        data = TranscriptionDataset.load(self, track)
+
+        stacked_notes, audio = self._generate_strings(track)
+        all_pitches, all_intervals = tools.stacked_notes_to_notes(
+            stacked_notes)
+
+        if self.audio_norm == -1:
+            audio = tools.rms_norm(audio)
+
+        times = self.data_proc.get_times(audio)
+
+        stacked_multi_pitch = tools.stacked_notes_to_stacked_multi_pitch(
+            stacked_notes, times, self.profile)
+        tablature = tools.stacked_multi_pitch_to_tablature(
+            stacked_multi_pitch, self.profile)
+        multi_pitch = tools.stacked_multi_pitch_to_multi_pitch(
+            stacked_multi_pitch)
+
+        data.update({tools.KEY_FS: self.sample_rate,
+                     tools.KEY_AUDIO: audio,
+                     tools.KEY_TABLATURE: tablature,
+                     tools.KEY_MULTIPITCH: multi_pitch,
+                     tools.KEY_NOTES: tools.notes_to_batched_notes(
+                         all_pitches, all_intervals)})
 
         return data

@@ -1,8 +1,8 @@
 """Offline and mock-real-time (online) inference entry points.
 
 Counterpart of ``amt_tools_tpu/inference.py`` ``run_offline``,
-``run_offline_batched``, ``run_single_frame`` and ``run_online``
-(``:35-229``). The model holds its parameters, so no ``variables`` are
+``run_offline_batched``, ``run_single_frame``, ``run_online`` and
+``run_online_stateful`` (``:35-289``). The model holds its parameters, so no ``variables`` are
 passed; each entry point takes ``device`` (the card unless the caller names
 one, through ``tools.resolve_device``), moves the model there and runs its
 forward under ``torch.no_grad()``. Predictions come back as host numpy
@@ -13,8 +13,9 @@ multiple of ``bucket`` frames and ``tools.KEY_VALID_FRAMES`` carries its
 true length into the model's masked forward (kernel B with lengths on the
 card), so the valid frames equal an unpadded run's bit for bit; the padded
 tail is trimmed. As in the JAX package, loss terms are averaged over the
-padded frames too. ``run_online_stateful`` comes with the online slice
-(``OnsetsFramesOnline``, kernel B with an initial carry).
+padded frames too. ``run_online_stateful`` feeds a carry-threading model
+(``OnsetsFramesOnline``) one frame a step: each of its recurrences runs
+kernel B at T = 1 from the previous step's carry.
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ __all__ = [
     'run_offline_batched',
     'run_single_frame',
     'run_online',
+    'run_online_stateful',
 ]
 
 
@@ -237,6 +239,64 @@ def run_online(track_data, model, estimator=None, device=None):
 
     if estimator is not None:
         # Reset streaming state for the next track
+        estimator.reset_state()
+
+    return predictions
+
+
+def run_online_stateful(track_data, model, estimator=None, device=None):
+    """Frame-at-a-time inference for a carry-threading streaming model.
+
+    For models with ``init_carries`` and ``forward(feats, carries=...)``
+    (``OnsetsFramesOnline``): each frame runs the eval-mode forward under
+    ``torch.no_grad()`` with the carries of the previous frame, so it keeps
+    its full recurrent context, and its predictions come back to the host
+    before the next frame. ``device`` is the card unless the caller names
+    one. Notes from a stateful estimator are gathered across frames.
+    """
+
+    device = tools.resolve_device(device)
+    model.to(device)
+    model.eval()
+
+    features = np.asarray(tools.unpack_dict(track_data, tools.KEY_FEATS),
+                          dtype=np.float32)
+    times = np.asarray(tools.unpack_dict(track_data, tools.KEY_TIMES))
+    track_id = tools.unpack_dict(track_data, tools.KEY_TRACK)
+
+    carries = model.init_carries(1, device)
+
+    predictions = {}
+    note_chunks = []
+
+    for i in range(features.shape[-1]):
+        frame = torch.from_numpy(features[None, ..., i: i + 1]).to(device)
+
+        with torch.no_grad():
+            feats = model.pre_proc({tools.KEY_FEATS: frame})[tools.KEY_FEATS]
+            raw, carries = model(feats, carries=carries)
+            batch = {tools.KEY_OUTPUT: raw,
+                     tools.KEY_TIMES: times[i: i + 1][None]}
+            output = model.post_proc(batch)
+        output[tools.KEY_TIMES] = batch[tools.KEY_TIMES]
+
+        new_predictions = tools.dict_squeeze(tools.dict_to_array(output),
+                                             dim=0)
+
+        if estimator is not None:
+            new_predictions.update(estimator.process_track(new_predictions,
+                                                           track_id))
+
+        if tools.query_dict(new_predictions, tools.KEY_NOTES):
+            note_chunks.append(np.asarray(
+                new_predictions.pop(tools.KEY_NOTES)).reshape(-1, 3))
+
+        predictions = tools.dict_append(predictions, new_predictions)
+
+    if note_chunks:
+        predictions[tools.KEY_NOTES] = np.concatenate(note_chunks, axis=0)
+
+    if estimator is not None:
         estimator.reset_state()
 
     return predictions

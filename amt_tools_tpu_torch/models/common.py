@@ -1,16 +1,16 @@
 """Transcription model base class and the output heads.
 
 Counterparts of ``amt_tools_tpu/models/common.py`` ``TranscriptionModel``
-(``:42``), ``run_on_batch`` (``:122``), ``SoftmaxGroups`` (``:182``) and
-``LogisticBank`` (``:246``): features arrive as (B, C, F, T) and each
-model's ``pre_proc`` lays them out for its forward; ``finalize_output``
-turns (B, T, O) logits into (B, O, T) activations (``LogisticBank``) or
-(B, G, T) class ids (``SoftmaxGroups``). Computation runs in ``dtype``
+(``:42``), ``run_on_batch`` (``:122``), ``SoftmaxGroups`` (``:182``),
+``LogisticBank`` (``:246``) and ``RegressionBank`` (``:302``): features
+arrive as (B, C, F, T) and each model's ``pre_proc`` lays them out for its
+forward; ``finalize_output`` turns (B, T, O) logits into (B, O, T)
+activations (``LogisticBank``), (B, G, T) class ids (``SoftmaxGroups``) or
+(B, O, T) linear values (``RegressionBank``). Computation runs in ``dtype``
 (e.g. ``torch.bfloat16``) while parameters stay float32; losses are float32:
-``LogisticBank.get_loss`` (BCE) and ``SoftmaxGroups.get_loss`` (softmax CE
-over integer tablature labels, ``:203-230``). The O&F models train; TabCNN
-computes its loss in eval mode (validation) and its train-mode forward is
-not ported yet.
+``LogisticBank.get_loss`` (BCE), ``SoftmaxGroups.get_loss`` (softmax CE
+over integer tablature labels, ``:203-230``) and ``RegressionBank.get_loss``
+(masked MSE in the log domain). Every model trains.
 """
 
 import inspect
@@ -26,7 +26,7 @@ from ..ops.decode import sigmoid
 from ..ops.layers import lecun_normal_, linear
 
 __all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank',
-           'run_on_batch']
+           'RegressionBank', 'run_on_batch']
 
 
 class TranscriptionModel(nn.Module):
@@ -36,6 +36,14 @@ class TranscriptionModel(nn.Module):
     batch statistics), as the JAX package's flag does (``:79-83``): for
     reproducible fine-tuning and for tests that step two frameworks side by
     side.
+
+    ``remat`` (``:60-66``) recomputes the acoustic conv stacks in the
+    backward pass instead of keeping their activations: ``True`` checkpoints
+    each whole stack, ``'blocks'`` each conv block
+    (``torch.utils.checkpoint``, ``ops.layers.checkpoint``). It changes
+    memory and never math: the parameter tree, the losses, the gradients and
+    the BatchNorm running statistics are those of ``remat=False`` bit for
+    bit (``models/onsetsframes.py`` ``AcousticModel``).
 
     Serving only (``:66-78``): ``quant_acoustic`` runs the acoustic conv
     stacks, ``quant_lm`` the language models' hoisted input projections, as
@@ -47,8 +55,11 @@ class TranscriptionModel(nn.Module):
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
                  frame_width=1, dtype=None, dropout=True, quant_acoustic=False,
-                 quant_lm=False):
+                 quant_lm=False, remat=False):
         super().__init__()
+        if remat not in (False, True, 'blocks'):
+            raise ValueError(f"remat must be False, True or 'blocks', got "
+                             f"{remat!r}")
         self.dim_in = dim_in
         self.profile = profile
         self.in_channels = in_channels
@@ -58,17 +69,12 @@ class TranscriptionModel(nn.Module):
         self.dropout = dropout
         self.quant_acoustic = quant_acoustic
         self.quant_lm = quant_lm
+        self.remat = remat
 
     def pre_proc(self, batch):
         """Model-specific feature pre-processing (default: identity)."""
 
         return batch
-
-    def _check_inference(self):
-        if self.training:
-            raise NotImplementedError(
-                f'{type(self).__name__} has an inference forward only (its '
-                f'train-mode forward is not ported yet); call .eval() first')
 
     @abstractmethod
     def forward(self, feats):
@@ -245,3 +251,67 @@ class LogisticBank(nn.Module):
             out = torch.where(out >= threshold, 1.0, 0.0)
 
         return out
+
+
+class RegressionBank(nn.Module):
+    """Per-key bounded regression head (note velocities in [0, 1]):
+    (B, T, E) -> (B, T, O) logits.
+
+    The JAX package's head (``:302-373``): a sigmoid-squashed projection
+    (LeCun-normal kernel, zero bias), trained with a masked MSE, that
+    regresses in the log (decibel) domain: references arrive and finalized
+    outputs leave as linear [0, 1] values. ``floor_db`` sets the range:
+    1.0 maps to 1 and ``10^(floor_db / 20)`` (about 0.03 at -30 dB) to 0.
+    """
+
+    def __init__(self, dim_in, dim_out, dtype=None, floor_db=-30.0,
+                 generator=None):
+        super().__init__()
+        self.dim_in = dim_in
+        self.dim_out = dim_out
+        self.dtype = dtype
+        self.floor_db = floor_db
+        self.Dense_0 = nn.Linear(dim_in, dim_out)
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        lecun_normal_(self.Dense_0.weight, dim_in, generator)
+        nn.init.zeros_(self.Dense_0.bias)
+
+    def forward(self, feats):
+        return linear(feats, self.Dense_0, self.dtype)
+
+    def to_log_domain(self, values):
+        """Linear [0, 1] -> dB-normalized [0, 1] (1.0 -> 1, floor -> 0), in
+        float32."""
+
+        floor = 10.0 ** (self.floor_db / 20.0)
+        values = torch.clamp(torch.as_tensor(values).float(), floor, 1.0)
+
+        return 1.0 - 20.0 * torch.log10(values) / self.floor_db
+
+    def from_log_domain(self, values):
+        """dB-normalized [0, 1] -> linear [0, 1], in the values' dtype."""
+
+        return 10.0 ** (self.floor_db * (1.0 - values) / 20.0)
+
+    def get_loss(self, estimated, reference, mask):
+        """Masked MSE: (B, T, O) logits vs (B, O, T) reference, float32.
+
+        ``mask`` (B, O, T) marks the cells that count; the squared error of
+        the sigmoid against the log-domain reference is averaged over them
+        (over at least one).
+        """
+
+        predicted = sigmoid(estimated.transpose(-1, -2).float())
+        mask = mask.float()
+        squared = (predicted - self.to_log_domain(reference)) ** 2
+
+        return (squared * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    def finalize_output(self, raw_output):
+        """(B, T, O) logits -> (B, O, T) linear values in [0, 1]; the
+        sigmoid and the exponent in the logits' dtype."""
+
+        return self.from_log_domain(
+            sigmoid(raw_output.detach()).transpose(-1, -2))

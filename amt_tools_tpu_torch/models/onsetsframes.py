@@ -1,10 +1,12 @@
 """Onsets & Frames transcription models (V1/V2).
 
 Counterparts of ``amt_tools_tpu/models/onsetsframes.py``: ``AcousticModel``
-(``:47``), ``LanguageModel`` (``:170``), ``OnsetsFrames`` (``:565``) and
-``OnsetsFrames2`` (``:757``), in eval mode and in train mode (batch-statistics
-BatchNorm, dropout from an explicit generator, detached heads, BCE losses in
-``post_proc``). Submodule and parameter names
+(``:47``), ``LanguageModel`` (``:170``), ``OnlineLanguageModel`` (``:213``),
+``OnsetsFrames`` (``:565``), ``OnsetsFrames2`` (``:757``, with its velocity
+head, ``estimate_velocity``) and ``OnsetsFramesOnline`` (``:922``), in eval
+mode and in train mode (batch-statistics BatchNorm, dropout from an explicit
+generator, detached heads, BCE and masked MSE losses in ``post_proc``,
+``remat`` of the acoustic stacks). Submodule and parameter names
 follow the Flax tree (``pitch_am.Conv_0``, ``onset_lm.FastBiLSTM_0``,
 ``adjoin_out.Dense_0``, ...), so ``weights.from_flax`` maps one onto the
 other by name.
@@ -26,19 +28,22 @@ The acoustic stacks run NCHW as (B, C, T, F); the JAX package runs NHWC
 as in the JAX package (``onsetsframes.py:157-158``).
 """
 
+import warnings
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import tools
 from ..ops import decode
-from ..ops.layers import (BatchNorm, conv2d_same, conv3x3, dropout,
-                          lecun_normal_, linear)
+from ..ops.layers import (BatchNorm, checkpoint, conv2d_same, conv3x3,
+                          dropout, lecun_normal_, linear)
 from ..ops.lstm import FastBiLSTM, FastLSTM, lengths_to_mask
 from ..ops.qconv import Int8Conv, Int8Dense
-from .common import LogisticBank, TranscriptionModel
+from .common import LogisticBank, RegressionBank, TranscriptionModel
 
-__all__ = ['AcousticModel', 'LanguageModel', 'OnsetsFrames', 'OnsetsFrames2']
+__all__ = ['AcousticModel', 'LanguageModel', 'OnlineLanguageModel',
+           'OnsetsFrames', 'OnsetsFrames2', 'OnsetsFramesOnline']
 
 
 class AcousticModel(nn.Module):
@@ -50,13 +55,20 @@ class AcousticModel(nn.Module):
     dense, drawn from the forward's ``generator``. ``quant`` (serving only:
     ``False``, ``True`` or ``'static'``) makes ``Conv_1``, ``Conv_2`` and
     ``Dense_0`` int8 layers; ``Conv_0`` stays float (JAX ``:92-98``).
+    ``remat`` recomputes in the backward pass what a training forward would
+    keep: ``True`` the whole stack (JAX ``nn.remat(AcousticModel)``,
+    ``:517-537``), ``'blocks'`` each conv block (``block_remat``,
+    ``:141-150``), through ``ops.layers.checkpoint``, which redraws the
+    same dropout masks and updates the BatchNorm statistics once.
     """
 
     def __init__(self, dim_in, dim_out, in_channels=1, model_complexity=2,
-                 dtype=None, generator=None, dropout=True, quant=False):
+                 dtype=None, generator=None, dropout=True, quant=False,
+                 remat=False):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
+        self.remat = remat
         nf1 = 16 * model_complexity
         nf3 = 32 * model_complexity
         static = quant == 'static'
@@ -99,7 +111,19 @@ class AcousticModel(nn.Module):
             x = self._dropout(x, 0.25, generator)
         return x
 
+    def _remat(self, mode):
+        return (self.remat == mode and self.training and
+                torch.is_grad_enabled())
+
     def forward(self, feats, generator=None, lengths=None):
+        if self.remat is True and self._remat(True):
+            return checkpoint(
+                lambda x: self._forward(x, generator, lengths), feats,
+                module=self, generator=generator)
+
+        return self._forward(feats, generator, lengths)
+
+    def _forward(self, feats, generator, lengths):
         # (B, T, F, C) -> (B, C, T, F)
         x = feats.permute(0, 3, 1, 2)
 
@@ -110,13 +134,21 @@ class AcousticModel(nn.Module):
                                    x.shape[2])[:, None, :, None].to(x.dtype)
             x = x * mask
 
+        def block(x, conv, norm, pool):
+            x = self._block(x, conv, norm, pool, generator)
+            return x if mask is None else x * mask.to(x.dtype)
+
         blocks = ((self.Conv_0, self.BatchNorm_0, False),
                   (self.Conv_1, self.BatchNorm_1, True),
                   (self.Conv_2, self.BatchNorm_2, True))
         for conv, norm, pool in blocks:
-            x = self._block(x, conv, norm, pool, generator)
-            if mask is not None:
-                x = x * mask.to(x.dtype)
+            if self._remat('blocks'):
+                x = checkpoint(
+                    lambda x, conv=conv, norm=norm, pool=pool: block(
+                        x, conv, norm, pool), x, module=norm,
+                    generator=generator)
+            else:
+                x = block(x, conv, norm, pool)
 
         # (B, C, T, F/4) -> (B, T, F/4, C) -> (B, T, F/4 * C), feature-major
         x = x.permute(0, 2, 3, 1)
@@ -155,6 +187,39 @@ class LanguageModel(nn.Module):
         return self.FastLSTM_0(feats, lengths)
 
 
+class OnlineLanguageModel(nn.Module):
+    """Unidirectional LSTM with an explicit streaming carry: (B, T, dim_in)
+    -> (B, T, dim_out).
+
+    Called without a carry it is the whole-sequence recurrence (kernel B in
+    eval, E and F when autograd records) and returns ``(out, None)``; with
+    ``carry=(c, h)`` it runs kernel B from that carry and returns ``(out,
+    new_carry)``, float32 (JAX ``:213-243``, whose layer computes in the
+    input's dtype).
+    """
+
+    def __init__(self, dim_in, dim_out, generator=None):
+        super().__init__()
+        self.dim_out = dim_out
+        self.FastLSTM_0 = FastLSTM(dim_in, dim_out, generator=generator)
+
+    def init_carry(self, batch_size, device=None):
+        """Zero (cell, hidden) carry for a new stream."""
+
+        zeros = torch.zeros((batch_size, self.dim_out), device=device)
+
+        return zeros, zeros.clone()
+
+    def forward(self, feats, carry=None):
+        if carry is None:
+            return self.FastLSTM_0(feats), None
+
+        new_carry, out = self.FastLSTM_0(feats, initial_carry=carry,
+                                         return_carry=True)
+
+        return out, new_carry
+
+
 class OnsetsFrames(TranscriptionModel):
     """Onsets & Frames (V1), arXiv:1710.11153.
 
@@ -162,18 +227,20 @@ class OnsetsFrames(TranscriptionModel):
     pitch = LM -> logistic over concat(onsets, pitch). ``generator`` seeds
     the random initialization (a fresh generator seeded 0 when omitted).
     ``detach_heads`` stops the refinement's gradient into the onset (and
-    offset) heads. Losses: pitch + onset BCE.
+    offset) heads. ``remat`` (``False``, ``True`` or ``'blocks'``)
+    recomputes the acoustic stacks in the backward pass. Losses: pitch +
+    onset BCE.
     """
 
     head_names = ('pitch', 'onset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
                  dtype=None, generator=None, dropout=True, detach_heads=False,
-                 quant_acoustic=False, quant_lm=False):
+                 quant_acoustic=False, quant_lm=False, remat=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
                          dropout=dropout, quant_acoustic=quant_acoustic,
-                         quant_lm=quant_lm)
+                         quant_lm=quant_lm, remat=remat)
         self.detach_heads = detach_heads
         if model_complexity < 2:
             raise ValueError('OnsetsFrames requires model_complexity >= 2 '
@@ -183,11 +250,7 @@ class OnsetsFrames(TranscriptionModel):
             generator = torch.Generator().manual_seed(0)
 
         for name in self.head_names:
-            setattr(self, f'{name}_am',
-                    AcousticModel(dim_in, self.dim_am, in_channels,
-                                  model_complexity, dtype=dtype,
-                                  generator=generator, dropout=dropout,
-                                  quant=quant_acoustic))
+            self._add_acoustic(name, generator)
 
         self.onset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
                                       generator=generator, quant=quant_lm)
@@ -199,6 +262,13 @@ class OnsetsFrames(TranscriptionModel):
                                        generator=generator, quant=quant_lm)
         self.adjoin_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
+
+    def _add_acoustic(self, name, generator):
+        setattr(self, f'{name}_am',
+                AcousticModel(self.dim_in, self.dim_am, self.in_channels,
+                              self.model_complexity, dtype=self.dtype,
+                              generator=generator, dropout=self.dropout,
+                              quant=self.quant_acoustic, remat=self.remat))
 
     @property
     def dim_am(self):
@@ -291,13 +361,21 @@ class OnsetsFrames2(OnsetsFrames):
     acoustic stacks with a 5472 -> 768 dense (229 mels), three BiLSTMs of
     256 units per direction, 88-key logistic heads. The heads are detached
     by default; losses: pitch + onset + offset BCE.
+
+    ``estimate_velocity`` adds a fourth acoustic stack, ``velocity_am``, a
+    BiLSTM ``velocity_lm`` (kernels E and F in training, B in eval) and a
+    ``RegressionBank`` ``velocity_out`` (JAX ``:770-917``): a masked MSE on
+    every cell with a velocity target (``velocity > 0``) joins the total
+    loss, a batch without velocities warns, and the finalized (B, O, T)
+    velocity map in [0, 1] is output.
     """
 
     head_names = ('pitch', 'onset', 'offset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=3,
                  dtype=None, generator=None, dropout=True, detach_heads=True,
-                 quant_acoustic=False, quant_lm=False):
+                 quant_acoustic=False, quant_lm=False, remat=False,
+                 estimate_velocity=False):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
@@ -305,12 +383,24 @@ class OnsetsFrames2(OnsetsFrames):
                          model_complexity=model_complexity, dtype=dtype,
                          generator=generator, dropout=dropout,
                          detach_heads=detach_heads,
-                         quant_acoustic=quant_acoustic, quant_lm=quant_lm)
+                         quant_acoustic=quant_acoustic, quant_lm=quant_lm,
+                         remat=remat)
+        self.estimate_velocity = estimate_velocity
 
         self.offset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
                                        generator=generator, quant=quant_lm)
         self.offset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
+
+        if estimate_velocity:
+            self.head_names = self.head_names + ('velocity',)
+            self._add_acoustic('velocity', generator)
+            self.velocity_lm = LanguageModel(self.dim_am, self.dim_lm,
+                                             dtype=dtype, generator=generator,
+                                             quant=quant_lm)
+            self.velocity_out = RegressionBank(self.dim_lm, self.dim_out,
+                                               dtype=dtype,
+                                               generator=generator)
 
     @property
     def dim_aj(self):
@@ -329,6 +419,10 @@ class OnsetsFrames2(OnsetsFrames):
 
         offsets = self.offset_out(self.offset_lm(emb['offset'], lengths))
         output[tools.KEY_OFFSETS] = offsets
+
+        if self.estimate_velocity:
+            output[tools.KEY_VELOCITY] = self.velocity_out(
+                self.velocity_lm(emb['velocity'], lengths))
 
         joint = torch.cat((self._detach(onsets), self._detach(offsets),
                            multi_pitch), dim=-1)
@@ -355,4 +449,99 @@ class OnsetsFrames2(OnsetsFrames):
 
         output[tools.KEY_OFFSETS] = LogisticBank.finalize_output(offsets_est)
 
+        if self.estimate_velocity and tools.KEY_VELOCITY in output:
+            velocity_est = output[tools.KEY_VELOCITY]
+
+            if tools.KEY_LOSS in output and tools.KEY_VELOCITY not in batch:
+                # Loud, not silent: a dataset without velocities would
+                # leave the head untrained with no indication
+                warnings.warn('estimate_velocity=True but the batch carries '
+                              'no velocity ground truth; the velocity head '
+                              'receives no loss. Stale dataset caches need '
+                              'reset_data=True.', category=RuntimeWarning)
+
+            if tools.KEY_LOSS in output and tools.KEY_VELOCITY in batch:
+                # MSE over every cell carrying a velocity target: the full
+                # note spans
+                velocity_ref = batch[tools.KEY_VELOCITY]
+                loss = output[tools.KEY_LOSS]
+                loss[tools.KEY_LOSS_VELOCITY] = self.velocity_out.get_loss(
+                    velocity_est, velocity_ref, velocity_ref > 0)
+                loss[tools.KEY_LOSS_TOTAL] = (loss[tools.KEY_LOSS_TOTAL] +
+                                              loss[tools.KEY_LOSS_VELOCITY])
+
+            output[tools.KEY_VELOCITY] = self.velocity_out.finalize_output(
+                velocity_est)
+
         return output
+
+
+class OnsetsFramesOnline(OnsetsFrames):
+    """Streaming Onsets & Frames: unidirectional language models with
+    explicit carries (JAX ``:922-990``).
+
+    The V1 heads with ``OnlineLanguageModel`` in place of the BiLSTMs (the
+    acoustic stacks take ``lengths``, the recurrences do not, as in JAX).
+    ``forward(feats, carries=...)`` returns ``(output, new_carries)``: the
+    onset and adjoin LMs run kernel B from their carries, so frames fed
+    one at a time keep their full recurrent context
+    (``inference.run_online_stateful``). Without carries it is the
+    whole-sequence unidirectional model: kernel B in eval, E and F in
+    training.
+    """
+
+    def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
+                 dtype=None, generator=None, dropout=True, detach_heads=False,
+                 quant_acoustic=False, remat=False):
+        if model_complexity < 2:
+            raise ValueError('OnsetsFramesOnline requires model_complexity '
+                             '>= 2.')
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+
+        TranscriptionModel.__init__(
+            self, dim_in, profile, in_channels=in_channels,
+            model_complexity=model_complexity, dtype=dtype, dropout=dropout,
+            quant_acoustic=quant_acoustic, remat=remat)
+        self.detach_heads = detach_heads
+
+        for name in self.head_names:
+            self._add_acoustic(name, generator)
+
+        self.onset_lm = OnlineLanguageModel(self.dim_am, self.dim_lm,
+                                            generator=generator)
+        self.onset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
+                                      generator=generator)
+        self.pitch_out = LogisticBank(self.dim_am, self.dim_out, dtype=dtype,
+                                      generator=generator)
+        self.adjoin_lm = OnlineLanguageModel(self.dim_aj, self.dim_lm,
+                                             generator=generator)
+        self.adjoin_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
+                                       generator=generator)
+
+    def init_carries(self, batch_size, device=None):
+        """Zero float32 streaming state for both recurrent stages."""
+
+        return {'onset': self.onset_lm.init_carry(batch_size, device),
+                'adjoin': self.adjoin_lm.init_carry(batch_size, device)}
+
+    def forward(self, feats, generator=None, carries=None, lengths=None):
+        output = {}
+
+        emb = self._embeddings(feats, generator, lengths)
+        multi_pitch = self.pitch_out(emb['pitch'])
+
+        onset_feats, onset_carry = self.onset_lm(
+            emb['onset'], None if carries is None else carries['onset'])
+        onsets = self.onset_out(onset_feats)
+        output[tools.KEY_ONSETS] = onsets
+
+        joint = torch.cat((self._detach(onsets), multi_pitch), dim=-1)
+        adjoin_feats, adjoin_carry = self.adjoin_lm(
+            joint, None if carries is None else carries['adjoin'])
+        output[tools.KEY_MULTIPITCH] = self.adjoin_out(adjoin_feats)
+
+        if carries is None:
+            return output
+
+        return output, {'onset': onset_carry, 'adjoin': adjoin_carry}

@@ -1,7 +1,10 @@
-"""TabCNN guitar tablature model, inference forward.
+"""TabCNN guitar tablature model.
 
-Counterpart of ``amt_tools_tpu/models/tabcnn.py`` ``TabCNN`` (``:23``) in
-eval mode. Submodule names follow the Flax tree (``conv1``, ``conv2``,
+Counterpart of ``amt_tools_tpu/models/tabcnn.py`` ``TabCNN`` (``:23``), in
+eval mode and in train mode (``:134-183``: dropouts of 0.25 after the pool
+and 0.5 after ``dense1``, drawn from the forward's explicit generator and
+gated by ``dropout``; the CE loss in ``post_proc``). Submodule names follow
+the Flax tree (``conv1``, ``conv2``,
 ``conv3``, ``dense1``, ``tablature_out.Dense_0``), so ``weights.from_flax``
 maps one onto the other by name.
 
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 
 from .. import tools
 from ..ops import frames as frame_ops
-from ..ops.layers import conv2d_valid, conv3x3, lecun_normal_, linear
+from ..ops.layers import conv2d_valid, conv3x3, dropout, lecun_normal_, linear
 from ..ops.qconv import Int8Conv, Int8Dense
 from .common import SoftmaxGroups, TranscriptionModel
 
@@ -41,16 +44,19 @@ class TabCNN(TranscriptionModel):
     so output position t is what window t computes, and the per-window
     (2, 2)/(2, 2) pool over the 3 surviving window positions becomes a
     (2, 2)/(2, 1) pool over time (the JAX class docstring). Both modes share
-    the parameters. Dropout is the identity at inference.
+    the parameters. Dropout is the identity at inference; in train mode with
+    ``dropout`` on it draws from the forward's ``generator``.
     """
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=1,
                  frame_width=9, online=False, fullseq=False, dtype=None,
-                 generator=None, quant_acoustic=False, quant_lm=False):
+                 generator=None, dropout=True, quant_acoustic=False,
+                 quant_lm=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity,
                          frame_width=frame_width, dtype=dtype,
-                         quant_acoustic=quant_acoustic, quant_lm=quant_lm)
+                         dropout=dropout, quant_acoustic=quant_acoustic,
+                         quant_lm=quant_lm)
         self.online = online
         self.fullseq = fullseq
         # Three 3x3 VALID convs leave frame_width - 6 window positions; the
@@ -134,10 +140,14 @@ class TabCNN(TranscriptionModel):
         x = F.relu(conv2d_valid(x, self.conv2, self.dtype))
         return F.relu(conv2d_valid(x, self.conv3, self.dtype))
 
-    def forward(self, feats):
-        """:meth:`pre_proc` features -> {tablature: (B, T, G*C) logits}."""
+    def _dropout(self, x, rate, generator):
+        if self.training and self.dropout:
+            return dropout(x, rate, generator)
+        return x
 
-        self._check_inference()
+    def forward(self, feats, generator=None):
+        """:meth:`pre_proc` features -> {tablature: (B, T, G*C) logits}; in
+        train mode dropout draws from ``generator``."""
 
         if self.fullseq:
             batch_size = feats.shape[0]
@@ -147,7 +157,7 @@ class TabCNN(TranscriptionModel):
             # Per-window pool over its 3 surviving positions keeps
             # max(pos 0, pos 1) -> full-sequence positions (t, t + 1)
             x = F.max_pool2d(x, (2, 2), stride=(2, 1))
-            x = x[..., :num_frames]
+            x = self._dropout(x[..., :num_frames], 0.25, generator)
 
             # (B, C, F', T) -> (B, T, F', C): the windowed flatten order
             x = x.permute(0, 3, 2, 1)
@@ -156,13 +166,15 @@ class TabCNN(TranscriptionModel):
 
             # Each context window is an independent sample of the stack
             x = self._convs(feats.reshape((-1,) + feats.shape[2:]))
-            x = F.max_pool2d(x, (2, 2), stride=(2, 2))
+            x = self._dropout(F.max_pool2d(x, (2, 2), stride=(2, 2)), 0.25,
+                              generator)
 
             # (N, C, F', W') -> (N, F', W', C)
             x = x.permute(0, 2, 3, 1)
 
         x = x.reshape(batch_size, num_frames, -1)
         x = F.relu(linear(x, self.dense1, self.dtype))
+        x = self._dropout(x, 0.5, generator)
 
         return {tools.KEY_TABLATURE: self.tablature_out(x)}
 

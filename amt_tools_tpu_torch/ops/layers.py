@@ -9,21 +9,65 @@ same treatment, initialize parameters like Flax's defaults from an explicit
 ``ops.qconv`` (``quantized = True``) passed to ``linear``, ``conv2d_same``
 or ``conv2d_valid`` runs its own forward: it quantizes its input, carries
 its padding and casts to its own dtype, so a model calls the same helper
-whichever layer it built.
+whichever layer it built. :func:`checkpoint` recomputes a function in the
+backward pass (the models' ``remat``) with the same dropout noise and
+without a second update of BatchNorm's running statistics.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 __all__ = ['linear', 'conv2d_same', 'conv2d_valid', 'conv3x3', 'BatchNorm',
-           'dropout', 'lecun_normal_', 'orthogonal_']
+           'dropout', 'lecun_normal_', 'orthogonal_', 'checkpoint']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
 _MOMENTUM = 0.9
+
+def checkpoint(fn, *args, module=None, generator=None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, with the same results, where a literal translation of
+    ``jax.checkpoint`` would not give them:
+
+    - dropout draws from the explicit ``generator``, whose state
+      checkpointing does not restore (it restores the default generators'
+      only, which nothing here draws from), so the recomputation starts
+      from the state the forward started from and leaves the generator as
+      it found it: the same masks;
+    - a train-mode :class:`BatchNorm` would update its running statistics
+      a second time; those of ``module`` (the module whose layers ``fn``
+      runs) take the same batch statistics in the recomputation and leave
+      the buffers alone.
+    """
+
+    saved = None if generator is None else generator.get_state()
+    norms = [] if module is None else [m for m in module.modules()
+                                       if isinstance(m, BatchNorm)]
+
+    @contextlib.contextmanager
+    def recompute():
+        after = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(saved)
+        for norm in norms:
+            norm.recomputing = True
+        try:
+            yield
+        finally:
+            for norm in norms:
+                norm.recomputing = False
+            if generator is not None:
+                generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 def _compute_dtype(x, dtype):
@@ -78,12 +122,14 @@ class BatchNorm(nn.Module):
     updates the running buffers once, ``0.9 * ra + 0.1 * stat`` with the
     biased variance (``:402-404``). ``F.batch_norm`` would update
     ``running_var`` with the unbiased variance, so the arithmetic is
-    written out.
+    written out. A forward recomputed by :func:`checkpoint`
+    (``recomputing``) does not update them again.
     """
 
     def __init__(self, num_features, eps=1e-5):
         super().__init__()
         self.eps = eps
+        self.recomputing = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
@@ -112,9 +158,10 @@ class BatchNorm(nn.Module):
         mean = xf.mean(axes)
         var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
 
-        with torch.no_grad():
-            self.running_mean.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * mean)
-            self.running_var.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * var)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_mean.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * mean)
+                self.running_var.mul_(_MOMENTUM).add_((1 - _MOMENTUM) * var)
 
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)

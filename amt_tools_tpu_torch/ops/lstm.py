@@ -22,9 +22,14 @@ stays float.
 
 With ``lengths`` each row keeps its carry and outputs 0 past its length
 (kernel B's masked launch on CUDA, its masked plain version on the CPU), so
-its valid frames equal an unpadded run's bit for bit. Masked training
-(kernels E and F with lengths) is not ported: ``lengths`` while autograd
-records raises; no JAX path trains with lengths.
+its valid frames equal an unpadded run's bit for bit. ``FastLSTM`` takes
+``initial_carry=(c, h)`` and ``return_carry=True`` for streaming (JAX
+``:208-257``): the carry goes to kernel B, which starts from it and returns
+the final one, float32 in both dtypes (JAX's XLA scan keeps it in the
+projections' dtype), so chunks that thread it equal one whole call bit for
+bit. Masked and carried training (kernels E and F with lengths or a carry)
+are not ported: either while autograd records raises; no JAX path trains
+with them.
 """
 
 import torch
@@ -73,18 +78,29 @@ def lengths_to_mask(lengths, num_frames):
             lengths[:, None])
 
 
-def _scan(xw, w_h, reverse, lengths):
+def _scan(xw, w_h, reverse, lengths, carry=None):
+    """The recurrence; from ``carry`` (a pair ``(c, h)``) it returns
+    ``(out, (c, h))``."""
+
     if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
         if lengths is not None:
             raise NotImplementedError(
                 'masked training (kernels E and F with lengths) is not '
                 'ported; run a masked LSTM under torch.no_grad()')
+        if carry is not None:
+            raise NotImplementedError(
+                'carried training (kernels E and F with a carry) is not '
+                'ported; run a carried LSTM under torch.no_grad()')
         # W_h goes in uncast: the Function casts it, so dW_h reaches the
         # float32 parameter unrounded
         return lstm_scan_grad(xw, w_h, reverse)
 
+    if carry is None:
+        return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
+                         lengths=lengths)
+
     return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
-                     lengths=lengths)
+                     lengths=lengths, initial_carry=carry, return_carry=True)
 
 
 def kernel_width(hidden, dtype):
@@ -100,22 +116,30 @@ def kernel_width(hidden, dtype):
     return padded if scan_supported(padded, dtype) else hidden
 
 
-def padded_recurrence(xw, w_h, reverse, padded, lengths=None):
+def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None):
     """The recurrence at ``padded`` units, cut back to H: zero xw columns
     and zero W_h rows and columns for the added units keep their gates at
-    (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step; they add
-    nothing to any sum of the real units, and the slice drops their
-    gradients."""
+    (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step (a ``carry`` is
+    zero-padded alike); they add nothing to any sum of the real units, and
+    the slice drops their gradients. With ``carry`` it returns ``(out,
+    (c, h))`` cut back to H."""
 
     hidden = w_h.shape[0]
     w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
-    out = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse,
-                lengths)
+    if carry is not None:
+        carry = tuple(F.pad(torch.as_tensor(x), (0, padded - hidden))
+                      for x in carry)
+    result = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse,
+                   lengths, carry)
+    if carry is None:
+        return result[..., :hidden]
 
-    return out[..., :hidden]
+    out, (c, h) = result
+
+    return out[..., :hidden], (c[..., :hidden], h[..., :hidden])
 
 
-def _recurrence(xw, w_h, reverse=False, lengths=None):
+def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None):
     # The Pallas path's compute dtype: bf16 projections keep a bf16 W_h,
     # anything else runs in float32
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
@@ -127,14 +151,16 @@ def _recurrence(xw, w_h, reverse=False, lengths=None):
         lengths = torch.as_tensor(lengths).reshape(-1).to(xw.device)
     if xw.device.type == 'cuda' and kernel_width(hidden, dtype) != hidden:
         return padded_recurrence(xw, w_h, reverse,
-                                 kernel_width(hidden, dtype), lengths)
+                                 kernel_width(hidden, dtype), lengths, carry)
 
-    return _scan(xw, w_h, reverse, lengths)
+    return _scan(xw, w_h, reverse, lengths, carry)
 
 
 class FastLSTM(nn.Module):
     """Unidirectional LSTM: (B, T, E) -> (B, T, H); ``lengths`` (B,) masks
-    each row's padded tail (inference only)."""
+    each row's padded tail (inference only). Pass ``initial_carry=(c, h)``
+    and ``return_carry=True`` for streaming (inference only): the result is
+    then ``((c, h), out)``, as JAX's, with a float32 carry."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -149,10 +175,21 @@ class FastLSTM(nn.Module):
         self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
         orthogonal_(self.recurrent_kernel, generator)
 
-    def forward(self, inputs, lengths=None):
+    def forward(self, inputs, lengths=None, initial_carry=None,
+                return_carry=False):
         xw = linear(inputs, self.input_proj, self.dtype)
 
-        return _recurrence(xw, self.recurrent_kernel, lengths=lengths)
+        if initial_carry is None and not return_carry:
+            return _recurrence(xw, self.recurrent_kernel, lengths=lengths)
+
+        if initial_carry is None:
+            zeros = torch.zeros((xw.shape[0], self.features),
+                                device=xw.device)
+            initial_carry = (zeros, zeros)
+        out, carry = _recurrence(xw, self.recurrent_kernel, lengths=lengths,
+                                 carry=initial_carry)
+
+        return (carry, out) if return_carry else out
 
 
 class FastBiLSTM(nn.Module):

@@ -8,7 +8,11 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
   (bucketed evaluation) a row keeps its carry and writes 0 past its
   length, the JAX masked scan's step (``ops/lstm.py:98-108``) with the
   kernel's float32 carry, so its valid frames equal an unpadded run's bit
-  for bit (``lstm_scan.masked_launches`` counts these launches);
+  for bit (``lstm_scan.masked_launches`` counts these launches); from a
+  given float32 carry ``(c, h)`` in place of zeros, returning the final
+  one (streaming, JAX ``FastLSTM(initial_carry, return_carry)``,
+  ``ops/lstm.py:208-257``), so chunks that thread the carry equal one
+  whole call bit for bit (``lstm_scan.carried_launches``);
 - :func:`lstm_scan_residuals` (kernel E, ``_lstm_fwd_res_kernel`` through
   ``_lstm_fwd_res``): the same recurrence, which also returns the float32
   gate activations and cell states;
@@ -58,6 +62,7 @@ _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 
 _SCAN_SIGNATURES = {
     'lstm_scan': [_POINTER] * 4 + [_INT] * 7 + [_POINTER],
+    'lstm_scan_carried': [_POINTER] * 8 + [_INT] * 7 + [_POINTER],
     'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
     'lstm_scan_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
     'lstm_scan_smem': [_INT] * 4,
@@ -286,10 +291,13 @@ def _sigmoid_tanh_form(x):
     return 0.5 * torch.tanh(0.5 * x) + 0.5
 
 
-def _scan_plain(xw, w_h, reverse, residuals, lengths=None):
+def _scan_plain(xw, w_h, reverse, residuals, lengths=None,
+                initial_carry=None):
     """The recurrence of kernels B and E, step by step. With ``lengths``
     (B only), a row keeps its carry and outputs 0 at every step
-    ``t >= lengths[row]``."""
+    ``t >= lengths[row]``. ``initial_carry`` (B only) is a float32
+    ``(c, h)`` to start from; B also returns the final ``(c, h)``, h as the
+    next step would read it (rounded to bf16 in bf16 mode)."""
 
     batch, frames, four_h = xw.shape
     hidden = four_h // 4
@@ -298,8 +306,13 @@ def _scan_plain(xw, w_h, reverse, residuals, lengths=None):
     # bf16 operands are exact in float32, so this is the kernel's product
     # with float32 accumulation
     w = w_h.to(xw.dtype).float()
-    h = torch.zeros((batch, hidden), dtype=torch.float32, device=xw.device)
-    c = torch.zeros_like(h)
+    if initial_carry is None:
+        h = torch.zeros((batch, hidden), dtype=torch.float32,
+                        device=xw.device)
+        c = torch.zeros_like(h)
+    else:
+        c, h = (x.to(device=xw.device, dtype=torch.float32)
+                for x in initial_carry)
     out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
                       device=xw.device)
     if residuals:
@@ -338,21 +351,31 @@ def _scan_plain(xw, w_h, reverse, residuals, lengths=None):
             gates_seq[:, t] = torch.cat([i_g, f_g, g_g, o_g], dim=-1).float()
             c_seq[:, t] = c
 
-    return (out, gates_seq, c_seq) if residuals else out
+    if residuals:
+        return out, gates_seq, c_seq
+
+    return out, (c, h.to(xw.dtype).float())
 
 
-def lstm_scan_plain(xw, w_h, reverse=False, lengths=None):
+def lstm_scan_plain(xw, w_h, reverse=False, lengths=None, initial_carry=None,
+                    return_carry=False):
     """(B, T, 4H) projections, (H, 4H) weights -> (B, T, H): a loop over T.
 
     With ``lengths`` (B,), row b keeps its carry and outputs 0 at every step
     ``t >= lengths[b]``, the JAX masked scan step (``ops/lstm.py:98-108``),
-    so a reverse scan starts at the row's true end.
+    so a reverse scan starts at the row's true end. ``initial_carry``
+    ``(c, h)``, each (B, H), starts the recurrence in place of zeros (in
+    float32); with ``return_carry`` the result is ``(out, (c, h))``, the
+    float32 state the next step would read (h rounded to bf16 in bf16 mode).
     """
 
     if lengths is not None:
         lengths = lengths.to(device=xw.device, dtype=torch.int64)
 
-    return _scan_plain(xw, w_h, reverse, residuals=False, lengths=lengths)
+    out, carry = _scan_plain(xw, w_h, reverse, residuals=False,
+                             lengths=lengths, initial_carry=initial_carry)
+
+    return (out, carry) if return_carry else out
 
 
 def lstm_scan_residuals_plain(xw, w_h, reverse=False):
@@ -437,13 +460,15 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_scan(xw, w_h, reverse, residuals, lengths=None):
-    """Kernel B (with per-row ``lengths``, an int32 tensor, or none), or E
-    with ``residuals``, on CUDA tensors."""
+def _launch_scan(xw, w_h, reverse, residuals, lengths=None, carry=None):
+    """Kernel B (with per-row ``lengths``, an int32 tensor, or none; from a
+    float32 ``carry`` ``(c0, h0)``, or zeros), or E with ``residuals``, on
+    CUDA tensors. A carried launch returns ``(out, (c, h))``."""
 
     batch, frames, four_h = xw.shape
     hidden = four_h // 4
-    name = 'lstm_scan_residuals' if residuals else 'lstm_scan'
+    name = ('lstm_scan_residuals' if residuals else
+            'lstm_scan' if carry is None else 'lstm_scan_carried')
     _check_cuda(xw, name, hidden)
     if hidden % 16:
         raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
@@ -457,7 +482,13 @@ def _launch_scan(xw, w_h, reverse, residuals, lengths=None):
                                 device=xw.device),
                     torch.empty((batch, frames, hidden), dtype=torch.float32,
                                 device=xw.device)]
+    carried = ()
+    if carry is not None:
+        final = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
+        carried = tuple(t.data_ptr() for t in (*carry, *final))
     if batch == 0 or frames == 0:
+        if carry is not None:  # the carry as the next step would read it
+            return out, (carry[0].clone(), carry[1].to(xw.dtype).float())
         return tuple(outputs) if residuals else out
 
     plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals)
@@ -470,11 +501,13 @@ def _launch_scan(xw, w_h, reverse, residuals, lengths=None):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, name)(
             xw.data_ptr(), w_h.data_ptr(), *(t.data_ptr() for t in outputs),
-            *masks, batch, frames, hidden, int(reverse),
+            *masks, *carried, batch, frames, hidden, int(reverse),
             int(xw.dtype == torch.bfloat16), plan['rows'],
             int(plan['resident']), stream)
     cuda_build.check(status, name)
 
+    if carry is not None:
+        return out, final
     return tuple(outputs) if residuals else out
 
 
@@ -496,8 +529,34 @@ def _check_lengths(lengths, xw):
     return lengths
 
 
-def lstm_scan(xw, w_h, reverse=False, lengths=None):
-    """Whole-sequence LSTM from a zero carry: (B, T, 4H) -> (B, T, H).
+def _check_carry(initial_carry, xw):
+    """A carry as the kernel takes it: float32 ``(c, h)``, each (B, H),
+    contiguous on xw's device (zeros when none is given)."""
+
+    batch, hidden = xw.shape[0], xw.shape[-1] // 4
+    if initial_carry is None:
+        zeros = torch.zeros((batch, hidden), dtype=torch.float32,
+                            device=xw.device)
+        return zeros, zeros.clone()
+    if len(initial_carry) != 2:
+        raise ValueError('initial_carry must be a pair (c, h)')
+    carry = []
+    for name, x in zip('ch', initial_carry):
+        x = torch.as_tensor(x)
+        if tuple(x.shape) != (batch, hidden):
+            raise ValueError(f'initial_carry {name} must be ({batch}, '
+                             f'{hidden}), got {tuple(x.shape)}')
+        if not x.dtype.is_floating_point:
+            raise TypeError(f'initial_carry {name} must be floating point, '
+                            f'got {x.dtype}')
+        carry.append(x.to(device=xw.device, dtype=torch.float32).contiguous())
+
+    return tuple(carry)
+
+
+def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
+              return_carry=False):
+    """Whole-sequence LSTM: (B, T, 4H) -> (B, T, H).
 
     ``xw`` holds the hoisted input projections including the bias, ``w_h``
     the (H, 4H) recurrent kernel in the same dtype (float32 or bf16; gate
@@ -505,28 +564,38 @@ def lstm_scan(xw, w_h, reverse=False, lengths=None):
     natural order. ``lengths`` (B,) integers in [0, T] mask each row's
     padded tail: from ``t = lengths[b]`` on, row b keeps its carry and
     writes 0, so its valid frames equal an unpadded run's bit for bit (a
-    reverse scan starts at the row's true end). CUDA tensors go through
-    the Hopper kernel (or raise); CPU tensors through
-    :func:`lstm_scan_plain`.
+    reverse scan starts at the row's true end). ``initial_carry`` ``(c,
+    h)``, each (B, H), starts the recurrence in place of zeros, in float32;
+    with ``return_carry`` the result is ``(out, (c, h))``: the float32
+    final state, h as the next step reads it (rounded to bf16 in bf16
+    mode), so a sequence cut into chunks that thread it equals one whole
+    call bit for bit. CUDA tensors go through the Hopper kernel (or raise);
+    CPU tensors through :func:`lstm_scan_plain`.
     """
 
     _check_inputs(xw, w_h)
     if lengths is not None:
         lengths = _check_lengths(lengths, xw)
+    carried = initial_carry is not None or return_carry
+    carry = _check_carry(initial_carry, xw) if carried else None
 
     if xw.device.type == 'cpu':
-        return lstm_scan_plain(xw, w_h, reverse, lengths)
+        return lstm_scan_plain(xw, w_h, reverse, lengths, carry, return_carry)
 
-    out = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths)
+    result = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths,
+                          carry=carry)
     lstm_scan.launches += 1
     if lengths is not None:
         lstm_scan.masked_launches += 1
+    if carried:
+        lstm_scan.carried_launches += 1
 
-    return out
+    return result if return_carry or not carried else result[0]
 
 
 lstm_scan.launches = 0
 lstm_scan.masked_launches = 0  # those of lstm_scan.launches with lengths
+lstm_scan.carried_launches = 0  # those with a carry in and out
 
 
 def lstm_scan_residuals(xw, w_h, reverse=False):

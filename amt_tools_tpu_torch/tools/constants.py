@@ -27,6 +27,7 @@ __all__ = [
     'KEY_LOSS_ONSETS',
     'KEY_LOSS_OFFSETS',
     'KEY_LOSS_PITCH',
+    'KEY_LOSS_VELOCITY',
     'TRAIN',
     'VAL',
     'TEST',
@@ -70,6 +71,7 @@ KEY_LOSS_TOTAL = 'loss_total'
 KEY_LOSS_ONSETS = 'loss_onsets'
 KEY_LOSS_OFFSETS = 'loss_offsets'
 KEY_LOSS_PITCH = 'loss_pitch'
+KEY_LOSS_VELOCITY = 'loss_velocity'
 
 TRAIN = 'train'
 VAL = 'validation'

@@ -15,10 +15,13 @@ conversions (``:183-1075``), ``extract_note_velocities`` (``:728``),
 ``inhibit_activations`` (``:1161``), and the dict plumbing
 (``:1367-1479``): ``dict_to_array`` brings tensors (any device, bf16 as
 float32) to host numpy, ``dict_to_tensor`` takes the place of
-``dict_to_jax`` with a ``device``.
+``dict_to_jax`` with a ``device``. For ``SyntheticGuitar`` and the feature
+streams: ``stacked_multi_pitch_to_tablature`` (``:903``) and
+``get_current_time`` (``:1567``).
 """
 
 import contextlib
+import time
 from datetime import datetime
 
 import numpy as np
@@ -58,6 +61,7 @@ __all__ = [
     'multi_pitch_to_stacked_multi_pitch',
     'stacked_notes_to_stacked_multi_pitch',
     'tablature_to_stacked_multi_pitch',
+    'stacked_multi_pitch_to_tablature',
     'multi_pitch_to_onsets',
     'multi_pitch_to_offsets',
     'stacked_multi_pitch_to_stacked_onsets',
@@ -71,6 +75,7 @@ __all__ = [
     'dict_append',
     'unpack_dict',
     'get_tag',
+    'get_current_time',
     'resolve_device',
     'use_exact_fp32',
     'exact_fp32',
@@ -548,6 +553,28 @@ def tablature_to_stacked_multi_pitch(tablature, profile):
     return stacked_multi_pitch
 
 
+def stacked_multi_pitch_to_tablature(stacked_multi_pitch, profile):
+    """Collapse an (..., S, F, T) stack into (..., S, T) class indices
+    (-1 = silence): on each string, the lowest active fret of its range."""
+
+    stacked_multi_pitch = to_numpy(stacked_multi_pitch)
+    tuning = profile.get_midi_tuning()
+
+    tablature = []
+    for dof in range(stacked_multi_pitch.shape[-3]):
+        lo = tuning[dof] - profile.low
+        multi_pitch = stacked_multi_pitch[..., dof,
+                                          lo: lo + profile.num_pitches, :]
+
+        silent = np.sum(multi_pitch, axis=-2) == 0
+        highest = np.argmax(multi_pitch, axis=-2)
+        highest = np.where(silent, -1, highest)
+
+        tablature.append(np.expand_dims(highest, axis=-2))
+
+    return np.concatenate(tablature, axis=-2)
+
+
 def multi_pitch_to_onsets(multi_pitch):
     """Edge-detect where pitch activity begins (first frame counts as onset)."""
 
@@ -758,6 +785,12 @@ def get_tag(tag=None):
     date_time = datetime.now().strftime('%m_%d_%Y_%H_%M_%S')
 
     return date_time if tag is None else tag
+
+
+def get_current_time(decimals=3):
+    """Current system time in seconds."""
+
+    return round(time.time(), decimals)
 
 
 def query_dict(dictionary, key):

@@ -112,14 +112,43 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 21. ``train()`` at the of_2 recipe (float32, 8 x 625 frames, complexity
     3) for 4 steps with ``checkpoints=2`` and a 4-track validation set: two
     validations, steps/s with and without them;
-9 and 13. one piano batch (bf16 and int8-static), one guitar batch and one
-   float32 training step under ``torch.profiler``, in one session: the
-   device time by kernel and the busy share of each, whose path's kernels
-   must appear in it.
+22. the velocity head: O&F2 complexity 3 with ``estimate_velocity`` in
+    float32 through ``train()`` on SyntheticPiano(velocity_range=(0.3,
+    1.0)) crops of 8 x 625, Adam: E and F eight times a step, steps/s; 30
+    steps on one batch, whose velocity loss must fall;
+23. ``remat`` False, True, 'blocks' and False again, in turns, on that
+    model and batch: the first step's loss bit for bit equal, the
+    gradients within ``GRAD_TOL`` of each module's largest, the running
+    statistics within ``STAT_TOL``; steps/s and
+    ``torch.cuda.max_memory_allocated`` for each;
+24. the synthetic_tabcnn recipe: TabCNN windowed, complexity 1, float32, on
+    the full-bank CQT (192 bins, 24 an octave, exact=True: kernel C on its
+    FFMA route, once a track) over 32 + 6 SyntheticGuitar tracks of 8 s,
+    batch 8 x 128 frames, Adadelta 1.0, ``train()`` with 2 checkpoints,
+    each validating with the recipe's estimator and evaluators; steps/s
+    with and without the validations;
+25. streaming: kernel B from a carry (25a: one row at T = 1, H = 512, and 8
+    x 625 at H = 256, float32 and bf16) against its carried plain version,
+    chunks bit for bit equal to one launch, timed in turns with the launch
+    without a carry; then OnsetsFramesOnline complexity 3 on MelSpec at 16
+    kHz through ``run_online_stateful`` over a 10 s track: B from the carry
+    twice a frame, median and p99 ms a frame against the 32 ms hop, the
+    logits within ``LOGIT_TOL`` of the CPU's, an ``AudioStream`` feeding
+    the same steps giving the same maps; and the online model's
+    whole-sequence training step (E and F twice a step);
+9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
+   float32 training step of O&F2, of O&F2 with the velocity head, of O&F
+   online and of TabCNN, and 10 streamed frames under one
+   ``torch.profiler`` run: the device
+   time by kernel and the busy share of each, whose path's kernels must
+   appear in it.
 
-The last lines are the card, one ``kernels`` JSON line (A to F; B with its
-masked launches of phase 19 and phase 18's times), and one JSON line
-``{"ok": true, "device": {...}}``.
+Phases 22-25 end with a JSON line of their rates. The last lines are the
+card, one ``kernels`` JSON line (A to F; B with its masked launches of
+phase 19, phase 18's times, its carried launches of phase 25 and phase
+25a's times; C with its launches in the TabCNN recipe; E and F with their
+launches a velocity step), and one JSON line ``{"ok": true, "device":
+{...}}``.
 """
 
 import copy
@@ -217,6 +246,16 @@ VAL_DURATIONS = (20.0, 50.0, 80.0, 120.0)   # x4 piano tracks each
 GUITAR_VAL_DURATIONS = (10.0, 15.0, 20.0, 25.0, 30.0, 35.0, 40.0, 45.0)
 ONLINE_SECONDS = 5.0
 TRAIN_VAL_TRACKS = 4
+# Phases 22-25: the velocity head, remat, the TabCNN recipe, streaming
+VELOCITY_RANGE = (0.3, 1.0)   # examples/papers/synthetic_demo.py stress
+REMAT_STEPS = 5
+TAB_TRACKS = 32               # examples/papers/synthetic_tabcnn.py
+TAB_TEST_TRACKS = 6
+TAB_SECONDS = 8.0
+TAB_FRAMES = 128
+TAB_ITERATIONS = 2            # passes, each of 32 / 8 steps
+CARRY_CHUNK = 64              # frames a launch in the chunked carried check
+STREAM_SECONDS = 10.0
 RANGE_GAP_S = 0.05  # idle between profiled batches
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -291,13 +330,14 @@ def kernel_counters():
 
 def route_counters():
     """(kernel, route, attribute) of every counter of a kernel's route:
-    kernel A's FFT route, kernel B's masked launches (with lengths),
-    kernels C and D by ``exact``."""
+    kernel A's FFT route, kernel B's masked launches (with lengths) and
+    carried ones (from a carry), kernels C and D by ``exact``."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
 
     return ([('stft_power', 'fft', 'fft_launches'),
-             ('lstm_scan', 'masked', 'masked_launches')] +
+             ('lstm_scan', 'masked', 'masked_launches'),
+             ('lstm_scan', 'carried', 'carried_launches')] +
             [(name, route, f'{route}_launches')
              for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
 
@@ -313,8 +353,8 @@ def reset_launches():
 def read_launches():
     """Launch counts by kernel, and by route as ``<kernel>_<route>``:
     ``stft_power_fft`` (kernel A's FFT route), ``lstm_scan_masked`` (kernel
-    B with lengths), ``cqt_mag_bf16x3`` and the other routes of kernels C
-    and D."""
+    B with lengths), ``lstm_scan_carried`` (kernel B from a carry),
+    ``cqt_mag_bf16x3`` and the other routes of kernels C and D."""
 
     counters = kernel_counters()
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
@@ -1097,10 +1137,12 @@ class FixedLoader:
         return iter(self.batches)
 
 
-def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0):
-    """One ``train()`` run on the card with fresh launch counts: E and F six
-    times a step, B never; every loss finite. Returns (result, launches,
-    steps per second)."""
+def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0,
+              directions=6):
+    """One ``train()`` run on the card with fresh launch counts: E and F
+    ``directions`` times a step (six for O&F2, eight with the velocity
+    head, two for O&F online), B never; every loss finite. Returns (result,
+    launches, steps per second)."""
 
     import torch
 
@@ -1122,9 +1164,10 @@ def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0):
         f'steps/s; launches {launches}')
     for key, values in sorted(losses.items()):
         log(f'  {key}: ' + ' '.join(f'{v:.6g}' for v in values))
-    require(launches['lstm_scan_residuals'] == 6 * steps and
-            launches['lstm_bptt'] == 6 * steps,
-            f'{label}: kernels E and F did not run six times a step')
+    require(launches['lstm_scan_residuals'] == directions * steps and
+            launches['lstm_bptt'] == directions * steps,
+            f'{label}: kernels E and F did not run {directions} times a '
+            f'step')
     require(launches['lstm_scan'] == 0,
             f'{label}: kernel B ran inside a training step')
     require(all(np.isfinite(values).all() for values in losses.values()),
@@ -2779,6 +2822,531 @@ def train_with_validation(card):
         f'{plain[1][tools.KEY_LOSS_TOTAL]}')
 
 
+def velocity_model(seed, remat=False):
+    """O&F2 at complexity 3 with the velocity head, float32."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+
+    return OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                         model_complexity=3, estimate_velocity=True,
+                         remat=remat,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def train_velocity(card):
+    """Phase 22: O&F2 complexity 3 with the velocity head (a fourth
+    acoustic stack and BiLSTM, ``RegressionBank``) through ``train()`` on
+    SyntheticPiano(velocity_range=(0.3, 1.0)) crops of 625 frames, batch 8,
+    Adam 6e-4, float32: kernels E and F eight times a step, steps/s; then
+    30 steps on one batch, whose velocity loss must fall. Returns E's and
+    F's launches a step, a fixed batch and a profiler entry."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import DataLoader, SyntheticPiano
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator)
+
+    tools.use_exact_fp32()
+    dataset = SyntheticPiano(num_tracks=2 * TRAIN_BATCH, track_duration=30.0,
+                             num_frames=TRAIN_FRAMES,
+                             velocity_range=VELOCITY_RANGE,
+                             data_proc=MelSpec(n_mels=N_MELS, htk=True))
+    loader = DataLoader(dataset, batch_size=TRAIN_BATCH, seed=0)
+
+    result, launches, rate = train_run(
+        velocity_model(22), loader, TRAIN_PASSES,
+        f'training O&F2 complexity 3 with the velocity head in float32, '
+        f'{TRAIN_PASSES} passes over {len(dataset)} tracks ({card})',
+        directions=8)
+    require(tools.KEY_LOSS_VELOCITY in result['losses'],
+            'the velocity head took no loss')
+
+    batch = next(iter(loader))
+    require(float(np.max(batch[tools.KEY_VELOCITY])) > 0,
+            'the crops carry no velocity ground truth')
+    fixed, _, _ = train_run(velocity_model(23), FixedLoader([batch]),
+                            FIT_STEPS, f'{FIT_STEPS} velocity steps on one '
+                                       f'batch', directions=8)
+    losses = fixed['losses'][tools.KEY_LOSS_VELOCITY]
+    log(f'fixed batch: velocity loss {losses[0]:.6g} -> {losses[-1]:.6g}, '
+        f'total {fixed["losses"][tools.KEY_LOSS_TOTAL][0]:.6g} -> '
+        f'{fixed["losses"][tools.KEY_LOSS_TOTAL][-1]:.6g}')
+    require(losses[-1] < losses[0], 'the velocity loss did not fall on a '
+                                    'fixed batch')
+
+    profiled = velocity_model(24).cuda()
+    step = make_train_step(profiled, torch.optim.Adam(profiled.parameters(),
+                                                      lr=LEARNING_RATE))
+    device_batch = _place_batch(batch, torch.device('cuda'))
+    step(device_batch, step_generator(0, 0, 'cuda'))
+
+    per_step = {name: launches[name] / result['step']
+                for name in ('lstm_scan_residuals', 'lstm_bptt')}
+    return per_step, rate, batch, (
+        f'float32 velocity training step of {TRAIN_BATCH} x {TRAIN_FRAMES} '
+        f'frames',
+        lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+        ('lstm_scan_kernel', 'lstm_bptt_kernel'))
+
+
+def module_scale(grads, name):
+    """The largest gradient of the module that holds ``name``."""
+
+    module = name.rsplit('.', 1)[0]
+    return max(float(g.abs().max()) for key, g in grads.items()
+               if key.rsplit('.', 1)[0] == module)
+
+
+def remat_turns(batch, card):
+    """Phase 23: the velocity model of phase 22 with ``remat`` False,
+    True, 'blocks' and False again, in turns, on one batch: the first
+    step's loss bit for bit equal, its gradients within ``GRAD_TOL`` of
+    each module's largest (cuDNN's backward may sum in another order each
+    run; the second False run shows that spread), the running statistics
+    within ``STAT_TOL``; then steps/s and the peak device memory of
+    ``REMAT_STEPS`` steps for each."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import run_on_batch
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator)
+
+    device_batch = _place_batch(batch, torch.device('cuda'))
+    runs = []
+    for remat in (False, True, 'blocks', False):
+        torch.cuda.empty_cache()
+        model = velocity_model(23, remat).cuda()
+        optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+
+        optimizer.zero_grad(set_to_none=True)
+        loss = run_on_batch(model, device_batch, train=True,
+                            generator=step_generator(0, 0, 'cuda'))[
+                                tools.KEY_LOSS][tools.KEY_LOSS_TOTAL]
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(('running_mean', 'running_var'))}
+        optimizer.step()
+
+        step = make_train_step(model, optimizer)
+        step(device_batch, step_generator(0, 1, 'cuda'))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        for i in range(REMAT_STEPS):
+            step(device_batch, step_generator(0, 2 + i, 'cuda'))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        runs.append({'remat': remat, 'loss': loss.item(), 'grads': grads,
+                     'stats': stats, 'rate': REMAT_STEPS / elapsed,
+                     'peak_gb': peak / 1e9})
+        log(f'remat={remat!r}: first loss {loss.item()!r}, '
+            f'{REMAT_STEPS / elapsed:.3f} steps/s, peak '
+            f'{peak / 1e9:.3f} GB ({card})')
+        del model, optimizer, step, grads
+
+    base = runs[0]
+    for run in runs[1:]:
+        worst = max(float((run['grads'][n] - g).abs().max()) /
+                    max(module_scale(base['grads'], n), 1e-30)
+                    for n, g in base['grads'].items())
+        stat_err = max(float((run['stats'][k] - v).abs().max())
+                       for k, v in base['stats'].items())
+        run['grad_err'], run['stat_err'] = worst, stat_err
+        log(f'remat={run["remat"]!r} against False: loss equal '
+            f'{run["loss"] == base["loss"]}, gradients within {worst:.3g} of '
+            f'their module\'s largest, running statistics within '
+            f'{stat_err:.3g}')
+        require(run['loss'] == base['loss'],
+                f'remat={run["remat"]!r} changed the first step\'s loss')
+        require(worst <= GRAD_TOL, f'remat={run["remat"]!r} moved a '
+                                   f'gradient past {GRAD_TOL}')
+        require(stat_err <= STAT_TOL, f'remat={run["remat"]!r} moved a '
+                                      f'running statistic')
+
+    return [{k: run[k] for k in ('remat', 'rate', 'peak_gb')}
+            for run in runs]
+
+
+def train_tabcnn(card):
+    """Phase 24: the synthetic_tabcnn recipe (``examples/papers/
+    synthetic_tabcnn.py``): TabCNN windowed at complexity 1 in float32 on
+    CQT(22050, 512, n_bins=192, bins_per_octave=24) (exact=True, the full
+    bank: kernel C on its float32 FFMA route), 32 SyntheticGuitar tracks of
+    8 s cropped to 128 frames, batch 8, Adadelta 1.0, through ``train()``
+    with 2 checkpoints, each validating 6 test tracks with the recipe's
+    estimator and evaluators; C once a track; steps/s with and without the
+    validations. Returns C's launches, the rates and a profiler entry for
+    one training step."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import DataLoader, SyntheticGuitar
+    from amt_tools_tpu_torch.evaluate import (ComboEvaluator, LossWrapper,
+                                              MultipitchEvaluator,
+                                              SoftmaxAccuracy,
+                                              TablatureEvaluator)
+    from amt_tools_tpu_torch.features import CQT
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator, train)
+    from amt_tools_tpu_torch.transcribe import (ComboEstimator,
+                                                StackedMultiPitchCollapser,
+                                                TablatureWrapper)
+
+    tools.use_exact_fp32()
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = CQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP, n_bins=192,
+              bins_per_octave=24)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    train_set = SyntheticGuitar(data_proc=cqt, num_frames=TAB_FRAMES,
+                                profile=profile, num_tracks=TAB_TRACKS,
+                                track_duration=TAB_SECONDS,
+                                notes_per_track=24, seed=0)
+    test_set = SyntheticGuitar(data_proc=cqt, profile=profile,
+                               num_tracks=TAB_TEST_TRACKS,
+                               track_duration=TAB_SECONDS,
+                               notes_per_track=24, seed=1, splits=['test'])
+    for track in test_set.tracks:
+        test_set.get_track_data(track)
+    loader = DataLoader(train_set, batch_size=TRAIN_BATCH, shuffle=True,
+                        drop_last=True, seed=0)
+    log(f'{len(train_set.tracks)} + {len(test_set.tracks)} guitar tracks of '
+        f'{TAB_SECONDS:.0f} s rendered in {time.perf_counter() - start:.1f} '
+        f's')
+
+    estimator = ComboEstimator([TablatureWrapper(profile=profile),
+                                StackedMultiPitchCollapser(profile=profile)])
+    evaluator = ComboEvaluator([LossWrapper(), MultipitchEvaluator(),
+                                TablatureEvaluator(profile=profile),
+                                SoftmaxAccuracy()])
+    evaluator.set_patterns(['loss', 'f1', 'tdr', 'acc'])
+
+    scores = {}
+
+    class Writer:
+        def add_scalar(self, tag, value, global_step=None):
+            if tag.startswith(tools.VAL):
+                scores.setdefault(global_step, {})[tag] = value
+
+    rates = {}
+    for validated in (True, False):
+        model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                       generator=torch.Generator().manual_seed(24))
+        optimizer = torch.optim.Adadelta(model.parameters(), lr=1.0)
+        with tempfile.TemporaryDirectory(prefix='_chip_smoke_train_',
+                                         dir=ROOT) as log_dir:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = train(model, loader, optimizer, TAB_ITERATIONS,
+                           checkpoints=2, log_dir=log_dir,
+                           val_set=test_set if validated else None,
+                           estimator=estimator, evaluator=evaluator,
+                           writer=Writer())
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+        rates[validated] = result['step'] / elapsed
+        losses = result['losses'][tools.KEY_LOSS_TOTAL]
+        log(f'TabCNN recipe, {result["step"]} Adadelta steps '
+            f'{"with" if validated else "without"} validation: '
+            f'{elapsed:.3f} s, {rates[validated]:.3f} steps/s ({card}); '
+            f'loss {losses[0]:.6g} -> {losses[-1]:.6g}')
+        require(all(np.isfinite(losses)), 'a TabCNN loss is not finite')
+        require(result['step'] == TAB_ITERATIONS * len(loader),
+                'the TabCNN run took another number of steps')
+    launches = read_launches()
+    log(f'launches over the recipe (features of every track, training, '
+        f'validation): {launches}')
+    for step, values in sorted(scores.items()):
+        log(f'  validation at {step}: ' + ', '.join(
+            f'{k} {v:.6g}' for k, v in sorted(values.items())))
+    require(sorted(scores) == [TAB_ITERATIONS // 2, TAB_ITERATIONS],
+            f'train() validated at {sorted(scores)}')
+    tracks = len(train_set.tracks) + len(test_set.tracks)
+    require(launches['cqt_mag'] == tracks and
+            launches['cqt_mag_ffma'] == tracks,
+            'the recipe features did not run kernel C once a track on its '
+            'FFMA route')
+    require(launches['cqt_mag_grouped'] == 0, 'kernel D ran in the recipe')
+    require(launches['lstm_scan'] == launches['lstm_scan_residuals'] == 0,
+            'an LSTM kernel ran in TabCNN')
+
+    step = make_train_step(model, torch.optim.Adadelta(model.parameters(),
+                                                       lr=1.0))
+    device_batch = _place_batch(next(iter(loader)), torch.device('cuda'))
+    step(device_batch, step_generator(0, 0, 'cuda'))
+
+    return launches['cqt_mag_ffma'], rates, (
+        f'float32 TabCNN training step of {TRAIN_BATCH} x {TAB_FRAMES} '
+        f'frames', lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+        ('implicit_gemm',))
+
+
+def check_carried_lstm(card):
+    """Phase 25a: kernel B with a carry at the streaming shape (one row,
+    T = 1, H = 512: O&F-online at complexity 3) and at the training shape
+    (8 x 625, H = 256), float32 and bf16: against its carried plain
+    version, the whole sequence cut into chunks that thread the carry bit
+    for bit equal to one launch, and timed in turns with the launch
+    without a carry and the carried launch from a zero carry (the same
+    arithmetic on the same data as the launch without one)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+
+    result = {}
+    with tools.exact_fp32():
+        for label, (batch, frames, hidden) in (('t1', (1, 1, 512)),
+                                               ('train', (TRAIN_BATCH,
+                                                          TRAIN_FRAMES,
+                                                          HIDDEN))):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split('.')[-1]
+                g = torch.Generator().manual_seed(25)
+                xw = (torch.randn(batch, frames, 4 * hidden, generator=g) *
+                      0.5).to('cuda', dtype)
+                wh = torch.nn.init.orthogonal_(
+                    torch.empty(hidden, 4 * hidden), generator=g).to('cuda',
+                                                                     dtype)
+                carry = (torch.randn(batch, hidden, generator=g).cuda(),
+                         (torch.rand(batch, hidden, generator=g) * 2 - 1)
+                         .cuda())
+                got, (c, h) = lstm_scan(xw, wh, initial_carry=carry,
+                                        return_carry=True)
+                ref, (ref_c, ref_h) = lstm_scan_plain(
+                    xw, wh, initial_carry=carry, return_carry=True)
+                err = max(float((got.float() - ref.float()).abs().max()),
+                          float((h - ref_h).abs().max()))
+                require(err <= LSTM_TOL[name], f'carried B ({label}, {name}) '
+                        f'off its plain version by {err}')
+                state, pieces = carry, []
+                for start in range(0, frames, CARRY_CHUNK):
+                    piece, state = lstm_scan(
+                        xw[:, start: start + CARRY_CHUNK].contiguous(), wh,
+                        initial_carry=state, return_carry=True)
+                    pieces.append(piece)
+                require(torch.equal(torch.cat(pieces, 1), got) and
+                        torch.equal(state[0], c) and torch.equal(state[1], h),
+                        f'carried B ({label}, {name}): chunks differ from '
+                        f'one launch')
+                reps = 200 if frames == 1 else 20
+                zeros = tuple(torch.zeros_like(x) for x in carry)
+                runs = {'plain': lambda: lstm_scan(xw, wh),
+                        'carried': lambda: lstm_scan(
+                            xw, wh, initial_carry=carry, return_carry=True),
+                        'zero_carry': lambda: lstm_scan(
+                            xw, wh, initial_carry=zeros, return_carry=True)}
+                times = {}
+                for turn in ('plain', 'carried', 'zero_carry', 'zero_carry',
+                             'carried', 'plain'):
+                    times.setdefault(turn, []).append(time_ms(runs[turn],
+                                                              reps))
+                # xw and W_h read, h written, the carry read and written
+                size = xw.element_size()
+                least, bound_by = bound_ms(
+                    size * (xw.numel() + wh.numel() + batch * frames * hidden)
+                    + 4 * 4 * batch * hidden,
+                    2 * batch * frames * hidden * 4 * hidden,
+                    PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_FP32_FLOPS)
+                entry = {'shape': [batch, frames, hidden],
+                         'carried_ms': float(np.mean(times['carried'])),
+                         'zero_carry_ms': float(np.mean(times['zero_carry'])),
+                         'uncarried_ms': float(np.mean(times['plain'])),
+                         'bound_ms': least, 'bound_by': bound_by,
+                         'max_abs_err': err}
+                result[f'{label}_{name}'] = entry
+                log(f'carried B {label} {name} {tuple(entry["shape"])}: '
+                    f'{entry["carried_ms"]:.4f} ms, from a zero carry '
+                    f'{entry["zero_carry_ms"]:.4f}, without a carry '
+                    f'{entry["uncarried_ms"]:.4f} (in turns {times}), bound '
+                    f'{least:.5f} ({bound_by}), max error {err:.3g}, chunks '
+                    f'of {CARRY_CHUNK} bit for bit ({card})')
+
+    return result
+
+
+class FrameTimer:
+    """An estimator stand-in that records when each frame's predictions
+    reach the host, and the raw maps it is given."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def process_track(self, predictions, track_id=None):
+        self.stamps.append(time.perf_counter())
+        return {}
+
+    def reset_state(self):
+        pass
+
+
+def carried_frames(model, frames, device):
+    """The online model fed one (C, F, 1) frame a forward with its carries
+    threaded: the raw logits (T, O) and the finalized maps (O, T) of each
+    key, on the host."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+
+    model = model.to(device).eval()
+    carries = model.init_carries(1, device)
+    logits, maps = {}, {}
+    with torch.no_grad():
+        for frame in frames:
+            feats = model.pre_proc({tools.KEY_FEATS: torch.as_tensor(
+                frame[None]).to(device)})[tools.KEY_FEATS]
+            raw, carries = model(feats, carries=carries)
+            final = model.post_proc({tools.KEY_OUTPUT: raw})
+            for key, value in raw.items():
+                logits.setdefault(key, []).append(value[0].float().cpu())
+                maps.setdefault(key, []).append(final[key][0].float().cpu())
+
+    return ({key: torch.cat(v).numpy() for key, v in logits.items()},
+            {key: torch.cat(v, -1).numpy() for key, v in maps.items()})
+
+
+def stream_online(card, batch):
+    """Phase 25: OnsetsFramesOnline at complexity 3 (float32, random
+    weights) on MelSpec at 16 kHz, through ``run_online_stateful`` over a
+    10 s track, one frame a step: kernel B from the carry twice a frame;
+    median and p99 ms a frame (from a frame's dispatch to its predictions
+    on the host) against the 32 ms hop; the card's logits against the
+    CPU's within ``LOGIT_TOL``; an ``AudioStream`` over the track's audio
+    feeding the same steps gives the maps ``run_online_stateful`` gives on
+    the stream's frames; then the online model's whole-sequence training
+    step (kernels E and F twice a step). Returns B's carried launches,
+    the timings and profiler entries for 10 streamed frames and for the
+    training step."""
+
+    import copy
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import AudioStream, MelSpec
+    from amt_tools_tpu_torch.inference import run_online_stateful
+    from amt_tools_tpu_torch.models import OnsetsFramesOnline
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator)
+
+    profile = tools.PianoProfile()
+    mel = MelSpec(n_mels=N_MELS)
+    model = OnsetsFramesOnline(dim_in=N_MELS, profile=profile,
+                               model_complexity=3,
+                               generator=torch.Generator().manual_seed(25))
+    audio = render_clips(profile, 1, STREAM_SECONDS)[0]
+    feats = mel.process_audio(audio)
+    track = {tools.KEY_FEATS: feats, tools.KEY_TIMES: mel.get_times(audio),
+             tools.KEY_TRACK: 'stream'}
+    frames = feats.shape[-1]
+
+    with tools.exact_fp32():
+        run_online_stateful(dict(track), model)  # warm-up
+        timer = FrameTimer()
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        predictions = run_online_stateful(dict(track), model, timer)
+        elapsed = time.perf_counter() - start
+        launches = read_launches()
+        per_frame = np.diff([start] + timer.stamps) * 1e3
+        median, p99 = np.percentile(per_frame, [50, 99])
+        log(f'run_online_stateful, O&F online complexity 3 float32, '
+            f'{frames} frames of {STREAM_SECONDS:.0f} s: {elapsed:.3f} s, '
+            f'median {median:.3f} ms a frame, p99 {p99:.3f}, max '
+            f'{per_frame.max():.3f} against the {1e3 * HOP / SAMPLE_RATE:.0f} '
+            f'ms hop ({card}); launches {launches}')
+        require(launches['lstm_scan'] == 2 * frames and
+                launches['lstm_scan_carried'] == 2 * frames,
+                'streaming did not run kernel B from the carry twice a frame')
+        require(launches['lstm_scan_residuals'] == launches['lstm_bptt'] == 0,
+                'kernel E or F ran while streaming')
+        require(predictions[tools.KEY_MULTIPITCH].shape == (profile.
+                                                             get_range_len(),
+                                                             frames),
+                'run_online_stateful shape')
+
+        columns = [feats[..., t: t + 1] for t in range(frames)]
+        card_logits, card_maps = carried_frames(model, columns, 'cuda')
+        cpu_logits, _ = carried_frames(copy.deepcopy(model), columns, 'cpu')
+        err = max(float(np.abs(card_logits[k] - cpu_logits[k]).max())
+                  for k in cpu_logits)
+        log(f'streaming logits, card against CPU over {frames} frames: max '
+            f'{err:.3g} (tolerance {LOGIT_TOL})')
+        require(err <= LOGIT_TOL, 'the streaming logits on the card are off '
+                                  'the CPU\'s')
+        for key in (tools.KEY_MULTIPITCH, tools.KEY_ONSETS):
+            require(np.array_equal(card_maps[key], predictions[key]),
+                    f'run_online_stateful\'s {key} differs from the same '
+                    f'steps run frame by frame')
+
+        stream = AudioStream(mel, audio=audio)
+        stream.start_streaming()
+        stream_frames = []
+        while not stream.query_finished():
+            stream_frames.append(stream.extract_frame_features())
+        stream.stop_streaming()
+        require(len(stream_frames) == frames,
+                f'the stream gave {len(stream_frames)} frames, the track '
+                f'{frames}')
+        _, fed = carried_frames(model, stream_frames, 'cuda')
+        stacked = run_online_stateful(
+            {tools.KEY_FEATS: np.concatenate(stream_frames, -1),
+             tools.KEY_TIMES: track[tools.KEY_TIMES]}, model)
+        for key in (tools.KEY_MULTIPITCH, tools.KEY_ONSETS):
+            require(np.array_equal(fed[key], stacked[key]),
+                    f'the stream fed frame by frame gave other {key} maps '
+                    f'than run_online_stateful on its frames')
+        log(f'AudioStream: {len(stream_frames)} frames fed one a step, maps '
+            f'equal to run_online_stateful on the stacked frames')
+
+    # The online model's whole-sequence training step: E and F twice a step
+    trained = OnsetsFramesOnline(dim_in=N_MELS, profile=profile,
+                                 model_complexity=3,
+                                 generator=torch.Generator().manual_seed(26))
+    train_run(trained, FixedLoader([batch]), 3,
+              f'3 float32 steps of O&F online (unidirectional LMs) on one '
+              f'batch ({card})', directions=2)
+    profiled = copy.deepcopy(trained).cuda()
+    step = make_train_step(profiled, torch.optim.Adam(profiled.parameters(),
+                                                      lr=LEARNING_RATE))
+    device_batch = _place_batch(batch, torch.device('cuda'))
+    step(device_batch, step_generator(0, 0, 'cuda'))
+
+    ten = {tools.KEY_FEATS: feats[..., :10],
+           tools.KEY_TIMES: track[tools.KEY_TIMES][:10]}
+    return launches['lstm_scan_carried'], {
+        'frames': frames, 'median_ms': float(median), 'p99_ms': float(p99),
+        'max_logit_err': err}, (
+        '10 streamed frames of O&F online',
+        lambda: run_online_stateful(dict(ten), model),
+        ('lstm_scan_kernel',)), (
+        f'float32 O&F online training step of {TRAIN_BATCH} x '
+        f'{TRAIN_FRAMES} frames',
+        lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+        ('lstm_scan_kernel', 'lstm_bptt_kernel'))
+
+
+
 def main():
     import torch
 
@@ -2871,8 +3439,30 @@ def main():
     cqt_grouped['launches_validation'] = validate_guitar(card)
     torch.cuda.empty_cache()
     train_with_validation(card)
+    torch.cuda.empty_cache()
 
-    profile_batches([piano_batch, int8_batch, guitar_batch, train_batch])
+    velocity_launches, velocity_rate, velocity_batch, velocity_step = \
+        train_velocity(card)
+    for entry in (residuals, bptt):
+        entry['launches_velocity_per_step'] = velocity_launches[entry['name']]
+    torch.cuda.empty_cache()
+    remat = remat_turns(velocity_batch, card)
+    torch.cuda.empty_cache()
+    cqt_full['launches_recipe_training'], tab_rates, tab_step = \
+        train_tabcnn(card)
+    torch.cuda.empty_cache()
+    lstm['carried'] = check_carried_lstm(card)
+    lstm['launches_carried'], streaming, stream_frames, online_step = \
+        stream_online(card, velocity_batch)
+    torch.cuda.empty_cache()
+    log(json.dumps({'velocity_steps_per_s': velocity_rate, 'remat': remat,
+                    'tabcnn_steps_per_s': {
+                        'with_validation': tab_rates[True],
+                        'without_validation': tab_rates[False]},
+                    'streaming': streaming}))
+
+    profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
+                     velocity_step, online_step, tab_step, stream_frames])
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,

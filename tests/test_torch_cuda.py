@@ -33,6 +33,12 @@ Tolerances:
 - a LSTM width the kernels do not take (H = 24, 40), run zero-padded to a
   multiple of 16: 1e-4 on outputs, as kernel B float32, and 1e-4 of the
   largest value on gradients, as the Function's (card against CPU);
+- kernel B from a carry: as kernel B on the outputs and the returned h,
+  the returned c within the same bound times its largest value; chunks
+  that thread the carry bit for bit equal to one launch;
+- a training step of the velocity model or TabCNN, card against CPU:
+  losses within 1e-4 relative, the gradients of the layers after the conv
+  stacks within 1e-3 of their module's largest;
 - BPTT (kernel F): da and dW_h = h_prev^T da within 1e-4 (float32) or
   5e-4 (bf16) of their largest value, and 1e-5 or 1e-4 of their mean
   magnitude on the mean, on residuals that both versions share. In bf16 a
@@ -51,6 +57,7 @@ import torch
 from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
+from amt_tools_tpu_torch.models import run_on_batch as models_run_on_batch
 from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
 from amt_tools_tpu_torch.ops.lstm import FastLSTM
 from amt_tools_tpu_torch.ops import (cuda_build, decode, lstm_kernel, qconv,
@@ -830,3 +837,229 @@ def test_bucketed_validate_on_the_card_matches_the_cpu(cuda):
         for key, value in card[group].items():
             # the same scores, averaged over the tracks in another order
             assert abs(batched[group][key] - value) <= 1e-12, (group, key)
+
+
+# Kernel B from a carry (streaming): one row and a few, T = 1 (a frame a
+# launch) and longer, H resident (16, 48, 256)
+CARRIED_BATCHES = [1, 8]
+CARRIED_FRAMES = [1, 37, 300]
+CARRIED_HIDDEN = [16, 48, 256]
+CHUNKS = (1, 7, 64)  # the chunk lengths, in turn
+
+
+def _carried_inputs(batch, frames, hidden, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(batch, frames, 4 * hidden, generator=g) * 0.5
+    w_h = torch.nn.init.orthogonal_(torch.empty(hidden, 4 * hidden),
+                                    generator=g)
+    carry = (torch.randn(batch, hidden, generator=g),
+             torch.rand(batch, hidden, generator=g) * 2 - 1)
+    return (xw.to(device, dtype), w_h.to(device, dtype),
+            tuple(x.to(device) for x in carry))
+
+
+def _chunked(xw, w_h, reverse, carry):
+    """The sequence in chunks of CHUNKS' lengths in turn, each launch given
+    the previous one's carry; returns (out, final carry)."""
+
+    frames = xw.shape[1]
+    bounds, start, k = [], 0, 0
+    while start < frames:
+        stop = min(frames, start + CHUNKS[k % len(CHUNKS)])
+        bounds.append((start, stop))
+        start, k = stop, k + 1
+    pieces = {}
+    for start, stop in (reversed(bounds) if reverse else bounds):
+        pieces[start], carry = lstm_scan(
+            xw[:, start:stop].contiguous(), w_h, reverse=reverse,
+            initial_carry=carry, return_carry=True)
+    return torch.cat([pieces[s] for s, _ in bounds], dim=1), carry
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('batch', CARRIED_BATCHES)
+@pytest.mark.parametrize('frames', CARRIED_FRAMES)
+@pytest.mark.parametrize('hidden', CARRIED_HIDDEN)
+def test_carried_lstm_kernel_matches_plain(cuda, dtype, reverse, batch,
+                                           frames, hidden):
+    """Carried B against its carried plain version (B's tolerances, on the
+    outputs and the final carry); chunks that thread the carry equal the
+    whole launch bit for bit, outputs and carry; the returned h is the last
+    output; a zero carry equals the launch without one bit for bit."""
+
+    xw, w_h, carry = _carried_inputs(batch, frames, hidden, dtype, cuda,
+                                     batch * frames + hidden)
+
+    launches, carried = lstm_scan.launches, lstm_scan.carried_launches
+    got, (c, h) = lstm_scan(xw, w_h, reverse=reverse, initial_carry=carry,
+                            return_carry=True)
+    torch.cuda.synchronize()
+    assert lstm_scan.launches == launches + 1
+    assert lstm_scan.carried_launches == carried + 1
+    assert c.dtype == h.dtype == torch.float32
+
+    ref, (ref_c, ref_h) = lstm_scan_plain(xw, w_h, reverse=reverse,
+                                          initial_carry=carry,
+                                          return_carry=True)
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    for mine, theirs in ((got, ref), (h, ref_h)):
+        diff = (mine.float() - theirs.float()).abs()
+        assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+    # c is unbounded: held relative to its largest value
+    assert ((c - ref_c).abs().max().item() <=
+            atol * max(1.0, ref_c.abs().max().item()))
+    assert torch.equal(h.to(dtype), got[:, 0 if reverse else -1])
+
+    out, (cc, ch) = _chunked(xw, w_h, reverse, carry)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got) and torch.equal(cc, c) and torch.equal(ch, h)
+
+    zeros = tuple(torch.zeros_like(x) for x in carry)
+    assert torch.equal(lstm_scan(xw, w_h, reverse=reverse,
+                                 initial_carry=zeros),
+                       lstm_scan(xw, w_h, reverse=reverse))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_carried_lstm_with_lengths(cuda, dtype, reverse):
+    """A carry together with lengths: against the carried masked plain
+    version; a row of length 0 returns its initial carry (h rounded as the
+    next step reads it), and the launch is counted both ways."""
+
+    xw, w_h, carry = _carried_inputs(6, 40, 256, dtype, cuda, 5)
+    lengths = torch.tensor([40, 0, 1, 17, 39, 40], device=cuda)
+
+    masked, carried = lstm_scan.masked_launches, lstm_scan.carried_launches
+    got, (c, h) = lstm_scan(xw, w_h, reverse=reverse, lengths=lengths,
+                            initial_carry=carry, return_carry=True)
+    torch.cuda.synchronize()
+    assert lstm_scan.masked_launches == masked + 1
+    assert lstm_scan.carried_launches == carried + 1
+
+    ref, (ref_c, ref_h) = lstm_scan_plain(xw, w_h, reverse=reverse,
+                                          lengths=lengths,
+                                          initial_carry=carry,
+                                          return_carry=True)
+    atol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype]
+    assert (got.float() - ref.float()).abs().max().item() <= atol
+    assert (h - ref_h).abs().max().item() <= atol
+    assert torch.equal(c[1], carry[0][1])
+    assert torch.equal(h[1], carry[1][1].to(dtype).float())
+
+
+def test_carried_fast_lstm_at_a_padded_width(cuda):
+    """H = 24 (run zero-padded to 32 units) from a carry, frame by frame:
+    the layer on the card against the same layer on the CPU, 1e-4 as kernel
+    B float32, on the outputs and the carry; a carry while autograd records
+    raises (kernels E and F take none)."""
+
+    g = torch.Generator().manual_seed(24)
+    layer = FastLSTM(40, 24, generator=g)
+    x = torch.randn(2, 12, 40, generator=g)
+    carry = (torch.randn(2, 24, generator=g), torch.randn(2, 24, generator=g))
+
+    def frames(module, device):
+        state, outs = tuple(t.to(device) for t in carry), []
+        for t in range(x.shape[1]):
+            state, out = module(x[:, t: t + 1].to(device),
+                                initial_carry=state, return_carry=True)
+            outs.append(out)
+        return torch.cat(outs, dim=1), state
+
+    with torch.no_grad():
+        want, (want_c, want_h) = frames(layer, 'cpu')
+        carried = lstm_scan.carried_launches
+        got, (c, h) = frames(copy.deepcopy(layer).to(cuda), cuda)
+    torch.cuda.synchronize()
+    assert lstm_scan.carried_launches == carried + x.shape[1]
+    assert c.shape == (2, 24)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(h.cpu(), want_h, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c.cpu(), want_c, rtol=0, atol=1e-4)
+
+    with pytest.raises(NotImplementedError):
+        layer.to(cuda)(x.to(cuda), initial_carry=tuple(t.to(cuda)
+                                                      for t in carry))
+
+
+def _train_step(model, batch, device):
+    """One train-mode ``run_on_batch`` on ``device`` (dropout off): the
+    losses and every gradient, on the host."""
+
+    model = model.to(device)
+    model.zero_grad()
+    output = models_run_on_batch(model, {k: v.to(device)
+                                         for k, v in batch.items()},
+                                 train=True)
+    loss = output[tools.KEY_LOSS]
+    loss[tools.KEY_LOSS_TOTAL].backward()
+    return ({k: v.item() for k, v in loss.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+def _held(card, cpu, names):
+    """Each gradient of ``names`` within 1e-3 of the largest of its module
+    (conv blocks ahead of a ReLU or max-pool decision that the two devices
+    take differently are left out: chip_smoke.py phase 12b counts those)."""
+
+    for name in names:
+        module = name.rsplit('.', 1)[0]
+        scale = max(g.abs().max().item() for k, g in cpu.items()
+                    if k.rsplit('.', 1)[0] == module)
+        assert (card[name] - cpu[name]).abs().max().item() <= 1e-3 * scale, \
+            name
+
+
+def test_velocity_train_step_on_the_card_matches_the_cpu(cuda):
+    """A narrow O&F2 with the velocity head: one float32 train step on the
+    card (kernels E and F eight times) against the CPU: losses within 1e-4
+    relative, the velocity BiLSTM's and head's gradients within 1e-3 of
+    their module's largest."""
+
+    g = torch.Generator().manual_seed(8)
+    model = OnsetsFrames2(dim_in=32, profile=tools.PianoProfile(),
+                          model_complexity=2, estimate_velocity=True,
+                          dropout=False, generator=g)
+    multi_pitch = (torch.rand(2, 88, 40, generator=g) < 0.1).float()
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 32, 40, generator=g),
+             tools.KEY_MULTIPITCH: multi_pitch,
+             tools.KEY_VELOCITY: multi_pitch * torch.rand(2, 88, 40,
+                                                          generator=g)}
+
+    cpu_loss, cpu_grads = _train_step(copy.deepcopy(model), batch, 'cpu')
+    counts = (lstm_scan_residuals.launches, lstm_bptt.launches)
+    card_loss, card_grads = _train_step(model, batch, cuda)
+    torch.cuda.synchronize()
+    assert (lstm_scan_residuals.launches, lstm_bptt.launches) == tuple(
+        c + 8 for c in counts)
+
+    assert tools.KEY_LOSS_VELOCITY in card_loss
+    for key, value in cpu_loss.items():
+        assert abs(card_loss[key] - value) <= 1e-4 * abs(value), key
+    _held(card_grads, cpu_grads, [n for n in cpu_grads
+                                  if n.startswith(('velocity_lm',
+                                                   'velocity_out'))])
+
+
+def test_tabcnn_train_step_on_the_card_matches_the_cpu(cuda):
+    """Windowed TabCNN: one float32 train step on the card against the CPU:
+    the loss within 1e-4 relative, the dense layers' gradients within 1e-3
+    of their module's largest."""
+
+    g = torch.Generator().manual_seed(9)
+    model = TabCNN(dim_in=48, profile=tools.GuitarProfile(), dropout=False,
+                   generator=g)
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 48, 30, generator=g),
+             tools.KEY_TABLATURE: torch.randint(-1, 20, (2, 6, 30),
+                                                generator=g)}
+
+    cpu_loss, cpu_grads = _train_step(copy.deepcopy(model), batch, 'cpu')
+    card_loss, card_grads = _train_step(model, batch, cuda)
+    for key, value in cpu_loss.items():
+        assert abs(card_loss[key] - value) <= 1e-4 * abs(value), key
+    _held(card_grads, cpu_grads, [n for n in cpu_grads
+                                  if n.startswith(('dense1',
+                                                   'tablature_out'))])

@@ -128,9 +128,13 @@ def test_state_dict_covers_every_flax_leaf():
 
 
 def test_training_forward_is_refused():
-    """O&F trains now (tests/test_torch_train_model.py); TabCNN has no loss
-    yet, so its forward stays inference only."""
+    """Every model trains now (TabCNN: tests/test_torch_tabcnn_train.py);
+    a train-mode forward with dropout on is refused without an explicit
+    generator to draw the noise from, and runs with one."""
 
     model = TabCNN(dim_in=192, profile=tools.GuitarProfile(), fullseq=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='explicit torch.Generator'):
         model(torch.zeros(1, 1, 192, 12))
+    out = model(torch.zeros(1, 1, 192, 12),
+                generator=torch.Generator().manual_seed(0))
+    assert out[tools.KEY_TABLATURE].shape == (1, 4, 6 * 21)

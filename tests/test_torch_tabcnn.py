@@ -219,6 +219,13 @@ def test_state_dict_covers_every_flax_leaf():
 
 
 def test_training_forward_is_refused():
+    """TabCNN trains now (tests/test_torch_tabcnn_train.py): a train-mode
+    forward with dropout on is refused without an explicit generator, and
+    runs with one."""
+
     model = TabCNN(dim_in=40, profile=tools.GuitarProfile(), fullseq=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='explicit torch.Generator'):
         model(torch.zeros(1, 1, 40, 12))
+    out = model(torch.zeros(1, 1, 40, 12),
+                generator=torch.Generator().manual_seed(0))
+    assert out[tools.KEY_TABLATURE].shape == (1, 4, 6 * 21)
