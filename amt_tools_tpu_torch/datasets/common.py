@@ -1,19 +1,28 @@
 """Transcription dataset base class and the seeded batch loader (host numpy).
 
 Counterpart of ``amt_tools_tpu/datasets/common.py`` (``:22-514``):
-:class:`TranscriptionDataset` with its RAM cache, random fixed-length crops
-(``get_item(index, rng)``), ``get_track_data`` and ``get_track_frames``
-(the frame count that bucketed evaluation groups tracks by); the native
+:class:`TranscriptionDataset` with its default ``base_dir`` (a download on a
+missing one), ``reset_data``, the RAM cache (``store_data``, preloaded by
+``preload_workers`` threads), the npz caches of ground truth and features
+(``save_data`` under ``save_loc``: ``get_gt_dir`` and ``get_feats_dir``,
+the features keyed by the data module's ``features_name()``; the files and
+paths are the JAX package's), random fixed-length crops
+(``get_item(index, rng)``) that slice notes, stacked notes and pitch lists
+with the frames, ``get_track_data`` and ``get_track_frames`` (the frame
+count that bucketed evaluation groups tracks by); the native
 :class:`DataLoader`, whose worker threads draw each item's crop seed in the
 main thread; and :func:`collate`. The loader is kept, not swapped for
 ``torch.utils.data.DataLoader``, so a seed gives the same batches in both
 packages. Features are computed by the data module's ``process_audio`` on
-``device`` (the card unless the caller names one). The npz cache of
-features and ground truth (``save_data``) needs ``tools/io.py``, which is
-not ported yet.
+``device`` (the card unless the caller names one) and come back as host
+numpy before they reach a cache; with ``num_workers`` the loader's threads
+are the first to reach a kernel, and an exception in one reaches the
+caller.
 """
 
 import os
+import shutil
+import warnings
 from abc import abstractmethod
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -31,13 +40,17 @@ class TranscriptionDataset(object):
 
     def __init__(self, base_dir, splits, hop_length, sample_rate, data_proc,
                  profile, num_frames, audio_norm, split_notes, reset_data,
-                 store_data, save_data, save_loc, seed, device=None):
-        if save_data:
-            raise NotImplementedError('the npz feature/ground-truth cache '
-                                      'needs tools/io.py, not ported yet')
-
+                 store_data, save_data, save_loc, seed, preload_workers=0,
+                 device=None):
+        if base_dir is None:
+            base_dir = os.path.join(tools.DEFAULT_DATASETS_DIR,
+                                    self.dataset_name())
         self.base_dir = base_dir
+
         if not os.path.isdir(self.base_dir):
+            warnings.warn(f"Could not find dataset at specified path "
+                          f"'{self.base_dir}'. Attempting to download...",
+                          category=RuntimeWarning)
             self.download(self.base_dir)
 
         if splits is None:
@@ -68,10 +81,19 @@ class TranscriptionDataset(object):
 
         self.audio_norm = audio_norm
         self.split_notes = split_notes
-        self.reset_data = reset_data
+
         self.store_data = store_data
         self.save_data = save_data
+        if save_loc is None:
+            save_loc = tools.DEFAULT_FEATURES_GT_DIR
         self.save_loc = save_loc
+
+        self.reset_data = reset_data
+        for directory in (self.get_gt_dir(), self.get_feats_dir()):
+            if os.path.exists(directory) and self.reset_data:
+                shutil.rmtree(directory)
+            if self.save_data:
+                os.makedirs(directory, exist_ok=True)
 
         self.rng = np.random.RandomState(seed)
 
@@ -80,8 +102,17 @@ class TranscriptionDataset(object):
             self.tracks += self.get_tracks(split)
 
         if self.store_data:
-            self.data = {track: self._freeze_cached(self.load(track))
-                         for track in self.tracks}
+            self.data = {}
+            if preload_workers and len(self.tracks) > 1:
+                # Reading audio and parsing annotations is independent per
+                # track (host work)
+                with ThreadPoolExecutor(max_workers=preload_workers) as pool:
+                    for track, data in zip(self.tracks,
+                                           pool.map(self.load, self.tracks)):
+                        self.data[track] = self._freeze_cached(data)
+            else:
+                for track in self.tracks:
+                    self.data[track] = self._freeze_cached(self.load(track))
 
     @staticmethod
     def _freeze_cached(data):
@@ -118,13 +149,40 @@ class TranscriptionDataset(object):
         return data
 
     def calculate_feats(self, data):
-        """Features (and frame times) of a track's audio."""
+        """Features (and frame times) of a track's audio: read from the
+        features npz with ``save_data`` when it exists, else computed on
+        ``device`` and, with ``save_data``, written to it."""
 
-        data = dict(data)
+        if isinstance(data, dict):
+            data = dict(data)  # a new dict; entries shared (keys only added)
+        else:
+            data = {tools.KEY_TRACK: data}
+
         track = data[tools.KEY_TRACK]
 
-        feats = self.data_proc.process_audio(data[tools.KEY_AUDIO],
-                                             device=self.device)
+        feats_path = self.get_feats_dir(track)
+
+        if self.save_data and os.path.exists(feats_path):
+            feats_dict = tools.load_dict_npz(feats_path)
+            feats = feats_dict[tools.KEY_FEATS]
+            fs = feats_dict[tools.KEY_FS].item()
+            hop_length = feats_dict[tools.KEY_HOP].item()
+        else:
+            feats = self.data_proc.process_audio(data[tools.KEY_AUDIO],
+                                                 device=self.device)
+
+            fs = self.data_proc.get_sample_rate()
+            hop_length = self.data_proc.get_hop_length()
+
+            if self.save_data:
+                os.makedirs(os.path.dirname(feats_path), exist_ok=True)
+                tools.save_dict_npz(feats_path, {tools.KEY_FS: fs,
+                                                 tools.KEY_HOP: hop_length,
+                                                 tools.KEY_FEATS: feats})
+
+        if self.sample_rate != fs or self.hop_length != hop_length:
+            warnings.warn("Loaded features' sampling rate or hop length "
+                          'differs from expected.', category=RuntimeWarning)
 
         if tools.query_dict(data, tools.KEY_TIMES):
             times = data[tools.KEY_TIMES]
@@ -179,16 +237,33 @@ class TranscriptionDataset(object):
         data[tools.KEY_AUDIO] = np.array(
             data[tools.KEY_AUDIO][..., sample_start: sample_end])
 
-        if tools.query_dict(data, tools.KEY_PITCHLIST) or isinstance(
-                data.get(tools.KEY_NOTES), dict):
-            raise NotImplementedError('pitch lists and stacked notes come '
-                                      'with the guitar and real-audio '
-                                      'datasets, not ported yet')
+        sec_start = sample_start / self.sample_rate
+        sec_stop = sample_end / self.sample_rate
 
         if tools.query_dict(data, tools.KEY_NOTES):
-            data[tools.KEY_NOTES] = tools.slice_batched_notes(
-                data[tools.KEY_NOTES], sample_start / self.sample_rate,
-                sample_end / self.sample_rate)
+            if isinstance(data[tools.KEY_NOTES], dict):
+                # Stacked notes: slice each slice's batched representation
+                temp = tools.apply_func_stacked_representation(
+                    data[tools.KEY_NOTES],
+                    lambda v: tools.notes_to_batched_notes(*v))
+                temp = tools.apply_func_stacked_representation(
+                    temp, tools.slice_batched_notes,
+                    start_time=sec_start, stop_time=sec_stop)
+                data[tools.KEY_NOTES] = tools.apply_func_stacked_representation(
+                    temp, tools.batched_notes_to_notes)
+            else:
+                data[tools.KEY_NOTES] = tools.slice_batched_notes(
+                    data[tools.KEY_NOTES], sec_start, sec_stop)
+
+        if tools.query_dict(data, tools.KEY_PITCHLIST):
+            if isinstance(data[tools.KEY_PITCHLIST], dict):
+                data[tools.KEY_PITCHLIST] = tools.apply_func_stacked_representation(
+                    data[tools.KEY_PITCHLIST],
+                    lambda v: tools.slice_pitch_list(*v, start_time=sec_start,
+                                                     stop_time=sec_stop))
+            else:
+                data[tools.KEY_PITCHLIST] = tools.slice_pitch_list(
+                    *data[tools.KEY_PITCHLIST], sec_start, sec_stop)
 
         skipped_keys = [tools.KEY_AUDIO, tools.KEY_FS, tools.KEY_NOTES,
                         tools.KEY_PITCHLIST]
@@ -227,9 +302,58 @@ class TranscriptionDataset(object):
 
     @abstractmethod
     def load(self, track):
-        """Ground truth for a track (here: just its name)."""
+        """Ground truth for a track: the ground-truth npz with
+        ``save_data`` when it exists (the children fill what is missing),
+        and the track's name."""
 
-        return {tools.KEY_TRACK: track}
+        data = None
+
+        gt_path = self.get_gt_dir(track)
+
+        if self.save_data and os.path.exists(gt_path):
+            data = tools.load_dict_npz(gt_path)
+
+            if self.sample_rate != data[tools.KEY_FS].item():
+                warnings.warn("Loaded track's sampling rate differs from "
+                              'expected.', category=RuntimeWarning)
+
+        if data is None:
+            data = {}
+        else:
+            if tools.query_dict(data, tools.KEY_NOTES) and \
+                    data[tools.KEY_NOTES].dtype == object:
+                data[tools.KEY_NOTES] = tools.unpack_stacked_representation(
+                    data[tools.KEY_NOTES])
+            if tools.query_dict(data, tools.KEY_PITCHLIST) and \
+                    data[tools.KEY_PITCHLIST].dtype == object:
+                data[tools.KEY_PITCHLIST] = tools.unpack_stacked_representation(
+                    data[tools.KEY_PITCHLIST])
+
+        data[tools.KEY_TRACK] = track
+
+        return data
+
+    def get_gt_dir(self, track=None):
+        """Ground-truth cache directory (or one track's cache path)."""
+
+        path = os.path.join(self.save_loc, self.dataset_name(),
+                            tools.GROUND_TRUTH_DIR)
+
+        if track is not None:
+            path = os.path.join(path, f'{track}.{tools.NPZ_EXT}')
+
+        return path
+
+    def get_feats_dir(self, track=None):
+        """Feature cache directory (keyed by the feature module's name)."""
+
+        path = os.path.join(self.save_loc, self.dataset_name(),
+                            self.data_proc.features_name())
+
+        if track is not None:
+            path = os.path.join(path, f'{track}.{tools.NPZ_EXT}')
+
+        return path
 
     @staticmethod
     @abstractmethod
@@ -244,8 +368,12 @@ class TranscriptionDataset(object):
 
     @staticmethod
     def download(save_dir):
-        raise NotImplementedError('downloads come with the real-audio '
-                                  'datasets, not ported yet')
+        """Prepare a fresh directory for a download (extended by children)."""
+
+        if os.path.isdir(save_dir):
+            shutil.rmtree(save_dir)
+
+        os.makedirs(save_dir)
 
 
 class DataLoader(object):

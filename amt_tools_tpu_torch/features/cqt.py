@@ -15,7 +15,7 @@ dB scaling is an identity and has no counterpart here.
 import numpy as np
 import torch
 
-from ..ops import spectral
+from ..ops import cuda_build, spectral
 from ..ops.cqt_kernel import cqt_mag, cqt_mag_grouped
 from ..tools.instrument import midi_to_hz, note_to_midi
 from .common import FeatureModule
@@ -104,11 +104,9 @@ class VQT(FeatureModule):
         self._device_banks = {}
 
     def _bank(self, device):
-        if device not in self._device_banks:
-            host = self._kernel if self._groups is None else self._bank_stack
-            self._device_banks[device] = torch.from_numpy(host).to(device)
-
-        return self._device_banks[device]
+        host = self._kernel if self._groups is None else self._bank_stack
+        return cuda_build.cached(self._device_banks, device,
+                                 lambda: torch.from_numpy(host).to(device))
 
     def process(self, audio):
         """(..., N) float32 audio -> (..., 1, n_bins, T) [0, 1] features."""

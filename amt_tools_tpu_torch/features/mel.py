@@ -7,7 +7,7 @@ float32 ``torch.matmul`` (the JAX package leaves it to XLA, ``mel.py:37``).
 
 import torch
 
-from ..ops import spectral
+from ..ops import cuda_build, spectral
 from .stft import STFT
 
 
@@ -30,10 +30,9 @@ class MelSpec(STFT):
         self._device_fbs = {}
 
     def _filterbank(self, device):
-        if device not in self._device_fbs:
-            self._device_fbs[device] = torch.from_numpy(self._mel_fb).to(device)
-
-        return self._device_fbs[device]
+        return cuda_build.cached(
+            self._device_fbs, device,
+            lambda: torch.from_numpy(self._mel_fb).to(device))
 
     def process(self, audio):
         power = self._stft_power(audio)

@@ -8,7 +8,7 @@ framed matmul for CPU audio.
 
 import torch
 
-from ..ops import spectral
+from ..ops import cuda_build, spectral
 from ..ops.stft_kernel import stft_power
 from .common import FeatureModule
 from .waveform import WaveformWrapper
@@ -34,10 +34,9 @@ class STFT(WaveformWrapper):
         self._device_banks = {}
 
     def _bank(self, device):
-        if device not in self._device_banks:
-            self._device_banks[device] = torch.from_numpy(self._dft_bank).to(device)
-
-        return self._device_banks[device]
+        return cuda_build.cached(
+            self._device_banks, device,
+            lambda: torch.from_numpy(self._dft_bank).to(device))
 
     def _stft_power(self, audio):
         """(..., N) float32 audio -> (..., n_fft//2+1, T) power spectrogram."""

@@ -1,14 +1,13 @@
 """Online feature streaming: frame buffers, microphone and audio streams.
 
 Counterpart of ``amt_tools_tpu/features/stream.py``: ``FeatureStream``
-(``:52``), ``MicrophoneStream`` (``:156``) and ``AudioStream`` (``:322``),
-host numpy and threads around the feature module's ``process_audio``, which
-runs on ``feature_device`` (the card unless the caller names one). As in
-JAX, the microphone's ring buffer is guarded by a lock against the capture
-callback's thread, waiting sleeps instead of spinning, and
-``sounddevice``/``pynput`` are optional: a stream that needs one raises at
-construction when it is missing. ``AudioFileStream`` (``:404``) comes with
-``tools.load_normalize_audio``.
+(``:52``), ``MicrophoneStream`` (``:155``), ``AudioStream`` (``:286``) and
+``AudioFileStream`` (``:367``), host numpy and threads around the feature
+module's ``process_audio``, which runs on ``feature_device`` (the card
+unless the caller names one). As in JAX, the microphone's ring buffer is
+guarded by a lock against the capture callback's thread, waiting sleeps
+instead of spinning, and ``sounddevice``/``pynput`` are optional: a stream
+that needs one raises at construction when it is missing.
 """
 
 import threading
@@ -41,6 +40,7 @@ __all__ = [
     'FeatureStream',
     'MicrophoneStream',
     'AudioStream',
+    'AudioFileStream',
 ]
 
 
@@ -373,3 +373,21 @@ class AudioStream(FeatureStream):
             finished = self.current_sample > len(self.audio)
 
         return finished
+
+
+class AudioFileStream(AudioStream):
+    """Mock-real-time streaming over an audio file, read with
+    ``tools.load_normalize_audio`` at the module's sample rate."""
+
+    def __init__(self, module, frame_buffer_size=1, audio_path=None,
+                 audio_norm=-1, real_time=False, playback=False,
+                 suppress_warnings=True, feature_device=None):
+        audio, _ = tools.load_normalize_audio(audio_path,
+                                              fs=module.sample_rate,
+                                              norm=audio_norm)
+
+        self.original_audio = audio
+
+        AudioStream.__init__(self, module, frame_buffer_size, audio,
+                             real_time, playback, suppress_warnings,
+                             feature_device)

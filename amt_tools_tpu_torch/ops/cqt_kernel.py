@@ -185,9 +185,7 @@ def _launch(wrapper, function, exact, audio, bank, num_bins, hop_length,
                                         out.data_ptr(), batch, num_samples,
                                         *args, ROUTES[route], stream)
     cuda_build.check(status, function)
-    wrapper.launches += 1
-    setattr(wrapper, f'{route}_launches',
-            getattr(wrapper, f'{route}_launches') + 1)
+    cuda_build.count(wrapper, 'launches', f'{route}_launches')
 
     return out
 

@@ -6,6 +6,15 @@ hash covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all at
 once. Nothing is compiled or loaded when a module is imported: the first
 kernel launch builds what it needs.
+
+Loader threads compute features, so the first launch of a kernel may come
+from several threads at once. :func:`build` and :func:`library` hold one
+module lock: a kernel is built and loaded once, however many threads reach
+it first, and a build that fails raises in every thread that asks for it.
+Each compiler writes to a temporary name that carries the process and the
+thread, and the finished library is renamed into place. :func:`count`
+increments the wrappers' launch counters under a lock, and :func:`cached`
+fills a device-side cache (banks, twiddles, occupancy answers) once.
 """
 
 import ctypes
@@ -13,10 +22,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ['KERNEL_SOURCES', 'build', 'library', 'check']
+__all__ = ['KERNEL_SOURCES', 'build', 'library', 'check', 'count', 'cached']
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -28,6 +38,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _loaded = {}
+# Builds and loads (re-entrant: library() builds under it)
+_build_lock = threading.RLock()
+# Launch counters and device-side caches
+_count_lock = threading.Lock()
+_cache_lock = threading.Lock()
 
 
 def _nvcc():
@@ -54,6 +69,11 @@ def build(names=KERNEL_SOURCES):
     report). Raises with the compiler's output if any build fails.
     """
 
+    with _build_lock:
+        return _build(names)
+
+
+def _build(names):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     jobs = []
@@ -61,7 +81,8 @@ def build(names=KERNEL_SOURCES):
         target = _library_path(name)
         if target.exists():
             continue
-        partial = target.with_name(f'{target.stem}.{os.getpid()}.partial.so')
+        partial = target.with_name(f'{target.stem}.{os.getpid()}.'
+                                   f'{threading.get_ident()}.partial.so')
         cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(partial),
                str(CSRC_DIR / f'{name}.cu')]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -92,16 +113,43 @@ def library(name, signatures):
     every function returns the ``cudaError_t`` of its launch as an int.
     """
 
-    if name not in _loaded:
-        build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        for function, argtypes in signatures.items():
-            fn = getattr(lib, function)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded[name] = lib
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+
+    with _build_lock:
+        if name not in _loaded:
+            build([name])
+            lib = ctypes.CDLL(str(_library_path(name)))
+            for function, argtypes in signatures.items():
+                fn = getattr(lib, function)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded[name] = lib
 
     return _loaded[name]
+
+
+def count(wrapper, *counters):
+    """Add one to each named launch counter of a kernel's wrapper."""
+
+    with _count_lock:
+        for counter in counters:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def cached(cache, key, make):
+    """``cache[key]``, made by ``make()`` once however many threads ask
+    for it first."""
+
+    value = cache.get(key)
+    if value is None:
+        with _cache_lock:
+            value = cache.get(key)
+            if value is None:
+                value = cache[key] = make()
+
+    return value
 
 
 def check(status, kernel):

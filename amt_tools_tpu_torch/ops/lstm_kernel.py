@@ -240,8 +240,8 @@ def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False):
     resident = resident_rule(hidden, dtype)
     max_rows = _max_rows(geometry, hidden, dtype, resident)
     bf16 = int(dtype == torch.bfloat16)
-    key = (kernel, device, hidden, bf16, residuals)
-    if key not in _active_clusters:
+
+    def query_card():
         signatures = _SCAN_SIGNATURES if kernel == 'scan' else _BPTT_SIGNATURES
         lib = cuda_build.library(library, signatures)
         count = _INT(0)
@@ -253,9 +253,12 @@ def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False):
         if count.value < 1:
             raise RuntimeError(f'the card holds no cluster of the {library} '
                                f'kernel at hidden={hidden}, {dtype}')
-        _active_clusters[key] = count.value
+        return count.value
 
-    return cluster_plan(batch, hidden, dtype, _active_clusters[key], kernel)
+    active = cuda_build.cached(_active_clusters,
+                               (kernel, device, hidden, bf16, residuals),
+                               query_card)
+    return cluster_plan(batch, hidden, dtype, active, kernel)
 
 
 def scan_launch_plan(batch, hidden, dtype, device, residuals=False):
@@ -584,11 +587,9 @@ def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
 
     result = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths,
                           carry=carry)
-    lstm_scan.launches += 1
-    if lengths is not None:
-        lstm_scan.masked_launches += 1
-    if carried:
-        lstm_scan.carried_launches += 1
+    cuda_build.count(lstm_scan, 'launches',
+                     *(('masked_launches',) if lengths is not None else ()),
+                     *(('carried_launches',) if carried else ()))
 
     return result if return_carry or not carried else result[0]
 
@@ -611,7 +612,7 @@ def lstm_scan_residuals(xw, w_h, reverse=False):
         return lstm_scan_residuals_plain(xw, w_h, reverse)
 
     outputs = _launch_scan(xw, w_h, reverse, residuals=True)
-    lstm_scan_residuals.launches += 1
+    cuda_build.count(lstm_scan_residuals, 'launches')
 
     return outputs
 
@@ -688,7 +689,7 @@ def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
                                int(dout.dtype == torch.bfloat16),
                                plan['rows'], int(plan['resident']), stream)
     cuda_build.check(status, 'lstm_bptt')
-    lstm_bptt.launches += 1
+    cuda_build.count(lstm_bptt, 'launches')
 
     return da
 

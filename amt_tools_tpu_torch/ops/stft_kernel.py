@@ -114,11 +114,9 @@ def fft_twiddles(n_fft):
 
 
 def _device_twiddles(n_fft, device):
-    key = (n_fft, device)
-    if key not in _twiddle_cache:
-        _twiddle_cache[key] = torch.from_numpy(fft_twiddles(n_fft)).to(device)
-
-    return _twiddle_cache[key]
+    return cuda_build.cached(
+        _twiddle_cache, (n_fft, device),
+        lambda: torch.from_numpy(fft_twiddles(n_fft)).to(device))
 
 
 def stft_power_plain(audio, bank, n_fft, hop_length, center=True):
@@ -199,9 +197,8 @@ def stft_power(audio, bank, n_fft, hop_length, center=True):
                                         n_fft, hop_length, pad_left, frames,
                                         n_bins, stream)
     cuda_build.check(status, f'stft_power ({route} route)')
-    stft_power.launches += 1
-    if route == 'fft':
-        stft_power.fft_launches += 1
+    cuda_build.count(stft_power, 'launches',
+                     *(('fft_launches',) if route == 'fft' else ()))
 
     return out
 

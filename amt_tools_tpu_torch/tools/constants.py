@@ -1,10 +1,39 @@
-"""Track-dictionary keys, file names and instrument defaults.
+"""Track-dictionary keys, paths, file names and instrument defaults.
 
 The same strings as ``amt_tools_tpu/tools/constants.py``, so batches,
-outputs and losses carry interchangeable keys in both packages.
+outputs and losses carry interchangeable keys in both packages. The default
+directories are the JAX package's too (``:16-49``): both are rooted at the
+repository, so one feature and ground-truth cache serves both packages, and
+``AMT_TOOLS_TPU_GENERATED_DIR`` moves it for both.
 """
 
+import os
+
 __all__ = [
+    'ROOT_DIR',
+    'HOME',
+    'DEFAULT_DATASETS_DIR',
+    'DEFAULT_GENERATED_DIR',
+    'GROUND_TRUTH_DIR',
+    'DEFAULT_FEATURES_GT_DIR',
+    'DEFAULT_EXPERIMENTS_DIR',
+    'DEFAULT_VISUALIZATION_DIR',
+    'WAV_EXT',
+    'MID_EXT',
+    'MIDI_EXT',
+    'JAMS_EXT',
+    'NPZ_EXT',
+    'CSV_EXT',
+    'JAMS_NOTE_MIDI',
+    'JAMS_PITCH_HZ',
+    'JAMS_STRING_IDX',
+    'JAMS_METADATA',
+    'MIDI_NOTE_ON',
+    'MIDI_NOTE_OFF',
+    'MIDI_SUSTAIN_ON',
+    'MIDI_SUSTAIN_OFF',
+    'MIDI_SUSTAIN_CONTROL_NUM',
+    'MIDI_CONTROL_CHANGE',
     'KEY_TRACK',
     'KEY_AUDIO',
     'KEY_FS',
@@ -48,6 +77,31 @@ __all__ = [
     'DEFAULT_GUITAR_NUM_FRETS',
 ]
 
+# The repository root: this file is <root>/amt_tools_tpu_torch/tools/
+ROOT_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+HOME = os.path.expanduser('~')
+
+DEFAULT_DATASETS_DIR = os.path.join(HOME, 'Desktop', 'Datasets')
+
+DEFAULT_GENERATED_DIR = os.path.abspath(
+    os.environ.get('AMT_TOOLS_TPU_GENERATED_DIR',
+                   os.path.join(ROOT_DIR, 'generated')))
+GROUND_TRUTH_DIR = 'ground_truth'
+
+DEFAULT_FEATURES_GT_DIR = os.path.join(DEFAULT_GENERATED_DIR, 'data')
+DEFAULT_EXPERIMENTS_DIR = os.path.join(DEFAULT_GENERATED_DIR, 'experiments')
+DEFAULT_VISUALIZATION_DIR = os.path.join(DEFAULT_GENERATED_DIR,
+                                         'visualization')
+
+WAV_EXT = 'wav'
+MID_EXT = 'mid'    # MAPS
+MIDI_EXT = 'midi'  # MAESTRO
+JAMS_EXT = 'jams'
+NPZ_EXT = 'npz'
+CSV_EXT = 'csv'
+
 KEY_TRACK = 'track'
 KEY_AUDIO = 'audio'
 KEY_FS = 'fs'
@@ -72,6 +126,18 @@ KEY_LOSS_ONSETS = 'loss_onsets'
 KEY_LOSS_OFFSETS = 'loss_offsets'
 KEY_LOSS_PITCH = 'loss_pitch'
 KEY_LOSS_VELOCITY = 'loss_velocity'
+
+JAMS_NOTE_MIDI = 'note_midi'
+JAMS_PITCH_HZ = 'pitch_contour'
+JAMS_STRING_IDX = 'data_source'
+JAMS_METADATA = 'file_metadata'
+
+MIDI_NOTE_ON = 'note_on'
+MIDI_NOTE_OFF = 'note_off'
+MIDI_SUSTAIN_ON = 'sustain_on'
+MIDI_SUSTAIN_OFF = 'sustain_off'
+MIDI_SUSTAIN_CONTROL_NUM = 64
+MIDI_CONTROL_CHANGE = 'control_change'
 
 TRAIN = 'train'
 VAL = 'validation'

@@ -17,11 +17,21 @@ conversions (``:183-1075``), ``extract_note_velocities`` (``:728``),
 float32) to host numpy, ``dict_to_tensor`` takes the place of
 ``dict_to_jax`` with a ``device``. For ``SyntheticGuitar`` and the feature
 streams: ``stacked_multi_pitch_to_tablature`` (``:903``) and
-``get_current_time`` (``:1567``).
+``get_current_time`` (``:1567``). For the JAMS reader and the real-audio
+datasets: ``slice_pitch_list`` (``:442``), ``sort_pitch_list`` (``:609``),
+``get_resample_idcs`` (``:1225``), ``time_series_to_uniform``
+(``:1260``), the stacked-representation plumbing (``:1303-1325``),
+``save_dict_npz`` and ``load_dict_npz`` (``:1517-1548``; the npz files
+are the JAX package's, so either package reads the other's cache) and
+``seed_everything`` (``:1551``, which also seeds torch).
 """
 
 import contextlib
+import os
+import random
+import threading
 import time
+import warnings
 from datetime import datetime
 
 import numpy as np
@@ -79,6 +89,16 @@ __all__ = [
     'resolve_device',
     'use_exact_fp32',
     'exact_fp32',
+    'slice_pitch_list',
+    'sort_pitch_list',
+    'get_resample_idcs',
+    'time_series_to_uniform',
+    'apply_func_stacked_representation',
+    'pack_stacked_representation',
+    'unpack_stacked_representation',
+    'save_dict_npz',
+    'load_dict_npz',
+    'seed_everything',
 ]
 
 
@@ -384,6 +404,23 @@ def cat_pitch_list(times, pitch_list, new_times, new_pitch_list, decimals=6):
     out_pitch_list = [merged[t] for t in out_times]
 
     return out_times, out_pitch_list
+
+
+def slice_pitch_list(times, pitch_list, start_time, stop_time):
+    """Retain pitch observations within [start_time, stop_time]."""
+
+    valid = np.logical_and(times >= start_time, times <= stop_time)
+    idcs = np.where(valid)[0]
+
+    return times[valid], [pitch_list[i] for i in idcs]
+
+
+def sort_pitch_list(times, pitch_list):
+    """Sort a pitch list by frame time."""
+
+    order = np.argsort(times, kind='stable')
+
+    return np.asarray(times)[order], [pitch_list[i] for i in order]
 
 
 def pitch_list_to_stacked_pitch_list(times, pitch_list, i=0):
@@ -696,6 +733,75 @@ def estimate_hop_length(times):
     return float(np.median(np.diff(times)[non_gaps]))
 
 
+def get_resample_idcs(times, target_times):
+    """Indices resampling a time grid onto target times (nearest observation)."""
+
+    times = np.asarray(times)
+    target_times = np.asarray(target_times)
+
+    if not len(times):
+        return None
+
+    idcs = np.searchsorted(times, target_times, side='right') - 1
+
+    return np.clip(idcs, 0, len(times) - 1)
+
+
+def time_series_to_uniform(times, values, hop_length=None, duration=None,
+                           suppress_warnings=True):
+    """Snap a semi-regular ragged time series onto a uniform hop grid."""
+
+    if not len(times) or not len(values):
+        return np.array([]), []
+
+    if hop_length is None:
+        if not suppress_warnings:
+            warnings.warn('Estimating hop length from irregular observation times.',
+                          category=RuntimeWarning)
+        hop_length = estimate_hop_length(times)
+
+    if duration is None:
+        duration = times[-1]
+
+    num_entries = int(np.ceil(duration / hop_length)) + 1
+
+    new_values = [np.array([])] * num_entries
+    new_times = hop_length * np.arange(num_entries)
+
+    idcs = np.round(np.asarray(times) / hop_length).astype(int)
+
+    for i in range(len(idcs)):
+        if times[i] <= duration:
+            new_values[idcs[i]] = values[i]
+
+    return new_times, new_values
+
+
+def apply_func_stacked_representation(stacked_representation, func, **kwargs):
+    """Apply a function to each slice of a stacked-representation dict."""
+
+    return {k: func(v, **kwargs) for k, v in stacked_representation.items()}
+
+
+def pack_stacked_representation(stacked_representation):
+    """Pack a stacked-representation dict into an npz-friendly object array."""
+
+    keys = np.array(list(stacked_representation.keys()), dtype=object)
+    values = np.empty(len(keys), dtype=object)
+    for i, k in enumerate(stacked_representation.keys()):
+        values[i] = stacked_representation[k]
+
+    return np.array([keys, values], dtype=object)
+
+
+def unpack_stacked_representation(packed_stacked_representation):
+    """Invert :func:`pack_stacked_representation`."""
+
+    keys, values = packed_stacked_representation
+
+    return {k: v for k, v in zip(keys, values)}
+
+
 def _map_dict(track, fn):
     """Apply ``fn`` to array entries of a (possibly nested) dictionary."""
 
@@ -825,6 +931,47 @@ def slice_track(track, start, stop, skip=None, pad=True):
             out[key] = entry
 
     return out
+
+
+def save_dict_npz(path, d):
+    """Save a flat dictionary to an npz file (object entries pickled).
+
+    Atomic: written under a temporary name that carries the process and the
+    thread, then renamed, so concurrent writers of one cache path (loader
+    threads, other processes) never leave a truncated file behind.
+    """
+
+    path = str(path)
+    if not path.endswith('.npz'):
+        # np.savez appends .npz when missing; pin it so the rename matches
+        path += '.npz'
+
+    tmp = f'{path}.tmp.{os.getpid()}.{threading.get_ident()}'
+    try:
+        np.savez_compressed(tmp, **d)
+        # np.savez appended .npz to the temporary name too
+        os.replace(f'{tmp}.npz', path)
+    finally:
+        if os.path.exists(f'{tmp}.npz'):
+            os.remove(f'{tmp}.npz')
+
+
+def load_dict_npz(path):
+    """Load a dictionary previously saved with :func:`save_dict_npz`."""
+
+    with np.load(path, allow_pickle=True) as data:
+        return {k: data[k] for k in data.files}
+
+
+def seed_everything(seed):
+    """Seed Python's, numpy's and torch's global generators; the port's
+    dropout and crops draw from explicit generators seeded apart."""
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    return seed
 
 
 def resolve_device(device=None):

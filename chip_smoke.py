@@ -136,19 +136,55 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     logits within ``LOGIT_TOL`` of the CPU's, an ``AudioStream`` feeding
     the same steps giving the same maps; and the online model's
     whole-sequence training step (E and F twice a step);
+26. real corpora, written under a temporary directory of the repository
+    by the port's own writers (``write_wav``, ``write_notes_midi``,
+    ``write_stacked_notes_jams``) in the layouts of
+    ``tests/fixtures/corpora.py``: MAESTRO (16 train tracks of 30 s, 2
+    validation and 2 test tracks of 60 s, the split CSV), MAPS (ENSTDkAm
+    and ENSTDkCl, 2 tracks of 30 s each) and GuitarSet (6 players x 60
+    tracks of 5 s at 22.05 kHz). The of_2 recipe on MAESTRO crops: O&F2
+    complexity 3 float32 on HTK mels, ``MAESTRO_V3(store_data=False,
+    save_data=True)`` on a fresh cache, 8 x 625 frames, 4 loader threads,
+    Adam 6e-4, one pass of ``train()`` validating the validation split at
+    its checkpoint; with the cache cold (the threads run kernel A once a
+    track read, the npz files appear) and warm (A never runs, every
+    track's features read back bit for bit the cold pass's); E and F six
+    times a step; steps/s and the loader's host ms a batch; one track's
+    features card against CPU; the notes MAESTRO loads against those
+    written, within half a MIDI tick;
+27. ``validate`` on the MAESTRO test split and the MAPS splits (their
+    notes checked as in 26): kernel A and masked B once and six times a
+    track; tracks/s;
+28. the tabcnn recipe on GuitarSet fold 0: TabCNN paper width float32 on
+    CQT(22050, 512, n_bins=192, bins_per_octave=24), players 01-05 cropped
+    to 200 frames, batch 30, Adadelta 1.0, one pass of ``train()``
+    validating player 00: kernel C on its FFMA route once a track (360)
+    with the cache cold, never warm; steps/s;
+29. ``AudioFileStream`` over a MAESTRO WAV through OnsetsFramesOnline
+    complexity 3 (``run_online_stateful``): frames bit for bit an
+    ``AudioStream``'s over ``load_normalize_audio`` of the file, A once
+    and carried B twice a frame; ms a frame against the hop;
+30. HCQT at DeepSalience's harmonics (22.05 kHz, hop 512, fmin C1, 72 bins
+    at 12 an octave) over 8 clips of 30 s: C six times, the features
+    against the CPU's; ``SignalPower`` and a ``FeatureCombo`` of a CQT and
+    a two-harmonic HCQT beside it;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
-   online and of TabCNN, and 10 streamed frames under one
+   online and of TabCNN, 10 streamed frames, and one step each of the of_2
+   and tabcnn recipes with their batch loaded from the corpora inside the
+   range (the loader's host time in the busy share), under one
    ``torch.profiler`` run: the device
    time by kernel and the busy share of each, whose path's kernels must
    appear in it.
 
-Phases 22-25 end with a JSON line of their rates. The last lines are the
-card, one ``kernels`` JSON line (A to F; B with its masked launches of
-phase 19, phase 18's times, its carried launches of phase 25 and phase
-25a's times; C with its launches in the TabCNN recipe; E and F with their
-launches a velocity step), and one JSON line ``{"ok": true, "device":
-{...}}``.
+Phases 22-25 and 26-30 each end with a JSON line of their rates. The last
+lines are the card, one ``kernels`` JSON line (A to F; A with its launches
+on MAESTRO with the cache cold and warm and in the file stream; B with its
+masked launches of phases 19 and 27, phase 18's times, its carried
+launches of phases 25 and 29 and phase 25a's times; C with its launches in
+the TabCNN recipes, cold and warm, and in the HCQT; E and F with their
+launches a velocity step and a MAESTRO step), and one JSON line
+``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -192,6 +228,7 @@ CQT_FEATURE_TOL = 2e-4   # [0, 1] features (amt_tools_tpu/features/cqt.py:29)
 # package's bound for its split (tests/test_pallas_cqt.py:119)
 CQT_HIGH_TOL = 2e-4
 TAB_MARGIN = 2 * LOGIT_TOL  # tablature may differ where the top two are closer
+POWER_DB_TOL = 1e-4      # SignalPower in dB: float32 sums of squares
 TRAIN_BATCH = 8          # the O&F2 recipe (examples/papers/of_2.py)
 TRAIN_FRAMES = 625
 # Kernel E's gates and c against the plain version: max over the largest
@@ -3347,7 +3384,731 @@ def stream_online(card, batch):
 
 
 
+# Phases 26-30: real corpora. The corpora are written by the port's own
+# writers in the layouts of tests/fixtures/corpora.py, under a temporary
+# directory of the repository (git-ignored)
+MAESTRO_TRAIN_TRACKS = 16
+MAESTRO_TRAIN_SECONDS = 30.0
+MAESTRO_EVAL_TRACKS = 2       # validation and test, each
+MAESTRO_EVAL_SECONDS = 60.0
+MAPS_SPLITS = ('ENSTDkAm', 'ENSTDkCl')
+MAPS_TRACKS = 2               # a split
+MAPS_SECONDS = 30.0
+LOADER_WORKERS = 4
+GSET_PLAYERS = 6
+GSET_TRACKS = 60              # a player: the loader's block of tracks
+GSET_SECONDS = 5.0
+GSET_BATCH = 30               # examples/papers/tabcnn.py
+GSET_FRAMES = 200
+HCQT_CLIPS = 8
+HCQT_SECONDS = 30.0
+HCQT_HARMONICS = (0.5, 1, 2, 3, 4, 5)   # DeepSalience's
+HCQT_BINS = 72
+# tools.write_notes_midi's grid: 480 ticks a beat at 120 bpm
+MIDI_TICK_S = 0.5 / 480
+
+
+def piano_piece(rng, seconds, profile):
+    """About 2 notes a second, velocities 30-120, and no two notes of a
+    pitch closer than 50 ms, so that the MIDI file pairs each note on with
+    its own note off: (batched notes (N, 3) in onset order, velocities)."""
+
+    notes, spans = [], {}
+    while len(notes) < int(2 * seconds):
+        pitch = int(rng.randint(profile.low + 12, profile.high - 11))
+        onset = rng.uniform(0.05, seconds - 0.6)
+        offset = onset + rng.uniform(0.1, 0.5)
+        if any(onset < off + 0.05 and on < offset + 0.05
+               for on, off in spans.get(pitch, [])):
+            continue
+        spans.setdefault(pitch, []).append((onset, offset))
+        notes.append((onset, offset, pitch, rng.randint(30, 121)))
+    notes = np.array(sorted(notes))
+
+    return notes[:, :3], notes[:, 3].astype(int)
+
+
+def write_piano_track(directory, stem, extension, rng, seconds):
+    """A rendered piece as ``<stem>.wav`` and ``<stem>.<extension>``; its
+    written notes and velocities."""
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import render_notes
+
+    notes, velocities = piano_piece(rng, seconds, tools.PianoProfile())
+    audio = render_notes(notes[:, 2], notes[:, :2], SAMPLE_RATE, seconds,
+                         seed=int(rng.randint(2 ** 31)),
+                         velocities=velocities / 127)
+    path = os.path.join(directory, stem)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tools.write_wav(f'{path}.wav', audio, SAMPLE_RATE)
+    tools.write_notes_midi(f'{path}.{extension}', notes, velocities)
+
+    return notes, velocities
+
+
+def write_corpora(root):
+    """MAESTRO-, MAPS- and GuitarSet-layout corpora under ``root`` (the
+    layouts of ``tests/fixtures/corpora.py``), by the port's writers.
+    Returns their directories and the notes written, by track."""
+
+    import csv
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import render_notes
+
+    rng = np.random.RandomState(26)
+    written = {}
+
+    maestro = os.path.join(root, 'MAESTRO_V3')
+    rows = []
+    for split, count, seconds in (
+            ('train', MAESTRO_TRAIN_TRACKS, MAESTRO_TRAIN_SECONDS),
+            ('validation', MAESTRO_EVAL_TRACKS, MAESTRO_EVAL_SECONDS),
+            ('test', MAESTRO_EVAL_TRACKS, MAESTRO_EVAL_SECONDS)):
+        for index in range(count):
+            stem = f'2018/MIDI-Unprocessed_{split}_{index:02d}'
+            written[stem] = write_piano_track(maestro, stem, tools.MIDI_EXT,
+                                              rng, seconds)
+            # A title with a comma: the CSV's quoting is read
+            rows.append([f'Sonata, Op. {index}', split, f'{stem}.wav'])
+    with open(os.path.join(maestro, 'maestro-v3.0.0.csv'), 'w',
+              newline='') as f:
+        writer = csv.writer(f)
+        writer.writerow(['canonical_title', 'split', 'audio_filename'])
+        writer.writerows(rows)
+
+    maps = os.path.join(root, 'MAPS')
+    for piano in MAPS_SPLITS:
+        for index in range(MAPS_TRACKS):
+            stem = f'MAPS_MUS-piece{index}_{piano}'
+            directory = os.path.join(maps, piano, 'MUS')
+            written[stem] = write_piano_track(directory, stem, tools.MID_EXT,
+                                              rng, MAPS_SECONDS)
+            open(os.path.join(directory, f'{stem}.txt'), 'w').close()
+
+    gset = os.path.join(root, 'GuitarSet')
+    profile = tools.GuitarProfile(num_frets=19)
+    tuning = profile.get_midi_tuning()
+    for folder in ('annotation', 'audio_mono-mic'):
+        os.makedirs(os.path.join(gset, folder))
+    num_samples = int(GSET_SECONDS * GUITAR_SAMPLE_RATE)
+    for player in range(GSET_PLAYERS):
+        for index in range(GSET_TRACKS):
+            track = f'{player:02d}_Smoke{index:02d}-{player}_solo'
+            stacked, audio = {}, np.zeros(num_samples, np.float32)
+            for string, open_pitch in enumerate(tuning):
+                count = rng.randint(2, 5)
+                onsets = np.sort(rng.uniform(0.05, GSET_SECONDS - 0.6, count))
+                offsets = np.minimum(onsets + rng.uniform(0.2, 0.6, count),
+                                     np.append(onsets[1:] - 0.02,
+                                               GSET_SECONDS - 0.05))
+                pitches = (open_pitch + rng.randint(0, profile.num_pitches,
+                                                    count)).astype(float)
+                intervals = np.stack([onsets, offsets], axis=-1)
+                stacked[string] = (pitches, intervals)
+                audio += render_notes(pitches, intervals, GUITAR_SAMPLE_RATE,
+                                      GSET_SECONDS, harmonics=2 + string,
+                                      decay=2.0 + 0.7 * string,
+                                      seed=int(rng.randint(2 ** 31)))
+            tools.write_stacked_notes_jams(
+                stacked, os.path.join(gset, 'annotation', f'{track}.jams'),
+                duration=GSET_SECONDS)
+            tools.write_wav(os.path.join(gset, 'audio_mono-mic',
+                                         f'{track}_mic.wav'),
+                            audio / max(1.0, np.abs(audio).max()),
+                            GUITAR_SAMPLE_RATE)
+
+    return {'root': root, 'maestro': maestro, 'maps': maps, 'gset': gset,
+            'notes': written}
+
+
+def check_written_notes(dataset, written):
+    """The notes (and MIDI velocities) ``dataset`` loads for each of its
+    tracks equal the notes written, within half a tick of the MIDI grid;
+    the velocity map holds each note's velocity on the MIDI scale."""
+
+    from amt_tools_tpu_torch import tools
+
+    for track in dataset.tracks:
+        data = dataset.load(track)
+        # Both in the order of their onsets' ticks, then pitch: two onsets
+        # may round to one tick
+        got = data[tools.KEY_NOTES]
+        got = got[np.lexsort((got[:, 2], np.round(got[:, 0] / MIDI_TICK_S)))]
+        notes, velocities = written[track]
+        order = np.lexsort((notes[:, 2], np.round(notes[:, 0] / MIDI_TICK_S)))
+        notes, velocities = notes[order], velocities[order]
+        require(got.shape == notes.shape,
+                f'{track}: {len(got)} notes read, {len(notes)} written')
+        require(np.array_equal(got[:, 2], notes[:, 2]),
+                f'{track}: the pitches read are not the ones written')
+        err = float(np.abs(got[:, :2] - notes[:, :2]).max())
+        require(err <= MIDI_TICK_S / 2 + 1e-9,
+                f'{track}: note times {err:.3g} s off the written ones')
+        # Each onset frame holds the note's velocity, or a louder
+        # neighbour's of the same pitch (the map keeps the louder)
+        times = dataset.data_proc.get_times(data[tools.KEY_AUDIO])
+        frames = np.searchsorted(times, got[:, 0], side='right') - 1
+        rows = got[:, 2].astype(int) - dataset.profile.low
+        held = data[tools.KEY_VELOCITY][rows, frames]
+        require(np.all(held >= velocities / 127 - 1e-6) and
+                np.mean(np.isclose(held, velocities / 127)) > 0.9,
+                f'{track}: the velocity map does not hold the written '
+                f'velocities')
+
+    return len(dataset.tracks)
+
+
+class RecordedFeatures:
+    """Wraps a dataset's ``calculate_feats``: the features each track got,
+    by track (loader threads write their own tracks)."""
+
+    def __init__(self, dataset):
+        from amt_tools_tpu_torch.tools import KEY_FEATS, KEY_TRACK
+
+        self.feats = {}
+        calculate = dataset.calculate_feats
+
+        def record(data):
+            out = calculate(data)
+            self.feats[out[KEY_TRACK]] = out[KEY_FEATS]
+            return out
+
+        dataset.calculate_feats = record
+
+
+class LoaderTimer:
+    """Wraps a loader's ``_make_batch``, which its worker threads run: the
+    host seconds each batch took to load (crops, ground truth, features
+    from the cache or the card) and collate."""
+
+    def __init__(self, loader):
+        self.seconds = []
+        make_batch = loader._make_batch
+
+        def timed(*args):
+            start = time.perf_counter()
+            batch = make_batch(*args)
+            self.seconds.append(time.perf_counter() - start)
+            return batch
+
+        loader._make_batch = timed
+
+
+class ValidationTimer:
+    """Wraps ``train``'s ``validate``: the seconds its validations took."""
+
+    def __init__(self):
+        from amt_tools_tpu_torch import train as train_module
+
+        self.module = train_module
+        self.validate = train_module.validate
+        self.seconds = 0.0
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            out = self.validate(*args, **kwargs)
+            self.seconds += time.perf_counter() - start
+            return out
+
+        self.module.validate = timed
+        return self
+
+    def __exit__(self, *_):
+        self.module.validate = self.validate
+
+
+def of2_on_maestro(card, corpora):
+    """Phase 26: the of_2 recipe (``examples/papers/of_2.py``) on the
+    MAESTRO-layout corpus: O&F2 at complexity 3 in float32 on HTK mels at
+    16 kHz, ``MAESTRO_V3(store_data=False, save_data=True)`` on a fresh
+    cache, 625-frame crops, ``DataLoader(batch_size=8, drop_last=True,
+    num_workers=4)``, Adam 6e-4, one pass through ``train()`` with one
+    checkpoint that validates the validation split. First with the cache
+    cold: the loader's threads compute every train track's features on the
+    card (kernel A once a track read, plus once a validation track) and
+    write the npz files. Then with it warm, on new datasets: kernel A never
+    runs, and every track's features read back equal the cold pass's bit
+    for bit. E and F six times a step; steps/s and the loader's host ms a
+    batch in each pass. Then one track's features on the card against the
+    CPU's, and the notes MAESTRO loads against the notes written. Returns
+    the model, the launches and rates, and the step the profiler runs."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import MAESTRO_V3, DataLoader
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator, train)
+
+    profile = tools.PianoProfile()
+    mel = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HOP, n_mels=N_MELS,
+                  htk=True)
+    save_loc = os.path.join(corpora['root'], 'cache')
+
+    def partition(split, num_frames):
+        return MAESTRO_V3(base_dir=corpora['maestro'], splits=[split],
+                          hop_length=HOP, sample_rate=SAMPLE_RATE,
+                          num_frames=num_frames, data_proc=mel,
+                          profile=profile, store_data=False, save_data=True,
+                          save_loc=save_loc)
+
+    model = OnsetsFrames2(dim_in=N_MELS, profile=profile, model_complexity=3,
+                          generator=torch.Generator().manual_seed(26))
+    optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    passes = {}
+    for cache in ('cold', 'warm'):
+        train_set = partition('train', TRAIN_FRAMES)
+        val_set = partition('validation', None)
+        recorded = RecordedFeatures(train_set)
+        recorded_val = RecordedFeatures(val_set)
+        loader = DataLoader(train_set, batch_size=TRAIN_BATCH, shuffle=True,
+                            drop_last=True, seed=0,
+                            num_workers=LOADER_WORKERS)
+        timer = LoaderTimer(loader)
+        estimator, evaluator = of2_recipe()
+        with tempfile.TemporaryDirectory(prefix='_chip_smoke_train_',
+                                         dir=ROOT) as log_dir, \
+                ValidationTimer() as validation:
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            result = train(model, loader, optimizer, 1, checkpoints=1,
+                           log_dir=log_dir, val_set=val_set,
+                           estimator=estimator, evaluator=evaluator,
+                           resume=False)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+        launches = read_launches()
+        steps = result['step']
+        training = elapsed - validation.seconds
+        passes[cache] = {
+            'steps_per_s': steps / training,
+            'loader_host_ms_a_batch': 1e3 * float(np.mean(timer.seconds)),
+            'validation_s': validation.seconds, 'launches': launches,
+            'feats': recorded.feats, 'val_feats': recorded_val.feats}
+        log(f'of_2 recipe on MAESTRO crops, {cache} cache, '
+            f'{LOADER_WORKERS} loader threads: {steps} steps in '
+            f'{training:.3f} s ({steps / training:.3f} steps/s), the '
+            f'loader\'s host {passes[cache]["loader_host_ms_a_batch"]:.1f} '
+            f'ms a batch ({len(timer.seconds)} batches, in its threads), '
+            f'validation of {len(val_set.tracks)} tracks '
+            f'{validation.seconds:.3f} s ({card}); launches {launches}')
+        for key, values in sorted(result['losses'].items()):
+            log(f'  {key}: ' + ' '.join(f'{v:.6g}' for v in values))
+        require(steps == MAESTRO_TRAIN_TRACKS // TRAIN_BATCH,
+                f'{steps} steps, not one pass')
+        require(all(np.isfinite(v).all() for v in result['losses'].values()),
+                'a MAESTRO training loss is not finite')
+        require(launches['lstm_scan_residuals'] == 6 * steps and
+                launches['lstm_bptt'] == 6 * steps,
+                'kernels E and F did not run six times a step')
+        require(launches['lstm_scan_masked'] == 6 * len(val_set.tracks) and
+                launches['lstm_scan'] == launches['lstm_scan_masked'],
+                'the validation did not run masked kernel B six times a '
+                'track')
+        require(validation.seconds > 0, 'train() did not validate')
+        read = len(recorded.feats) + len(recorded_val.feats)
+        require(len(recorded.feats) == MAESTRO_TRAIN_TRACKS and
+                len(recorded_val.feats) == len(val_set.tracks),
+                'a track was not read in the pass')
+        if cache == 'cold':
+            require(launches['stft_power'] == read and
+                    launches['stft_power_fft'] == read,
+                    f'kernel A ran {launches["stft_power"]} times for '
+                    f'{read} tracks read with the cache cold')
+            cached = sorted(
+                os.path.relpath(os.path.join(d, f), train_set.get_feats_dir())
+                for d, _, files in os.walk(train_set.get_feats_dir())
+                for f in files)
+            require(cached == sorted(f'{t}.npz' for t in
+                                     train_set.tracks + val_set.tracks),
+                    f'the feature cache holds {cached}')
+        else:
+            require(launches['stft_power'] == 0,
+                    'kernel A ran with the cache warm')
+            for track, feats in recorded.feats.items():
+                cold = passes['cold']['feats'][track]
+                require(feats.dtype == cold.dtype and
+                        np.array_equal(feats, cold),
+                        f'{track}: the warm cache\'s features differ from '
+                        f'the cold pass\'s')
+
+    # One track's features on the card against the CPU's
+    test_set = partition('test', None)
+    audio = test_set.load(test_set.tracks[0])[tools.KEY_AUDIO]
+    err = float(np.abs(mel.process_audio(audio) -
+                       mel.process_audio(audio, device='cpu')).max())
+    log(f'MAESTRO features of {test_set.tracks[0]} '
+        f'({len(audio) / SAMPLE_RATE:.0f} s), card against CPU: max {err:.3g} '
+        f'(tolerance {MEL_FEATURE_TOL})')
+    require(err <= MEL_FEATURE_TOL, 'the corpus features on the card are '
+                                    'off the CPU\'s')
+    checked = check_written_notes(partition('train', None),
+                                  corpora['notes'])
+    log(f'MAESTRO ground truth: the notes and velocities of {checked} '
+        f'tracks as written, within half a MIDI tick '
+        f'({1e3 * MIDI_TICK_S / 2:.3f} ms)')
+
+    # The profiler's step: a batch from the warm cache in the main thread
+    # (the loader's host time inside the range), then the step
+    loader = DataLoader(partition('train', TRAIN_FRAMES),
+                        batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                        seed=1)
+    step = make_train_step(model, optimizer)
+
+    def profiled():
+        batch = next(iter(loader))
+        step(_place_batch(batch, torch.device('cuda')),
+             step_generator(0, 0, 'cuda'))
+
+    rates = {cache: {key: passes[cache][key] for key in
+                     ('steps_per_s', 'loader_host_ms_a_batch',
+                      'validation_s')} for cache in passes}
+    return model, passes, rates, (
+        f'of_2 step on {TRAIN_BATCH} MAESTRO crops of {TRAIN_FRAMES} frames '
+        f'(warm npz cache, the batch loaded inside the range)', profiled,
+        ('lstm_scan_kernel', 'lstm_bptt_kernel'))
+
+
+def validate_corpora(card, corpora, model):
+    """Phase 27: ``validate`` on the MAESTRO test split and the MAPS-layout
+    ENSTDkAm and ENSTDkCl splits (MIDI ground truth through
+    ``load_notes_midi`` and its sustain-pedal pairing; notes checked
+    against those written), the of_2 recipe's estimator and evaluator,
+    bucketed by 128 frames: kernel A once a track (the caches cold), masked
+    B six times a track; tracks/s. Returns masked B's launches."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import MAESTRO_V3, MAPS
+    from amt_tools_tpu_torch.features import MelSpec
+
+    profile = tools.PianoProfile()
+    mel = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HOP, n_mels=N_MELS,
+                  htk=True)
+    save_loc = os.path.join(corpora['root'], 'cache')
+    sets = {
+        'MAESTRO test': MAESTRO_V3(base_dir=corpora['maestro'],
+                                   splits=['test'], data_proc=mel,
+                                   profile=profile, store_data=False,
+                                   save_loc=save_loc),
+        'MAPS ENSTDkAm + ENSTDkCl': MAPS(base_dir=corpora['maps'],
+                                         splits=list(MAPS_SPLITS),
+                                         data_proc=mel, profile=profile,
+                                         store_data=False,
+                                         save_loc=save_loc)}
+    checked = check_written_notes(sets['MAPS ENSTDkAm + ENSTDkCl'],
+                                  corpora['notes'])
+    log(f'MAPS ground truth: the notes and velocities of {checked} tracks as '
+        f'written, within half a MIDI tick')
+
+    model.eval()
+    masked = {}
+    for name, dataset in sets.items():
+        estimator, evaluator = of2_recipe()
+        results, launches, elapsed, timer = validate_timed(
+            model, dataset, estimator, evaluator, 1)
+        tracks = len(dataset.tracks)
+        masked[name] = launches['lstm_scan_masked']
+        log(f'validate {name}, {tracks} tracks: {elapsed:.3f} s, '
+            f'{tracks / elapsed:.3f} tracks/s, host estimators and metrics '
+            f'{timer.seconds:.3f} s ({card}); launches {launches}')
+        for group, scores in sorted(results.items()):
+            log(f'  {group}: ' + ', '.join(f'{k} {v:.6g}'
+                                           for k, v in sorted(scores.items())))
+        require(launches['stft_power'] == tracks,
+                f'{name}: kernel A did not run once a track')
+        require(launches['lstm_scan_masked'] == 6 * tracks and
+                launches['lstm_scan'] == 6 * tracks,
+                f'{name}: masked kernel B did not run six times a track')
+    torch.cuda.synchronize()
+
+    return masked
+
+
+def tabcnn_on_guitarset(card, corpora):
+    """Phase 28: the tabcnn recipe (``examples/papers/tabcnn.py``) on the
+    GuitarSet-layout corpus, fold 0: TabCNN at paper width in float32 on
+    CQT(22050, 512, n_bins=192, bins_per_octave=24) (exact, the full bank:
+    kernel C on its FFMA route), players 01-05 cropped to 200 frames,
+    batch 30, Adadelta 1.0, one pass of ``train()`` validating player 00
+    once with the recipe's estimator and evaluators. With the cache cold C
+    runs once a track (360); then new datasets on the warm cache train one
+    more pass without validation and C never runs. Returns C's launches,
+    the rates and the step the profiler runs."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import DataLoader, GuitarSet
+    from amt_tools_tpu_torch.evaluate import (ComboEvaluator, LossWrapper,
+                                              MultipitchEvaluator,
+                                              SoftmaxAccuracy,
+                                              TablatureEvaluator)
+    from amt_tools_tpu_torch.features import CQT
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator, train)
+    from amt_tools_tpu_torch.transcribe import (ComboEstimator,
+                                                StackedMultiPitchCollapser,
+                                                TablatureWrapper)
+
+    tools.use_exact_fp32()
+    profile = tools.GuitarProfile(num_frets=19)
+    cqt = CQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP, n_bins=192,
+              bins_per_octave=24)
+    save_loc = os.path.join(corpora['root'], 'cache')
+    splits = GuitarSet.available_splits()
+    train_splits, test_splits = splits[1:], splits[:1]
+
+    def partitions():
+        train_set = GuitarSet(base_dir=corpora['gset'], splits=train_splits,
+                              hop_length=HOP, sample_rate=GUITAR_SAMPLE_RATE,
+                              num_frames=GSET_FRAMES, data_proc=cqt,
+                              profile=profile, save_loc=save_loc)
+        test_set = GuitarSet(base_dir=corpora['gset'], splits=test_splits,
+                             hop_length=HOP, sample_rate=GUITAR_SAMPLE_RATE,
+                             num_frames=None, data_proc=cqt, profile=profile,
+                             store_data=True, save_loc=save_loc)
+        return train_set, test_set
+
+    estimator = ComboEstimator([TablatureWrapper(profile=profile),
+                                StackedMultiPitchCollapser(profile=profile)])
+    evaluator = ComboEvaluator([LossWrapper(), MultipitchEvaluator(),
+                                TablatureEvaluator(profile=profile),
+                                SoftmaxAccuracy()])
+    evaluator.set_patterns(['loss', 'pr', 're', 'f1', 'tdr', 'acc'])
+
+    model = TabCNN(dim_in=cqt.get_feature_size(), profile=profile,
+                   in_channels=cqt.get_num_channels(),
+                   generator=torch.Generator().manual_seed(28))
+    optimizer = torch.optim.Adadelta(model.parameters(), lr=1.0)
+    rates, launches = {}, {}
+    for cache in ('cold', 'warm'):
+        start = time.perf_counter()
+        train_set, test_set = partitions()
+        log(f'GuitarSet fold 0, {cache} cache: {len(train_set.tracks)} + '
+            f'{len(test_set.tracks)} tracks\' ground truth in '
+            f'{time.perf_counter() - start:.1f} s')
+        require(len(train_set.tracks) == 5 * GSET_TRACKS and
+                len(test_set.tracks) == GSET_TRACKS,
+                'the players\' blocks are not 60 tracks each')
+        loader = DataLoader(train_set, batch_size=GSET_BATCH, shuffle=True,
+                            drop_last=True, seed=0)
+        validated = cache == 'cold'
+        with tempfile.TemporaryDirectory(prefix='_chip_smoke_train_',
+                                         dir=ROOT) as log_dir, \
+                ValidationTimer() as validation:
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            result = train(model, loader, optimizer, 1, checkpoints=1,
+                           log_dir=log_dir, resume=False,
+                           val_set=test_set if validated else None,
+                           estimator=estimator, evaluator=evaluator)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+        launches[cache] = read_launches()
+        steps = result['step']
+        training = elapsed - validation.seconds
+        rates[cache] = {'steps_per_s': steps / training,
+                        'validation_s': validation.seconds}
+        losses = result['losses'][tools.KEY_LOSS_TOTAL]
+        log(f'tabcnn recipe on GuitarSet crops, {cache} cache: {steps} '
+            f'Adadelta steps of {GSET_BATCH} x {GSET_FRAMES} frames in '
+            f'{training:.3f} s ({steps / training:.3f} steps/s, features '
+            f'included when cold), validation {validation.seconds:.3f} s '
+            f'({card}); loss {losses[0]:.6g} -> {losses[-1]:.6g}; launches '
+            f'{launches[cache]}')
+        require(steps == 5 * GSET_TRACKS // GSET_BATCH,
+                f'{steps} steps, not one pass')
+        require(all(np.isfinite(losses)), 'a TabCNN loss is not finite')
+        tracks = len(train_set.tracks) + (len(test_set.tracks)
+                                          if validated else 0)
+        want = tracks if cache == 'cold' else 0
+        require(launches[cache]['cqt_mag'] == want and
+                launches[cache]['cqt_mag_ffma'] == want,
+                f'kernel C ran {launches[cache]["cqt_mag"]} times with the '
+                f'cache {cache}, not {want}')
+        require(launches[cache]['cqt_mag_grouped'] == 0,
+                'kernel D ran in the recipe')
+        require((validation.seconds > 0) == validated,
+                'train() validated otherwise than asked')
+
+    step = make_train_step(model, optimizer)
+    loader = DataLoader(train_set, batch_size=GSET_BATCH, shuffle=True,
+                        drop_last=True, seed=1)
+
+    def profiled():
+        batch = next(iter(loader))
+        step(_place_batch(batch, torch.device('cuda')),
+             step_generator(0, 0, 'cuda'))
+
+    return launches, rates, (
+        f'tabcnn step on {GSET_BATCH} GuitarSet crops of {GSET_FRAMES} '
+        f'frames (RAM cache, the batch loaded inside the range)', profiled,
+        ('implicit_gemm',))
+
+
+def stream_from_file(card, corpora):
+    """Phase 29: ``AudioFileStream`` over one of the MAESTRO corpus's WAVs
+    (30 s at 16 kHz) feeds OnsetsFramesOnline at complexity 3 (float32,
+    random weights) through ``run_online_stateful``: its frames equal an
+    ``AudioStream``'s over ``load_normalize_audio`` of the same file bit for
+    bit, kernel A once a frame, carried B twice a frame; ms a frame (the
+    frame's features, then its step) against the 32 ms hop. Returns A's and
+    carried B's launches and the timings."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import (AudioFileStream, AudioStream,
+                                              MelSpec)
+    from amt_tools_tpu_torch.inference import run_online_stateful
+    from amt_tools_tpu_torch.models import OnsetsFramesOnline
+
+    track = sorted(t for t in corpora['notes'] if '_train_' in t)[0]
+    path = os.path.join(corpora['maestro'], f'{track}.{tools.WAV_EXT}')
+    mel = MelSpec(n_mels=N_MELS)
+    model = OnsetsFramesOnline(dim_in=N_MELS, profile=tools.PianoProfile(),
+                               model_complexity=3,
+                               generator=torch.Generator().manual_seed(29))
+
+    def frames_of(stream, stamps=None):
+        stream.start_streaming()
+        frames = []
+        while not stream.query_finished():
+            frames.append(stream.extract_frame_features())
+            if stamps is not None:
+                stamps.append(time.perf_counter())
+        stream.stop_streaming()
+        return frames
+
+    audio, _ = tools.load_normalize_audio(path, fs=SAMPLE_RATE)
+    want = frames_of(AudioStream(mel, audio=audio))
+    with tools.exact_fp32():
+        run_online_stateful({tools.KEY_FEATS: want[0],
+                             tools.KEY_TIMES: np.zeros(1)}, model)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        stamps = []
+        start = time.perf_counter()
+        got = frames_of(AudioFileStream(mel, audio_path=path), stamps)
+        feature_launches = read_launches()
+        timer = FrameTimer()
+        steps_start = time.perf_counter()
+        run_online_stateful({tools.KEY_FEATS: np.concatenate(got, -1),
+                             tools.KEY_TIMES: mel.get_times(audio)}, model,
+                            timer)
+        launches = read_launches()
+    frames = len(got)
+    feature_ms = np.diff([start] + stamps) * 1e3
+    step_ms = np.diff([steps_start] + timer.stamps) * 1e3
+    per_frame = feature_ms + step_ms
+    median, p99 = np.percentile(per_frame, [50, 99])
+    log(f'AudioFileStream over {track}.wav ({len(audio) / SAMPLE_RATE:.0f} '
+        f's), {frames} frames through OnsetsFramesOnline complexity 3 '
+        f'float32: median {median:.3f} ms a frame (features '
+        f'{np.median(feature_ms):.3f}, step {np.median(step_ms):.3f}), p99 '
+        f'{p99:.3f}, against the {1e3 * HOP / SAMPLE_RATE:.0f} ms hop '
+        f'({card}); launches {launches}')
+    require(frames == len(want) and all(
+        np.array_equal(g, w) for g, w in zip(got, want)),
+        'the file stream\'s frames differ from the AudioStream\'s')
+    require(feature_launches['stft_power'] == frames,
+            'the stream did not run kernel A once a frame')
+    require(launches['lstm_scan_carried'] == 2 * frames and
+            launches['lstm_scan'] == 2 * frames,
+            'streaming from the file did not run kernel B from the carry '
+            'twice a frame')
+
+    return feature_launches['stft_power'], launches['lstm_scan_carried'], {
+        'frames': frames, 'median_ms': float(median), 'p99_ms': float(p99),
+        'feature_median_ms': float(np.median(feature_ms)),
+        'step_median_ms': float(np.median(step_ms))}
+
+
+def check_hcqt(card):
+    """Phase 30: HCQT at DeepSalience's harmonics [0.5, 1, 2, 3, 4, 5],
+    22,050 Hz, hop 512, fmin C1, 72 bins at 12 an octave (the top bin of
+    harmonic 5 at 9.9 kHz) over 8 rendered clips of 30 s: kernel C once a
+    harmonic on its FFMA route, the [0, 1] features within
+    ``CQT_FEATURE_TOL`` of the CPU's (plain versions); beside it
+    ``SignalPower`` (torch ops) against the CPU and a ``FeatureCombo`` of a
+    CQT and a two-harmonic HCQT (kernel C three times). Returns C's
+    launches."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import (CQT, HCQT, FeatureCombo,
+                                              SignalPower)
+
+    clips = render_clips(tools.GuitarProfile(num_frets=19), HCQT_CLIPS,
+                         HCQT_SECONDS, GUITAR_SAMPLE_RATE)
+    audio = torch.from_numpy(clips)
+    card_audio = audio.cuda()
+    hcqt = HCQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP,
+                harmonics=list(HCQT_HARMONICS), n_bins=HCQT_BINS,
+                bins_per_octave=12)
+    top = hcqt.modules[-1].fmin * 2 ** ((HCQT_BINS - 1) / 12)
+    combo = FeatureCombo([
+        CQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP, n_bins=HCQT_BINS),
+        HCQT(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP, harmonics=[1, 2],
+             n_bins=HCQT_BINS)])
+    power = SignalPower(sample_rate=GUITAR_SAMPLE_RATE, hop_length=HOP)
+
+    with torch.inference_mode():
+        hcqt.process(card_audio[:1, :GUITAR_SAMPLE_RATE])  # warm-up
+    results = {}
+    for name, module, kernels in (('HCQT', hcqt, len(HCQT_HARMONICS)),
+                                  (combo.features_name(), combo, 3),
+                                  ('SignalPower', power, 0)):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            got = module.process(card_audio)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            launches = read_launches()
+            start = time.perf_counter()
+            want = module.process(audio)
+            cpu_ms = (time.perf_counter() - start) * 1e3
+        err = float((got.cpu() - want).abs().max())
+        tol = POWER_DB_TOL if name == 'SignalPower' else CQT_FEATURE_TOL
+        results[name] = launches['cqt_mag']
+        log(f'{name} of {HCQT_CLIPS} x {HCQT_SECONDS:.0f} s at '
+            f'{GUITAR_SAMPLE_RATE} Hz -> {tuple(got.shape)}: {ms:.1f} ms on '
+            f'the card (host clock), {cpu_ms:.0f} ms on the CPU; card against '
+            f'CPU max {err:.3g} (tolerance {tol}) ({card}); launches '
+            f'{launches}')
+        require(err <= tol, f'{name} on the card is off the CPU\'s')
+        require(launches['cqt_mag'] == kernels and
+                launches['cqt_mag_ffma'] == kernels and
+                launches['cqt_mag_grouped'] == 0,
+                f'{name} did not run kernel C {kernels} times on its FFMA '
+                f'route')
+    require(top < GUITAR_SAMPLE_RATE / 2, 'the top bin exceeds Nyquist')
+    log(f'HCQT top bin {top:.0f} Hz, under the {GUITAR_SAMPLE_RATE // 2} Hz '
+        f'Nyquist frequency')
+
+    return results['HCQT']
+
+
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3461,8 +4222,50 @@ def main():
                         'without_validation': tab_rates[False]},
                     'streaming': streaming}))
 
-    profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
-                     velocity_step, online_step, tab_step, stream_frames])
+    with tempfile.TemporaryDirectory(prefix='_chip_smoke_corpora_',
+                                     dir=ROOT) as root:
+        start = time.perf_counter()
+        corpora = write_corpora(root)
+        log(f'wrote the MAESTRO ({MAESTRO_TRAIN_TRACKS} x '
+            f'{MAESTRO_TRAIN_SECONDS:.0f} s + 2 x {MAESTRO_EVAL_TRACKS} x '
+            f'{MAESTRO_EVAL_SECONDS:.0f} s), MAPS ({len(MAPS_SPLITS)} x '
+            f'{MAPS_TRACKS} x {MAPS_SECONDS:.0f} s) and GuitarSet '
+            f'({GSET_PLAYERS} x {GSET_TRACKS} x {GSET_SECONDS:.0f} s) corpora '
+            f'in {time.perf_counter() - start:.1f} s')
+        corpus_model, of2_passes, of2_rates, of2_step = of2_on_maestro(
+            card, corpora)
+        torch.cuda.empty_cache()
+        masked_corpus = validate_corpora(card, corpora, corpus_model)
+        del corpus_model
+        torch.cuda.empty_cache()
+        gset_launches, gset_rates, gset_step = tabcnn_on_guitarset(card,
+                                                                   corpora)
+        torch.cuda.empty_cache()
+        file_features, file_carried, file_stream = stream_from_file(card,
+                                                                    corpora)
+        hcqt_launches = check_hcqt(card)
+        torch.cuda.empty_cache()
+        log(json.dumps({'of_2_maestro': of2_rates,
+                        'corpus_validation_masked_launches': masked_corpus,
+                        'tabcnn_guitarset': gset_rates,
+                        'audio_file_stream': file_stream}))
+
+        profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
+                         velocity_step, online_step, tab_step, stream_frames,
+                         of2_step, gset_step])
+
+    cold, warm = of2_passes['cold']['launches'], of2_passes['warm']['launches']
+    stft['launches_maestro_cold'] = cold['stft_power']
+    stft['launches_maestro_warm'] = warm['stft_power']
+    stft['launches_audio_file_stream'] = file_features
+    lstm['launches_masked_corpus_validation'] = sum(masked_corpus.values())
+    lstm['launches_carried_file_stream'] = file_carried
+    cqt_full['launches_guitarset_cold'] = gset_launches['cold']['cqt_mag']
+    cqt_full['launches_guitarset_warm'] = gset_launches['warm']['cqt_mag']
+    cqt_full['launches_hcqt'] = hcqt_launches
+    steps = MAESTRO_TRAIN_TRACKS // TRAIN_BATCH
+    for entry in (residuals, bptt):
+        entry['launches_maestro_per_step'] = cold[entry['name']] / steps
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,

@@ -39,6 +39,11 @@ Tolerances:
 - a training step of the velocity model or TabCNN, card against CPU:
   losses within 1e-4 relative, the gradients of the layers after the conv
   stacks within 1e-3 of their module's largest;
+- features computed by loader threads on the card, ``HCQT`` and
+  ``AudioFileStream`` frames, card against CPU: 4e-4 on the [0, 1] mel
+  features (``amt_tools_tpu/ops/pallas_stft.py:30``) and 2e-4 on the CQT
+  ones (``amt_tools_tpu/features/cqt.py:29``), float32 sums in another
+  order; features read back from the npz cache bit for bit;
 - BPTT (kernel F): da and dW_h = h_prev^T da within 1e-4 (float32) or
   5e-4 (bf16) of their largest value, and 1e-5 or 1e-4 of their mean
   magnitude on the mean, on residuals that both versions share. In bf16 a
@@ -1063,3 +1068,95 @@ def test_tabcnn_train_step_on_the_card_matches_the_cpu(cuda):
     _held(card_grads, cpu_grads, [n for n in cpu_grads
                                   if n.startswith(('dense1',
                                                    'tablature_out'))])
+
+
+def test_loader_threads_compute_features_on_the_card(cuda, tmp_path):
+    """``DataLoader(num_workers=4)`` over a dataset whose features the
+    worker threads compute on the card (kernel A) into the npz cache, with
+    kernel A's library unloaded first, so the threads are the first to
+    reach it: A exactly once a track with the cache cold, never with it
+    warm, the warm features the cold ones bit for bit, and a track's
+    features within the mel tolerance of the CPU's."""
+
+    from amt_tools_tpu_torch.datasets import DataLoader, SyntheticPiano
+
+    mel = MelSpec(n_mels=64, htk=True)
+
+    def run():
+        dataset = SyntheticPiano(num_tracks=16, track_duration=3.0,
+                                 num_frames=32, data_proc=mel,
+                                 store_data=False, save_data=True,
+                                 save_loc=str(tmp_path))
+        feats = {}
+        calculate = dataset.calculate_feats
+
+        def record(data):
+            out = calculate(data)
+            feats[out[tools.KEY_TRACK]] = out[tools.KEY_FEATS]
+            return out
+
+        dataset.calculate_feats = record
+        launches = stft_power.launches
+        batches = list(DataLoader(dataset, batch_size=4, num_workers=4,
+                                  seed=0))
+        torch.cuda.synchronize()
+        assert len(batches) == 4
+        return dataset, feats, stft_power.launches - launches
+
+    cuda_build._loaded.pop('stft_power', None)
+    dataset, cold, launches = run()
+    assert launches == len(cold) == 16
+    assert len(list((tmp_path / 'SyntheticPiano' / 'MelSpec').iterdir())) == 16
+    _, warm, launches = run()
+    assert launches == 0 and sorted(warm) == sorted(cold)
+    for track, feats in warm.items():
+        assert feats.dtype == cold[track].dtype
+        np.testing.assert_array_equal(feats, cold[track])
+
+    audio = dataset.load(dataset.tracks[3])[tools.KEY_AUDIO]
+    want = mel.process_audio(audio, device='cpu')
+    assert np.abs(cold[dataset.tracks[3]] - want).max() <= 4e-4
+
+
+def test_hcqt_on_the_card_matches_the_cpu(cuda):
+    """One kernel C launch a harmonic, on the float32 FFMA route; the
+    [0, 1] features within 2e-4 of the CPU's."""
+
+    from amt_tools_tpu_torch.features import HCQT
+
+    hcqt = HCQT(n_bins=48, harmonics=[0.5, 1, 2, 3])
+    audio = _audio(2, 3 * 22050, seed=4)
+    launches, ffma = cqt_mag.launches, cqt_mag.ffma_launches
+    with torch.inference_mode():
+        got = hcqt.process(audio.to(cuda))
+        torch.cuda.synchronize()
+        want = hcqt.process(audio)
+    assert cqt_mag.launches == launches + 4
+    assert cqt_mag.ffma_launches == ffma + 4
+    assert got.shape == want.shape == (2, 4, 48, 1 + audio.shape[-1] // 512)
+    assert (got.cpu() - want).abs().max().item() <= 2e-4
+
+
+def test_audio_file_stream_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A 22.05 kHz WAV streamed at 16 kHz: kernel A once a frame, each
+    frame within the mel tolerance of the CPU stream's."""
+
+    from amt_tools_tpu_torch.features import AudioFileStream
+
+    path = str(tmp_path / 'clip.wav')
+    tools.write_wav(path, _audio(1, 22050, seed=5)[0].numpy(), 22050)
+    streams = [AudioFileStream(MelSpec(n_mels=229), audio_path=path,
+                               feature_device=device)
+               for device in (None, 'cpu')]
+    for stream in streams:
+        stream.start_streaming()
+    launches = stft_power.launches
+    frames = 0
+    while not streams[0].query_finished():
+        got, want = (s.extract_frame_features() for s in streams)
+        assert got.shape == want.shape == (1, 229, 1)
+        assert np.abs(got - want).max() <= 4e-4
+        frames += 1
+    assert streams[1].query_finished()
+    assert frames == 1 + len(streams[0].audio) // 512
+    assert stft_power.launches == launches + frames
