@@ -3,7 +3,7 @@
 The JAX package ``amt_tools_tpu`` is the reference; this package mirrors its
 layout (``tools``, ``ops``, ``features``, ``models``, ``datasets``,
 ``serving``, ``train``, ``metrics``, ``transcribe``, ``inference``,
-``evaluate``) and holds
+``evaluate``, ``parallel``) and holds
 each module against its JAX counterpart in ``tests/test_torch_*.py``. It
 imports ``torch`` and numpy only — never JAX, Flax, Optax or anything of
 ``amt_tools_tpu``.
@@ -15,8 +15,8 @@ PyTorch version only for tensors that lie on the CPU.
 """
 
 from . import (tools, ops, features, models, datasets, serving, train,
-               weights, metrics, transcribe, inference, evaluate)
+               weights, metrics, transcribe, inference, evaluate, parallel)
 
 __all__ = ['tools', 'ops', 'features', 'models', 'datasets', 'serving',
            'train', 'weights', 'metrics', 'transcribe', 'inference',
-           'evaluate']
+           'evaluate', 'parallel']

@@ -148,6 +148,7 @@ def cqt_mag_grouped_plain(audio, bank_stack, supports, bins_per_group,
 
 
 def _check_inputs(audio, bank, rows, name):
+    cuda_build.require_plain(name, audio=audio, bank=bank)
     if audio.dim() != 2:
         raise ValueError(f'audio must be (B, N), got shape {tuple(audio.shape)}')
     if audio.dtype != torch.float32 or bank.dtype != torch.float32:

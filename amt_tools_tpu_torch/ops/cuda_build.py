@@ -15,6 +15,8 @@ Each compiler writes to a temporary name that carries the process and the
 thread, and the finished library is renamed into place. :func:`count`
 increments the wrappers' launch counters under a lock, and :func:`cached`
 fills a device-side cache (banks, twiddles, occupancy answers) once.
+:func:`require_plain` refuses a tensor a kernel cannot read through its
+data pointer (a DTensor or another wrapper subclass), on every route.
 """
 
 import ctypes
@@ -26,7 +28,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['KERNEL_SOURCES', 'build', 'library', 'check', 'count', 'cached']
+__all__ = ['KERNEL_SOURCES', 'build', 'library', 'check', 'count', 'cached',
+           'require_plain']
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -158,3 +161,21 @@ def check(status, kernel):
     if status != 0:
         raise RuntimeError(f'{kernel} kernel launch failed with CUDA error '
                            f'{status}')
+
+
+def require_plain(kernel, **tensors):
+    """Raise ``TypeError`` for any named tensor that is not a plain
+    ``torch.Tensor`` (or ``nn.Parameter``): a DTensor's or another wrapper
+    subclass's data pointer is not its values, so the kernels would read
+    garbage."""
+
+    import torch
+
+    for name, tensor in tensors.items():
+        if tensor is not None and type(tensor) not in (torch.Tensor,
+                                                       torch.nn.Parameter):
+            raise TypeError(
+                f'{kernel} takes plain tensors, got a '
+                f'{type(tensor).__name__} for {name}: the kernel reads it '
+                f'through its data pointer. Gather a DTensor first '
+                f'(full_tensor() or to_local()).')

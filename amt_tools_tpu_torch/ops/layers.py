@@ -12,6 +12,14 @@ its padding and casts to its own dtype, so a model calls the same helper
 whichever layer it built. :func:`checkpoint` recomputes a function in the
 backward pass (the models' ``remat``) with the same dropout noise and
 without a second update of BatchNorm's running statistics.
+
+Data parallelism (``parallel/``): a train-mode :class:`BatchNorm` whose
+``process_group`` is set takes its statistics over the global batch, and
+:func:`dropout` given a :class:`BatchShardGenerator` draws the global
+batch's mask and keeps the rank's rows, so a step split over ranks equals
+the one-process step. A layer with a ``tp_group`` (set by
+``parallel.shard_params_tp``) holds its columns of a column-parallel
+kernel, and :func:`linear` gathers the columns of its output.
 """
 
 import contextlib
@@ -22,8 +30,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel.collectives import all_reduce, gather_columns, reduce_grad
+
 __all__ = ['linear', 'conv2d_same', 'conv2d_valid', 'conv3x3', 'BatchNorm',
-           'dropout', 'lecun_normal_', 'orthogonal_', 'checkpoint']
+           'dropout', 'BatchShardGenerator', 'lecun_normal_', 'orthogonal_',
+           'checkpoint']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -75,14 +86,24 @@ def _compute_dtype(x, dtype):
 
 
 def linear(x, layer, dtype=None):
-    """``layer`` (an ``nn.Linear``) applied in ``dtype`` (default: x's)."""
+    """``layer`` (an ``nn.Linear``) applied in ``dtype`` (default: x's).
+
+    A layer with a ``tp_group`` holds its rank's rows of the weight and the
+    bias (output columns): each rank computes its columns and the output
+    gathers them, in rank order; the input's gradient is summed over the
+    group."""
 
     if getattr(layer, 'quantized', False):
         return layer(x)
 
     dtype = _compute_dtype(x, dtype)
+    group = getattr(layer, 'tp_group', None)
+    if group is not None:
+        x = reduce_grad(x, group)
 
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    y = F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+    return y if group is None else gather_columns(y, group)
 
 
 def conv2d_same(x, layer, dtype=None):
@@ -124,12 +145,23 @@ class BatchNorm(nn.Module):
     ``running_var`` with the unbiased variance, so the arithmetic is
     written out. A forward recomputed by :func:`checkpoint`
     (``recomputing``) does not update them again.
+
+    With ``process_group`` set (the ``data`` dimension of a data-parallel
+    train step) the statistics are the global batch's, as Flax takes them
+    under a jitted data-parallel step: the float32 per-channel sums of x
+    and x^2 and their count are summed over the group
+    (``parallel.collectives.all_reduce``, gradients flowing through the
+    sum), and every rank updates its buffers from the same statistics. The
+    count is exact below 2^24 values a channel. Without a group the same
+    arithmetic runs on the local sums, so a group of one rank gives the
+    same bits.
     """
 
     def __init__(self, num_features, eps=1e-5):
         super().__init__()
         self.eps = eps
         self.recomputing = False
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
@@ -154,9 +186,17 @@ class BatchNorm(nn.Module):
 
     def _forward_train(self, x, dtype, shape):
         axes = (0,) + tuple(range(2, x.dim()))
+        channels = x.shape[1]
         xf = x.float()
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        count = torch.full((1,), xf.numel() // channels, dtype=torch.float32,
+                           device=xf.device)
+        stats = torch.cat([xf.sum(axes), (xf * xf).sum(axes), count])
+        if self.process_group is not None:
+            stats = all_reduce(stats, self.process_group)
+
+        mean = stats[:channels] / stats[-1]
+        var = torch.clamp(stats[channels:-1] / stats[-1] - mean * mean,
+                          min=0.0)
 
         if not self.recomputing:
             with torch.no_grad():
@@ -169,11 +209,32 @@ class BatchNorm(nn.Module):
         return y.to(dtype)
 
 
+class BatchShardGenerator:
+    """A dropout generator for shard ``index`` of ``count`` equal shards of
+    a global batch along dim 0: :func:`dropout` draws the global batch's
+    mask from ``generator`` and keeps this shard's rows. Every rank of a
+    data-parallel step holds one, over the same generator state, so the
+    masks are those of the one-process step on the global batch bit for
+    bit (JAX draws them for the global logical array from one key)."""
+
+    def __init__(self, generator, index, count):
+        self.generator = generator
+        self.index = index
+        self.count = count
+
+    def get_state(self):
+        return self.generator.get_state()
+
+    def set_state(self, state):
+        self.generator.set_state(state)
+
+
 def dropout(x, rate, generator):
     """Flax's ``nn.Dropout`` in train mode: keep each value with probability
     ``1 - rate`` (a uniform draw below it) and scale it by ``1 / (1 -
     rate)``. The noise comes from ``generator``, a ``torch.Generator`` on
-    x's device; ``torch.nn.functional.dropout`` takes none."""
+    x's device (``torch.nn.functional.dropout`` takes none) or a
+    :class:`BatchShardGenerator` over one."""
 
     if rate == 0.0:
         return x
@@ -182,7 +243,14 @@ def dropout(x, rate, generator):
                          'torch.Generator (Flax needs a dropout rng)')
 
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if isinstance(generator, BatchShardGenerator):
+        rows = x.shape[0]
+        noise = torch.rand((rows * generator.count,) + tuple(x.shape[1:]),
+                           generator=generator.generator, device=x.device)
+        noise = noise[generator.index * rows:(generator.index + 1) * rows]
+    else:
+        noise = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = noise < keep_prob
 
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

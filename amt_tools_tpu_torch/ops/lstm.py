@@ -30,12 +30,22 @@ projections' dtype), so chunks that thread it equal one whole call bit for
 bit. Masked and carried training (kernels E and F with lengths or a carry)
 are not ported: either while autograd records raises; no JAX path trains
 with them.
+
+Kernels B, E and F read W_h whole through a raw pointer, so a layer whose
+``recurrent_kernel`` is sharded gathers it before the launch: one
+``parallel.shard_params_tp`` left with a column shard and a ``tp_group``
+(:func:`parallel.collectives.gather_columns`, whose gradient keeps the
+rank's columns), or a DTensor (``full_tensor()``), as XLA gathers an
+operand around a Pallas call it cannot partition.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from ..parallel.collectives import gather_columns
 from .layers import lecun_normal_, linear, orthogonal_
 from .lstm_kernel import lstm_scan, lstm_scan_grad, scan_supported
 from .qconv import Int8Dense
@@ -156,6 +166,20 @@ def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None):
     return _scan(xw, w_h, reverse, lengths, carry)
 
 
+def _whole(module, w_h):
+    """``w_h`` (H, 4H) as the kernels read it: the columns of a tensor-
+    parallel shard gathered over the module's ``tp_group``, a DTensor made
+    whole."""
+
+    if isinstance(w_h, DTensor):
+        return w_h.full_tensor()
+    group = getattr(module, 'tp_group', None)
+    if group is not None and w_h.shape[1] != 4 * module.features:
+        return gather_columns(w_h, group, dim=1)
+
+    return w_h
+
+
 class FastLSTM(nn.Module):
     """Unidirectional LSTM: (B, T, E) -> (B, T, H); ``lengths`` (B,) masks
     each row's padded tail (inference only). Pass ``initial_carry=(c, h)``
@@ -179,14 +203,15 @@ class FastLSTM(nn.Module):
                 return_carry=False):
         xw = linear(inputs, self.input_proj, self.dtype)
 
+        w_h = _whole(self, self.recurrent_kernel)
         if initial_carry is None and not return_carry:
-            return _recurrence(xw, self.recurrent_kernel, lengths=lengths)
+            return _recurrence(xw, w_h, lengths=lengths)
 
         if initial_carry is None:
             zeros = torch.zeros((xw.shape[0], self.features),
                                 device=xw.device)
             initial_carry = (zeros, zeros)
-        out, carry = _recurrence(xw, self.recurrent_kernel, lengths=lengths,
+        out, carry = _recurrence(xw, w_h, lengths=lengths,
                                  carry=initial_carry)
 
         return (carry, out) if return_carry else out
@@ -220,8 +245,9 @@ class FastBiLSTM(nn.Module):
         xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
         xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
 
-        out_f = _recurrence(xw_f, self.recurrent_kernel_fwd, lengths=lengths)
-        out_b = _recurrence(xw_b, self.recurrent_kernel_bwd, reverse=True,
+        out_f = _recurrence(xw_f, _whole(self, self.recurrent_kernel_fwd),
                             lengths=lengths)
+        out_b = _recurrence(xw_b, _whole(self, self.recurrent_kernel_bwd),
+                            reverse=True, lengths=lengths)
 
         return torch.cat([out_f, out_b], dim=-1)

@@ -432,6 +432,7 @@ def lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse=False):
 
 
 def _check_inputs(xw, w_h):
+    cuda_build.require_plain('lstm_scan', xw=xw, w_h=w_h)
     if xw.dim() != 3 or xw.shape[-1] % 4:
         raise ValueError(f'xw must be (B, T, 4H), got shape {tuple(xw.shape)}')
     hidden = xw.shape[-1] // 4
@@ -518,6 +519,7 @@ def _check_lengths(lengths, xw):
     """Per-row lengths as the kernel takes them: int32 (B,) on xw's device,
     each in [0, T]."""
 
+    cuda_build.require_plain('lstm_scan', lengths=lengths)
     batch, frames = xw.shape[:2]
     if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
         raise TypeError(f'lengths must be integers, got {lengths.dtype}')
@@ -546,6 +548,7 @@ def _check_carry(initial_carry, xw):
     carry = []
     for name, x in zip('ch', initial_carry):
         x = torch.as_tensor(x)
+        cuda_build.require_plain('lstm_scan', **{f'initial_carry {name}': x})
         if tuple(x.shape) != (batch, hidden):
             raise ValueError(f'initial_carry {name} must be ({batch}, '
                              f'{hidden}), got {tuple(x.shape)}')
@@ -621,6 +624,8 @@ lstm_scan_residuals.launches = 0
 
 
 def _check_bptt_inputs(gates, c_seq, dout, w_h_t):
+    cuda_build.require_plain('lstm_bptt', gates=gates, c_seq=c_seq,
+                             dout=dout, w_h_t=w_h_t)
     if gates.dim() != 3 or gates.shape[-1] % 4:
         raise ValueError(f'gates must be (B, T, 4H), got shape '
                          f'{tuple(gates.shape)}')

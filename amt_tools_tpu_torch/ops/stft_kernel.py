@@ -132,6 +132,7 @@ def stft_power_plain(audio, bank, n_fft, hop_length, center=True):
 
 
 def _check_inputs(audio, bank, n_fft):
+    cuda_build.require_plain('stft_power', audio=audio, bank=bank)
     if audio.dim() != 2:
         raise ValueError(f'audio must be (B, N), got shape {tuple(audio.shape)}')
     if audio.dtype != torch.float32 or bank.dtype != torch.float32:

@@ -16,14 +16,25 @@ buffers per batch.
 :meth:`dispatch` never waits for the device: it enqueues the work and the
 copy of the buffers into pinned host memory, and returns. Dispatching batch
 n+1 before finalizing batch n overlaps the host's decode with the device.
+
+With a ``mesh`` (``parallel.get_mesh``; JAX ``:176-193``) every rank
+builds the same pipeline and is given the same batch: the model's weights
+are rank 0's (``replicate``), each rank runs features, model and decode
+on its clips of the batch (its rows; the batch must divide over the
+``data`` dimension, as JAX requires), and :meth:`finalize` returns every
+clip's notes,
+in clip order, on every rank (``all_gather_object``; JAX returns them
+from its one controller).
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import tools
 from .ops import decode
 from .ops.qconv import int8_layers, validate_quant_stats
+from .parallel.mesh import _axis, replicate
 
 __all__ = ['TranscriptionPipeline', 'TablaturePipeline', 'calibrate_activity',
            'calibrate_tablature_activity', 'calibrate_quant_stats']
@@ -177,9 +188,10 @@ class _ServingPipeline:
 
     A model with static int8 layers must carry calibrated scales
     (:func:`calibrate_quant_stats`): construction raises otherwise, since
-    zero scales would decode garbage."""
+    zero scales would decode garbage. With a ``mesh`` each rank serves its
+    clips of every batch and gathers the notes (the module docstring)."""
 
-    def __init__(self, model, data_proc, capacity, device=None):
+    def __init__(self, model, data_proc, capacity, device=None, mesh=None):
         if 'static' in (model.quant_acoustic, model.quant_lm):
             validate_quant_stats(model, type(self).__name__)
 
@@ -189,7 +201,10 @@ class _ServingPipeline:
         self.data_proc = data_proc
         self.capacity = capacity
         self.profile = model.profile
+        self.mesh = mesh
         self._times_cache = {}
+        if mesh is not None:
+            replicate(self.model, mesh)
 
     def _decode(self, audio, capacity):
         raise NotImplementedError
@@ -233,6 +248,8 @@ class _ServingPipeline:
         pipeline's device are used in place.
         """
 
+        if self.mesh is not None:
+            audio = self._rows(audio)
         audio = _as_audio(audio, self.device)
         times = self._times_for(audio.shape[-1])
 
@@ -240,12 +257,28 @@ class _ServingPipeline:
 
         return host, done, times, audio
 
+    def _rows(self, audio):
+        """This rank's clips of a (B, N) batch; B must divide the ``data``
+        dimension (JAX's ``device_put`` raises likewise)."""
+
+        _, size, index = _axis(self.mesh, 'data')
+        if audio.ndim == 1:
+            audio = audio[None]
+        if audio.shape[0] % size:
+            raise ValueError(f'a batch of {audio.shape[0]} clips does not '
+                             f'divide over {size} ranks of the mesh\'s '
+                             f'"data" dimension')
+        rows = audio.shape[0] // size
+
+        return audio[index * rows:(index + 1) * rows]
+
     def finalize(self, handle):
         """Wait for a :meth:`dispatch` handle -> per-clip decoded notes.
 
         Clips whose true note count exceeds ``capacity`` are decoded again
         at a sufficient capacity (the device reports the exact count, so one
-        retry always completes) instead of losing notes.
+        retry always completes) instead of losing notes. With a mesh every
+        rank returns every clip's notes, in clip order.
         """
 
         host, done, times, audio = handle
@@ -253,9 +286,17 @@ class _ServingPipeline:
             done.synchronize()
         arrays = tuple(h.numpy() for h in host)
 
-        return self._finalize_batch(
+        groups = self._finalize_batch(
             arrays, times,
             lambda b, capacity: self._decode(audio[b][None], capacity))
+        if self.mesh is None:
+            return groups
+
+        group, size, _ = _axis(self.mesh, 'data')
+        gathered = [None] * size
+        dist.all_gather_object(gathered, groups, group=group)
+
+        return [clip for part in gathered for clip in part]
 
     def _finalize_batch(self, arrays, times, redecode):
         """Per-clip results of one batch's host buffers.
@@ -303,16 +344,19 @@ class TranscriptionPipeline(_ServingPipeline):
     device : str or torch.device, optional
         Where the pipeline runs: CUDA unless given; without a CUDA device
         and without ``device='cpu'`` construction raises.
+    mesh : DeviceMesh, optional
+        Data-parallel serving over the mesh's ``data`` dimension (the
+        module docstring); the batch must divide over it.
 
     Construction turns TF32 off for the process (:func:`tools.use_exact_fp32`),
     so a float32 pipeline computes in IEEE fp32 as the JAX reference does.
     """
 
     def __init__(self, model, data_proc, capacity=2048, threshold=0.5,
-                 use_onsets=True, device=None):
+                 use_onsets=True, device=None, mesh=None):
         self.threshold = threshold
         self.use_onsets = use_onsets
-        super().__init__(model, data_proc, capacity, device=device)
+        super().__init__(model, data_proc, capacity, device=device, mesh=mesh)
 
     def _decode(self, audio, capacity):
         raw = _forward(self.model, self.data_proc, audio)
@@ -365,12 +409,15 @@ class TablaturePipeline(_ServingPipeline):
     device : str or torch.device, optional
         Where the pipeline runs: CUDA unless given; without a CUDA device
         and without ``device='cpu'`` construction raises.
+    mesh : DeviceMesh, optional
+        Data-parallel serving over the mesh's ``data`` dimension.
 
     Construction turns TF32 off for the process (:func:`tools.use_exact_fp32`).
     """
 
-    def __init__(self, model, data_proc, capacity=512, device=None):
-        super().__init__(model, data_proc, capacity, device=device)
+    def __init__(self, model, data_proc, capacity=512, device=None,
+                 mesh=None):
+        super().__init__(model, data_proc, capacity, device=device, mesh=mesh)
 
     def _decode_stage(self, tablature, capacity):
         """(B, S, T) class ids -> (B, S, capacity) note buffers and (B, S)

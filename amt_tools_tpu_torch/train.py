@@ -21,19 +21,41 @@ device, bucketed (``val_bucket``, kernel B with lengths) and
 ``val_batch_size`` tracks a forward, then ``evaluator.finalize(writer,
 step)``, as JAX ``train.py:402-406``. Validation runs in eval mode without
 autograd and draws no random numbers, so the training steps' losses are
-those of a run without it, bit for bit. Data parallelism comes with
-``parallel/``.
+those of a run without it, bit for bit.
+
+With a ``mesh`` (``parallel.get_mesh``; one process per device, every
+process calling :func:`train` with the same loader) the step is data
+parallel over the mesh's ``data`` dimension, as JAX's ``train(mesh=...)``:
+
+- each rank takes its rows of every global batch (``shard_batch``);
+- the parameters, buffers and optimizer state start as rank 0's
+  (``replicate``);
+- the train-mode BatchNorms take the global batch's statistics and the
+  dropout masks are the global batch's (``ops.layers``);
+- after the backward (after the last microbatch with ``accum_steps``) one
+  flat all-reduce per dtype averages the gradients, and the losses are
+  the global means;
+- the mesh's first rank alone writes checkpoints, logs and validates;
+  every rank resumes.
+
+So the steps equal the one-process steps on the global batch, to float
+sums in another order (bit for bit on one rank).
 """
 
+import contextlib
 import os
 import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import tools
 from .evaluate import validate
 from .models.common import run_on_batch
+from .ops.layers import BatchNorm, BatchShardGenerator
+from .parallel.collectives import all_reduce, average_gradients
+from .parallel.mesh import _axis, replicate, shard_batch
 
 __all__ = [
     'make_train_step',
@@ -71,7 +93,31 @@ def _split(batch, accum_steps):
             for k in range(accum_steps)]
 
 
-def make_train_step(model, optimizer, accum_steps=1):
+@contextlib.contextmanager
+def _global_statistics(model, group):
+    """The model's BatchNorms take statistics over ``group`` inside."""
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for norm in norms:
+        norm.process_group = group
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm.process_group = None
+
+
+def _global_mean(loss, group, size):
+    """A loss dict's values averaged over ``group``: one all-reduce."""
+
+    keys = sorted(loss)
+    values = torch.stack([loss[key].float() for key in keys])
+    values = all_reduce(values, group) / size
+
+    return {key: values[k] for k, key in enumerate(keys)}
+
+
+def make_train_step(model, optimizer, accum_steps=1, mesh=None):
     """Build the training step for a model + optimizer pair.
 
     ``step(batch, generator)`` runs ``run_on_batch(train=True)``, back-
@@ -81,21 +127,43 @@ def make_train_step(model, optimizer, accum_steps=1):
     ``accum_steps`` and applies one update: the per-microbatch average,
     with the BatchNorm statistics threading through the microbatches in
     turn and each microbatch drawing its own dropout noise.
+
+    With a ``mesh`` that has a ``data`` dimension, ``batch`` is this rank's
+    rows of the global batch (microbatch k of the rank's batch its rows of
+    global microbatch k) and ``generator`` the step's generator, the same
+    on every rank: BatchNorm statistics and dropout masks are the global
+    batch's, the gradients are averaged over ``data`` once after the last
+    microbatch, and the returned losses are the global means.
     """
+
+    data = None
+    if mesh is not None and 'data' in mesh.mesh_dim_names:
+        data = _axis(mesh, 'data')
 
     def step(batch, generator=None):
         optimizer.zero_grad(set_to_none=True)
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
 
-        total = None
-        for microbatch in micro:
-            loss = run_on_batch(model, microbatch, train=True,
-                                generator=generator)[tools.KEY_LOSS]
-            loss[tools.KEY_LOSS_TOTAL].backward()
+        group = None
+        if data is not None:
+            group, size, index = data
+            if generator is not None:
+                generator = BatchShardGenerator(generator, index, size)
 
-            loss = {key: value.detach() for key, value in loss.items()}
-            total = loss if total is None else {
-                key: total[key] + loss[key] for key in total}
+        total = None
+        with _global_statistics(model, group):
+            for microbatch in micro:
+                loss = run_on_batch(model, microbatch, train=True,
+                                    generator=generator)[tools.KEY_LOSS]
+                loss[tools.KEY_LOSS_TOTAL].backward()
+
+                loss = {key: value.detach() for key, value in loss.items()}
+                total = loss if total is None else {
+                    key: total[key] + loss[key] for key in total}
+
+        if data is not None:
+            average_gradients(model.parameters(), group)
+            total = _global_mean(total, group, size)
 
         if accum_steps > 1:
             for param in model.parameters():
@@ -208,7 +276,8 @@ class _Schedule:
 def train(model, train_loader, optimizer, iterations, checkpoints=0,
           log_dir='.', scheduler=None, resume=True, single_batch=False,
           val_set=None, estimator=None, evaluator=None, seed=0, writer=None,
-          accum_steps=1, device=None, val_bucket=128, val_batch_size=1):
+          accum_steps=1, device=None, val_bucket=128, val_batch_size=1,
+          mesh=None):
     """Training loop, one pass over ``train_loader`` per iteration.
 
     ``optimizer`` is a ``torch.optim`` optimizer over ``model``'s
@@ -224,6 +293,9 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
     checkpoint (not the final save alone, as in JAX) validates the model:
     ``evaluate.validate(..., bucket=val_bucket, batch_size=val_batch_size)``
     with ``estimator``, then ``evaluator.finalize(writer, iteration)``.
+    ``mesh`` (``parallel.get_mesh``) trains data-parallel over its ``data``
+    dimension (the module docstring); every rank calls this with the same
+    loader and arguments, and ``device`` is the rank's own.
 
     Returns ``{'step': steps taken in all, 'losses': {key: [one float per
     step of this call]}}``.
@@ -235,10 +307,15 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
 
     device = tools.resolve_device(device)
     model.to(device)
+    if mesh is not None:
+        replicate(model, mesh)
+        replicate(optimizer, mesh)
+    # With a mesh, its first rank alone writes, logs and validates
+    leader = mesh is None or not any(mesh.get_coordinate())
 
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
-    if writer is None:
+    if writer is None or not leader:
         writer = _NullWriter()
 
     step = 0
@@ -254,7 +331,8 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
 
     schedule = None if scheduler is None else _Schedule(scheduler, optimizer,
                                                         schedule_state)
-    train_step = make_train_step(model, optimizer, accum_steps=accum_steps)
+    train_step = make_train_step(model, optimizer, accum_steps=accum_steps,
+                                 mesh=mesh)
 
     history = {}
     for global_iter in range(start_iter, iterations):
@@ -262,7 +340,7 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
         for batch in train_loader:
             if schedule is not None:
                 schedule.apply()
-            loss = train_step(_place_batch(batch, device),
+            loss = train_step(_place_batch(batch, device, mesh, accum_steps),
                               step_generator(seed, step, device))
             pass_losses.append(loss)
             step += 1
@@ -285,10 +363,19 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
         checkpoint = checkpoints > 0 and (
             (local_iter + 1) % max(1, iterations // checkpoints) == 0)
         if log_dir is not None and (checkpoint or global_iter + 1 == iterations):
-            save_checkpoint(log_dir, global_iter + 1, model, optimizer, step,
-                            seed, None if schedule is None else schedule.state())
+            if leader:
+                save_checkpoint(log_dir, global_iter + 1, model, optimizer,
+                                step, seed,
+                                None if schedule is None else schedule.state())
+            if mesh is not None:
+                # No rank returns (and may resume) before the file is there:
+                # each barrier, from the last dimension, releases the ranks
+                # that meet one released before
+                for axis in reversed(mesh.mesh_dim_names):
+                    dist.barrier(group=mesh.get_group(axis))
 
-        if checkpoint and val_set is not None and evaluator is not None:
+        if (leader and checkpoint and val_set is not None and
+                evaluator is not None):
             validate(model, val_set, evaluator, estimator, bucket=val_bucket,
                      batch_size=val_batch_size, device=device)
             evaluator.finalize(writer, global_iter + 1)
@@ -305,8 +392,10 @@ def trainable_batch(batch):
             (tools.KEY_NOTES, tools.KEY_PITCHLIST, tools.KEY_TRACK)}
 
 
-def _place_batch(batch, device):
-    """A host batch -> tensors on ``device``. Raw audio and frame times stay
+def _place_batch(batch, device, mesh=None, accum_steps=1):
+    """A host batch -> tensors on ``device``; with a ``mesh`` this rank's
+    rows, microbatch by microbatch (its rows of each of the
+    ``accum_steps`` microbatches, in turn). Raw audio and frame times stay
     behind when there are features: the step trains on features and
     frame-aligned labels."""
 
@@ -316,8 +405,14 @@ def _place_batch(batch, device):
         for key in (tools.KEY_AUDIO, tools.KEY_TIMES):
             batch.pop(key, None)
 
-    return {key: torch.as_tensor(np.asarray(value)).to(device)
-            for key, value in batch.items()}
+    batch = {key: torch.as_tensor(np.asarray(value))
+             for key, value in batch.items()}
+    if mesh is None:
+        return {key: value.to(device) for key, value in batch.items()}
+
+    parts = [shard_batch(micro, mesh) for micro in _split(batch, accum_steps)]
+
+    return {key: torch.cat([part[key] for part in parts]) for key in batch}
 
 
 class _NullWriter:

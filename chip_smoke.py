@@ -168,6 +168,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     at 12 an octave) over 8 clips of 30 s: C six times, the features
     against the CPU's; ``SignalPower`` and a ``FeatureCombo`` of a CQT and
     a two-harmonic HCQT beside it;
+31. ``train(mesh=get_mesh())`` over NCCL at world size 1 in this process
+    against ``train()`` (O&F2 complexity 3, float32, 8 x 625, dropout on,
+    two Adam steps each, cuDNN's deterministic algorithms): losses,
+    parameters and BatchNorm buffers bit for bit; E and F six times a
+    step;
+32. two ranks on the one card, spawned, through gloo (which does
+    broadcast and all_reduce on CUDA tensors): one SGD step on 4 + 4 rows
+    of a batch of 8 with dropout on against the one-process step: the
+    loss, the averaged gradients (phase 12b's rule, with the ReLU and
+    max-pool decisions each rank took otherwise counted) and the running
+    statistics; E and F six times on each rank;
+33. the same two ranks serve phase 5's bf16 piano batch (64 clips a rank)
+    and phase 8's guitar batch (32 a rank) through the pipelines' ``mesh``:
+    every rank's notes equal the one-process notes under PARITY.md's rule
+    (and the tablature rule); A once and B six times, D once, a rank; each
+    rank's peak memory;
+34. over NCCL at world size 1, each bit for bit its unsharded counterpart:
+    ``framify_time_sharded``, TabCNN on a time-sharded track,
+    ``shard_params_tp`` then an O&F2 forward through B, ``pipeline_apply``
+    at S = 1. Times of phases 32-33 are two processes sharing one card,
+    not scaling figures;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, and one step each of the of_2
@@ -183,8 +204,9 @@ on MAESTRO with the cache cold and warm and in the file stream; B with its
 masked launches of phases 19 and 27, phase 18's times, its carried
 launches of phases 25 and 29 and phase 25a's times; C with its launches in
 the TabCNN recipes, cold and warm, and in the HCQT; E and F with their
-launches a velocity step and a MAESTRO step), and one JSON line
-``{"ok": true, "device": {...}}``.
+launches a velocity step and a MAESTRO step; A, B and D with their
+launches a rank in phase 33, E and F a step in phases 31 and 32), and one
+JSON line ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -1000,9 +1022,46 @@ def serve(clips, profile, card):
                 bool(torch.isfinite(logits).all()),
                 f'bf16 {key} logits are not finite of shape (2, {frames}, 88)')
 
-    return launches, (f'piano batch of {BATCH} clips',
-                      lambda: pipeline(requests[0]),
-                      ('stft_power_fft_kernel', 'lstm_scan_kernel'))
+    # The one-process reference of phase 33: the weights, the first
+    # request's notes and its logits
+    reference = {'state': {k: v.cpu() for k, v in model.state_dict().items()},
+                 'notes': results[0],
+                 'raw': piano_logits(model, mel, requests[0])}
+
+    return (launches, (f'piano batch of {BATCH} clips',
+                       lambda: pipeline(requests[0]),
+                       ('stft_power_fft_kernel', 'lstm_scan_kernel')),
+            reference)
+
+
+def piano_logits(model, mel, audio):
+    """The bf16 multi-pitch and onset logits of an audio batch, on the
+    host."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+
+    with torch.inference_mode():
+        feats = mel.process(audio)
+        raw = model(model.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS])
+
+    return {key: raw[key].cpu() for key in (tools.KEY_MULTIPITCH,
+                                            tools.KEY_ONSETS)}
+
+
+def tablature_logits(model, cqt, audio):
+    """The bf16 tablature logits of an audio batch, on the host."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+
+    with torch.inference_mode():
+        feats = cqt.process(audio)
+        raw = model(model.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS])
+
+    return raw[tools.KEY_TABLATURE].cpu()
 
 
 def serve_requests(pipeline, requests):
@@ -1829,10 +1888,16 @@ def serve_guitar(clips, card):
             'the full-bank CQT kernel did not run on its bf16x3 route')
     require(min(full_notes) > 0, 'a full-bank guitar clip decoded no notes')
 
+    reference = {'state': {k: v.cpu() for k, v in model.state_dict().items()},
+                 'notes': results[0],
+                 'raw': tablature_logits(model, pipeline.data_proc,
+                                         requests[0])}
+
     return ({'cqt_mag_grouped': launches['cqt_mag_grouped'],
              'cqt_mag': full_launches['cqt_mag']},
             (f'guitar batch of {GUITAR_BATCH} clips',
-             lambda: pipeline(requests[0]), ('cqt_mag_tc_kernel',)))
+             lambda: pipeline(requests[0]), ('cqt_mag_tc_kernel',)),
+            reference)
 
 
 def guitar_card_and_cpu(audio, model, cqt):
@@ -4105,6 +4170,644 @@ def check_hcqt(card):
 
     return results['HCQT']
 
+# Phases 31-34: parallel/ on the one card. NCCL at world size 1 in this
+# process (31, 34); two ranks in spawned processes through gloo (32, 33),
+# which on CUDA tensors does broadcast and all_reduce only. No timing of
+# the two-rank phases is a scaling figure: two processes share one card
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 420.0      # seconds for the spawned ranks, start to join
+DP_STEPS = 2
+# Phase 33, bf16 two ranks vs one process: a thresholded piano map may
+# differ only where the one-process logit is within this of the threshold,
+# a tablature cell only where its top-two margin is within twice this (the
+# int8 pipelines' bound, tests/test_torch_int8_pipeline.py)
+BF16_LOGIT_TOL = 1e-2
+
+
+def dp_batch(seed):
+    """A float32 O&F2 batch at the recipe's shape: features in [0, 1] and
+    a sparse multi-pitch map, from ``seed``."""
+
+    from amt_tools_tpu_torch import tools
+
+    rng = np.random.RandomState(seed)
+    return {
+        tools.KEY_FEATS: rng.rand(TRAIN_BATCH, 1, N_MELS,
+                                  TRAIN_FRAMES).astype(np.float32),
+        tools.KEY_MULTIPITCH: (rng.rand(TRAIN_BATCH, 88, TRAIN_FRAMES) <
+                               0.05).astype(np.float32),
+    }
+
+
+def of2_model(seed, dtype=None):
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+
+    return OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                         model_complexity=3, dtype=dtype,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def dp_world_one(card):
+    """Phase 31: ``train(mesh=get_mesh())`` over NCCL at world size 1
+    against ``train()``: O&F2 complexity 3, float32, 8 x 625, dropout on,
+    Adam, two steps each, in turns (plain, mesh, mesh, plain) under
+    cuDNN's deterministic algorithms; each mesh run's losses, parameters
+    and BatchNorm buffers bit for bit the first plain run's, E and F six
+    times a step. Returns E's and F's launches a step."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.parallel import get_mesh
+    from amt_tools_tpu_torch.train import train
+
+    mesh = get_mesh()
+    batch = dp_batch(31)
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for label, run_mesh in (('train()', None), ('train(mesh)', mesh),
+                                ('train(mesh) again', mesh),
+                                ('train() again', None)):
+            model = of2_model(31)
+            optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            result = train(model, FixedLoader([batch]), optimizer, DP_STEPS,
+                           log_dir=None, seed=0, mesh=run_mesh)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            launches = read_launches()
+            runs.append((result['losses'],
+                         {k: v.cpu() for k, v in model.state_dict().items()},
+                         launches))
+            log(f'phase 31 {label}: {DP_STEPS} steps in {elapsed:.3f} s '
+                f'({card}); totals {result["losses"][tools.KEY_LOSS_TOTAL]}; '
+                f'launches {launches}')
+            require(launches['lstm_scan_residuals'] == 6 * DP_STEPS and
+                    launches['lstm_bptt'] == 6 * DP_STEPS,
+                    f'phase 31 {label}: kernels E and F did not run six '
+                    f'times a step')
+
+    def equal(run, other):
+        return run[0] == other[0] and all(torch.equal(run[1][k], v)
+                                          for k, v in other[1].items())
+
+    plain, meshed, meshed_again, plain_again = runs
+    same = equal(meshed, plain) and equal(meshed_again, plain)
+    log(f'phase 31: both train(mesh) runs at world size 1 (NCCL) bit for '
+        f'bit train(): {same}; the two train() runs bit for bit: '
+        f'{equal(plain_again, plain)} (the first train(mesh) run includes '
+        f'NCCL\'s setup at its first collective)')
+    require(same, 'train(mesh) at world size 1 differs from train()')
+
+    return runs[1][2]['lstm_scan_residuals'] / DP_STEPS
+
+
+def world_one_paths(card):
+    """Phase 34: the paths with no two-rank run on one card, through NCCL
+    at world size 1, each bit for bit its unsharded counterpart:
+    ``framify_time_sharded`` at the guitar features' shape, TabCNN (paper
+    width, windowed, float32) on a time-sharded 60 s track,
+    ``shard_params_tp`` then a bf16 O&F2 complexity 3 forward through
+    kernel B (six launches), and ``pipeline_apply`` at S = 1."""
+
+    import copy
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.ops import frames as frame_ops
+    from amt_tools_tpu_torch.parallel import (framify_time_sharded, get_mesh,
+                                              pipeline_apply, shard_params_tp,
+                                              shard_time)
+
+    mesh = get_mesh()
+    generator = torch.Generator(device='cuda').manual_seed(34)
+    frames = 1 + int(CLIP_SECONDS * GUITAR_SAMPLE_RATE) // HOP
+
+    feats = torch.rand((GUITAR_BATCH, 1, 192, frames), generator=generator,
+                       device='cuda')
+    got = framify_time_sharded(shard_time(feats, mesh), 9, mesh)
+    framed = torch.equal(got, frame_ops.framify(feats, 9, pad=True))
+    del feats, got
+
+    model = TabCNN(dim_in=192, profile=tools.GuitarProfile(num_frets=19),
+                   generator=torch.Generator().manual_seed(34)).cuda().eval()
+    track = torch.rand((1, 1, 192, frames), generator=generator,
+                       device='cuda')
+    with torch.inference_mode(), tools.exact_fp32():
+        want = model(model.pre_proc({tools.KEY_FEATS: track})[
+            tools.KEY_FEATS])[tools.KEY_TABLATURE]
+        windows = framify_time_sharded(shard_time(track, mesh),
+                                       model.frame_width, mesh)
+        got = model(windows.permute(0, 3, 1, 2, 4))[tools.KEY_TABLATURE]
+    tabcnn = torch.equal(got, want)
+
+    plain = of2_model(34, torch.bfloat16).cuda().eval()
+    sharded = copy.deepcopy(plain)
+    names = shard_params_tp(sharded, get_mesh(axis_names=('model',)))
+    feats = torch.rand((8, 1, N_MELS, 1 + int(CLIP_SECONDS * SAMPLE_RATE) //
+                        HOP), generator=generator, device='cuda')
+    with torch.inference_mode():
+        x = plain.pre_proc({tools.KEY_FEATS: feats})[tools.KEY_FEATS]
+        want = plain(x)
+        reset_launches()
+        got = sharded(x)
+        tp_launches = read_launches()
+    tp = all(torch.equal(got[k], want[k]) for k in want)
+    del plain, sharded, feats, x, got, want
+
+    def stage(params, y):
+        return y + torch.tanh(y @ params['w'] + params['b'])
+
+    params = {'w': 0.03 * torch.randn((1024, 1024), generator=generator,
+                                      device='cuda'),
+              'b': torch.randn(1024, generator=generator, device='cuda')}
+    micro = torch.randn((8, 64, 1024), generator=generator, device='cuda')
+    with torch.inference_mode():
+        got = pipeline_apply(params, micro, stage,
+                             get_mesh(axis_names=('pipe',)))
+        want = torch.stack([stage(params, m) for m in micro])
+    pipelined = torch.equal(got, want)
+
+    log(f'phase 34 (NCCL, world size 1; {card}): framify_time_sharded bit '
+        f'for bit {framed}; time-sharded TabCNN {tabcnn}; shard_params_tp '
+        f'({len(names)} kernels) forward {tp}, launches {tp_launches}; '
+        f'pipeline_apply at S = 1 {pipelined}')
+    require(framed and tabcnn and tp and pipelined,
+            'a world-size-1 parallel path differs from its unsharded '
+            'counterpart')
+    require(tp_launches['lstm_scan'] == 6,
+            'the tensor-parallel forward did not run kernel B six times')
+    require(len(names) > 0, 'shard_params_tp sharded no kernel')
+
+
+def parallel_rank(rank, world, directory):
+    """Phases 32 and 33 on one of two ranks sharing the card, through
+    gloo: one data-parallel SGD step, then data-parallel piano and guitar
+    serving. Writes ``rank<n>.pt`` into ``directory``."""
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(directory, 'store'), world)
+    dist.init_process_group('gloo', store=store, rank=rank, world_size=world)
+    try:
+        from amt_tools_tpu_torch.parallel import get_mesh
+
+        inputs = torch.load(os.path.join(directory, 'inputs.pt'),
+                            weights_only=False)
+        mesh = get_mesh(backend='gloo')
+        out = {'train': rank_train_step(rank, mesh, inputs),
+               'piano': rank_serve(rank, mesh, directory, inputs, 'piano'),
+               'guitar': rank_serve(rank, mesh, directory, inputs,
+                                    'guitar')}
+        torch.save(out, os.path.join(directory, f'rank{rank}.pt'))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def block_decisions(pre):
+    """The ReLU and 1x2 max-pool decisions of an acoustic block from its
+    pre-ReLU values (B, C, T, F), as ``decision_flips`` reads them: the
+    ReLU's pass (B, C, T, F), and each frequency pair's pick and whether
+    either member is live (B, C, T, F // 2)."""
+
+    x = pre.clamp(min=0)
+    width = 2 * (x.shape[-1] // 2)
+    first, second = x[..., 0:width:2], x[..., 1:width:2]
+
+    return pre > 0, first >= second, (first > 0) | (second > 0)
+
+
+def record_decisions(model, store):
+    """Forward hooks that keep each acoustic block's decisions
+    (``block_decisions``) on the host, by BatchNorm name."""
+
+    def keep(name):
+        return lambda _module, _inputs, out: store.__setitem__(
+            name, tuple(d.cpu() for d in block_decisions(out.detach())))
+
+    return [module.register_forward_hook(keep(name))
+            for name, module in model.named_modules()
+            if '_am.BatchNorm_' in name]
+
+
+def pack_bits(mask):
+    """A bool tensor as (shape, numpy bits): an eighth of its bytes."""
+
+    return tuple(mask.shape), np.packbits(mask.numpy().reshape(-1))
+
+
+def unpack_bits(packed):
+    import torch
+
+    shape, bits = packed
+    return torch.from_numpy(np.unpackbits(
+        bits, count=int(np.prod(shape))).reshape(shape).astype(bool))
+
+
+def count_flips(got, ref, rows):
+    """(ReLU, max-pool) decisions of each acoustic block that ``got`` (a
+    rank's rows) took otherwise than ``ref`` (the whole batch's, packed)
+    on those ``rows``, by (stack, block)."""
+
+    flips = {}
+    for name, (relu, pick, live) in got.items():
+        ref_relu, ref_pick, ref_live = (unpack_bits(d)[rows]
+                                        for d in ref[name])
+        pooled = conv_block(name)[1] > 0
+        pool_flips = int(((pick != ref_pick) & (live | ref_live)).sum())
+        flips[conv_block(name)] = (int((relu != ref_relu).sum()),
+                                   pool_flips if pooled else 0)
+
+    return flips
+
+
+def rank_train_step(rank, mesh, inputs):
+    """Phase 32 on a rank: one SGD step of O&F2 complexity 3 (float32,
+    dropout on) on its 4 rows of the global batch of 8, and the ReLU and
+    max-pool decisions its rows took otherwise than the one-process
+    step's."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.parallel import shard_batch
+    from amt_tools_tpu_torch.train import make_train_step, step_generator
+
+    tools.use_exact_fp32()
+    batch = shard_batch(inputs['train_batch'], mesh)
+    model = of2_model(inputs['train_seed']).cuda()
+    step = make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                  lr=SGD_LR), mesh=mesh)
+    decisions = {}
+    hooks = record_decisions(model, decisions)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    loss = step(batch, step_generator(0, 0, 'cuda'))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = read_launches()
+    for hook in hooks:
+        hook.remove()
+    rows = batch[tools.KEY_FEATS].shape[0]
+
+    return {'loss': {k: v.item() for k, v in loss.items()},
+            'grads': ({n: p.grad.cpu() for n, p in model.named_parameters()}
+                      if rank == 0 else None),
+            'stats': {k: v.cpu() for k, v in model.state_dict().items()
+                      if k.endswith(('running_mean', 'running_var'))},
+            'flips': count_flips(decisions, inputs['train_decisions'],
+                                 slice(rank * rows, (rank + 1) * rows)),
+            'rows': rows, 'launches': launches, 'seconds': elapsed}
+
+
+def rank_serve(rank, mesh, directory, inputs, kind):
+    """Phase 33 on a rank: the bf16 piano (or guitar) pipeline of phase 5
+    (or 8) with the mesh, on the whole batch; this rank serves half of it.
+    Returns the notes (every clip's, on rank 0), this rank's logits, its
+    launches, seconds and peak memory."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import TabCNN
+    from amt_tools_tpu_torch.serving import (TablaturePipeline,
+                                             TranscriptionPipeline)
+
+    audio = np.load(os.path.join(directory, f'{kind}.npy'), mmap_mode='c')
+    if kind == 'piano':
+        model = of2_model(0, torch.bfloat16)
+        model.load_state_dict(inputs['piano_state'])
+        data_proc = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HOP,
+                            n_mels=N_MELS)
+        pipeline = TranscriptionPipeline(model, data_proc, capacity=CAPACITY,
+                                         mesh=mesh)
+    else:
+        data_proc = guitar_cqt(grouped='auto')
+        model = TabCNN(dim_in=data_proc.get_feature_size(),
+                       profile=tools.GuitarProfile(num_frets=19),
+                       fullseq=True, dtype=torch.bfloat16)
+        model.load_state_dict(inputs['guitar_state'])
+        pipeline = TablaturePipeline(model, data_proc,
+                                     capacity=GUITAR_CAPACITY, mesh=mesh)
+
+    pipeline(audio[:8])  # warm-up: cuDNN and allocator first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    notes = pipeline(audio)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    rows = audio.shape[0] // PARALLEL_RANKS
+    own = torch.from_numpy(np.ascontiguousarray(
+        audio[rank * rows:(rank + 1) * rows])).cuda()
+    if kind == 'piano':
+        raw = piano_logits(model, data_proc, own)
+    else:
+        raw = tablature_logits(model, data_proc, own)
+
+    return {'notes': notes if rank == 0 else len(notes), 'raw': raw,
+            'launches': launches, 'seconds': elapsed, 'peak_gb': peak,
+            'clips': rows}
+
+
+def join_ranks(context, timeout):
+    """Join spawned ranks; a rank that raised raises here, and ranks that
+    outlast ``timeout`` seconds are killed and raise."""
+
+    deadline = time.monotonic() + timeout
+    while not context.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for process in context.processes:
+                process.kill()
+            for process in context.processes:
+                process.join(10)
+            raise RuntimeError(f'the spawned ranks outlasted {timeout} s')
+
+
+def one_process_step(train_seed, batch):
+    """Phase 32's reference: the same SGD step in this process on the
+    whole batch: (losses, gradients, running statistics, the acoustic
+    blocks' decisions)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.train import make_train_step, step_generator
+
+    tools.use_exact_fp32()
+    model = of2_model(train_seed).cuda()
+    step = make_train_step(model, torch.optim.SGD(model.parameters(),
+                                                  lr=SGD_LR))
+    decisions = {}
+    hooks = record_decisions(model, decisions)
+    loss = step({k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+                step_generator(0, 0, 'cuda'))
+    for hook in hooks:
+        hook.remove()
+
+    return ({k: v.item() for k, v in loss.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))},
+            {name: tuple(pack_bits(d) for d in masks)
+             for name, masks in decisions.items()})
+
+
+def check_two_rank_step(ranks, reference, card):
+    """Phase 32's comparison with the one-process step: the loss within
+    ``LOSS_TOL`` relative; each averaged gradient within ``GRAD_TOL`` of
+    its module's largest (a conv bias ahead of a train-mode BatchNorm has
+    a gradient of rounding noise), a conv block's within
+    ``CONV_BLOCK_GRAD_TOL`` where a ReLU or max-pool decision of its stack
+    at or after it went the other way on a rank (the rule of phase 12b:
+    the BatchNorm statistics and the convolutions of 4 rows round apart
+    from those of 8, and an element whose decision flips routes its whole
+    gradient elsewhere); the running statistics within 1e-5; E and F six
+    times a step on each rank. Returns E's launches a step a rank."""
+
+    from amt_tools_tpu_torch import tools
+
+    ref_loss, ref_grads, ref_stats, _ = reference
+    key = tools.KEY_LOSS_TOTAL
+    loss_err = stat_err = 0.0
+    flips = {}
+    for rank, result in enumerate(ranks):
+        step = result['train']
+        require(step['rows'] == TRAIN_BATCH // PARALLEL_RANKS,
+                f'rank {rank} did not take its {TRAIN_BATCH // 2} rows')
+        loss_err = max(loss_err, abs(step['loss'][key] - ref_loss[key]) /
+                       abs(ref_loss[key]))
+        stat_err = max(stat_err, max((step['stats'][k] - v).abs().max().item()
+                                     for k, v in ref_stats.items()))
+        for block, (relu, pool) in step['flips'].items():
+            total = flips.get(block, (0, 0))
+            flips[block] = (total[0] + relu, total[1] + pool)
+        log(f'phase 32 rank {rank}: step {step["seconds"]:.3f} s (the first '
+            f'step, two processes sharing one card, not a scaling figure; '
+            f'{card}); loss {step["loss"][key]!r} (one process '
+            f'{ref_loss[key]!r}); launches {step["launches"]}')
+        require(step['launches']['lstm_scan_residuals'] == 6 and
+                step['launches']['lstm_bptt'] == 6,
+                f'phase 32 rank {rank}: E and F did not run six times')
+
+    grads = ranks[0]['train']['grads']
+    ratios = []
+    for name, ref in ref_grads.items():
+        err = (grads[name] - ref).abs().max().item() / module_scale(
+            ref_grads, name)
+        tol = GRAD_TOL
+        block = conv_block(name)
+        if block is not None and any(
+                sum(counts) for (stack, later), counts in flips.items()
+                if stack == block[0] and later >= block[1]):
+            tol = CONV_BLOCK_GRAD_TOL
+        ratios.append((err / tol, err, name))
+    ratio, err, name = max(ratios)
+    strict, strict_name = max((r[1], r[2]) for r in ratios
+                              if conv_block(r[2]) is None)
+    log(f'phase 32: two ranks (gloo) vs one process, one SGD step with '
+        f'dropout on: loss within {loss_err:.3g} relative (tolerance '
+        f'{LOSS_TOL}); ReLU/max-pool decisions taken otherwise in blocks '
+        f'0-2: ' + ', '.join(
+            f'{stack} ' + ' '.join(f'{flips[stack, i][0]}/{flips[stack, i][1]}'
+                                   for i in range(3))
+            for stack in sorted({s for s, _ in flips})) +
+        f'; gradients at most {ratio:.3g} of their tolerance (worst {name}, '
+        f'{err:.3g} of its module\'s largest; outside the conv blocks '
+        f'{strict:.3g}, {strict_name}); running statistics within '
+        f'{stat_err:.3g} (tolerance 1e-5)')
+    require(loss_err <= LOSS_TOL, 'phase 32: the loss differs')
+    require(ratio <= 1.0, 'phase 32: a gradient differs')
+    require(stat_err <= 1e-5, 'phase 32: a running statistic differs')
+
+    return ranks[0]['train']['launches']['lstm_scan_residuals']
+
+
+def check_two_rank_piano(ranks, reference, profile, card):
+    """Phase 33, piano: every rank's notes for all 128 clips equal the
+    one-process pipeline's (phase 5) in every pitch row whose thresholded
+    maps agree, the maps differing only within ``BF16_LOGIT_TOL`` of the
+    threshold; A once and B six times a rank."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops import decode
+
+    notes = ranks[0]['piano']['notes']
+    require(len(notes) == BATCH and all(r['piano']['notes'] == BATCH
+                                        for r in ranks[1:]),
+            'phase 33: a rank did not return every clip')
+    rows = torch.zeros(BATCH, 88, dtype=torch.bool)
+    differ_cells, worst = 0, 0.0
+    for key in (tools.KEY_MULTIPITCH, tools.KEY_ONSETS):
+        ref = reference['raw'][key]
+        got = torch.cat([r['piano']['raw'][key] for r in ranks])
+        worst = max(worst, (got.float() - ref.float()).abs().max().item())
+        differ = (decode.threshold(decode.sigmoid(got.transpose(-1, -2))) !=
+                  decode.threshold(decode.sigmoid(ref.transpose(-1, -2))))
+        require(bool((ref.transpose(-1, -2)[differ].float().abs() <=
+                      BF16_LOGIT_TOL).all()),
+                f'phase 33: {key} maps differ away from the threshold')
+        differ_cells += int(differ.sum())
+        rows |= differ.any(dim=-1)
+    compared = 0
+    for b, ((p_got, i_got), (p_ref, i_ref)) in enumerate(
+            zip(notes, reference['notes'])):
+        keep_got = ~rows[b].numpy()[p_got.astype(int) - profile.low]
+        keep_ref = ~rows[b].numpy()[p_ref.astype(int) - profile.low]
+        require(np.array_equal(p_got[keep_got], p_ref[keep_ref]) and
+                np.array_equal(i_got[keep_got], i_ref[keep_ref]),
+                f'phase 33: clip {b}: two-rank notes differ')
+        compared += int(keep_ref.sum())
+    require(compared > 0, 'phase 33: no notes compared')
+    for rank, result in enumerate(ranks):
+        piano = result['piano']
+        log(f'phase 33 piano rank {rank}: {piano["clips"]} clips of '
+            f'{CLIP_SECONDS:.0f} s in {piano["seconds"]:.3f} s (two '
+            f'processes sharing one card, not a scaling figure; {card}); '
+            f'peak {piano["peak_gb"]:.3f} GB; launches {piano["launches"]}')
+        require(piano['launches']['stft_power'] == 1 and
+                piano['launches']['lstm_scan'] == 6,
+                f'phase 33 rank {rank}: A did not run once and B six times')
+    log(f'phase 33 piano: two ranks vs one process: logits within '
+        f'{worst:.3g}; {differ_cells} map cells differ (each within '
+        f'{BF16_LOGIT_TOL} of the threshold); notes identical in '
+        f'{88 * BATCH - int(rows.sum())} of {88 * BATCH} pitch rows, '
+        f'{compared} of {sum(len(p) for p, _ in reference["notes"])} notes '
+        f'compared')
+
+    return ranks[0]['piano']['launches']
+
+
+def check_two_rank_guitar(ranks, reference, card):
+    """Phase 33, guitar: the tablature of the two ranks may differ from the
+    one-process pipeline's (phase 8) only where the one-process top-two
+    margin is within ``2 * BF16_LOGIT_TOL``; every string whose tablature
+    agrees has the same notes; D once a rank."""
+
+    import torch
+
+    notes = ranks[0]['guitar']['notes']
+    require(len(notes) == GUITAR_BATCH, 'phase 33: a guitar clip is missing')
+    ref_raw = reference['raw'].float()
+    got_raw = torch.cat([r['guitar']['raw'] for r in ranks]).float()
+    worst = (got_raw - ref_raw).abs().max().item()
+    shape = ref_raw.shape[:2] + (6, 21)
+    ref_tab = ref_raw.reshape(shape).argmax(-1)
+    got_tab = got_raw.reshape(shape).argmax(-1)
+    top2 = ref_raw.reshape(shape).topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = ref_tab != got_tab
+    require(bool((margin[differ] <= 2 * BF16_LOGIT_TOL).all()),
+            'phase 33: tablature differs away from a top-two tie')
+    compared = 0
+    for b in range(GUITAR_BATCH):
+        for string in range(6):
+            if bool(differ[b, :, string].any()):
+                continue
+            (p_got, i_got), (p_ref, i_ref) = (notes[b][string],
+                                              reference['notes'][b][string])
+            require(np.array_equal(p_got, p_ref) and
+                    np.array_equal(i_got, i_ref),
+                    f'phase 33: guitar clip {b} string {string} differs')
+            compared += 1
+    for rank, result in enumerate(ranks):
+        guitar = result['guitar']
+        log(f'phase 33 guitar rank {rank}: {guitar["clips"]} clips of '
+            f'{CLIP_SECONDS:.0f} s in {guitar["seconds"]:.3f} s (two '
+            f'processes sharing one card, not a scaling figure; {card}); '
+            f'peak {guitar["peak_gb"]:.3f} GB; launches {guitar["launches"]}')
+        require(guitar['launches']['cqt_mag_grouped'] == 1,
+                f'phase 33 rank {rank}: D did not run once')
+    log(f'phase 33 guitar: two ranks vs one process: logits within '
+        f'{worst:.3g}; {int(differ.sum())} tablature cells differ; notes '
+        f'identical on {compared} of {6 * GUITAR_BATCH} strings')
+
+    return ranks[0]['guitar']['launches']
+
+
+def parallel_phases(card, directory, piano_reference, guitar_reference):
+    """Phases 31-34. Returns the per-rank launch counts for the kernels
+    line."""
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from amt_tools_tpu_torch import tools
+
+    phases_start = time.perf_counter()
+    store = dist.FileStore(os.path.join(directory, 'nccl_store'), 1)
+    dist.init_process_group('nccl', store=store, rank=0, world_size=1)
+    try:
+        e_per_step_world_one = dp_world_one(card)
+        torch.cuda.empty_cache()
+        world_one_paths(card)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    train_seed = 32
+    batch = dp_batch(32)
+    reference = one_process_step(train_seed, batch)
+    torch.cuda.empty_cache()
+    torch.save({'train_seed': train_seed, 'train_batch': batch,
+                'train_decisions': reference[3],
+                'piano_state': piano_reference['state'],
+                'guitar_state': guitar_reference['state']},
+               os.path.join(directory, 'inputs.pt'))
+    start = time.perf_counter()
+    context = mp.start_processes(parallel_rank,
+                                 args=(PARALLEL_RANKS, directory),
+                                 nprocs=PARALLEL_RANKS, join=False,
+                                 start_method='spawn')
+    join_ranks(context, PARALLEL_TIMEOUT)
+    log(f'phases 32-33: {PARALLEL_RANKS} spawned ranks done in '
+        f'{time.perf_counter() - start:.1f} s')
+    ranks = [torch.load(os.path.join(directory, f'rank{rank}.pt'),
+                        weights_only=False) for rank in range(PARALLEL_RANKS)]
+
+    # Every comparison runs and logs before any failure is raised
+    checks = {'32': lambda: check_two_rank_step(ranks, reference, card),
+              '33 piano': lambda: check_two_rank_piano(
+                  ranks, piano_reference, tools.PianoProfile(), card),
+              '33 guitar': lambda: check_two_rank_guitar(
+                  ranks, guitar_reference, card)}
+    results, failures = {}, []
+    for name, check in checks.items():
+        try:
+            results[name] = check()
+        except RuntimeError as error:
+            failures.append(f'phase {name}: {error}')
+    require(not failures, '; '.join(failures))
+    e_per_step, piano, guitar = (results['32'], results['33 piano'],
+                                 results['33 guitar'])
+    log(f'phases 31-34 in {time.perf_counter() - phases_start:.1f} s')
+
+    return {'e_f_per_step_world_one': e_per_step_world_one,
+            'e_f_per_step_two_ranks': e_per_step,
+            'a_per_rank': piano['stft_power'],
+            'b_per_rank': piano['lstm_scan'],
+            'd_per_rank': guitar['cqt_mag_grouped']}
+
 
 def main():
     import tempfile
@@ -4131,9 +4834,16 @@ def main():
     for name, info in report.items():
         log(f'{name}: nvcc {info["seconds"]:.1f} s\n{info["ptxas"]}')
 
+    # The batches the spawned ranks of phase 33 read (git-ignored; removed
+    # at the end, or at exit)
+    parallel_tmp = tempfile.TemporaryDirectory(prefix='_chip_smoke_parallel_',
+                                               dir=ROOT)
+    parallel_dir = parallel_tmp.name
+
     profile = tools.PianoProfile()
     start = time.perf_counter()
     clips = render_clips(profile, BATCH, CLIP_SECONDS)
+    np.save(os.path.join(parallel_dir, 'piano.npy'), clips)
     log(f'rendered {BATCH} x {CLIP_SECONDS:.0f} s clips in '
         f'{time.perf_counter() - start:.1f} s')
 
@@ -4145,7 +4855,7 @@ def main():
     masked = check_masked_lstm(card)
     torch.cuda.empty_cache()
 
-    launches, piano_batch = serve(clips, profile, card)
+    launches, piano_batch, piano_reference = serve(clips, profile, card)
     check_against_cpu(clips, profile)
     torch.cuda.empty_cache()
     int8_launches, int8_batch = serve_int8(clips, profile, card)
@@ -4164,6 +4874,7 @@ def main():
     start = time.perf_counter()
     guitar = render_clips(tools.GuitarProfile(num_frets=19), GUITAR_BATCH,
                           CLIP_SECONDS, GUITAR_SAMPLE_RATE)
+    np.save(os.path.join(parallel_dir, 'guitar.npy'), guitar)
     log(f'rendered {GUITAR_BATCH} x {CLIP_SECONDS:.0f} s guitar clips at '
         f'{GUITAR_SAMPLE_RATE} Hz in {time.perf_counter() - start:.1f} s')
 
@@ -4172,7 +4883,7 @@ def main():
     cqt_grouped = check_cqt_grouped(guitar)
     torch.cuda.empty_cache()
 
-    launches, guitar_batch = serve_guitar(guitar, card)
+    launches, guitar_batch, guitar_reference = serve_guitar(guitar, card)
     check_guitar_against_cpu(guitar)
     torch.cuda.empty_cache()
     int8_guitar = serve_guitar_int8(guitar, card)
@@ -4253,6 +4964,14 @@ def main():
         profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
                          velocity_step, online_step, tab_step, stream_frames,
                          of2_step, gset_step])
+    # The profiled batches hold their pipelines and requests on the card
+    del (piano_batch, int8_batch, guitar_batch, train_batch, velocity_step,
+         online_step, tab_step, stream_frames, of2_step, gset_step)
+    torch.cuda.empty_cache()
+
+    parallel = parallel_phases(card, parallel_dir, piano_reference,
+                               guitar_reference)
+    parallel_tmp.cleanup()
 
     cold, warm = of2_passes['cold']['launches'], of2_passes['warm']['launches']
     stft['launches_maestro_cold'] = cold['stft_power']
@@ -4266,6 +4985,13 @@ def main():
     steps = MAESTRO_TRAIN_TRACKS // TRAIN_BATCH
     for entry in (residuals, bptt):
         entry['launches_maestro_per_step'] = cold[entry['name']] / steps
+        entry['launches_dp_world_one_per_step'] = parallel[
+            'e_f_per_step_world_one']
+        entry['launches_two_rank_per_step_per_rank'] = parallel[
+            'e_f_per_step_two_ranks']
+    stft['launches_two_rank_serving_per_rank'] = parallel['a_per_rank']
+    lstm['launches_two_rank_serving_per_rank'] = parallel['b_per_rank']
+    cqt_grouped['launches_two_rank_serving_per_rank'] = parallel['d_per_rank']
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
