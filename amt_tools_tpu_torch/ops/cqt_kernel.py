@@ -29,17 +29,25 @@ two bf16 values is exact in float32, so only the order of the sums differs
 from the kernel. Nothing here takes TF32. Each wrapper counts its launches
 (``launches``) and its launches by route (``ffma_launches``,
 ``bf16x3_launches``, ``bf16_launches``).
+
+Each wrapper checks its inputs and calls a custom op of
+``torch.ops.amt_tools_tpu_torch`` (``cqt_mag``, ``cqt_mag_grouped``), which
+takes the route by name; the op's real implementation launches the kernel
+and counts the launch on CUDA tensors and runs the plain version on CPU
+tensors. :func:`cost` is their FLOP formula and byte count.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build, spectral
 
 __all__ = ['cqt_mag', 'cqt_mag_plain', 'cqt_mag_grouped',
            'cqt_mag_grouped_plain', 'cqt_route', 'split_bf16', 'ROUTES',
-           'CHUNK_TAPS']
+           'CHUNK_TAPS', 'cost', 'fft_flops_per_frame', 'cqt_mag_op',
+           'cqt_mag_grouped_op']
 
 # The kernel's group table holds at most this many groups
 MAX_GROUPS = 32
@@ -54,6 +62,8 @@ FRAME_CHUNK = 256
 
 # exact -> the kernel's route and its bf16 passes (0: IEEE float32 FMAs)
 ROUTES = {'ffma': 0, 'bf16x3': 3, 'bf16': 1}
+# route -> the exact mode that takes it
+_EXACT = {'ffma': True, 'bf16x3': 'high', 'bf16': False}
 
 _SIGNATURES = {
     'cqt_mag_f32': [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -166,11 +176,76 @@ def _check_inputs(audio, bank, rows, name):
                          f'{audio.device}')
 
 
-def _launch(wrapper, function, exact, audio, bank, num_bins, hop_length,
+def _wavelet_lengths(bank):
+    """Each bin's wavelet length in a ``[cos | -sin]`` bank: the span of its
+    nonzero rows (0 for a padding column)."""
+
+    n_bins = bank.shape[-1] // 2
+    nonzero = ((bank[:, :n_bins] != 0) | (bank[:, n_bins:] != 0)).cpu()
+    rows = torch.arange(nonzero.shape[0])[:, None]
+    first = torch.where(nonzero, rows, nonzero.shape[0]).amin(0)
+    last = torch.where(nonzero, rows, -1).amax(0)
+
+    return (last - first + 1).clamp_min(0).numpy()
+
+
+def fft_flops_per_frame(lengths):
+    """Least operations a frame of a multi-rate FFT CQT takes for wavelets
+    of these lengths: the bins an octave apart share a decimation (bin k's
+    is the power of two at or below its length over the shortest), each
+    decimation one real FFT of its longest decimated wavelet (2.5 n log2 n,
+    n a power of two), plus one complex multiply-add a bin."""
+
+    lengths = np.asarray(lengths, dtype=np.float64)
+    lengths = lengths[lengths > 0]
+    flops = 8.0 * len(lengths)
+    if not len(lengths):
+        return flops
+    octave = np.floor(np.log2(lengths / lengths.min()))
+    for o in np.unique(octave):
+        n = 2 ** int(np.ceil(np.log2(lengths[octave == o].max() / 2 ** o)))
+        flops += 2.5 * n * np.log2(n)
+
+    return flops
+
+
+def cost(batch, num_samples, hop_length, bank, supports=None,
+         bins_per_group=None):
+    """``(flops, bytes)`` of one launch of kernel C (D with the groups'
+    ``supports`` and ``bins_per_group``): a multi-rate FFT CQT of each frame
+    over the bank's wavelets (:func:`fft_flops_per_frame`, the least
+    operations for the function, whatever the kernel contracts), and the
+    audio and bank read and the magnitudes written once."""
+
+    frames = 1 + num_samples // hop_length
+    if supports is None:
+        lengths = _wavelet_lengths(bank)
+        n_bins = bank.shape[1] // 2
+    else:
+        gb = bank.shape[1] // 2
+        parts, row0 = [], 0
+        for support, bins in zip(supports, bins_per_group):
+            rows = bank[row0: row0 + support]
+            parts.append(_wavelet_lengths(torch.cat(
+                [rows[:, :bins], rows[:, gb: gb + bins]], dim=1)))
+            row0 += support
+        lengths = np.concatenate(parts)
+        n_bins = sum(bins_per_group)
+    flops = batch * frames * fft_flops_per_frame(lengths)
+    num_bytes = 4 * (batch * num_samples + bank.numel() +
+                     batch * n_bins * frames)
+
+    return float(flops), float(num_bytes)
+
+
+def _launch(wrapper, function, route, audio, bank, num_bins, hop_length,
             *args):
     """Allocate the (B, num_bins, T) output, launch ``function`` on it in
-    the route of ``exact`` and count the launch on ``wrapper``."""
+    ``route`` and count the launch on ``wrapper``."""
 
+    if audio.device.type != 'cuda':
+        raise ValueError(f'{wrapper.__name__} runs on CUDA or CPU tensors, '
+                         f'not {audio.device}')
     batch, num_samples = audio.shape
     frames = 1 + num_samples // hop_length
     out = torch.empty((batch, num_bins, frames), dtype=torch.float32,
@@ -178,7 +253,6 @@ def _launch(wrapper, function, exact, audio, bank, num_bins, hop_length,
     if batch == 0:
         return out
 
-    route = cqt_route(exact)
     lib = cuda_build.library('cqt_mag', _SIGNATURES)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -191,24 +265,78 @@ def _launch(wrapper, function, exact, audio, bank, num_bins, hop_length,
     return out
 
 
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::cqt_mag', mutates_args=())
+def cqt_mag_op(audio: torch.Tensor, bank: torch.Tensor, support: int,
+               hop_length: int, route: str) -> torch.Tensor:
+    """Kernel C as an op, on the named route (``ROUTES``)."""
+
+    if audio.device.type == 'cpu':
+        return cqt_mag_plain(audio, bank, support, hop_length, _EXACT[route])
+
+    n_bins = bank.shape[1] // 2
+    frames = 1 + audio.shape[1] // hop_length
+    return _launch(cqt_mag, 'cqt_mag_f32', route, audio, bank, n_bins,
+                   hop_length, support, hop_length, frames, n_bins)
+
+
+@cqt_mag_op.register_fake
+def _(audio, bank, support, hop_length, route):
+    return audio.new_empty((audio.shape[0], bank.shape[1] // 2,
+                            1 + audio.shape[1] // hop_length))
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::cqt_mag_grouped',
+                         mutates_args=())
+def cqt_mag_grouped_op(audio: torch.Tensor, bank_stack: torch.Tensor,
+                       supports: list[int], bins_per_group: list[int],
+                       hop_length: int, route: str) -> torch.Tensor:
+    """Kernel D as an op, on the named route (``ROUTES``)."""
+
+    if audio.device.type == 'cpu':
+        return cqt_mag_grouped_plain(audio, bank_stack, supports,
+                                     bins_per_group, hop_length,
+                                     _EXACT[route])
+
+    groups = len(supports)
+    n_bins = sum(bins_per_group)
+    frames = 1 + audio.shape[1] // hop_length
+    return _launch(cqt_mag_grouped, 'cqt_mag_grouped_f32', route, audio,
+                   bank_stack, n_bins, hop_length, hop_length, frames, n_bins,
+                   bank_stack.shape[1] // 2, groups,
+                   (ctypes.c_int * groups)(*supports),
+                   (ctypes.c_int * groups)(*bins_per_group))
+
+
+@cqt_mag_grouped_op.register_fake
+def _(audio, bank_stack, supports, bins_per_group, hop_length, route):
+    return audio.new_empty((audio.shape[0], sum(bins_per_group),
+                            1 + audio.shape[1] // hop_length))
+
+
+cuda_build.register_cost(
+    cqt_mag_op,
+    lambda audio, bank, support, hop_length, route: cost(
+        audio.shape[0], audio.shape[1], hop_length, bank))
+cuda_build.register_cost(
+    cqt_mag_grouped_op,
+    lambda audio, bank_stack, supports, bins_per_group, hop_length, route:
+    cost(audio.shape[0], audio.shape[1], hop_length, bank_stack, supports,
+         bins_per_group))
+
+
 def cqt_mag(audio, bank, support, hop_length, exact=True):
     """CQT magnitudes of (B, N) float32 audio -> (B, n_bins, T) float32.
 
     ``bank`` is ``spectral.wavelet_bank(...)[0]``, (support, 2 * n_bins),
     as a float32 tensor on the audio's device. CUDA tensors go through
     kernel C on the route of ``exact`` (or raise); CPU tensors through
-    :func:`cqt_mag_plain` with the same ``exact``. Any hop works.
+    :func:`cqt_mag_plain` with the same ``exact``; both through
+    :data:`cqt_mag_op`. Any hop works.
     """
 
     _check_inputs(audio, bank, support, 'cqt_mag')
 
-    if audio.device.type == 'cpu':
-        return cqt_mag_plain(audio, bank, support, hop_length, exact)
-
-    n_bins = bank.shape[1] // 2
-    frames = 1 + audio.shape[1] // hop_length
-    return _launch(cqt_mag, 'cqt_mag_f32', exact, audio, bank, n_bins,
-                   hop_length, support, hop_length, frames, n_bins)
+    return cqt_mag_op(audio, bank, support, hop_length, cqt_route(exact))
 
 
 def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
@@ -220,11 +348,12 @@ def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
     group ``gb`` and row-concatenated in group order, as ``CQT`` builds it.
     ``bins_per_group`` gives each group's true bin count. CUDA tensors go
     through kernel D on the route of ``exact`` (or raise); CPU tensors
-    through :func:`cqt_mag_grouped_plain` with the same ``exact``.
+    through :func:`cqt_mag_grouped_plain` with the same ``exact``; both
+    through :data:`cqt_mag_grouped_op`.
     """
 
-    supports = tuple(int(s) for s in supports)
-    bins_per_group = tuple(int(b) for b in bins_per_group)
+    supports = [int(s) for s in supports]
+    bins_per_group = [int(b) for b in bins_per_group]
     _check_inputs(audio, bank_stack, sum(supports), 'cqt_mag_grouped')
     gb = bank_stack.shape[1] // 2
     if (len(supports) != len(bins_per_group) or not supports or
@@ -233,21 +362,12 @@ def cqt_mag_grouped(audio, bank_stack, supports, bins_per_group, hop_length,
         raise ValueError(f'each of the groups needs a support and 1..{gb} '
                          f'bins, got supports {supports} and bins '
                          f'{bins_per_group}')
-
-    if audio.device.type == 'cpu':
-        return cqt_mag_grouped_plain(audio, bank_stack, supports,
-                                     bins_per_group, hop_length, exact)
-    if len(supports) > MAX_GROUPS:
+    if audio.device.type == 'cuda' and len(supports) > MAX_GROUPS:
         raise ValueError(f'kernel D takes at most {MAX_GROUPS} groups, got '
                          f'{len(supports)}')
 
-    groups = len(supports)
-    n_bins = sum(bins_per_group)
-    frames = 1 + audio.shape[1] // hop_length
-    return _launch(cqt_mag_grouped, 'cqt_mag_grouped_f32', exact, audio,
-                   bank_stack, n_bins, hop_length, hop_length, frames, n_bins,
-                   gb, groups, (ctypes.c_int * groups)(*supports),
-                   (ctypes.c_int * groups)(*bins_per_group))
+    return cqt_mag_grouped_op(audio, bank_stack, supports, bins_per_group,
+                              hop_length, cqt_route(exact))
 
 
 for _wrapper in (cqt_mag, cqt_mag_grouped):

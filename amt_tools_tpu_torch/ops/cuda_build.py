@@ -17,6 +17,16 @@ increments the wrappers' launch counters under a lock, and :func:`cached`
 fills a device-side cache (banks, twiddles, occupancy answers) once.
 :func:`require_plain` refuses a tensor a kernel cannot read through its
 data pointer (a DTensor or another wrapper subclass), on every route.
+
+Each kernel is reached through a ``torch.library`` custom op in the
+:data:`NAMESPACE` namespace (``torch.ops.amt_tools_tpu_torch.*``), defined
+beside its wrapper, so that ``torch.export``, ``FlopCounterMode`` and
+``torch.library.opcheck`` see it. The op's real implementation launches the
+kernel (and counts the launch) for CUDA tensors and runs the plain version
+for CPU tensors; its fake implementation gives shapes only. :func:`register_cost`
+gives an op its one cost function, ``(flops, bytes)``, which feeds both
+``FlopCounterMode`` (as the op's FLOP formula) and :data:`OP_COSTS`, where
+``profiling.compiled_cost`` reads the op's bytes.
 """
 
 import ctypes
@@ -28,14 +38,21 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['KERNEL_SOURCES', 'build', 'library', 'check', 'count', 'cached',
-           'require_plain']
+__all__ = ['KERNEL_SOURCES', 'NAMESPACE', 'OP_COSTS', 'build', 'library',
+           'check', 'count', 'cached', 'require_plain', 'register_cost']
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 
 KERNEL_SOURCES = ('stft_power', 'lstm_scan', 'lstm_bptt', 'cqt_mag')
+
+# The custom ops' namespace: torch.ops.amt_tools_tpu_torch.<op>
+NAMESPACE = 'amt_tools_tpu_torch'
+
+# op packet -> cost(*args, **kwargs) -> (flops, bytes), on the op's
+# arguments (real or fake tensors)
+OP_COSTS = {}
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
@@ -143,16 +160,30 @@ def count(wrapper, *counters):
 
 def cached(cache, key, make):
     """``cache[key]``, made by ``make()`` once however many threads ask
-    for it first."""
+    for it first. A value made while ``torch.export`` traces (a fake or
+    functional tensor) is the trace's constant and is not kept."""
 
     value = cache.get(key)
     if value is None:
         with _cache_lock:
             value = cache.get(key)
             if value is None:
-                value = cache[key] = make()
+                value = make()
+                if not _traced(value):
+                    cache[key] = value
 
     return value
+
+
+def _traced(value):
+    """Whether ``value`` is a tracer's tensor rather than a real one."""
+
+    import torch
+    from torch._subclasses.fake_tensor import is_fake
+
+    return isinstance(value, torch.Tensor) and (
+        is_fake(value) or type(value) not in (torch.Tensor,
+                                              torch.nn.Parameter))
 
 
 def check(status, kernel):
@@ -167,15 +198,35 @@ def require_plain(kernel, **tensors):
     """Raise ``TypeError`` for any named tensor that is not a plain
     ``torch.Tensor`` (or ``nn.Parameter``): a DTensor's or another wrapper
     subclass's data pointer is not its values, so the kernels would read
-    garbage."""
+    garbage. The tracer's fake tensors (``torch.export``) pass: they reach
+    the op's fake implementation, never a kernel."""
 
     import torch
+    from torch._subclasses.fake_tensor import is_fake
 
     for name, tensor in tensors.items():
-        if tensor is not None and type(tensor) not in (torch.Tensor,
-                                                       torch.nn.Parameter):
+        if tensor is not None and type(tensor) not in (
+                torch.Tensor, torch.nn.Parameter) and not is_fake(tensor):
             raise TypeError(
                 f'{kernel} takes plain tensors, got a '
                 f'{type(tensor).__name__} for {name}: the kernel reads it '
                 f'through its data pointer. Gather a DTensor first '
                 f'(full_tensor() or to_local()).')
+
+
+def register_cost(op, cost):
+    """Give the custom op ``op`` (a ``CustomOpDef``) its cost function,
+    ``cost(*args, **kwargs) -> (flops, bytes)`` on the op's arguments: its
+    FLOP formula for ``FlopCounterMode`` and its entry of :data:`OP_COSTS`."""
+
+    import torch
+    from torch.utils.flop_counter import register_flop_formula
+
+    packet = getattr(getattr(torch.ops, NAMESPACE), op._name)
+    OP_COSTS[packet] = cost
+
+    @register_flop_formula(packet, get_raw=True)
+    def flops(*args, out_val=None, **kwargs):
+        return int(round(cost(*args, **kwargs)[0]))
+
+    return op

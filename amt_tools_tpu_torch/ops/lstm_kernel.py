@@ -23,7 +23,15 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 
 B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
 tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
-repeat the kernels' arithmetic. All three run as thread-block clusters of 8
+repeat the kernels' arithmetic. Each wrapper checks its inputs and calls a
+custom op of ``torch.ops.amt_tools_tpu_torch``: ``lstm_scan`` (B, with
+optional lengths), ``lstm_scan_carried`` (B from the carry ``c0``, ``h0``,
+with optional lengths, returning ``(out, c, h)``), ``lstm_scan_residuals``
+(E) and ``lstm_bptt`` (F). An op's real implementation launches the kernel
+and counts the launch on CUDA tensors and runs the plain version on CPU
+tensors; :func:`scan_cost` and :func:`bptt_cost` are their FLOP formulas
+and byte counts. :class:`LSTMScanGrad` stays a ``torch.autograd.Function``
+over the E and F ops. All three run as thread-block clusters of 8
 CTAs, each CTA owning H/8 hidden units and holding their slice of W_h (B,
 E: H x 4H/8) or of W_h^T (F: 4H x H/8) on chip; B and E exchange h, F
 exchanges da. What sets a launch (rows a cluster, clusters, a resident or
@@ -40,6 +48,7 @@ instead rounds the carry to bf16; the port follows the kernels.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -50,7 +59,9 @@ __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'lstm_scan_grad', 'LSTMScanGrad', 'scan_geometry',
            'scan_resident', 'scan_max_rows', 'bptt_geometry',
            'bptt_resident', 'bptt_max_rows', 'cluster_plan',
-           'scan_launch_plan', 'bptt_launch_plan', 'scan_supported']
+           'scan_launch_plan', 'bptt_launch_plan', 'scan_supported',
+           'scan_cost', 'bptt_cost', 'lstm_scan_op', 'lstm_scan_carried_op',
+           'lstm_scan_residuals_op', 'lstm_bptt_op']
 
 MAX_HIDDEN = 1024  # 16 warps a CTA
 CLUSTER = 8        # CTAs a cluster, each owning H / 8 hidden units
@@ -491,8 +502,10 @@ def _launch_scan(xw, w_h, reverse, residuals, lengths=None, carry=None):
         final = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
         carried = tuple(t.data_ptr() for t in (*carry, *final))
     if batch == 0 or frames == 0:
-        if carry is not None:  # the carry as the next step would read it
-            return out, (carry[0].clone(), carry[1].to(xw.dtype).float())
+        if carry is not None:  # the carry as the next step would read it,
+            # copied: an op returns no input
+            return out, (carry[0].clone(),
+                         carry[1].to(xw.dtype).float().clone())
         return tuple(outputs) if residuals else out
 
     plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals)
@@ -560,6 +573,122 @@ def _check_carry(initial_carry, xw):
     return tuple(carry)
 
 
+def scan_cost(batch, frames, hidden, dtype, residuals=False, carried=False,
+              steps=None):
+    """``(flops, bytes)`` of one launch of kernel B (E with ``residuals``):
+    the recurrent product, 2 H 4H operations a row and step, over ``steps``
+    row-steps (``batch * frames`` unless lengths say fewer); xw and W_h read
+    and h written once in ``dtype``, E's float32 gates and cell states
+    written, a float32 carry read and written, int32 lengths read."""
+
+    size = torch.finfo(dtype).bits // 8
+    rows = batch * frames
+    steps = rows if steps is None else steps
+    flops = 2.0 * steps * hidden * 4 * hidden
+    num_bytes = size * (rows * 4 * hidden + hidden * 4 * hidden +
+                        rows * hidden)
+    if residuals:
+        num_bytes += 4 * rows * 5 * hidden
+    if carried:
+        num_bytes += 4 * 4 * batch * hidden
+
+    return flops, float(num_bytes)
+
+
+def bptt_cost(batch, frames, hidden, dtype):
+    """``(flops, bytes)`` of one launch of kernel F: the carry product, 2 4H
+    H operations a row and step; the float32 gates and cell states read and
+    the float32 da written, dout and W_h^T read in ``dtype``."""
+
+    size = torch.finfo(dtype).bits // 8
+    rows = batch * frames
+    flops = 2.0 * rows * hidden * 4 * hidden
+    num_bytes = (4 * (rows * 4 * hidden + rows * hidden + rows * 4 * hidden) +
+                 size * (rows * hidden + 4 * hidden * hidden))
+
+    return flops, float(num_bytes)
+
+
+def _valid_steps(lengths):
+    """The row-steps masked lengths ask for, where the lengths are values
+    (not a tracer's fake tensor); None otherwise."""
+
+    from torch._subclasses.fake_tensor import is_fake
+
+    if lengths is None or is_fake(lengths):
+        return None
+
+    return int(lengths.sum())
+
+
+def _count_scan(lengths, carried):
+    cuda_build.count(lstm_scan, 'launches',
+                     *(('masked_launches',) if lengths is not None else ()),
+                     *(('carried_launches',) if carried else ()))
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan',
+                         mutates_args=())
+def lstm_scan_op(xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
+                 lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel B as an op (inputs as :func:`lstm_scan` checks them; lengths
+    int32 on xw's device, or None)."""
+
+    if xw.device.type == 'cpu':
+        return lstm_scan_plain(xw, w_h, reverse, lengths)
+
+    out = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths)
+    _count_scan(lengths, carried=False)
+
+    return out
+
+
+@lstm_scan_op.register_fake
+def _(xw, w_h, reverse, lengths):
+    return xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_carried',
+                         mutates_args=())
+def lstm_scan_carried_op(
+        xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
+        lengths: Optional[torch.Tensor], c0: torch.Tensor,
+        h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B from the float32 carry ``(c0, h0)`` as an op -> ``(out, c,
+    h)``, the final carry as :func:`lstm_scan` returns it."""
+
+    if xw.device.type == 'cpu':
+        out, (c, h) = lstm_scan_plain(xw, w_h, reverse, lengths, (c0, h0),
+                                      return_carry=True)
+        # An op returns no input: the carry of zero steps is the input's
+        return out, *(x.clone() if x is y else x
+                      for x, y in ((c, c0), (h, h0)))
+
+    out, (c, h) = _launch_scan(xw, w_h, reverse, residuals=False,
+                               lengths=lengths, carry=(c0, h0))
+    _count_scan(lengths, carried=True)
+
+    return out, c, h
+
+
+@lstm_scan_carried_op.register_fake
+def _(xw, w_h, reverse, lengths, c0, h0):
+    out = xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
+
+    return out, torch.empty_like(c0), torch.empty_like(h0)
+
+
+def _scan_op_cost(xw, w_h, reverse, lengths, *carry):
+    batch, frames, four_h = xw.shape
+
+    return scan_cost(batch, frames, four_h // 4, xw.dtype,
+                     carried=bool(carry), steps=_valid_steps(lengths))
+
+
+cuda_build.register_cost(lstm_scan_op, _scan_op_cost)
+cuda_build.register_cost(lstm_scan_carried_op, _scan_op_cost)
+
+
 def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
               return_carry=False):
     """Whole-sequence LSTM: (B, T, 4H) -> (B, T, H).
@@ -576,25 +705,21 @@ def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
     final state, h as the next step reads it (rounded to bf16 in bf16
     mode), so a sequence cut into chunks that thread it equals one whole
     call bit for bit. CUDA tensors go through the Hopper kernel (or raise);
-    CPU tensors through :func:`lstm_scan_plain`.
+    CPU tensors through :func:`lstm_scan_plain`; both through
+    :data:`lstm_scan_op`, or :data:`lstm_scan_carried_op` with a carry.
     """
 
     _check_inputs(xw, w_h)
     if lengths is not None:
         lengths = _check_lengths(lengths, xw)
     carried = initial_carry is not None or return_carry
-    carry = _check_carry(initial_carry, xw) if carried else None
+    if not carried:
+        return lstm_scan_op(xw, w_h, reverse, lengths)
 
-    if xw.device.type == 'cpu':
-        return lstm_scan_plain(xw, w_h, reverse, lengths, carry, return_carry)
+    out, c, h = lstm_scan_carried_op(xw, w_h, reverse, lengths,
+                                     *_check_carry(initial_carry, xw))
 
-    result = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths,
-                          carry=carry)
-    cuda_build.count(lstm_scan, 'launches',
-                     *(('masked_launches',) if lengths is not None else ()),
-                     *(('carried_launches',) if carried else ()))
-
-    return result if return_carry or not carried else result[0]
+    return (out, (c, h)) if return_carry else out
 
 
 lstm_scan.launches = 0
@@ -602,14 +727,12 @@ lstm_scan.masked_launches = 0  # those of lstm_scan.launches with lengths
 lstm_scan.carried_launches = 0  # those with a carry in and out
 
 
-def lstm_scan_residuals(xw, w_h, reverse=False):
-    """:func:`lstm_scan` that also returns the residuals of the backward:
-    ``(out, gates, c)`` with float32 gate activations (B, T, 4H) in order
-    i, f, g, o and float32 cell states (B, T, H). CUDA tensors go through
-    kernel E (or raise); CPU tensors through
-    :func:`lstm_scan_residuals_plain`."""
-
-    _check_inputs(xw, w_h)
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_residuals',
+                         mutates_args=())
+def lstm_scan_residuals_op(
+        xw: torch.Tensor, w_h: torch.Tensor,
+        reverse: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel E as an op -> ``(out, gates, c)``."""
 
     if xw.device.type == 'cpu':
         return lstm_scan_residuals_plain(xw, w_h, reverse)
@@ -618,6 +741,35 @@ def lstm_scan_residuals(xw, w_h, reverse=False):
     cuda_build.count(lstm_scan_residuals, 'launches')
 
     return outputs
+
+
+@lstm_scan_residuals_op.register_fake
+def _(xw, w_h, reverse):
+    hidden = xw.shape[-1] // 4
+
+    return (xw.new_empty(xw.shape[:-1] + (hidden,)),
+            xw.new_empty(xw.shape, dtype=torch.float32),
+            xw.new_empty(xw.shape[:-1] + (hidden,), dtype=torch.float32))
+
+
+cuda_build.register_cost(
+    lstm_scan_residuals_op,
+    lambda xw, w_h, reverse: scan_cost(xw.shape[0], xw.shape[1],
+                                       xw.shape[2] // 4, xw.dtype,
+                                       residuals=True))
+
+
+def lstm_scan_residuals(xw, w_h, reverse=False):
+    """:func:`lstm_scan` that also returns the residuals of the backward:
+    ``(out, gates, c)`` with float32 gate activations (B, T, 4H) in order
+    i, f, g, o and float32 cell states (B, T, H). CUDA tensors go through
+    kernel E (or raise); CPU tensors through
+    :func:`lstm_scan_residuals_plain`; both through
+    :data:`lstm_scan_residuals_op`."""
+
+    _check_inputs(xw, w_h)
+
+    return lstm_scan_residuals_op(xw, w_h, reverse)
 
 
 lstm_scan_residuals.launches = 0
@@ -653,18 +805,12 @@ def _check_bptt_inputs(gates, c_seq, dout, w_h_t):
         raise ValueError('lstm_bptt takes contiguous tensors')
 
 
-def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
-    """BPTT over the residuals of :func:`lstm_scan_residuals` -> d(xw) as
-    float32 (B, T, 4H).
-
-    ``gates`` (B, T, 4H) and ``c_seq`` (B, T, H) are float32; ``dout``
-    (B, T, H) and the transposed recurrent kernel ``w_h_t`` (4H, H) are in
-    the forward's compute dtype (float32 or bf16). ``reverse`` names the
-    forward's direction. CUDA tensors go through kernel F (or raise); CPU
-    tensors through :func:`lstm_bptt_plain`.
-    """
-
-    _check_bptt_inputs(gates, c_seq, dout, w_h_t)
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_bptt',
+                         mutates_args=())
+def lstm_bptt_op(gates: torch.Tensor, c_seq: torch.Tensor,
+                 dout: torch.Tensor, w_h_t: torch.Tensor,
+                 reverse: bool) -> torch.Tensor:
+    """Kernel F as an op -> da (inputs as :func:`lstm_bptt` checks them)."""
 
     if gates.device.type == 'cpu':
         return lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
@@ -697,6 +843,34 @@ def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
     cuda_build.count(lstm_bptt, 'launches')
 
     return da
+
+
+@lstm_bptt_op.register_fake
+def _(gates, c_seq, dout, w_h_t, reverse):
+    return torch.empty_like(gates)
+
+
+cuda_build.register_cost(
+    lstm_bptt_op,
+    lambda gates, c_seq, dout, w_h_t, reverse: bptt_cost(
+        gates.shape[0], gates.shape[1], gates.shape[2] // 4, dout.dtype))
+
+
+def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False):
+    """BPTT over the residuals of :func:`lstm_scan_residuals` -> d(xw) as
+    float32 (B, T, 4H).
+
+    ``gates`` (B, T, 4H) and ``c_seq`` (B, T, H) are float32; ``dout``
+    (B, T, H) and the transposed recurrent kernel ``w_h_t`` (4H, H) are in
+    the forward's compute dtype (float32 or bf16). ``reverse`` names the
+    forward's direction. CUDA tensors go through kernel F (or raise); CPU
+    tensors through :func:`lstm_bptt_plain`; both through
+    :data:`lstm_bptt_op`.
+    """
+
+    _check_bptt_inputs(gates, c_seq, dout, w_h_t)
+
+    return lstm_bptt_op(gates, c_seq, dout, w_h_t, reverse)
 
 
 lstm_bptt.launches = 0

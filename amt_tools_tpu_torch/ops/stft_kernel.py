@@ -12,6 +12,12 @@ power-of-two n_fft whose buffers fit a block, a DFT implicit GEMM against the
 bank for any other n_fft. Both compute in IEEE float32: a single bf16 or
 TF32 pass puts quiet bins of tonal audio tens of dB off (the reason the
 Pallas kernel runs a bf16x3 split).
+
+The wrapper checks its inputs and calls the custom op
+``torch.ops.amt_tools_tpu_torch.stft_power`` (:data:`stft_power_op`), whose
+real implementation launches the kernel and counts the launch on CUDA
+tensors and runs :func:`stft_power_plain` on CPU tensors; :func:`cost` is
+its FLOP formula and byte count.
 """
 
 import ctypes
@@ -21,8 +27,8 @@ import torch
 
 from . import cuda_build, spectral
 
-__all__ = ['stft_power', 'stft_power_plain', 'stft_route', 'fft_geometry',
-           'fft_tile_frames', 'fft_twiddles']
+__all__ = ['stft_power', 'stft_power_op', 'stft_power_plain', 'stft_route',
+           'fft_geometry', 'fft_tile_frames', 'fft_twiddles', 'cost']
 
 # FFT route: at most this many frames a block (two blocks share an SM at
 # n_fft 2048), within the shared memory a block may use on Hopper (227 KB)
@@ -147,22 +153,30 @@ def _check_inputs(audio, bank, n_fft):
         raise ValueError('stft_power takes contiguous audio and bank')
 
 
-def stft_power(audio, bank, n_fft, hop_length, center=True):
-    """Power spectrogram of (B, N) float32 audio -> (B, n_bins, T) float32.
+def cost(batch, num_samples, n_fft, hop_length, n_bins, center=True):
+    """``(flops, bytes)`` of one launch: the least operations that give STFT
+    power (a real FFT of each windowed frame, about 2.5 n log2 n, then
+    ``re^2 + im^2``), whatever the route; the bytes the route must move,
+    each read or written once: the audio, the power and, on the FFT route,
+    the window (the bank's bin-0 column) and the twiddle table, on the DFT
+    route the whole bank."""
 
-    ``bank`` is ``spectral.dft_bank(n_fft, ...)`` as a float32 tensor on the
-    audio's device. CUDA tensors go through the Hopper kernel (or raise),
-    by the route :func:`stft_route` names: the FFT route reads the window
-    from the bank's bin-0 cosine column. ``stft_power.launches`` counts both
-    routes, ``stft_power.fft_launches`` the FFT route alone. CPU tensors go
-    through :func:`stft_power_plain`. Any hop works: it need not divide
-    n_fft.
-    """
+    frames = spectral.num_frames(num_samples, n_fft, hop_length, center)
+    flops = batch * frames * (2.5 * n_fft * np.log2(n_fft) + n_fft +
+                              3.0 * n_bins)
+    if stft_route(n_fft, hop_length, n_bins) == 'fft':
+        tables = n_fft + 2 * fft_geometry(n_fft, hop_length, 1)['n_tw']
+    else:
+        tables = n_fft * 2 * n_bins
+    num_bytes = 4 * (batch * num_samples + tables + batch * n_bins * frames)
 
-    _check_inputs(audio, bank, n_fft)
+    return float(flops), float(num_bytes)
 
-    if audio.device.type == 'cpu':
-        return stft_power_plain(audio, bank, n_fft, hop_length, center)
+
+def _launch(audio, bank, n_fft, hop_length, center):
+    """Kernel A on CUDA tensors, by the route :func:`stft_route` names;
+    counts the launch."""
+
     if audio.device.type != 'cuda':
         raise ValueError(f'stft_power runs on CUDA or CPU tensors, not '
                          f'{audio.device}')
@@ -202,6 +216,54 @@ def stft_power(audio, bank, n_fft, hop_length, center=True):
                      *(('fft_launches',) if route == 'fft' else ()))
 
     return out
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::stft_power',
+                         mutates_args=())
+def stft_power_op(audio: torch.Tensor, bank: torch.Tensor, n_fft: int,
+                  hop_length: int, center: bool) -> torch.Tensor:
+    """Kernel A as an op: the launch on CUDA tensors, the plain version on
+    CPU tensors (inputs as :func:`stft_power` checks them)."""
+
+    if audio.device.type == 'cpu':
+        return stft_power_plain(audio, bank, n_fft, hop_length, center)
+
+    return _launch(audio, bank, n_fft, hop_length, center)
+
+
+@stft_power_op.register_fake
+def _(audio, bank, n_fft, hop_length, center):
+    batch, num_samples = audio.shape
+    n_bins = bank.shape[1] // 2
+    frames = spectral.num_frames(num_samples, n_fft, hop_length, center)
+    if audio.device.type == 'cpu':  # the plain version's transposed matmul
+        return audio.new_empty((batch, frames, n_bins)).transpose(-1, -2)
+
+    return audio.new_empty((batch, n_bins, frames))
+
+
+cuda_build.register_cost(
+    stft_power_op,
+    lambda audio, bank, n_fft, hop_length, center: cost(
+        audio.shape[0], audio.shape[1], n_fft, hop_length,
+        bank.shape[1] // 2, center))
+
+
+def stft_power(audio, bank, n_fft, hop_length, center=True):
+    """Power spectrogram of (B, N) float32 audio -> (B, n_bins, T) float32.
+
+    ``bank`` is ``spectral.dft_bank(n_fft, ...)`` as a float32 tensor on the
+    audio's device. CUDA tensors go through the Hopper kernel (or raise),
+    by the route :func:`stft_route` names: the FFT route reads the window
+    from the bank's bin-0 cosine column. ``stft_power.launches`` counts both
+    routes, ``stft_power.fft_launches`` the FFT route alone. CPU tensors go
+    through :func:`stft_power_plain`. Any hop works: it need not divide
+    n_fft. Both go through :data:`stft_power_op`.
+    """
+
+    _check_inputs(audio, bank, n_fft)
+
+    return stft_power_op(audio, bank, n_fft, hop_length, center)
 
 
 stft_power.launches = 0

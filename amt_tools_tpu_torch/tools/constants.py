@@ -73,6 +73,7 @@ __all__ = [
     'FLOAT32',
     'DEFAULT_PIANO_LOWEST_PITCH',
     'DEFAULT_PIANO_HIGHEST_PITCH',
+    'DEFAULT_GUITAR_LABELS',
     'DEFAULT_GUITAR_TUNING',
     'DEFAULT_GUITAR_NUM_FRETS',
 ]
@@ -163,5 +164,6 @@ FLOAT32 = 'float32'
 DEFAULT_PIANO_LOWEST_PITCH = 21
 DEFAULT_PIANO_HIGHEST_PITCH = 108
 
+DEFAULT_GUITAR_LABELS = ['E', 'A', 'D', 'G', 'B', 'e']
 DEFAULT_GUITAR_TUNING = ['E2', 'A2', 'D3', 'G3', 'B3', 'E4']
 DEFAULT_GUITAR_NUM_FRETS = 19

@@ -90,6 +90,10 @@ __all__ = [
     'use_exact_fp32',
     'exact_fp32',
     'slice_pitch_list',
+    'get_active_pitch_count',
+    'unroll_pitch_list',
+    'slice_stacked_pitch_list',
+    'cat_stacked_pitch_list',
     'sort_pitch_list',
     'get_resample_idcs',
     'time_series_to_uniform',
@@ -175,9 +179,10 @@ def slice_batched_notes(batched_notes, start_time, stop_time,
 
 
 def filter_notes(pitches, intervals, profile=None, min_time=-np.inf,
-                 max_time=np.inf):
+                 max_time=np.inf, suppress_warnings=True):
     """Remove notes with out-of-range nominal pitch or fully out-of-bounds
-    intervals."""
+    intervals; unless ``suppress_warnings``, warn (``RuntimeWarning``) for
+    each kind of note removed."""
 
     pitches = np.asarray(pitches)
     intervals = np.asarray(intervals).reshape(-1, 2)
@@ -187,8 +192,16 @@ def filter_notes(pitches, intervals, profile=None, min_time=-np.inf,
 
     if profile is not None:
         pitches_r = np.round(pitches)
-        valid = np.logical_and(valid, np.logical_and(
-            pitches_r >= profile.low, pitches_r <= profile.high))
+        in_bounds = np.logical_and(pitches_r >= profile.low,
+                                   pitches_r <= profile.high)
+        if np.any(~in_bounds) and not suppress_warnings:
+            warnings.warn('Ignoring notes with nominal pitch exceeding '
+                          'supported boundaries.', category=RuntimeWarning)
+        valid = np.logical_and(valid, in_bounds)
+
+    if np.any(~valid) and not suppress_warnings:
+        warnings.warn('Ignoring notes outside specified time boundaries.',
+                      category=RuntimeWarning)
 
     return pitches[valid], intervals[valid]
 
@@ -413,6 +426,45 @@ def slice_pitch_list(times, pitch_list, start_time, stop_time):
     idcs = np.where(valid)[0]
 
     return times[valid], [pitch_list[i] for i in idcs]
+
+
+def get_active_pitch_count(pitch_list):
+    """Count pitch observations at each frame of a pitch list."""
+
+    return np.array([len(np.atleast_1d(p)) for p in pitch_list], dtype=int)
+
+
+def unroll_pitch_list(times, pitch_list):
+    """Flatten a pitch list into parallel (time, pitch) observation arrays."""
+
+    counts = get_active_pitch_count(pitch_list)
+    unrolled_times = np.repeat(times, counts)
+    unrolled_pitches = (np.concatenate([np.atleast_1d(p) for p in pitch_list])
+                        if len(pitch_list) else np.empty(0))
+
+    return unrolled_times, unrolled_pitches
+
+
+def slice_stacked_pitch_list(stacked_pitch_list, start_time, stop_time):
+    """Slice each constituent pitch list to a time window."""
+
+    return {k: slice_pitch_list(np.asarray(t), p, start_time, stop_time)
+            for k, (t, p) in stacked_pitch_list.items()}
+
+
+def cat_stacked_pitch_list(stacked_pitch_list, new_stacked_pitch_list):
+    """Merge two stacked pitch lists slice-by-slice."""
+
+    merged = dict(stacked_pitch_list)
+    for key, (times, pitch_list) in new_stacked_pitch_list.items():
+        if key in merged:
+            merged[key] = cat_pitch_list(np.asarray(merged[key][0]),
+                                         merged[key][1], np.asarray(times),
+                                         pitch_list)
+        else:
+            merged[key] = (times, pitch_list)
+
+    return merged
 
 
 def sort_pitch_list(times, pitch_list):

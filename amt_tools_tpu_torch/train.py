@@ -35,7 +35,8 @@ parallel over the mesh's ``data`` dimension, as JAX's ``train(mesh=...)``:
 - after the backward (after the last microbatch with ``accum_steps``) one
   flat all-reduce per dtype averages the gradients, and the losses are
   the global means;
-- the mesh's first rank alone writes checkpoints, logs and validates;
+- the mesh's first rank alone writes checkpoints, logs, validates and
+  calls ``vis_fnc``;
   every rank resumes.
 
 So the steps equal the one-process steps on the global batch, to float
@@ -43,6 +44,7 @@ sums in another order (bit for bit on one rank).
 """
 
 import contextlib
+import math
 import os
 import re
 
@@ -62,6 +64,7 @@ __all__ = [
     'train',
     'step_generator',
     'trainable_batch',
+    'warmup_cosine_schedule',
     'save_checkpoint',
     'load_checkpoint',
     'latest_checkpoint',
@@ -249,6 +252,23 @@ def latest_checkpoint(log_dir, max_iteration=None):
 ##################################################
 
 
+def warmup_cosine_schedule(warmup_steps, decay_steps):
+    """An LR multiplier for ``train(scheduler=...)``: linear from 0 to 1
+    over ``warmup_steps`` optimizer steps, then a cosine to 0 at
+    ``decay_steps``, as ``optax.warmup_cosine_decay_schedule(0.0, 1.0,
+    warmup_steps, decay_steps)`` gives it."""
+
+    def schedule(step):
+        if step < warmup_steps:
+            return step / warmup_steps
+        span = max(1, decay_steps - warmup_steps)
+        done = min(step - warmup_steps, span) / span
+
+        return 0.5 * (1.0 + math.cos(math.pi * done))
+
+    return schedule
+
+
 class _Schedule:
     """An LR multiplier per optimizer step, as ``optax.scale_by_schedule``
     chained after the optimizer: step n's update is scaled by
@@ -277,7 +297,7 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
           log_dir='.', scheduler=None, resume=True, single_batch=False,
           val_set=None, estimator=None, evaluator=None, seed=0, writer=None,
           accum_steps=1, device=None, val_bucket=128, val_batch_size=1,
-          mesh=None):
+          mesh=None, vis_fnc=None):
     """Training loop, one pass over ``train_loader`` per iteration.
 
     ``optimizer`` is a ``torch.optim`` optimizer over ``model``'s
@@ -293,6 +313,9 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
     checkpoint (not the final save alone, as in JAX) validates the model:
     ``evaluate.validate(..., bucket=val_bucket, batch_size=val_batch_size)``
     with ``estimator``, then ``evaluator.finalize(writer, iteration)``.
+    ``vis_fnc(model, optimizer, iteration)`` is called at every checkpoint
+    and after the last iteration, as JAX calls ``vis_fnc(model, state,
+    iteration)`` (the optimizer takes the place of the ``TrainState``).
     ``mesh`` (``parallel.get_mesh``) trains data-parallel over its ``data``
     dimension (the module docstring); every rank calls this with the same
     loader and arguments, and ``device`` is the rank's own.
@@ -373,6 +396,10 @@ def train(model, train_loader, optimizer, iterations, checkpoints=0,
                 # that meet one released before
                 for axis in reversed(mesh.mesh_dim_names):
                     dist.barrier(group=mesh.get_group(axis))
+
+        if (leader and vis_fnc is not None and
+                (checkpoint or global_iter + 1 == iterations)):
+            vis_fnc(model, optimizer, global_iter + 1)
 
         if (leader and checkpoint and val_set is not None and
                 evaluator is not None):

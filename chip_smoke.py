@@ -189,12 +189,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``shard_params_tp`` then an O&F2 forward through B, ``pipeline_apply``
     at S = 1. Times of phases 32-33 are two processes sharing one card,
     not scaling figures;
+35. kernels A-F through their custom ops (``torch.ops.amt_tools_tpu_torch``;
+    B on its plain, masked and carried schemas), each bit for bit its
+    wrapper with one launch counted a call, then ``torch.library.opcheck``
+    of each on the card at small shapes;
+36. phase 5's bf16 piano pipeline exported (``export.save_serving``, a
+    symbolic batch) at 128 x 60 s and loaded: notes equal to the live
+    pipeline's, A once and B six times a call, audio-s per wall-s in turns
+    with the live pipeline; the same artifact at 8 clips; a float32
+    artifact loaded with TF32 on (loading turns it off), its logits program
+    bit for bit the live pipeline's; the int8-static artifact's notes
+    equal to the live int8 pipeline's;
+37. OnsetsFramesOnline complexity 3 exported as a streaming artifact: its
+    maps over phase 25's 313 frames bit for bit ``run_online_stateful``'s,
+    B from the carry twice a frame, ms a frame in turns with it;
+38. ``profiling.mfu`` of the bf16 piano batch and of the float32 O&F2
+    training step (FLOPs by op, kernels A-F through their ops' formulas),
+    and the port's example scripts on the card: ``transcribe_file`` on a written WAV,
+    ``export_artifact`` at 2 s clips, ``synthetic_demo`` and
+    ``synthetic_tabcnn`` at 2 iterations;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, and one step each of the of_2
    and tabcnn recipes with their batch loaded from the corpora inside the
    range (the loader's host time in the busy share), under one
-   ``torch.profiler`` run: the device
+   ``profiling.trace`` run (``torch.profiler``; its TensorBoard trace must
+   name kernels A and B): the device
    time by kernel and the busy share of each, whose path's kernels must
    appear in it.
 
@@ -205,8 +225,13 @@ masked launches of phases 19 and 27, phase 18's times, its carried
 launches of phases 25 and 29 and phase 25a's times; C with its launches in
 the TabCNN recipes, cold and warm, and in the HCQT; E and F with their
 launches a velocity step and a MAESTRO step; A, B and D with their
-launches a rank in phase 33, E and F a step in phases 31 and 32), and one
-JSON line ``{"ok": true, "device": {...}}``.
+launches a rank in phase 33, E and F a step in phases 31 and 32; every
+kernel with its op and its launches under opcheck, A and B with their
+launches in the serving artifact, B in the streaming artifact, A, C, E and
+F in the examples), and one JSON line ``{"ok": true, "device": {...}}``.
+Every bound comes from the kernel's cost function (``stft_kernel.cost``,
+``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``), the
+FLOP formula of its op.
 """
 
 import copy
@@ -431,6 +456,7 @@ def check_stft(audio):
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.features import MelSpec
     from amt_tools_tpu_torch.ops import spectral
+    from amt_tools_tpu_torch.ops.stft_kernel import cost as stft_cost
     from amt_tools_tpu_torch.ops.stft_kernel import (fft_geometry,
                                                      fft_tile_frames,
                                                      fft_twiddles, stft_power,
@@ -503,13 +529,11 @@ def check_stft(audio):
     batch, num_samples = audio.shape
     frames, n_bins = got.shape[-1], got.shape[1]
     # The FFT route reads the audio, the window (the bank's bin-0 column)
-    # and the twiddle table, and writes the power
+    # and the twiddle table, and writes the power; the least work that
+    # gives STFT power is a real FFT of each windowed frame (the kernel's
+    # cost function, also its op's FLOP formula)
     table_bytes = fft_twiddles(N_FFT).nbytes
-    num_bytes = 4 * (audio.numel() + N_FFT + got.numel()) + table_bytes
-    # The least work that gives STFT power is a real FFT of each windowed
-    # frame (about 2.5 n log2 n operations), then re^2 + im^2
-    fft_flops = batch * frames * (2.5 * N_FFT * np.log2(N_FFT) + N_FFT +
-                                  3.0 * n_bins)
+    fft_flops, num_bytes = stft_cost(batch, num_samples, N_FFT, HOP, n_bins)
     bound, bound_by = bound_ms(num_bytes, fft_flops, PEAK_FP32_FLOPS)
     # What the DFT route (an implicit GEMM) cannot beat at this shape
     dft_flops = 2.0 * batch * frames * N_FFT * 2 * n_bins
@@ -607,7 +631,9 @@ def check_lstm(frames):
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from amt_tools_tpu_torch import tools
-    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_scan,
+                                                     lstm_scan_plain,
+                                                     scan_cost)
 
     class OpNames(TorchDispatchMode):
         """The ATen operators a block calls (which RNN path ran)."""
@@ -691,10 +717,7 @@ def check_lstm(frames):
                     f'{half_ms:.3f} ms (with its input projection)')
                 step_anatomy(xw, wh, ms, frames)
 
-            size = torch.finfo(dtype).bits // 8
-            num_bytes = size * (xw.numel() + wh.numel() +
-                                BATCH * frames * HIDDEN)
-            flops = 2.0 * BATCH * frames * HIDDEN * 4 * HIDDEN
+            flops, num_bytes = scan_cost(BATCH, frames, HIDDEN, dtype)
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
             bound, bound_by = bound_ms(num_bytes, flops, peak)
             log(f'lstm_scan {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
@@ -792,7 +815,7 @@ def check_lstm_residuals():
 
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.ops.lstm_kernel import (
-        lstm_scan, lstm_scan_residuals, lstm_scan_residuals_plain)
+        lstm_scan, lstm_scan_residuals, lstm_scan_residuals_plain, scan_cost)
 
     result = {}
     with tools.exact_fp32():
@@ -837,11 +860,8 @@ def check_lstm_residuals():
             module, xd = cudnn_lstm(x, w_x, w_h, dtype)
             library_ms = time_ms(lambda: module(xd), reps=5)
 
-            size = torch.finfo(dtype).bits // 8
-            rows = TRAIN_BATCH * TRAIN_FRAMES
-            num_bytes = (size * (xw.numel() + wh.numel() + rows * HIDDEN) +
-                         4 * rows * 5 * HIDDEN)
-            flops = 2.0 * rows * HIDDEN * 4 * HIDDEN
+            flops, num_bytes = scan_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                                         dtype, residuals=True)
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
             bound, bound_by = bound_ms(num_bytes, flops, peak)
             log(f'lstm_scan_residuals {name}: kernel {ms:.3f} ms (kernel B '
@@ -871,7 +891,7 @@ def check_lstm_bptt():
 
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.ops.lstm_kernel import (
-        _shift_prev, lstm_bptt, lstm_bptt_plain, lstm_scan_grad,
+        _shift_prev, bptt_cost, lstm_bptt, lstm_bptt_plain, lstm_scan_grad,
         lstm_scan_plain, lstm_scan_residuals)
 
     def dw_h(out, da, reverse):
@@ -941,11 +961,8 @@ def check_lstm_bptt():
             library_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, params, dout, retain_graph=True), reps=5)
 
-            size = torch.finfo(dtype).bits // 8
-            rows = TRAIN_BATCH * TRAIN_FRAMES
-            num_bytes = (4 * (gates.numel() + c_seq.numel() + gates.numel()) +
-                         size * (dout.numel() + w_h_t.numel()))
-            flops = 2.0 * rows * HIDDEN * 4 * HIDDEN
+            flops, num_bytes = bptt_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                                         dtype)
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
             bound, bound_by = bound_ms(num_bytes, flops, peak)
             log(f'lstm_bptt {name}: kernel {ms:.3f} ms '
@@ -1031,7 +1048,7 @@ def serve(clips, profile, card):
     return (launches, (f'piano batch of {BATCH} clips',
                        lambda: pipeline(requests[0]),
                        ('stft_power_fft_kernel', 'lstm_scan_kernel')),
-            reference)
+            reference, (pipeline, requests))
 
 
 def piano_logits(model, mel, audio):
@@ -1082,14 +1099,17 @@ def serve_requests(pipeline, requests):
     return results, time.perf_counter() - start
 
 
-def profile_batches(batches):
+def profile_batches(batches, trace_dir):
     """Device time by kernel over one batch of each path.
 
     ``batches`` holds (label, run, kernel name fragments), ``run`` a
     callable that does one batch's work. All batches run in one
     ``torch.profiler`` session, after every kernel's library is loaded: a
     kernel whose module was loaded after an earlier session ended went
-    missing from a later session's trace. Each batch runs in its own
+    missing from a later session's trace, and a second session in one
+    process named none of the hand kernels. The session is
+    ``profiling.trace`` (phase 38), whose TensorBoard trace in
+    ``trace_dir`` must name kernels A and B. Each batch runs in its own
     ``record_function`` range, and a device event belongs to the range its
     start falls in (the profiler keeps host and device events on one
     clock), or within half the idle gap left between ranges of it: in one
@@ -1098,14 +1118,17 @@ def profile_batches(batches):
     must appear in its range.
     """
 
+    import glob
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
+
+    from amt_tools_tpu_torch import profiling
 
     labels = [label for label, _, _ in batches]
     walls = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(trace_dir) as prof:
         for label, run, _ in batches:
             torch.cuda.synchronize()
             # An idle gap between the ranges, wider than any offset of the
@@ -1161,6 +1184,17 @@ def profile_batches(batches):
         for kernel in kernels:
             require(any(kernel in name for _, _, name in rows),
                     f'{kernel} is missing from the profile of the {label}')
+
+    names = set()
+    for path in glob.glob(os.path.join(trace_dir, '*.json')):
+        with open(path) as handle:
+            names |= {e.get('name', '') for e in json.load(handle).get(
+                'traceEvents', []) if e.get('cat') == 'kernel'}
+    for kernel in ('stft_power', 'lstm_scan'):
+        require(any(kernel in name for name in names),
+                f'the trace of profiling.trace does not name {kernel}')
+    log(f'profiling.trace of the session wrote its TensorBoard trace: '
+        f'{len(names)} kernel names, A and B among them')
 
 
 def check_against_cpu(clips, profile):
@@ -1517,27 +1551,6 @@ def guitar_cqt(grouped):
                bins_per_octave=24, exact='high', grouped=grouped)
 
 
-def cqt_fft_flops(cqt, frames):
-    """Least operations of an FFT-based CQT over ``frames`` frames: per
-    frame and octave, one real FFT of the octave's longest wavelet at the
-    octave's decimated rate (2.5 n log2 n, n a power of two), plus one
-    complex multiply-add per bin."""
-
-    from amt_tools_tpu_torch.ops import spectral
-
-    freqs = spectral.cqt_frequencies(cqt.n_bins, cqt.fmin,
-                                     cqt.bins_per_octave)
-    lengths = spectral.wavelet_lengths(freqs, cqt.sample_rate, cqt.alpha,
-                                       cqt.gamma)
-    octave = (cqt.n_bins - 1 - np.arange(cqt.n_bins)) // cqt.bins_per_octave
-    per_frame = 8.0 * cqt.n_bins
-    for o in np.unique(octave):
-        n = 2 ** int(np.ceil(np.log2(lengths[octave == o].max() / 2 ** o)))
-        per_frame += 2.5 * n * np.log2(n)
-
-    return frames * per_frame
-
-
 def cqt_errors(got, ref):
     """Max |got - ref|, absolute and as a share of each clip's peak."""
 
@@ -1589,9 +1602,15 @@ def report_cqt(name, ms, plain_ms, library_ms, cqt, audio, bank, out,
                contraction):
     """Log the times beside both bounds and the contraction's floors."""
 
-    batch, frames = out.shape[0], out.shape[-1]
-    num_bytes = 4 * (audio.numel() + bank.numel() + out.numel())
-    fft_flops = cqt_fft_flops(cqt, batch * frames)
+    from amt_tools_tpu_torch.ops.cqt_kernel import cost
+
+    # The kernel's cost function (its op's FLOP formula): a multi-rate FFT
+    # CQT over the bank's wavelets, the audio and bank read and the
+    # magnitudes written once
+    grouped = bank.shape[0] != cqt._support  # the groups' stacked banks
+    fft_flops, num_bytes = cost(
+        audio.shape[0], audio.shape[1], HOP, bank,
+        *((cqt._group_supports, cqt._group_bins) if grouped else ()))
     bound, bound_by = bound_ms(num_bytes, fft_flops, PEAK_FP32_FLOPS)
     library = 'no library call' if library_ms is None else \
         f'conv1d {library_ms:.3f} ms'
@@ -2422,7 +2441,9 @@ def check_masked_lstm(card):
 
     from amt_tools_tpu_torch import tools
     from amt_tools_tpu_torch.ops.lstm import lengths_to_mask
-    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_scan,
+                                                     lstm_scan_plain,
+                                                     scan_cost)
 
     frames = -(-(1 + int(VAL_DURATIONS[-1] * SAMPLE_RATE) // HOP) //
                VAL_BUCKET) * VAL_BUCKET
@@ -3211,7 +3232,9 @@ def check_carried_lstm(card):
     import torch
 
     from amt_tools_tpu_torch import tools
-    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan, lstm_scan_plain
+    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_scan,
+                                                     lstm_scan_plain,
+                                                     scan_cost)
 
     result = {}
     with tools.exact_fp32():
@@ -3261,13 +3284,11 @@ def check_carried_lstm(card):
                     times.setdefault(turn, []).append(time_ms(runs[turn],
                                                               reps))
                 # xw and W_h read, h written, the carry read and written
-                size = xw.element_size()
+                flops, num_bytes = scan_cost(batch, frames, hidden, dtype,
+                                             carried=True)
                 least, bound_by = bound_ms(
-                    size * (xw.numel() + wh.numel() + batch * frames * hidden)
-                    + 4 * 4 * batch * hidden,
-                    2 * batch * frames * hidden * 4 * hidden,
-                    PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                    else PEAK_FP32_FLOPS)
+                    num_bytes, flops, PEAK_BF16_FLOPS
+                    if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
                 entry = {'shape': [batch, frames, hidden],
                          'carried_ms': float(np.mean(times['carried'])),
                          'zero_carry_ms': float(np.mean(times['zero_carry'])),
@@ -4809,6 +4830,555 @@ def parallel_phases(card, directory, piano_reference, guitar_reference):
             'd_per_rank': guitar['cqt_mag_grouped']}
 
 
+# Phases 35-38: the deployment slice. Kernels A-F as custom ops of
+# torch.ops.amt_tools_tpu_torch; artifacts through torch.export, written
+# under a temporary directory of the repository (git-ignored); MFU from
+# profiling.py; the port's example scripts on the card
+
+OP_CHECK_FRAMES = 50     # opcheck's shapes: small, each op runs a few times
+EXAMPLE_FLOAT32_CLIPS = 8
+EXAMPLE_INT8_CLIPS = 16
+ARTIFACT_SYMBOLIC_CLIPS = 8
+
+
+def same(got, want):
+    """Whether two outputs (tensors or tuples of them) are equal bit for
+    bit."""
+
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        return (got.dtype == want.dtype and got.shape == want.shape and
+                bool(torch.equal(got, want)))
+
+    return len(got) == len(want) and all(same(g, w)
+                                         for g, w in zip(got, want))
+
+
+def op_cases(scale):
+    """(label, wrapper call, op call, kernel) for every op and each of B's
+    schemas, on CUDA inputs of ``scale`` frames (opcheck's small shapes
+    when OP_CHECK_FRAMES); the op calls are (op, args)."""
+
+    import torch
+
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.ops import cqt_kernel, lstm_kernel, stft_kernel
+
+    device = torch.device('cuda')
+    gen = torch.Generator(device=device).manual_seed(35)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=device)
+
+    bank = MelSpec(n_mels=N_MELS)._bank(device)
+    audio = randn(4, HOP * (scale - 1), scale=0.1)
+    full, grouped = guitar_cqt(False), guitar_cqt('auto')
+    cqt_bank, stack = full._bank(device), grouped._bank(device)
+    guitar = randn(2, HOP * (scale - 1), scale=0.1)
+    cases = [('A', 'stft_power',
+              lambda: stft_kernel.stft_power(audio, bank, N_FFT, HOP),
+              (stft_kernel.stft_power_op, (audio, bank, N_FFT, HOP, True))),
+             ('C', 'cqt_mag',
+              lambda: cqt_kernel.cqt_mag(guitar, cqt_bank, full._support,
+                                         HOP, 'high'),
+              (cqt_kernel.cqt_mag_op, (guitar, cqt_bank, full._support, HOP,
+                                       'bf16x3'))),
+             ('D', 'cqt_mag_grouped',
+              lambda: cqt_kernel.cqt_mag_grouped(
+                  guitar, stack, grouped._group_supports,
+                  grouped._group_bins, HOP, 'high'),
+              (cqt_kernel.cqt_mag_grouped_op,
+               (guitar, stack, list(grouped._group_supports),
+                list(grouped._group_bins), HOP, 'bf16x3')))]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        xw = randn(4, scale, 4 * HIDDEN, scale=0.5).to(dtype)
+        wh = randn(HIDDEN, 4 * HIDDEN, scale=0.05).to(dtype)
+        lengths = torch.tensor([scale, scale // 2, 1, 0], dtype=torch.int32,
+                               device=device)
+        carry = (randn(4, HIDDEN, scale=0.5), randn(4, HIDDEN, scale=0.5))
+        out, gates, c_seq = lstm_kernel.lstm_scan_residuals(xw, wh)
+        dout = randn(4, scale, HIDDEN, scale=0.1).to(dtype)
+        wht = wh.t().contiguous()
+        cases += [
+            (f'B {name}', 'lstm_scan',
+             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan(xw, wh),
+             (lstm_kernel.lstm_scan_op, (xw, wh, False, None))),
+            (f'B {name} masked', 'lstm_scan',
+             lambda xw=xw, wh=wh, n=lengths: lstm_kernel.lstm_scan(
+                 xw, wh, reverse=True, lengths=n),
+             (lstm_kernel.lstm_scan_op, (xw, wh, True, lengths))),
+            (f'B {name} carried', 'lstm_scan',
+             lambda xw=xw, wh=wh, c=carry: (lambda r: (r[0], *r[1]))(
+                 lstm_kernel.lstm_scan(xw, wh, initial_carry=c,
+                                       return_carry=True)),
+             (lstm_kernel.lstm_scan_carried_op, (xw, wh, False, None,
+                                                 *carry))),
+            (f'E {name}', 'lstm_scan_residuals',
+             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_residuals(
+                 xw, wh, True),
+             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True))),
+            (f'F {name}', 'lstm_bptt',
+             lambda g=gates, c=c_seq, d=dout, w=wht: lstm_kernel.lstm_bptt(
+                 g, c, d, w),
+             (lstm_kernel.lstm_bptt_op, (gates, c_seq, dout, wht, False)))]
+
+    return cases
+
+
+def check_custom_ops(card):
+    """Phase 35: each of kernels A-F (B on its three schemas) through its
+    custom op, bit for bit its wrapper, one launch counted a call; then
+    ``torch.library.opcheck`` of each on the card at small shapes (the
+    schema, the fake implementation against the real one, the autograd
+    registration, and a trace with symbolic shapes)."""
+
+    import torch
+    from torch.library import opcheck
+
+    from amt_tools_tpu_torch import tools
+
+    counters = kernel_counters()
+    launches = {}
+    with tools.exact_fp32():
+        for label, kernel, wrapper, (op, args) in op_cases(4 * TRAIN_FRAMES):
+            want = wrapper()
+            before = counters[kernel].launches
+            got = op(*args)
+            torch.cuda.synchronize()
+            counted = counters[kernel].launches - before
+            require(same(got, want), f'{label}: its op differs from its '
+                                     f'wrapper')
+            require(counted == 1, f'{label}: its op counted {counted} '
+                                  f'launches, not 1')
+            launches[label] = counted
+        log(f'the ops of A-F at (B, {4 * TRAIN_FRAMES} frames): each bit for '
+            f'bit its wrapper, one launch counted a call: {sorted(launches)}')
+
+        results = {}
+        reset_launches()
+        for label, kernel, _, (op, args) in op_cases(OP_CHECK_FRAMES):
+            report = opcheck(op, args)
+            results[label] = report
+            require(all(v == 'SUCCESS' for v in report.values()),
+                    f'opcheck of {label} on the card: {report}')
+        checked = read_launches()
+        reset_launches()
+    log(f'opcheck on the card ({card}): {len(results)} ops and schemas, '
+        f'every test SUCCESS ({sorted(next(iter(results.values())))}); '
+        f'launches under opcheck {checked}')
+    require(all(checked[name] > 0 for name in counters),
+            'opcheck launched no kernel of an op on the card')
+
+    return {'ops': sorted(results), 'op_check_launches': checked}
+
+
+def piano_model(dtype, seed, quant=False):
+    """O&F2 complexity 3 at full width from a seed."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+
+    return OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                         model_complexity=3, dtype=dtype,
+                         quant_acoustic=quant,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def notes_equal(got, want):
+    """The clips whose notes are equal bit for bit, of all."""
+
+    equal = sum(np.array_equal(p_g, p_w) and np.array_equal(i_g, i_w)
+                for (p_g, i_g), (p_w, i_w) in zip(got, want))
+
+    return equal, len(want)
+
+
+def serving_artifacts(pipeline, requests, card, directory):
+    """Phase 36: the bf16 piano pipeline of phase 5 exported at 128 x 60 s
+    with a symbolic batch, saved and loaded on the card: notes equal to the
+    live pipeline's, A once and B six times a call, audio-s per wall-s in
+    turns with the live pipeline (live, artifact, artifact, live, each
+    over the 3 requests called one by one); the same artifact at 8 clips; a
+    float32 artifact loaded with TF32 switched on, whose loading turns it
+    off and whose logits program equals the live float32 logits bit for
+    bit; and the int8-static artifact's notes equal to the live int8
+    pipeline's."""
+
+    import torch
+
+    from amt_tools_tpu_torch import export, serving, tools
+    from amt_tools_tpu_torch.features import MelSpec
+
+    num_samples = requests[0].shape[-1]
+    probe = requests[0][:4].cpu().numpy()
+    path = os.path.join(directory, 'piano_bf16.amtx')
+    start = time.perf_counter()
+    meta = export.save_serving(path, pipeline, num_samples, batch_size=8)
+    export_s = time.perf_counter() - start
+    start = time.perf_counter()
+    artifact = export.load_serving(path)
+    load_s = time.perf_counter() - start
+    log(f'serving artifact, bf16 O&F2 complexity 3: exported in '
+        f'{export_s:.1f} s, {os.path.getsize(path) / 1e6:.1f} MB, loaded in '
+        f'{load_s:.1f} s; meta {meta}')
+    require(meta['symbolic_batch'], 'the serving artifact did not export '
+                                    'with a symbolic batch')
+
+    artifact(requests[0][:8])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    frozen = artifact(requests[0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    live = pipeline(requests[0])
+    equal, clips = notes_equal(frozen, live)
+    log(f'serving artifact at {BATCH} x {CLIP_SECONDS:.0f} s: notes equal '
+        f'to the live pipeline\'s in {equal} of {clips} clips; launches a '
+        f'call {launches}')
+    require(equal == clips, 'the serving artifact\'s notes differ from the '
+                            'live pipeline\'s')
+    require(launches['stft_power'] == launches['stft_power_fft'] == 1 and
+            launches['lstm_scan'] == 6,
+            'the serving artifact did not run A once and B six times a call')
+
+    times = {}
+    runs = {'live': pipeline, 'artifact': artifact}
+    for turn in ('live', 'artifact', 'artifact', 'live'):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for request in requests:
+            runs[turn](request)
+        torch.cuda.synchronize()
+        times.setdefault(turn, []).append(time.perf_counter() - start)
+    audio_seconds = REQUESTS * BATCH * CLIP_SECONDS
+    rates = {turn: [audio_seconds / t for t in ts]
+             for turn, ts in times.items()}
+    log(f'audio-s per wall-s over {REQUESTS} requests of {BATCH} x '
+        f'{CLIP_SECONDS:.0f} s, each called synchronously, in turns '
+        f'(live, artifact, artifact, live): {rates} ({card})')
+
+    sub = requests[0][:ARTIFACT_SYMBOLIC_CLIPS]
+    equal_sub, _ = notes_equal(artifact(sub), pipeline(sub))
+    require(equal_sub == ARTIFACT_SYMBOLIC_CLIPS,
+            f'the symbolic artifact at {ARTIFACT_SYMBOLIC_CLIPS} clips '
+            f'differs from the live pipeline')
+    del artifact
+    torch.cuda.empty_cache()
+
+    # Float32: the program runs with the flags of the process that loads
+    # it, so loading must turn TF32 off
+    mel = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HOP, n_mels=N_MELS)
+    model32 = piano_model(None, 36)
+    serving.calibrate_activity(model32, mel, probe)
+    live32 = serving.TranscriptionPipeline(model32, mel, capacity=CAPACITY)
+    audio32 = requests[0][:EXAMPLE_FLOAT32_CLIPS]
+
+    class Logits(torch.nn.Module):
+        def __init__(self, pipeline):
+            super().__init__()
+            self.pipeline = pipeline
+            self.model = pipeline.model
+
+        def forward(self, audio):
+            raw = serving._forward(self.model, self.pipeline.data_proc, audio)
+            return raw[tools.KEY_MULTIPITCH], raw[tools.KEY_ONSETS]
+
+    logits_path = os.path.join(directory, 'piano_f32_logits.pt2')
+    with torch.no_grad():
+        torch.export.save(torch.export.export(Logits(live32), (audio32,),
+                                              strict=False), logits_path)
+    path32 = os.path.join(directory, 'piano_f32.amtx')
+    export.save_serving(path32, live32, num_samples, batch_size=8)
+    want_logits = Logits(live32)(audio32)
+    want_notes = live32(audio32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    artifact32 = export.load_serving(path32)
+    flags_off = not (torch.backends.cuda.matmul.allow_tf32 or
+                     torch.backends.cudnn.allow_tf32)
+    require(flags_off, 'load_serving left TF32 on')
+    with torch.no_grad():
+        got_logits = torch.export.load(logits_path).module()(audio32)
+    equal32, _ = notes_equal(artifact32(audio32), want_notes)
+    logit_err = max(float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got_logits, want_logits))
+    log(f'float32 artifact loaded with TF32 on: the flags are off after '
+        f'load_serving; its logits program against the live float32 '
+        f'logits: max {logit_err:.3g} at {EXAMPLE_FLOAT32_CLIPS} clips; '
+        f'notes equal in {equal32} of {EXAMPLE_FLOAT32_CLIPS} clips')
+    require(same(got_logits, want_logits), 'the float32 logits program '
+                                           'differs from the live pipeline')
+    require(equal32 == EXAMPLE_FLOAT32_CLIPS, 'the float32 artifact\'s notes '
+                                              'differ from the live pipeline')
+    del artifact32, live32, model32
+    torch.cuda.empty_cache()
+
+    # Int8-static: the scales are the layers' buffers, frozen into the
+    # program
+    model8 = piano_model(torch.bfloat16, 14, quant='static')
+    serving.calibrate_quant_stats(model8, mel, probe)
+    serving.calibrate_activity(model8, mel, probe)
+    live8 = serving.TranscriptionPipeline(model8, mel, capacity=CAPACITY)
+    audio8 = requests[0][:EXAMPLE_INT8_CLIPS]
+    path8 = os.path.join(directory, 'piano_int8_static.amtx')
+    meta8 = export.save_serving(path8, live8, num_samples,
+                                batch_size=EXAMPLE_INT8_CLIPS)
+    artifact8 = export.load_serving(path8)
+    reset_launches()
+    frozen8 = artifact8(audio8)
+    launches8 = read_launches()
+    equal8, _ = notes_equal(frozen8, live8(audio8))
+    log(f'int8-static artifact at {EXAMPLE_INT8_CLIPS} clips: symbolic '
+        f'batch {meta8["symbolic_batch"]} (fixed batch '
+        f'{meta8["batch_size"]}), notes equal to the live int8 pipeline\'s '
+        f'in {equal8} of {EXAMPLE_INT8_CLIPS} clips; launches {launches8}')
+    require(equal8 == EXAMPLE_INT8_CLIPS, 'the int8-static artifact\'s notes '
+                                          'differ from the live pipeline')
+    del artifact8, live8, model8
+    torch.cuda.empty_cache()
+
+    return {'launches': launches, 'rates': rates, 'export_s': export_s,
+            'load_s': load_s, 'int8_static_symbolic': meta8['symbolic_batch'],
+            'float32_logit_err': logit_err}
+
+
+def streaming_artifact(card, directory):
+    """Phase 37: OnsetsFramesOnline complexity 3 (phase 25's model and
+    track) exported as a streaming artifact and loaded on the card: its
+    maps over the track's frames, one frame a step, bit for bit
+    ``run_online_stateful``'s, kernel B from the carry twice a frame; ms a
+    frame (a step to its maps on the host) at the median and p99, in turns
+    with ``run_online_stateful`` (live, artifact, artifact, live)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import export, tools
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.inference import run_online_stateful
+    from amt_tools_tpu_torch.models import OnsetsFramesOnline
+
+    profile = tools.PianoProfile()
+    mel = MelSpec(n_mels=N_MELS)
+    model = OnsetsFramesOnline(dim_in=N_MELS, profile=profile,
+                               model_complexity=3,
+                               generator=torch.Generator().manual_seed(25))
+    model = model.cuda().eval()
+    audio = render_clips(profile, 1, STREAM_SECONDS)[0]
+    feats = mel.process_audio(audio)
+    track = {tools.KEY_FEATS: feats, tools.KEY_TIMES: mel.get_times(audio),
+             tools.KEY_TRACK: 'stream'}
+    frames = feats.shape[-1]
+    keys = (tools.KEY_MULTIPITCH, tools.KEY_ONSETS)
+
+    path = os.path.join(directory, 'online.amtx')
+    start = time.perf_counter()
+    with open(path, 'wb') as handle:
+        handle.write(export.export_streaming(model))
+    export_s = time.perf_counter() - start
+    artifact = export.load_streaming(path)
+
+    def stream_artifact():
+        carries = artifact.init_carries()
+        maps, stamps = {key: [] for key in keys}, []
+        for t in range(frames):
+            out, carries = artifact.step(carries, feats[None, ..., t: t + 1])
+            for key in keys:
+                maps[key].append(out[key][0].cpu())
+            stamps.append(time.perf_counter())
+        return {key: torch.cat(v, -1).numpy() for key, v in maps.items()}, \
+            stamps
+
+    def stream_live():
+        timer = FrameTimer()
+        predictions = run_online_stateful(dict(track), model, timer)
+        return predictions, timer.stamps
+
+    with tools.exact_fp32():
+        stream_live()
+        stream_artifact()  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        maps, _ = stream_artifact()
+        launches = read_launches()
+        live, _ = stream_live()
+        for key in keys:
+            require(np.array_equal(maps[key], live[key]),
+                    f'the streaming artifact\'s {key} maps differ from '
+                    f'run_online_stateful\'s')
+        require(launches['lstm_scan'] == launches['lstm_scan_carried'] ==
+                2 * frames, 'the streaming artifact did not run kernel B '
+                            'from the carry twice a frame')
+
+        per_frame = {}
+        for turn in ('live', 'artifact', 'artifact', 'live'):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            _, stamps = (stream_live if turn == 'live' else
+                         stream_artifact)()
+            per_frame.setdefault(turn, []).append(
+                np.diff([start] + stamps) * 1e3)
+    stats = {turn: {'median_ms': float(np.median(np.concatenate(v))),
+                    'p99_ms': float(np.percentile(np.concatenate(v), 99))}
+             for turn, v in per_frame.items()}
+    log(f'streaming artifact, O&F online complexity 3 float32: exported in '
+        f'{export_s:.1f} s; {frames} frames, maps bit for bit '
+        f'run_online_stateful\'s, launches {launches}; ms a frame in turns '
+        f'{stats} ({card})')
+
+    return {'frames': frames, 'carried_launches': launches['lstm_scan_carried'],
+            'per_frame': stats, 'export_s': export_s}
+
+
+def flops_by_op(fn):
+    """FlopCounterMode's FLOPs by op over one call of ``fn``."""
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+
+    return {str(op): int(n) for op, n in
+            counter.get_flop_counts()['Global'].items()}
+
+
+def load_example(*parts):
+    """Import an example script of the port without running it."""
+
+    import importlib.util
+
+    path = os.path.join(ROOT, 'amt_tools_tpu_torch', 'examples', *parts)
+    spec = importlib.util.spec_from_file_location(
+        'example_' + parts[-1][:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+
+    return module
+
+
+def profiling_and_examples(pipeline, requests, train_batch, card, directory):
+    """Phase 38: ``profiling.mfu`` of the bf16 piano batch (against the
+    bf16 peak) and of the float32 O&F2 training step (against the float32
+    peak), with their FLOPs by op (kernels A-F through their ops'
+    formulas); then the port's example scripts on the card:
+    ``transcribe_file`` on a written WAV, ``export_artifact`` at 2 s clips,
+    and ``synthetic_demo`` and ``synthetic_tabcnn`` at 2 iterations."""
+
+    import torch
+
+    from amt_tools_tpu_torch import profiling, tools
+
+    power = card.split(',')[-1].strip()
+    result = {'peak_bf16': profiling.peak_flops(None, 'bf16'),
+              'peak_float32': profiling.peak_flops(None, 'float32'),
+              'peak_hbm_bw': profiling.peak_hbm_bw()}
+    require(result['peak_bf16'] == PEAK_BF16_FLOPS and
+            result['peak_float32'] == PEAK_FP32_FLOPS and
+            result['peak_hbm_bw'] == PEAK_BYTES_PER_S,
+            f'profiling\'s H100 table reads {result}')
+
+    runs = {'piano_bf16': (lambda: pipeline._decode(requests[0], CAPACITY),
+                           'bf16', ('stft_power', 'lstm_scan')),
+            'train_float32': (train_batch[1], 'float32',
+                              ('lstm_scan_residuals', 'lstm_bptt'))}
+    for name, (fn, dtype, ops) in runs.items():
+        by_op = flops_by_op(fn)
+        fraction, achieved, secs = profiling.mfu(fn, repeats=3,
+                                                 peak_dtype=dtype)
+        flops = achieved * secs
+        kernel_flops = {op: n for op, n in by_op.items()
+                        if op.startswith('amt_tools_tpu_torch')}
+        log(f'MFU {name}: {fraction:.4f} of the {dtype} peak '
+            f'({achieved / 1e12:.2f} TFLOP/s; {flops / 1e12:.4f} TFLOP in '
+            f'{secs * 1e3:.3f} ms, best of 3; {card}); FLOPs by op {by_op}')
+        require(all(any(op.endswith(f'.{kernel}') for op in kernel_flops)
+                    for kernel in ops),
+                f'{name}: the FLOP count has no formula of {ops}')
+        result[name] = {'mfu': fraction, 'flops': flops, 'seconds': secs,
+                        'flops_by_op': by_op, 'peak_dtype': dtype,
+                        'power_limit': power}
+
+    # The examples, on the card
+    wav = os.path.join(directory, 'clip.wav')
+    t = np.arange(2 * SAMPLE_RATE) / SAMPLE_RATE
+    tools.write_wav(wav, (0.4 * np.sin(2 * np.pi * 261.63 * t)).astype(
+        np.float32), SAMPLE_RATE)
+    reset_launches()
+    pitches, _ = load_example('inference', 'transcribe_file.py').main(
+        wav, None, os.path.join(directory, 'notes.txt'))
+    examples = {'transcribe_file': read_launches()}
+    require(examples['transcribe_file']['stft_power'] == 1 and
+            examples['transcribe_file']['lstm_scan'] == 6,
+            'transcribe_file did not run A once and B six times')
+
+    runs = {'export_artifact': ('inference', 'export_artifact.py',
+                                [f'out={directory}/example.amtx',
+                                 'clip_seconds=2']),
+            'synthetic_demo': ('papers', 'synthetic_demo.py',
+                               ['iterations=2', 'checkpoints=1',
+                                'num_train_tracks=8', 'num_test_tracks=2']),
+            'synthetic_tabcnn': ('papers', 'synthetic_tabcnn.py',
+                                 ['iterations=2', 'checkpoints=1',
+                                  'num_train_tracks=8',
+                                  'num_test_tracks=2'])}
+    outcomes = {}
+    for name, (folder, script, overrides) in runs.items():
+        module = load_example(folder, script)
+        module.ex.root_dir = os.path.join(directory, 'experiments', name)
+        reset_launches()
+        start = time.perf_counter()
+        outcomes[name] = module.ex.run(overrides)
+        torch.cuda.synchronize()
+        examples[name] = read_launches()
+        log(f'{script} {" ".join(overrides)} on the card: '
+            f'{time.perf_counter() - start:.1f} s, launches {examples[name]}')
+    require(all(f == l == c for f, l, c in outcomes['export_artifact']),
+            f'export_artifact\'s artifact and live notes differ: '
+            f'{outcomes["export_artifact"]}')
+    require(examples['synthetic_demo']['lstm_scan_residuals'] > 0 and
+            examples['synthetic_demo']['lstm_bptt'] > 0,
+            'synthetic_demo trained without kernels E and F')
+    require(examples['synthetic_tabcnn']['cqt_mag'] > 0,
+            'synthetic_tabcnn computed no CQT with kernel C')
+    log(f'transcribe_file wrote {len(pitches)} notes')
+    result['examples'] = examples
+
+    return result
+
+
+def deployment_phases(pipeline, requests, train_batch, card):
+    """Phases 35-38 under one temporary directory of the repository."""
+
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix='_chip_smoke_deploy_',
+                                     dir=ROOT) as directory:
+        start = time.perf_counter()
+        ops = check_custom_ops(card)
+        torch.cuda.empty_cache()
+        artifact = serving_artifacts(pipeline, requests, card, directory)
+        torch.cuda.empty_cache()
+        streaming = streaming_artifact(card, directory)
+        torch.cuda.empty_cache()
+        measured = profiling_and_examples(pipeline, requests, train_batch,
+                                          card, directory)
+        torch.cuda.empty_cache()
+        log(f'phases 35-38 took {time.perf_counter() - start:.1f} s')
+
+    log(json.dumps({'serving_artifact': artifact,
+                    'streaming_artifact': streaming,
+                    'mfu': {k: {f: v for f, v in measured[k].items()
+                                if f != 'flops_by_op'}
+                            for k in ('piano_bf16', 'train_float32')}}))
+
+    return ops, artifact, streaming, measured
+
+
 def main():
     import tempfile
 
@@ -4855,7 +5425,8 @@ def main():
     masked = check_masked_lstm(card)
     torch.cuda.empty_cache()
 
-    launches, piano_batch, piano_reference = serve(clips, profile, card)
+    launches, piano_batch, piano_reference, piano_live = serve(clips, profile,
+                                                               card)
     check_against_cpu(clips, profile)
     torch.cuda.empty_cache()
     int8_launches, int8_batch = serve_int8(clips, profile, card)
@@ -4963,10 +5534,13 @@ def main():
 
         profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
                          velocity_step, online_step, tab_step, stream_frames,
-                         of2_step, gset_step])
+                         of2_step, gset_step], os.path.join(root, 'trace'))
+    ops, artifact, streaming, measured = deployment_phases(
+        *piano_live, train_batch, card)
     # The profiled batches hold their pipelines and requests on the card
     del (piano_batch, int8_batch, guitar_batch, train_batch, velocity_step,
-         online_step, tab_step, stream_frames, of2_step, gset_step)
+         online_step, tab_step, stream_frames, of2_step, gset_step,
+         piano_live)
     torch.cuda.empty_cache()
 
     parallel = parallel_phases(card, parallel_dir, piano_reference,
@@ -4992,6 +5566,22 @@ def main():
     stft['launches_two_rank_serving_per_rank'] = parallel['a_per_rank']
     lstm['launches_two_rank_serving_per_rank'] = parallel['b_per_rank']
     cqt_grouped['launches_two_rank_serving_per_rank'] = parallel['d_per_rank']
+
+    examples = measured['examples']
+    for entry in (stft, lstm, cqt_full, cqt_grouped, residuals, bptt):
+        entry['op'] = f'torch.ops.amt_tools_tpu_torch.{entry["name"]}'
+        entry['launches_op_check'] = ops['op_check_launches'][entry['name']]
+    stft['launches_serving_artifact'] = artifact['launches']['stft_power']
+    lstm['launches_serving_artifact'] = artifact['launches']['lstm_scan']
+    lstm['launches_carried_streaming_artifact'] = streaming[
+        'carried_launches']
+    stft['launches_transcribe_file'] = examples['transcribe_file'][
+        'stft_power']
+    cqt_full['launches_synthetic_tabcnn'] = examples['synthetic_tabcnn'][
+        'cqt_mag']
+    for entry in (residuals, bptt):
+        entry['launches_synthetic_demo'] = examples['synthetic_demo'][
+            entry['name']]
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
