@@ -245,11 +245,21 @@ def port_reference_checkpoint(model, source):
                 'OnsetsFramesOnline uses unidirectional streaming LSTMs, so '
                 'there is nothing to port the backward direction into. Port '
                 'into the offline model and retrain/finetune the online one.')
+        if getattr(model, 'fused_heads', False):
+            raise ValueError(
+                'port into a fused_heads=False model, then convert with '
+                'models.fuse_acoustic_variables (the reference stores '
+                'per-head acoustic stacks).')
         if getattr(model, 'estimate_velocity', False):
             raise ValueError(
                 'the reference has no velocity stack (its TODO at '
                 'onsetsframes.py:13); port into estimate_velocity=False or '
                 'initialize the velocity head separately and merge.')
+        if getattr(model, 'fused_lms', False):
+            raise ValueError(
+                'port into a fused_lms=False model, then convert with '
+                'models.fuse_lm_variables (the reference stores per-head '
+                'language models).')
 
         return port_onsetsframes_state_dict(source)
 

@@ -69,6 +69,11 @@
 // 16 up to 1024; a CTA then owns an even number of units, and where they
 // are fewer than 16 (H = 16, 48) the padded unit rows of the product are
 // zero and never read.
+//
+// Groups: G independent sequences with their own W_h^T in one launch, as in
+// lstm_scan.cu (blockIdx.y the group, its slabs of every tensor, the groups
+// from `reverse_from` on with a reverse forward); G = 1 is the ungrouped
+// launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -382,10 +387,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 lstm_bptt_kernel(const float* __restrict__ gates,
                  const float* __restrict__ c_seq, const T* __restrict__ dout,
                  const T* __restrict__ w_ht, float* __restrict__ da,
-                 int batch, int frames, int hidden, int reverse, int rows) {
+                 int batch, int frames, int hidden, int reverse_from,
+                 int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const BpttGeometry geo = bptt_geometry(hidden, sizeof(T), rows, kResident);
+  // Group blockIdx.y runs its own slab of the residuals, dout, W_h^T and
+  // da; the groups from reverse_from on had a reverse forward
+  const int group = static_cast<int>(blockIdx.y);
+  const bool reverse = group >= reverse_from;
+  const size_t seq = static_cast<size_t>(batch) * frames * hidden;
+  gates += group * 4 * seq;
+  c_seq += group * seq;
+  dout += group * seq;
+  w_ht += static_cast<size_t>(group) * 4 * hidden * hidden;
+  da += group * 4 * seq;
   T* w_buf = reinterpret_cast<T*>(smem + geo.w_off);
   T* da_buf = reinterpret_cast<T*>(smem + geo.da_off);
   unsigned char* res_buf = smem + geo.res_off;
@@ -611,11 +627,24 @@ lstm_bptt_kernel(const float* __restrict__ gates,
   }
 }
 
+// The launch carries the group count and the first group whose forward
+// was reversed (G = 1 is the ungrouped launch); blockIdx.y is the group, so
+// no cluster spans two groups.
+struct Launch {
+  int groups;
+  int reverse_from;
+  int batch;
+  int frames;
+  int hidden;
+  int rows;
+  cudaStream_t stream;
+  int* active_clusters;  // not null: only ask how many clusters fit
+};
+
 template <typename T, bool kBf16, bool kResident, int kRowTiles>
 int launch(const float* gates, const float* c_seq, const void* dout,
-           const void* w_ht, float* da, int batch, int frames, int hidden,
-           int reverse, int rows, cudaStream_t stream, int* active_clusters) {
-  const BpttGeometry geo = bptt_geometry(hidden, sizeof(T), rows, kResident);
+           const void* w_ht, float* da, const Launch& l) {
+  const BpttGeometry geo = bptt_geometry(l.hidden, sizeof(T), l.rows, kResident);
   if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -625,72 +654,59 @@ int launch(const float* gates, const float* c_seq, const void* dout,
       static_cast<int>(geo.bytes));
   if (status != cudaSuccess) return static_cast<int>(status);
 
-  const int clusters = (batch + rows - 1) / rows;
+  const int clusters = (l.batch + l.rows - 1) / l.rows;
   cudaLaunchAttribute attribute[1];
   attribute[0].id = cudaLaunchAttributeClusterDimension;
   attribute[0].val.clusterDim.x = kCluster;
   attribute[0].val.clusterDim.y = 1;
   attribute[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster * (clusters > 0 ? clusters : 1));
+  config.gridDim = dim3(kCluster * (clusters > 0 ? clusters : 1), l.groups);
   config.blockDim = dim3(geo.threads);
   config.dynamicSmemBytes = geo.bytes;
-  config.stream = stream;
+  config.stream = l.stream;
   config.attrs = attribute;
   config.numAttrs = 1;
 
-  if (active_clusters != nullptr) {
+  if (l.active_clusters != nullptr) {
     return static_cast<int>(
-        cudaOccupancyMaxActiveClusters(active_clusters, kernel, &config));
+        cudaOccupancyMaxActiveClusters(l.active_clusters, kernel, &config));
   }
   status = cudaLaunchKernelEx(&config, kernel, gates, c_seq,
                               static_cast<const T*>(dout),
-                              static_cast<const T*>(w_ht), da, batch, frames,
-                              hidden, reverse, rows);
+                              static_cast<const T*>(w_ht), da, l.batch,
+                              l.frames, l.hidden, l.reverse_from, l.rows);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kBf16>
 int dispatch(const float* gates, const float* c_seq, const void* dout,
-             const void* w_ht, float* da, int batch, int frames, int hidden,
-             int reverse, int rows, int resident, cudaStream_t stream,
-             int* active_clusters) {
-  if (hidden % 16 || hidden < 16 || rows < 1 || rows > kMaxRows) {
+             const void* w_ht, float* da, int resident, const Launch& l) {
+  if (l.hidden % 16 || l.hidden < 16 || l.rows < 1 || l.rows > kMaxRows ||
+      l.groups < 1 || l.groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (resident) {
-    if (rows <= 8) {
-      return launch<T, kBf16, true, 1>(gates, c_seq, dout, w_ht, da, batch,
-                                       frames, hidden, reverse, rows, stream,
-                                       active_clusters);
+    if (l.rows <= 8) {
+      return launch<T, kBf16, true, 1>(gates, c_seq, dout, w_ht, da, l);
     }
-    return launch<T, kBf16, true, 2>(gates, c_seq, dout, w_ht, da, batch,
-                                     frames, hidden, reverse, rows, stream,
-                                     active_clusters);
+    return launch<T, kBf16, true, 2>(gates, c_seq, dout, w_ht, da, l);
   }
-  if (rows <= 8) {
-    return launch<T, kBf16, false, 1>(gates, c_seq, dout, w_ht, da, batch,
-                                      frames, hidden, reverse, rows, stream,
-                                      active_clusters);
+  if (l.rows <= 8) {
+    return launch<T, kBf16, false, 1>(gates, c_seq, dout, w_ht, da, l);
   }
-  return launch<T, kBf16, false, 2>(gates, c_seq, dout, w_ht, da, batch,
-                                    frames, hidden, reverse, rows, stream,
-                                    active_clusters);
+  return launch<T, kBf16, false, 2>(gates, c_seq, dout, w_ht, da, l);
 }
 
 int run(const float* gates, const float* c_seq, const void* dout,
-        const void* w_ht, float* da, int batch, int frames, int hidden,
-        int reverse, int bf16, int rows, int resident, cudaStream_t stream,
-        int* active_clusters) {
+        const void* w_ht, float* da, int bf16, int resident,
+        const Launch& l) {
   if (bf16) {
-    return dispatch<__nv_bfloat16, true>(gates, c_seq, dout, w_ht, da, batch,
-                                         frames, hidden, reverse, rows,
-                                         resident, stream, active_clusters);
+    return dispatch<__nv_bfloat16, true>(gates, c_seq, dout, w_ht, da,
+                                         resident, l);
   }
-  return dispatch<float, false>(gates, c_seq, dout, w_ht, da, batch, frames,
-                                hidden, reverse, rows, resident, stream,
-                                active_clusters);
+  return dispatch<float, false>(gates, c_seq, dout, w_ht, da, resident, l);
 }
 
 }  // namespace
@@ -709,8 +725,23 @@ extern "C" int lstm_bptt(const float* gates, const float* c_seq,
                          int batch, int frames, int hidden, int reverse,
                          int bf16, int rows, int resident,
                          cudaStream_t stream) {
-  return run(gates, c_seq, dout, w_ht, da, batch, frames, hidden, reverse,
-             bf16, rows, resident, stream, nullptr);
+  return run(gates, c_seq, dout, w_ht, da, bf16, resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
+}
+
+// Kernel F over `groups` independent sequences in one launch: every tensor
+// of lstm_bptt with a leading group axis (w_ht (groups, 4 * hidden,
+// hidden)); the groups from `reverse_from` on had a reverse forward.
+extern "C" int lstm_bptt_grouped(const float* gates, const float* c_seq,
+                                 const void* dout, const void* w_ht,
+                                 float* da, int groups, int reverse_from,
+                                 int batch, int frames, int hidden, int bf16,
+                                 int rows, int resident,
+                                 cudaStream_t stream) {
+  return run(gates, c_seq, dout, w_ht, da, bf16, resident,
+             Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
+                    nullptr});
 }
 
 // How many clusters of the launch configuration for (hidden, dtype, rows,
@@ -719,8 +750,9 @@ extern "C" int lstm_bptt(const float* gates, const float* c_seq,
 extern "C" int lstm_bptt_max_active_clusters(int hidden, int bf16, int rows,
                                              int resident, int* clusters) {
   *clusters = 0;
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, kCluster * rows, 1,
-             hidden, 0, bf16, rows, resident, nullptr, clusters);
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, bf16, resident,
+             Launch{1, 1, kCluster * rows, 1, hidden, rows, nullptr,
+                    clusters});
 }
 
 // Shared-memory bytes of one CTA; ops/lstm_kernel.py computes the same.

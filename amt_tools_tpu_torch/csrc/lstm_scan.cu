@@ -91,6 +91,17 @@
 // At the training shape (B = 8, T = 625, H = 256, float32) it moves about
 // 51 MB, 0.015 ms at 3.35 TB/s, and does 2.6 GFLOP of recurrent products,
 // 0.039 ms at the 67 TFLOP/s float32 peak; 625 dependent steps are the floor.
+//
+// Groups (B and E): G independent sequences with their own W_h in one
+// launch, the card's counterpart of the JAX package's one grouped scan over
+// all directions of its grouped BiLSTM (ops/lstm.py, _grouped_lstm_scan).
+// blockIdx.y is the group; it offsets xw, W_h, out and the residuals by its
+// slab, and the groups from `reverse_from` on walk back to front (a
+// BiLSTM's backward directions, with no flipped copy). A group's rows and
+// arithmetic are those of an ungrouped launch, which is G = 1. Since the
+// steps depend on each other, G launches one after another cost G times one
+// step chain; in one launch the groups' chains run side by side on idle
+// SMs (at the training batch an ungrouped launch fills 8 of 16 clusters).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -423,11 +434,24 @@ __global__ void __launch_bounds__(kMaxThreads)
 lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
                  T* __restrict__ out, float* __restrict__ gates_out,
                  float* __restrict__ c_out, const int* __restrict__ lengths,
-                 Carry carry, int batch, int frames, int hidden, int reverse,
-                 int rows) {
+                 Carry carry, int batch, int frames, int hidden,
+                 int reverse_from, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
+  // Group blockIdx.y runs its own slab of xw, W_h, out and the residuals;
+  // the groups from reverse_from on walk back to front. The lengths are
+  // every group's.
+  const int group = static_cast<int>(blockIdx.y);
+  const bool reverse = group >= reverse_from;
+  const size_t seq = static_cast<size_t>(batch) * frames * hidden;
+  xw += group * 4 * seq;
+  w_h += static_cast<size_t>(group) * hidden * 4 * hidden;
+  out += group * seq;
+  if constexpr (kResiduals) {
+    gates_out += group * 4 * seq;
+    c_out += group * seq;
+  }
   T* w_buf = reinterpret_cast<T*>(smem + geo.w_off);
   T* h_buf = reinterpret_cast<T*>(smem + geo.h_off);
   T* x_buf = reinterpret_cast<T*>(smem + geo.x_off);
@@ -700,13 +724,27 @@ lstm_scan_kernel(const T* __restrict__ xw, const T* __restrict__ w_h,
   }
 }
 
+// The launch carries the group count and the first reversed group (G = 1 is
+// the ungrouped launch: reverse_from 0 for a reverse scan, 1 for a forward
+// one). Group g takes the slabs xw + g B T 4H, W_h + g H 4H, out + g B T H
+// (and the residuals'), and its clusters tile blockIdx.x as the ungrouped
+// launch's do; blockIdx.y is the group, so no cluster spans two groups.
+struct Launch {
+  int groups;
+  int reverse_from;
+  int batch;
+  int frames;
+  int hidden;
+  int rows;
+  cudaStream_t stream;
+  int* active_clusters;  // not null: only ask how many clusters fit
+};
+
 template <typename T, bool kBf16, bool kResiduals, bool kResident,
           int kRowTiles, bool kMasked, bool kCarry>
 int launch(const void* xw, const void* w_h, void* out, float* gates,
-           float* c_seq, const int* lengths, Carry carry, int batch,
-           int frames, int hidden, int reverse, int rows, cudaStream_t stream,
-           int* active_clusters) {
-  const ScanGeometry geo = scan_geometry(hidden, sizeof(T), rows, kResident);
+           float* c_seq, const int* lengths, Carry carry, const Launch& l) {
+  const ScanGeometry geo = scan_geometry(l.hidden, sizeof(T), l.rows, kResident);
   if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -717,86 +755,78 @@ int launch(const void* xw, const void* w_h, void* out, float* gates,
       static_cast<int>(geo.bytes));
   if (status != cudaSuccess) return static_cast<int>(status);
 
-  const int clusters = (batch + rows - 1) / rows;
+  const int clusters = (l.batch + l.rows - 1) / l.rows;
   cudaLaunchAttribute attribute[1];
   attribute[0].id = cudaLaunchAttributeClusterDimension;
   attribute[0].val.clusterDim.x = kCluster;
   attribute[0].val.clusterDim.y = 1;
   attribute[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster * (clusters > 0 ? clusters : 1));
+  config.gridDim = dim3(kCluster * (clusters > 0 ? clusters : 1), l.groups);
   config.blockDim = dim3(geo.threads);
   config.dynamicSmemBytes = geo.bytes;
-  config.stream = stream;
+  config.stream = l.stream;
   config.attrs = attribute;
   config.numAttrs = 1;
 
-  if (active_clusters != nullptr) {
+  if (l.active_clusters != nullptr) {
     return static_cast<int>(
-        cudaOccupancyMaxActiveClusters(active_clusters, kernel, &config));
+        cudaOccupancyMaxActiveClusters(l.active_clusters, kernel, &config));
   }
   status = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(xw),
                               static_cast<const T*>(w_h), static_cast<T*>(out),
-                              gates, c_seq, lengths, carry, batch, frames,
-                              hidden, reverse, rows);
+                              gates, c_seq, lengths, carry, l.batch, l.frames,
+                              l.hidden, l.reverse_from, l.rows);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kBf16, bool kResiduals, bool kMasked, bool kCarry>
 int dispatch(const void* xw, const void* w_h, void* out, float* gates,
-             float* c_seq, const int* lengths, Carry carry, int batch,
-             int frames, int hidden, int reverse, int rows, int resident,
-             cudaStream_t stream, int* active_clusters) {
-  if (hidden % 16 || hidden < 16 || rows < 1 || rows > kMaxRows) {
+             float* c_seq, const int* lengths, Carry carry, int resident,
+             const Launch& l) {
+  if (l.hidden % 16 || l.hidden < 16 || l.rows < 1 || l.rows > kMaxRows ||
+      l.groups < 1 || l.groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (resident) {
-    if (rows <= 8) {
+    if (l.rows <= 8) {
       return launch<T, kBf16, kResiduals, true, 1, kMasked, kCarry>(
-          xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
-          reverse, rows, stream, active_clusters);
+          xw, w_h, out, gates, c_seq, lengths, carry, l);
     }
     return launch<T, kBf16, kResiduals, true, 2, kMasked, kCarry>(
-        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
-        reverse, rows, stream, active_clusters);
+        xw, w_h, out, gates, c_seq, lengths, carry, l);
   }
-  if (rows <= 8) {
+  if (l.rows <= 8) {
     return launch<T, kBf16, kResiduals, false, 1, kMasked, kCarry>(
-        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
-        reverse, rows, stream, active_clusters);
+        xw, w_h, out, gates, c_seq, lengths, carry, l);
   }
   return launch<T, kBf16, kResiduals, false, 2, kMasked, kCarry>(
-      xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
-      reverse, rows, stream, active_clusters);
+      xw, w_h, out, gates, c_seq, lengths, carry, l);
 }
 
 // Kernel B with lengths, a carry, both or neither
 template <typename T, bool kBf16, bool kMasked>
 int dispatch_carry(const void* xw, const void* w_h, void* out,
-                   const int* lengths, Carry carry, int batch, int frames,
-                   int hidden, int reverse, int rows, int resident,
-                   cudaStream_t stream, int* active_clusters) {
+                   const int* lengths, Carry carry, int resident,
+                   const Launch& l) {
   if (carry.c0 != nullptr) {
     return dispatch<T, kBf16, false, kMasked, true>(
-        xw, w_h, out, nullptr, nullptr, lengths, carry, batch, frames, hidden,
-        reverse, rows, resident, stream, active_clusters);
+        xw, w_h, out, nullptr, nullptr, lengths, carry, resident, l);
   }
   return dispatch<T, kBf16, false, kMasked, false>(
-      xw, w_h, out, nullptr, nullptr, lengths, carry, batch, frames, hidden,
-      reverse, rows, resident, stream, active_clusters);
+      xw, w_h, out, nullptr, nullptr, lengths, carry, resident, l);
 }
 
 // Kernel E (residuals) takes no lengths and no carry: masked and carried
-// training are not ported
+// training are not ported. A carry is one group's (the streaming launch).
 template <typename T, bool kBf16>
 int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
-                  float* c_seq, const int* lengths, Carry carry, int batch,
-                  int frames, int hidden, int reverse, int residuals, int rows,
-                  int resident, cudaStream_t stream, int* active_clusters) {
+                  float* c_seq, const int* lengths, Carry carry, int residuals,
+                  int resident, const Launch& l) {
   const bool carried = carry.c0 != nullptr;
   if (carried && (carry.h0 == nullptr || carry.c_last == nullptr ||
-                  carry.h_last == nullptr)) {
+                  carry.h_last == nullptr || l.groups != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (residuals) {
@@ -804,32 +834,26 @@ int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return dispatch<T, kBf16, true, false, false>(
-        xw, w_h, out, gates, c_seq, nullptr, carry, batch, frames, hidden,
-        reverse, rows, resident, stream, active_clusters);
+        xw, w_h, out, gates, c_seq, nullptr, carry, resident, l);
   }
   if (lengths != nullptr) {
-    return dispatch_carry<T, kBf16, true>(xw, w_h, out, lengths, carry, batch,
-                                          frames, hidden, reverse, rows,
-                                          resident, stream, active_clusters);
+    return dispatch_carry<T, kBf16, true>(xw, w_h, out, lengths, carry,
+                                          resident, l);
   }
-  return dispatch_carry<T, kBf16, false>(xw, w_h, out, nullptr, carry, batch,
-                                         frames, hidden, reverse, rows,
-                                         resident, stream, active_clusters);
+  return dispatch_carry<T, kBf16, false>(xw, w_h, out, nullptr, carry,
+                                         resident, l);
 }
 
 int run(const void* xw, const void* w_h, void* out, float* gates,
-        float* c_seq, const int* lengths, Carry carry, int batch, int frames,
-        int hidden, int reverse, int bf16, int residuals, int rows,
-        int resident, cudaStream_t stream, int* active_clusters) {
+        float* c_seq, const int* lengths, Carry carry, int bf16,
+        int residuals, int resident, const Launch& l) {
   if (bf16) {
-    return dispatch_type<__nv_bfloat16, true>(
-        xw, w_h, out, gates, c_seq, lengths, carry, batch, frames, hidden,
-        reverse, residuals, rows, resident, stream, active_clusters);
+    return dispatch_type<__nv_bfloat16, true>(xw, w_h, out, gates, c_seq,
+                                              lengths, carry, residuals,
+                                              resident, l);
   }
   return dispatch_type<float, false>(xw, w_h, out, gates, c_seq, lengths,
-                                     carry, batch, frames, hidden, reverse,
-                                     residuals, rows, resident, stream,
-                                     active_clusters);
+                                     carry, residuals, resident, l);
 }
 
 }  // namespace
@@ -846,8 +870,26 @@ extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
                          const int* lengths, int batch, int frames, int hidden,
                          int reverse, int bf16, int rows, int resident,
                          cudaStream_t stream) {
-  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, batch, frames,
-             hidden, reverse, bf16, 0, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, bf16, 0,
+             resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
+}
+
+// Kernel B over `groups` independent sequences in one launch: xw (groups,
+// batch, frames, 4 * hidden), w_h (groups, hidden, 4 * hidden), out
+// (groups, batch, frames, hidden), the groups from `reverse_from` on
+// walking back to front; `lengths` (null, or int32 (batch)) are every
+// group's. Otherwise as lstm_scan.
+extern "C" int lstm_scan_grouped(const void* xw, const void* w_h, void* out,
+                                 const int* lengths, int groups,
+                                 int reverse_from, int batch, int frames,
+                                 int hidden, int bf16, int rows, int resident,
+                                 cudaStream_t stream) {
+  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, bf16, 0,
+             resident,
+             Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
+                    nullptr});
 }
 
 // Kernel B from a carry: lstm_scan starting from c0, h0 in place of zeros,
@@ -863,8 +905,9 @@ extern "C" int lstm_scan_carried(const void* xw, const void* w_h, void* out,
                                  int resident, cudaStream_t stream) {
   if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(xw, w_h, out, nullptr, nullptr, lengths,
-             Carry{c0, h0, c_last, h_last}, batch, frames, hidden, reverse,
-             bf16, 0, rows, resident, stream, nullptr);
+             Carry{c0, h0, c_last, h_last}, bf16, 0, resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
 }
 
 // Kernel E: lstm_scan, and also the float32 residuals gates
@@ -875,8 +918,24 @@ extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
                                    int frames, int hidden, int reverse,
                                    int bf16, int rows, int resident,
                                    cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, batch, frames,
-             hidden, reverse, bf16, 1, rows, resident, stream, nullptr);
+  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, bf16, 1, resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
+}
+
+// Kernel E over `groups` sequences in one launch, as lstm_scan_grouped:
+// gates (groups, batch, frames, 4 * hidden) and c_seq (groups, batch,
+// frames, hidden).
+extern "C" int lstm_scan_residuals_grouped(const void* xw, const void* w_h,
+                                           void* out, float* gates,
+                                           float* c_seq, int groups,
+                                           int reverse_from, int batch,
+                                           int frames, int hidden, int bf16,
+                                           int rows, int resident,
+                                           cudaStream_t stream) {
+  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, bf16, 1, resident,
+             Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
+                    nullptr});
 }
 
 // How many clusters of the launch configuration for (hidden, dtype, rows,
@@ -887,8 +946,9 @@ extern "C" int lstm_scan_max_active_clusters(int hidden, int bf16,
                                              int resident, int* clusters) {
   *clusters = 0;
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, Carry{},
-             kCluster * rows, 1, hidden, 0, bf16, residuals, rows, resident,
-             nullptr, clusters);
+             bf16, residuals, resident,
+             Launch{1, 1, kCluster * rows, 1, hidden, rows, nullptr,
+                    clusters});
 }
 
 // Shared-memory bytes of one CTA; ops/lstm_kernel.py computes the same.

@@ -97,8 +97,10 @@ def config():
     # false to disable.
     remat = False
 
-    # The JAX package's grouped language models; the port has no fused
-    # layouts yet, so true raises
+    # Run the independent language models (onset/offset/velocity) as one
+    # grouped BiLSTM: the same math, one grouped launch of kernels E and F
+    # a step for all their directions. Serve/export such checkpoints as
+    # they are, or convert with models.unfuse_lm_variables.
     fused_lms = False
 
     # The random seed for this experiment
@@ -121,9 +123,6 @@ def onsets_frames_2_run(sample_rate, hop_length, num_frames, iterations,
                         maestro_base_dir, maps_base_dir, bf16,
                         accum_steps, remat, fused_lms, num_workers, seed,
                         device, root_dir):
-    if fused_lms:
-        raise NotImplementedError('fused_lms: the port has no fused '
-                                  'language-model layout yet')
     tools.seed_everything(seed)
 
     profile = tools.PianoProfile()
@@ -215,6 +214,7 @@ def onsets_frames_2_run(sample_rate, hop_length, num_frames, iterations,
                                  detach_heads=True,
                                  estimate_velocity=estimate_velocity,
                                  remat=remat,
+                                 fused_lms=fused_lms,
                                  dtype=torch.bfloat16 if bf16 else None)
 
     optimizer = torch.optim.Adam(onsetsframes.parameters(), lr=learning_rate)

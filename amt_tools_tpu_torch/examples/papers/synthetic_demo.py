@@ -98,8 +98,10 @@ def config():
     # false to disable.
     remat = False
 
-    # The JAX package's grouped language models; the port has no fused
-    # layouts yet, so true raises
+    # Run the independent language models (onset/offset/velocity) as one
+    # grouped BiLSTM: the same math, one grouped launch of kernels E and F
+    # a step for all their directions. Serve/export such checkpoints as
+    # they are, or convert with models.unfuse_lm_variables.
     fused_lms = False
 
     # The random seed for this experiment
@@ -123,9 +125,6 @@ def synthetic_demo(sample_rate, hop_length, num_frames, iterations,
                    velocity_range, timbre_jitter, estimate_velocity,
                    data_parallel, bf16, accum_steps, remat, fused_lms,
                    num_workers, seed, device, root_dir):
-    if fused_lms:
-        raise NotImplementedError('fused_lms: the port has no fused '
-                                  'language-model layout yet')
     difficulty = dict(noise_snr_db=noise_snr_db, reverb_time=reverb_time,
                       velocity_range=(tuple(velocity_range)
                                       if velocity_range else None),
@@ -175,11 +174,13 @@ def synthetic_demo(sample_rate, hop_length, num_frames, iterations,
         model = OnsetsFrames2(dim_in=data_proc.get_feature_size(),
                               profile=profile, model_complexity=2,
                               estimate_velocity=True, remat=remat,
-                              dtype=dtype)
+                              fused_lms=fused_lms, dtype=dtype)
     else:
+        # (fused_lms needs OnsetsFrames2's multiple independent LMs; the
+        # model raises with a clear message if requested here)
         model = OnsetsFrames(dim_in=data_proc.get_feature_size(),
                              profile=profile, model_complexity=2,
-                             remat=remat, dtype=dtype)
+                             remat=remat, fused_lms=fused_lms, dtype=dtype)
 
     mesh = get_mesh(device=device) if data_parallel else None
 

@@ -1,14 +1,19 @@
 """Transcription models: base class, output heads, ``run_on_batch``,
-Onsets & Frames v1/v2 (with the velocity head), the streaming Onsets &
-Frames and TabCNN."""
+Onsets & Frames v1/v2 (with the velocity head and the fused layouts and
+their converters), the streaming Onsets & Frames and TabCNN."""
 
-from .common import (TranscriptionModel, SoftmaxGroups, LogisticBank,
-                     RegressionBank, run_on_batch)
-from .onsetsframes import (AcousticModel, LanguageModel, OnlineLanguageModel,
-                           OnsetsFrames, OnsetsFrames2, OnsetsFramesOnline)
+from .common import (TranscriptionModel, OutputLayer, SoftmaxGroups,
+                     LogisticBank, RegressionBank, run_on_batch)
+from .onsetsframes import (AcousticModel, GroupedAcousticModel,
+                           LanguageModel, OnlineLanguageModel, OnsetsFrames,
+                           OnsetsFrames2, OnsetsFramesOnline,
+                           fuse_acoustic_variables, unfuse_acoustic_variables,
+                           fuse_lm_variables, unfuse_lm_variables)
 from .tabcnn import TabCNN
 
-__all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank',
-           'RegressionBank', 'run_on_batch', 'AcousticModel',
-           'LanguageModel', 'OnlineLanguageModel', 'OnsetsFrames',
-           'OnsetsFrames2', 'OnsetsFramesOnline', 'TabCNN']
+__all__ = ['TranscriptionModel', 'OutputLayer', 'SoftmaxGroups',
+           'LogisticBank', 'RegressionBank', 'run_on_batch', 'AcousticModel',
+           'GroupedAcousticModel', 'LanguageModel', 'OnlineLanguageModel',
+           'OnsetsFrames', 'OnsetsFrames2', 'OnsetsFramesOnline', 'TabCNN',
+           'fuse_acoustic_variables', 'unfuse_acoustic_variables',
+           'fuse_lm_variables', 'unfuse_lm_variables']

@@ -10,7 +10,8 @@ activations (``LogisticBank``), (B, G, T) class ids (``SoftmaxGroups``) or
 (e.g. ``torch.bfloat16``) while parameters stay float32; losses are float32:
 ``LogisticBank.get_loss`` (BCE), ``SoftmaxGroups.get_loss`` (softmax CE
 over integer tablature labels, ``:203-230``) and ``RegressionBank.get_loss``
-(masked MSE in the log domain). Every model trains.
+(masked MSE in the log domain). Every model trains. The three heads derive
+from ``OutputLayer`` (``:156``), the projection with its loss and decode.
 """
 
 import inspect
@@ -25,8 +26,8 @@ from .. import tools
 from ..ops.decode import sigmoid
 from ..ops.layers import lecun_normal_, linear
 
-__all__ = ['TranscriptionModel', 'SoftmaxGroups', 'LogisticBank',
-           'RegressionBank', 'run_on_batch']
+__all__ = ['TranscriptionModel', 'OutputLayer', 'SoftmaxGroups',
+           'LogisticBank', 'RegressionBank', 'run_on_batch']
 
 
 class TranscriptionModel(nn.Module):
@@ -122,7 +123,34 @@ def run_on_batch(model, batch, train=False, generator=None):
     return output
 
 
-class SoftmaxGroups(nn.Module):
+class OutputLayer(nn.Module):
+    """Generic output layer: a projection plus its loss and decode (JAX
+    ``:156-180``). ``dtype`` is the projection's compute dtype (parameters
+    stay float32; losses accumulate in float32); ``weights`` are the
+    layer's loss weights, if any."""
+
+    def __init__(self, dim_in, dim_out, weights=None, dtype=None):
+        super().__init__()
+        self.dim_in = dim_in
+        self.dim_out = dim_out
+        self.weights = weights
+        self.dtype = dtype
+
+    @abstractmethod
+    def forward(self, feats):
+        raise NotImplementedError
+
+    @abstractmethod
+    def get_loss(self, estimated, reference):
+        raise NotImplementedError
+
+    def finalize_output(self, raw_output):
+        """Raw output cut from the gradient graph."""
+
+        return raw_output.detach()
+
+
+class SoftmaxGroups(OutputLayer):
     """Multi-group softmax head for tablature: (B, T, E) -> (B, T, G*C).
 
     Each degree of freedom (a guitar string) is an independent softmax over
@@ -132,12 +160,9 @@ class SoftmaxGroups(nn.Module):
 
     def __init__(self, dim_in, dim_out, num_groups, num_classes, dtype=None,
                  generator=None):
-        super().__init__()
-        self.dim_in = dim_in
-        self.dim_out = dim_out
+        super().__init__(dim_in, dim_out, dtype=dtype)
         self.num_groups = num_groups
         self.num_classes = num_classes
-        self.dtype = dtype
         self.Dense_0 = nn.Linear(dim_in, dim_out)
 
         if generator is None:
@@ -194,7 +219,7 @@ class SoftmaxGroups(nn.Module):
         return out.transpose(-1, -2)
 
 
-class LogisticBank(nn.Module):
+class LogisticBank(OutputLayer):
     """Multi-label logistic head: (B, T, E) -> (B, T, O) logits.
 
     The bias starts at ``prior_logit`` (-2, a sparse-activity prior), as in
@@ -203,10 +228,7 @@ class LogisticBank(nn.Module):
 
     def __init__(self, dim_in, dim_out, dtype=None, prior_logit=-2.0,
                  generator=None):
-        super().__init__()
-        self.dim_in = dim_in
-        self.dim_out = dim_out
-        self.dtype = dtype
+        super().__init__(dim_in, dim_out, dtype=dtype)
         self.Dense_0 = nn.Linear(dim_in, dim_out)
 
         if generator is None:
@@ -253,7 +275,7 @@ class LogisticBank(nn.Module):
         return out
 
 
-class RegressionBank(nn.Module):
+class RegressionBank(OutputLayer):
     """Per-key bounded regression head (note velocities in [0, 1]):
     (B, T, E) -> (B, T, O) logits.
 
@@ -266,10 +288,7 @@ class RegressionBank(nn.Module):
 
     def __init__(self, dim_in, dim_out, dtype=None, floor_db=-30.0,
                  generator=None):
-        super().__init__()
-        self.dim_in = dim_in
-        self.dim_out = dim_out
-        self.dtype = dtype
+        super().__init__(dim_in, dim_out, dtype=dtype)
         self.floor_db = floor_db
         self.Dense_0 = nn.Linear(dim_in, dim_out)
 

@@ -26,6 +26,20 @@ The acoustic stacks run NCHW as (B, C, T, F); the JAX package runs NHWC
 (B, T, F, C). Before the dense projection the port permutes back to
 (B, T, F/4, C), so the flatten is feature-major (index f * C + c) exactly
 as in the JAX package (``onsetsframes.py:157-158``).
+
+The opt-in fused layouts (JAX ``:246-342``, ``:540-549``, ``:577-700``):
+``fused_heads`` runs every acoustic head as one ``GroupedAcousticModel``
+(``grouped_am``: conv1 dense to all heads' channels, convs 2-3 grouped by
+head, per-channel BatchNorm, the per-head projections one batched
+contraction), and ``fused_lms`` runs O&F2's independent language models
+(onset, offset and, with ``estimate_velocity``, velocity) as one
+``ops.lstm.GroupedBiLSTM`` (``group_lm``): one grouped launch of kernel B
+in eval, E and F in training, where the per-head layout launches each
+direction alone. Both are layout changes of the same math;
+``fuse_acoustic_variables``, ``fuse_lm_variables`` and their inverses
+convert a ``state_dict`` between the layouts (JAX ``:345-508``, which acts
+on Flax variables: ``weights.from_flax`` of JAX's fused tree equals the
+port's converter applied to ``from_flax`` of the per-head tree).
 """
 
 import warnings
@@ -37,13 +51,16 @@ import torch.nn.functional as F
 from .. import tools
 from ..ops import decode
 from ..ops.layers import (BatchNorm, checkpoint, conv2d_same, conv3x3,
-                          dropout, lecun_normal_, linear)
-from ..ops.lstm import FastBiLSTM, FastLSTM, lengths_to_mask
+                          dropout, head_linear, lecun_normal_, linear)
+from ..ops.lstm import FastBiLSTM, FastLSTM, GroupedBiLSTM, lengths_to_mask
 from ..ops.qconv import Int8Conv, Int8Dense
 from .common import LogisticBank, RegressionBank, TranscriptionModel
 
-__all__ = ['AcousticModel', 'LanguageModel', 'OnlineLanguageModel',
-           'OnsetsFrames', 'OnsetsFrames2', 'OnsetsFramesOnline']
+__all__ = ['AcousticModel', 'GroupedAcousticModel', 'LanguageModel',
+           'OnlineLanguageModel', 'OnsetsFrames', 'OnsetsFrames2',
+           'OnsetsFramesOnline', 'fuse_acoustic_variables',
+           'unfuse_acoustic_variables', 'fuse_lm_variables',
+           'unfuse_lm_variables']
 
 
 class AcousticModel(nn.Module):
@@ -158,6 +175,104 @@ class AcousticModel(nn.Module):
                              generator)
 
 
+class GroupedAcousticModel(nn.Module):
+    """Every acoustic head of an O&F model in one conv stack: (B, T, F, C)
+    features -> (B, T, heads, dim_out), one embedding a head in the
+    caller's head order (JAX ``:246-342``).
+
+    The per-head :class:`AcousticModel` stacks all read the same input, so
+    conv1 is one dense conv to ``heads * nf1`` channels; convs 2-3 are
+    grouped by head (``nn.Conv2d(groups=heads)``, block-diagonal over
+    channels, run by cuDNN as the per-head convs are: Flax computes them
+    outside any Pallas kernel), BatchNorm is per channel, and the per-head
+    projections ``head_kernels`` (heads, K, dim_out) and ``head_bias``
+    (heads, dim_out) are one batched contraction. So the stack computes the
+    per-head stacks side by side: a layout change, not an approximation.
+    Channels are head-blocked (head h owns channels [h nf, (h + 1) nf)),
+    and each head's flatten is frequency-major, channel-minor, as JAX's
+    (``:313-319``) and the per-head stack's. Masks, dropout from the
+    forward's ``generator`` and the max-pools are the per-head stack's;
+    ``remat=True`` recomputes the whole stack in the backward pass
+    (``ops.layers.checkpoint``); the per-block ``'blocks'`` has no fused
+    counterpart (JAX ``_grouped_model_cls``)."""
+
+    def __init__(self, dim_in, dim_out, heads=3, in_channels=1,
+                 model_complexity=2, dtype=None, generator=None, dropout=True,
+                 remat=False):
+        super().__init__()
+        if remat == 'blocks':
+            raise ValueError("remat='blocks' is only supported with per-head "
+                             "acoustic stacks (fused_heads=False)")
+        self.heads = heads
+        self.dtype = dtype
+        self.dropout = dropout
+        self.remat = remat
+        self.nf3 = 32 * model_complexity
+        nf1 = 16 * model_complexity
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+
+        self.Conv_0 = conv3x3(in_channels, heads * nf1, generator)
+        self.BatchNorm_0 = BatchNorm(heads * nf1)
+        self.Conv_1 = conv3x3(heads * nf1, heads * nf1, generator, heads)
+        self.BatchNorm_1 = BatchNorm(heads * nf1)
+        self.Conv_2 = conv3x3(heads * nf1, heads * self.nf3, generator, heads)
+        self.BatchNorm_2 = BatchNorm(heads * self.nf3)
+
+        features = self.nf3 * (dim_in // 2 // 2)
+        self.head_kernels = nn.Parameter(torch.empty(heads, features,
+                                                     dim_out))
+        lecun_normal_(self.head_kernels, features, generator)
+        self.head_bias = nn.Parameter(torch.zeros(heads, dim_out))
+
+    def _dropout(self, x, rate, generator):
+        if self.training and self.dropout:
+            return dropout(x, rate, generator)
+        return x
+
+    def forward(self, feats, generator=None, lengths=None):
+        if self.remat is True and self.training and torch.is_grad_enabled():
+            return checkpoint(
+                lambda x: self._forward(x, generator, lengths), feats,
+                module=self, generator=generator)
+
+        return self._forward(feats, generator, lengths)
+
+    def _forward(self, feats, generator, lengths):
+        # (B, T, F, C) -> (B, C, T, F)
+        x = feats.permute(0, 3, 1, 2)
+
+        mask = None
+        if lengths is not None:
+            mask = lengths_to_mask(torch.as_tensor(lengths, device=x.device),
+                                   x.shape[2])[:, None, :, None].to(x.dtype)
+            x = x * mask
+
+        for conv, norm, pool in ((self.Conv_0, self.BatchNorm_0, False),
+                                 (self.Conv_1, self.BatchNorm_1, True),
+                                 (self.Conv_2, self.BatchNorm_2, True)):
+            x = conv2d_same(x, conv, self.dtype)
+            x = F.relu(norm(x, self.dtype))
+            if pool:
+                x = F.max_pool2d(x, (1, 2), stride=(1, 2))
+                x = self._dropout(x, 0.25, generator)
+            if mask is not None:
+                x = x * mask.to(x.dtype)
+
+        # (B, heads * nf3, T, F/4) -> (B, T, heads, F/4 * nf3): each head's
+        # channels, flattened frequency-major and channel-minor
+        batch, _, frames, freqs = x.shape
+        x = x.reshape(batch, self.heads, self.nf3, frames, freqs)
+        x = x.permute(0, 3, 1, 4, 2).reshape(batch, frames, self.heads,
+                                             freqs * self.nf3)
+
+        # The per-head projections, one batched contraction
+        x = head_linear(x, self, self.dtype)
+
+        return self._dropout(x, 0.5, generator)
+
+
 class LanguageModel(nn.Module):
     """LSTM language model: (B, T, dim_in) -> (B, T, dim_out).
 
@@ -230,18 +345,28 @@ class OnsetsFrames(TranscriptionModel):
     offset) heads. ``remat`` (``False``, ``True`` or ``'blocks'``)
     recomputes the acoustic stacks in the backward pass. Losses: pitch +
     onset BCE.
+
+    ``fused_heads`` runs every acoustic head as one
+    :class:`GroupedAcousticModel` (``grouped_am``); ``fused_lms`` (O&F2
+    only: V1 has one independent language model) runs the independent
+    language models as one ``GroupedBiLSTM`` (``group_lm``, streams in
+    ``_fused_lm_streams``' order). Neither takes the int8 layers, and the
+    fused stack takes no ``remat='blocks'`` (JAX's refusals).
     """
 
     head_names = ('pitch', 'onset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
                  dtype=None, generator=None, dropout=True, detach_heads=False,
-                 quant_acoustic=False, quant_lm=False, remat=False):
+                 quant_acoustic=False, quant_lm=False, remat=False,
+                 fused_heads=False, fused_lms=False):
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
                          dropout=dropout, quant_acoustic=quant_acoustic,
                          quant_lm=quant_lm, remat=remat)
         self.detach_heads = detach_heads
+        self.fused_heads = fused_heads
+        self.fused_lms = fused_lms
         if model_complexity < 2:
             raise ValueError('OnsetsFrames requires model_complexity >= 2 '
                              '(the language-model width is 256 * (complexity - 1)).')
@@ -249,11 +374,23 @@ class OnsetsFrames(TranscriptionModel):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
-        for name in self.head_names:
-            self._add_acoustic(name, generator)
+        self._setup_acoustic(generator)
 
-        self.onset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
-                                      generator=generator, quant=quant_lm)
+        if fused_lms:
+            if self._fused_lm_streams is None:
+                raise ValueError('fused_lms requires a model with multiple '
+                                 'independent language models '
+                                 '(OnsetsFrames2); V1 has only the onset LM.')
+            if quant_lm:
+                raise ValueError('quant_lm is only supported with per-head '
+                                 'language models (fused_lms=False).')
+            self.group_lm = GroupedBiLSTM(self.dim_am, self.dim_lm // 2,
+                                          len(self._fused_lm_streams),
+                                          dtype=dtype, generator=generator)
+        else:
+            self.onset_lm = LanguageModel(self.dim_am, self.dim_lm,
+                                          dtype=dtype, generator=generator,
+                                          quant=quant_lm)
         self.onset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                       generator=generator)
         self.pitch_out = LogisticBank(self.dim_am, self.dim_out, dtype=dtype,
@@ -263,12 +400,32 @@ class OnsetsFrames(TranscriptionModel):
         self.adjoin_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
 
-    def _add_acoustic(self, name, generator):
-        setattr(self, f'{name}_am',
-                AcousticModel(self.dim_in, self.dim_am, self.in_channels,
-                              self.model_complexity, dtype=self.dtype,
-                              generator=generator, dropout=self.dropout,
-                              quant=self.quant_acoustic, remat=self.remat))
+    def _setup_acoustic(self, generator):
+        """The acoustic stacks: one grouped module or one a head."""
+
+        if self.fused_heads:
+            if self.quant_acoustic:
+                raise ValueError('quant_acoustic is only supported with '
+                                 'per-head acoustic stacks (fused_heads=False)')
+            self.grouped_am = GroupedAcousticModel(
+                self.dim_in, self.dim_am, len(self.head_names),
+                self.in_channels, self.model_complexity, dtype=self.dtype,
+                generator=generator, dropout=self.dropout, remat=self.remat)
+            return
+
+        for name in self.head_names:
+            setattr(self, f'{name}_am',
+                    AcousticModel(self.dim_in, self.dim_am, self.in_channels,
+                                  self.model_complexity, dtype=self.dtype,
+                                  generator=generator, dropout=self.dropout,
+                                  quant=self.quant_acoustic, remat=self.remat))
+
+    @property
+    def _fused_lm_streams(self):
+        """Head order of the grouped-LM layout; None: not fusable (V1's only
+        independent language model is the onset head's)."""
+
+        return None
 
     @property
     def dim_am(self):
@@ -297,8 +454,28 @@ class OnsetsFrames(TranscriptionModel):
         return batch
 
     def _embeddings(self, feats, generator, lengths):
+        """Per-head acoustic embeddings keyed by head name."""
+
+        if self.fused_heads:
+            emb = self.grouped_am(feats, generator, lengths)
+            return {name: emb[..., i, :]
+                    for i, name in enumerate(self.head_names)}
+
         return {name: getattr(self, f'{name}_am')(feats, generator, lengths)
                 for name in self.head_names}
+
+    def _lm_outputs(self, emb, lengths):
+        """Per-head language-model features: one grouped BiLSTM or one
+        module a head."""
+
+        if self.fused_lms:
+            streams = self._fused_lm_streams
+            out = self.group_lm(torch.stack([emb[name] for name in streams]),
+                                lengths)
+            return {name: out[i] for i, name in enumerate(streams)}
+
+        return {name: getattr(self, f'{name}_lm')(emb[name], lengths)
+                for name in self._fused_lm_streams or ('onset',)}
 
     def _detach(self, x):
         return x.detach() if self.detach_heads else x
@@ -313,7 +490,7 @@ class OnsetsFrames(TranscriptionModel):
         emb = self._embeddings(feats, generator, lengths)
         multi_pitch = self.pitch_out(emb['pitch'])
 
-        onsets = self.onset_out(self.onset_lm(emb['onset'], lengths))
+        onsets = self.onset_out(self._lm_outputs(emb, lengths)['onset'])
         output[tools.KEY_ONSETS] = onsets
 
         joint = torch.cat((self._detach(onsets), multi_pitch), dim=-1)
@@ -367,40 +544,57 @@ class OnsetsFrames2(OnsetsFrames):
     ``RegressionBank`` ``velocity_out`` (JAX ``:770-917``): a masked MSE on
     every cell with a velocity target (``velocity > 0``) joins the total
     loss, a batch without velocities warns, and the finalized (B, O, T)
-    velocity map in [0, 1] is output.
+    velocity map in [0, 1] is output. Under ``fused_heads`` the velocity
+    stack is the grouped stack's fourth head; under ``fused_lms`` its
+    language model is ``group_lm``'s third stream.
     """
-
-    head_names = ('pitch', 'onset', 'offset')
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=3,
                  dtype=None, generator=None, dropout=True, detach_heads=True,
                  quant_acoustic=False, quant_lm=False, remat=False,
-                 estimate_velocity=False):
+                 estimate_velocity=False, fused_heads=False, fused_lms=False):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
+        # The head names depend on it, and the base class builds the heads
+        self.estimate_velocity = estimate_velocity
         super().__init__(dim_in, profile, in_channels=in_channels,
                          model_complexity=model_complexity, dtype=dtype,
                          generator=generator, dropout=dropout,
                          detach_heads=detach_heads,
                          quant_acoustic=quant_acoustic, quant_lm=quant_lm,
-                         remat=remat)
-        self.estimate_velocity = estimate_velocity
+                         remat=remat, fused_heads=fused_heads,
+                         fused_lms=fused_lms)
 
-        self.offset_lm = LanguageModel(self.dim_am, self.dim_lm, dtype=dtype,
-                                       generator=generator, quant=quant_lm)
+        if not fused_lms:
+            self.offset_lm = LanguageModel(self.dim_am, self.dim_lm,
+                                           dtype=dtype, generator=generator,
+                                           quant=quant_lm)
         self.offset_out = LogisticBank(self.dim_lm, self.dim_out, dtype=dtype,
                                        generator=generator)
-
         if estimate_velocity:
-            self.head_names = self.head_names + ('velocity',)
-            self._add_acoustic('velocity', generator)
-            self.velocity_lm = LanguageModel(self.dim_am, self.dim_lm,
-                                             dtype=dtype, generator=generator,
-                                             quant=quant_lm)
+            if not fused_lms:
+                self.velocity_lm = LanguageModel(self.dim_am, self.dim_lm,
+                                                 dtype=dtype,
+                                                 generator=generator,
+                                                 quant=quant_lm)
             self.velocity_out = RegressionBank(self.dim_lm, self.dim_out,
                                                dtype=dtype,
                                                generator=generator)
+
+    @property
+    def head_names(self):
+        if self.estimate_velocity:
+            return ('pitch', 'onset', 'offset', 'velocity')
+
+        return ('pitch', 'onset', 'offset')
+
+    @property
+    def _fused_lm_streams(self):
+        if self.estimate_velocity:
+            return ('onset', 'offset', 'velocity')
+
+        return ('onset', 'offset')
 
     @property
     def dim_aj(self):
@@ -414,15 +608,15 @@ class OnsetsFrames2(OnsetsFrames):
         emb = self._embeddings(feats, generator, lengths)
         multi_pitch = self.pitch_out(emb['pitch'])
 
-        onsets = self.onset_out(self.onset_lm(emb['onset'], lengths))
+        lm = self._lm_outputs(emb, lengths)
+        onsets = self.onset_out(lm['onset'])
         output[tools.KEY_ONSETS] = onsets
 
-        offsets = self.offset_out(self.offset_lm(emb['offset'], lengths))
+        offsets = self.offset_out(lm['offset'])
         output[tools.KEY_OFFSETS] = offsets
 
         if self.estimate_velocity:
-            output[tools.KEY_VELOCITY] = self.velocity_out(
-                self.velocity_lm(emb['velocity'], lengths))
+            output[tools.KEY_VELOCITY] = self.velocity_out(lm['velocity'])
 
         joint = torch.cat((self._detach(onsets), self._detach(offsets),
                            multi_pitch), dim=-1)
@@ -492,10 +686,15 @@ class OnsetsFramesOnline(OnsetsFrames):
 
     def __init__(self, dim_in, profile, in_channels=1, model_complexity=2,
                  dtype=None, generator=None, dropout=True, detach_heads=False,
-                 quant_acoustic=False, remat=False):
+                 quant_acoustic=False, remat=False, fused_heads=False,
+                 fused_lms=False):
         if model_complexity < 2:
             raise ValueError('OnsetsFramesOnline requires model_complexity '
                              '>= 2.')
+        if fused_lms:
+            raise ValueError('fused_lms is not supported by the online model '
+                             '(its LMs thread streaming carries and V1-style '
+                             'heads leave nothing independent to group).')
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
@@ -504,9 +703,10 @@ class OnsetsFramesOnline(OnsetsFrames):
             model_complexity=model_complexity, dtype=dtype, dropout=dropout,
             quant_acoustic=quant_acoustic, remat=remat)
         self.detach_heads = detach_heads
+        self.fused_heads = fused_heads
+        self.fused_lms = False
 
-        for name in self.head_names:
-            self._add_acoustic(name, generator)
+        self._setup_acoustic(generator)
 
         self.onset_lm = OnlineLanguageModel(self.dim_am, self.dim_lm,
                                             generator=generator)
@@ -545,3 +745,147 @@ class OnsetsFramesOnline(OnsetsFrames):
             return output
 
         return output, {'onset': onset_carry, 'adjoin': adjoin_carry}
+
+
+def _pop_subtree(state, prefix):
+    """Remove the entries of ``state`` under ``prefix`` and return them,
+    keyed without it."""
+
+    return {key[len(prefix):]: state.pop(key) for key in list(state)
+            if key.startswith(prefix)}
+
+
+def fuse_acoustic_variables(state, head_names, grouped_name='grouped_am'):
+    """A per-head ``state_dict`` -> the fused :class:`GroupedAcousticModel`
+    layout (JAX ``:345-385``).
+
+    The ``<name>_am`` stacks present, in ``head_names`` order (the model's
+    ``head_names``), become one ``grouped_name`` stack: conv weights, conv
+    biases and BatchNorm vectors concatenated on the channel axis (a conv
+    weight's OIHW axis 0, where Flax's HWIO kernel concatenates on its last
+    axis), each ``Dense_0`` stacked on a new leading head axis as
+    ``head_kernels`` (heads, K, D), transposed from ``nn.Linear``'s (D, K),
+    and ``head_bias`` (heads, D). Returns a new dict; the input is
+    unmodified. Inverse: :func:`unfuse_acoustic_variables`."""
+
+    state = dict(state)
+    heads = [_pop_subtree(state, f'{name}_am.') for name in head_names
+             if any(key.startswith(f'{name}_am.') for key in state)]
+    if not heads:
+        return state
+
+    for key in heads[0]:
+        layer, leaf = key.rsplit('.', 1)
+        values = [head[key] for head in heads]
+        if not layer.startswith('Dense'):
+            state[f'{grouped_name}.{key}'] = torch.cat(values)
+        elif leaf == 'weight':
+            state[f'{grouped_name}.head_kernels'] = torch.stack(
+                [value.t() for value in values])
+        elif leaf == 'bias':
+            state[f'{grouped_name}.head_bias'] = torch.stack(values)
+        else:
+            raise ValueError(f'{key} has no place in the fused layout (the '
+                             f'int8 layers are per-head only)')
+
+    return state
+
+
+def unfuse_acoustic_variables(state, head_names, grouped_name='grouped_am'):
+    """Split a fused ``grouped_name`` stack of a ``state_dict`` back into
+    per-head ``<name>_am`` stacks (JAX ``:388-423``)."""
+
+    state = dict(state)
+    fused = _pop_subtree(state, f'{grouped_name}.')
+    num_heads = len(head_names)
+
+    for i, name in enumerate(head_names):
+        for key, leaf in fused.items():
+            if key == 'head_kernels':
+                state[f'{name}_am.Dense_0.weight'] = leaf[i].t().contiguous()
+            elif key == 'head_bias':
+                state[f'{name}_am.Dense_0.bias'] = leaf[i].clone()
+            else:
+                width = leaf.shape[0] // num_heads
+                state[f'{name}_am.{key}'] = leaf[i * width:
+                                                 (i + 1) * width].clone()
+
+    return state
+
+
+def fuse_lm_variables(state, streams=('onset', 'offset'),
+                      grouped_name='group_lm'):
+    """Per-head ``<name>_lm`` language models of a ``state_dict`` -> the
+    grouped ``GroupedBiLSTM`` layout (JAX ``:426-478``): each stream's
+    ``FastBiLSTM_0`` parameters stacked on a new leading stream axis, the
+    input projections as (S, E, 4H) kernels (``nn.Linear``'s (4H, E)
+    transposed) and (S, 4H) biases, the recurrent kernels as (S, H, 4H).
+    Pass ``model._fused_lm_streams`` for the stream order. Returns a new
+    dict; inverse: :func:`unfuse_lm_variables`."""
+
+    state = dict(state)
+
+    def has(name):
+        return any(key.startswith(f'{name}_lm.') for key in state)
+
+    present = [name for name in streams if has(name)]
+    if not present:
+        return state
+
+    if len(present) != len(streams):
+        missing = sorted(set(streams) - set(present))
+        raise ValueError(f'variables hold LM subtrees for {present} but '
+                         f'not {missing}; pass the model\'s stream order '
+                         f'(model._fused_lm_streams) as `streams`')
+
+    # A fusable LM left out of `streams` would keep the per-head layout for
+    # that stream, which the fused model does not read
+    leftover = [name for name in ('onset', 'offset', 'velocity')
+                if name not in streams and has(name)]
+    if leftover:
+        raise ValueError(f'variables also hold fusable LM subtrees '
+                         f'{leftover} not named in `streams`; pass the '
+                         f'model\'s stream order (model._fused_lm_streams)')
+
+    lms = [_pop_subtree(state, f'{name}_lm.') for name in streams]
+    for direction in ('fwd', 'bwd'):
+        proj = f'FastBiLSTM_0.input_proj_{direction}'
+        state[f'{grouped_name}.input_proj_{direction}_kernel'] = torch.stack(
+            [lm[f'{proj}.weight'].t() for lm in lms])
+        state[f'{grouped_name}.input_proj_{direction}_bias'] = torch.stack(
+            [lm[f'{proj}.bias'] for lm in lms])
+        state[f'{grouped_name}.recurrent_kernel_{direction}'] = torch.stack(
+            [lm[f'FastBiLSTM_0.recurrent_kernel_{direction}'] for lm in lms])
+
+    return state
+
+
+def unfuse_lm_variables(state, streams=('onset', 'offset'),
+                        grouped_name='group_lm'):
+    """Inverse of :func:`fuse_lm_variables`: grouped -> per-head layout
+    (JAX ``:481-508``)."""
+
+    state = dict(state)
+    fused = _pop_subtree(state, f'{grouped_name}.')
+    if not fused:
+        return state
+
+    stacked = fused['recurrent_kernel_fwd'].shape[0]
+    if stacked != len(streams):
+        raise ValueError(f'{grouped_name} holds {stacked} streams but '
+                         f'`streams` names {len(streams)} '
+                         f'({tuple(streams)}); pass the model\'s stream '
+                         f'order (model._fused_lm_streams) so no trained '
+                         f'LM is silently dropped')
+
+    for i, name in enumerate(streams):
+        lm = f'{name}_lm.FastBiLSTM_0'
+        for direction in ('fwd', 'bwd'):
+            proj = f'{lm}.input_proj_{direction}'
+            state[f'{proj}.weight'] = (
+                fused[f'input_proj_{direction}_kernel'][i].t().contiguous())
+            state[f'{proj}.bias'] = fused[f'input_proj_{direction}_bias'][i].clone()
+            state[f'{lm}.recurrent_kernel_{direction}'] = (
+                fused[f'recurrent_kernel_{direction}'][i].clone())
+
+    return state

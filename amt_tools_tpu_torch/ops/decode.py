@@ -2,6 +2,8 @@
 finalization.
 
 Counterparts of ``amt_tools_tpu/ops/decode.py``: ``threshold`` (``:29``),
+``pack_bits`` (``:35``, on the device) and ``unpack_bits`` (``:52``, on the
+host),
 ``multi_pitch_to_onsets`` (``:62``), ``multi_pitch_to_offsets`` (``:72``),
 the tablature conversions (``:82-172``), ``note_segments`` (``:175``),
 ``notes_on_device`` (``:246``) and ``notes_from_device`` (``:315``). The
@@ -22,6 +24,8 @@ from ..tools import utils
 __all__ = [
     'sigmoid',
     'threshold',
+    'pack_bits',
+    'unpack_bits',
     'multi_pitch_to_onsets',
     'multi_pitch_to_offsets',
     'logistic_to_tablature',
@@ -62,6 +66,29 @@ def threshold(activations, thr=0.5):
     the activations' dtype."""
 
     return torch.where(activations >= thr, 1.0, 0.0)
+
+
+def pack_bits(x):
+    """Pack binary (..., T) activations into (..., ceil(T/8)) uint8 on the
+    tensor's device: 8x smaller device-to-host transfers for thresholded
+    maps (little-endian bit order; invert with :func:`unpack_bits` or
+    ``np.unpackbits(..., bitorder='little')``)."""
+
+    x = F.pad(x.to(torch.uint8), (0, (-x.shape[-1]) % 8))
+    x = x.reshape(x.shape[:-1] + (-1, 8))
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=x.device)
+
+    return (x * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed, num_frames):
+    """Host-side inverse of :func:`pack_bits` -> float32 binary
+    activations."""
+
+    bits = np.unpackbits(utils.to_numpy(packed), axis=-1, bitorder='little')
+
+    return bits[..., :num_frames].astype(np.float32)
 
 
 def multi_pitch_to_onsets(multi_pitch):

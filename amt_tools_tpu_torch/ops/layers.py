@@ -19,7 +19,8 @@ Data parallelism (``parallel/``): a train-mode :class:`BatchNorm` whose
 batch's mask and keeps the rank's rows, so a step split over ranks equals
 the one-process step. A layer with a ``tp_group`` (set by
 ``parallel.shard_params_tp``) holds its columns of a column-parallel
-kernel, and :func:`linear` gathers the columns of its output.
+kernel, and :func:`linear` (:func:`head_linear` for stacked per-head
+kernels) gathers the columns of its output.
 """
 
 import contextlib
@@ -32,9 +33,9 @@ import torch.utils.checkpoint
 
 from ..parallel.collectives import all_reduce, gather_columns, reduce_grad
 
-__all__ = ['linear', 'conv2d_same', 'conv2d_valid', 'conv3x3', 'BatchNorm',
-           'dropout', 'BatchShardGenerator', 'lecun_normal_', 'orthogonal_',
-           'checkpoint']
+__all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
+           'conv3x3', 'BatchNorm', 'dropout', 'BatchShardGenerator',
+           'lecun_normal_', 'orthogonal_', 'checkpoint']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -106,8 +107,31 @@ def linear(x, layer, dtype=None):
     return y if group is None else gather_columns(y, group)
 
 
+def head_linear(x, module, dtype=None):
+    """Per-head projections, one batched contraction: (..., H, K) inputs,
+    ``module.head_kernels`` (H, K, D) and ``module.head_bias`` (H, D) ->
+    (..., H, D) in ``dtype`` (default: x's).
+
+    A module with a ``tp_group`` holds its rank's columns of the head
+    kernels and computes those; as in :func:`linear`, the output gathers
+    them and the input's gradient is summed over the group."""
+
+    dtype = _compute_dtype(x, dtype)
+    group = getattr(module, 'tp_group', None)
+    if group is not None:
+        x = reduce_grad(x, group)
+
+    y = torch.einsum('...hk,hkd->...hd', x.to(dtype),
+                     module.head_kernels.to(dtype))
+    if group is not None:
+        y = gather_columns(y, group)
+
+    return y + module.head_bias.to(dtype)
+
+
 def conv2d_same(x, layer, dtype=None):
-    """``layer`` (an odd-kernel ``nn.Conv2d``) with SAME padding in ``dtype``."""
+    """``layer`` (an odd-kernel ``nn.Conv2d``, grouped or not) with SAME
+    padding in ``dtype``."""
 
     if getattr(layer, 'quantized', False):
         return layer(x)
@@ -116,7 +140,7 @@ def conv2d_same(x, layer, dtype=None):
     padding = tuple(k // 2 for k in layer.kernel_size)
 
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-                    padding=padding)
+                    padding=padding, groups=layer.groups)
 
 
 def conv2d_valid(x, layer, dtype=None):
@@ -266,12 +290,13 @@ def lecun_normal_(tensor, fan_in, generator):
                                      generator=generator)
 
 
-def conv3x3(in_channels, out_channels, generator):
+def conv3x3(in_channels, out_channels, generator, groups=1):
     """An ``nn.Conv2d`` 3x3 layer initialized as Flax's ``nn.Conv``:
-    LeCun-normal kernel (fan-in 9 * in_channels), zero bias."""
+    LeCun-normal kernel (fan-in 9 * in_channels / groups), zero bias.
+    ``groups`` splits the channels as Flax's ``feature_group_count``."""
 
-    conv = nn.Conv2d(in_channels, out_channels, (3, 3))
-    lecun_normal_(conv.weight, 9 * in_channels, generator)
+    conv = nn.Conv2d(in_channels, out_channels, (3, 3), groups=groups)
+    lecun_normal_(conv.weight, 9 * in_channels // groups, generator)
     nn.init.zeros_(conv.bias)
 
     return conv

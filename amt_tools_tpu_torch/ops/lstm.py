@@ -31,6 +31,15 @@ bit. Masked and carried training (kernels E and F with lengths or a carry)
 are not ported: either while autograd records raises; no JAX path trains
 with them.
 
+``GroupedBiLSTM`` (JAX ``:328-402``) runs S independent BiLSTMs, (S, B,
+T, E) -> (S, B, T, 2H), as the opt-in ``fused_lms`` layout of the O&F
+models: the 2S directions' projections are one batched contraction, and
+their recurrences one grouped launch of kernel B (E and F when autograd
+records; ``ops.lstm_kernel.lstm_scan_grouped``), the card's counterpart of
+JAX's one grouped scan (``_grouped_lstm_scan``, ``:151-199``). The
+backward directions run reversed in the launch (the groups from S on) where
+JAX scans time-flipped copies; the arithmetic a step is the same.
+
 Kernels B, E and F read W_h whole through a raw pointer, so a layer whose
 ``recurrent_kernel`` is sharded gathers it before the launch: one
 ``parallel.shard_params_tp`` left with a column shard and a ``tp_group``
@@ -47,11 +56,12 @@ from torch.distributed.tensor import DTensor
 
 from ..parallel.collectives import gather_columns
 from .layers import lecun_normal_, linear, orthogonal_
-from .lstm_kernel import lstm_scan, lstm_scan_grad, scan_supported
+from .lstm_kernel import (lstm_scan, lstm_scan_grad, lstm_scan_grouped,
+                          lstm_scan_grouped_grad, scan_supported)
 from .qconv import Int8Dense
 
-__all__ = ['FastLSTM', 'FastBiLSTM', 'kernel_width', 'padded_recurrence',
-           'lengths_to_mask']
+__all__ = ['FastLSTM', 'FastBiLSTM', 'GroupedBiLSTM', 'kernel_width',
+           'padded_recurrence', 'lengths_to_mask']
 
 
 def _input_proj(input_size, features, dtype, quant, generator):
@@ -88,9 +98,11 @@ def lengths_to_mask(lengths, num_frames):
             lengths[:, None])
 
 
-def _scan(xw, w_h, reverse, lengths, carry=None):
+def _scan(xw, w_h, reverse, lengths, carry=None, reverse_from=None):
     """The recurrence; from ``carry`` (a pair ``(c, h)``) it returns
-    ``(out, (c, h))``."""
+    ``(out, (c, h))``. With ``reverse_from`` it is grouped: (G, B, T, 4H)
+    ``xw`` and (G, H, 4H) ``w_h`` in one launch, the groups from
+    ``reverse_from`` on reversed."""
 
     if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
         if lengths is not None:
@@ -103,8 +115,13 @@ def _scan(xw, w_h, reverse, lengths, carry=None):
                 'ported; run a carried LSTM under torch.no_grad()')
         # W_h goes in uncast: the Function casts it, so dW_h reaches the
         # float32 parameter unrounded
+        if reverse_from is not None:
+            return lstm_scan_grouped_grad(xw, w_h, reverse_from)
         return lstm_scan_grad(xw, w_h, reverse)
 
+    if reverse_from is not None:
+        return lstm_scan_grouped(xw, w_h.to(xw.dtype).contiguous(),
+                                 reverse_from, lengths)
     if carry is None:
         return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
                          lengths=lengths)
@@ -126,21 +143,23 @@ def kernel_width(hidden, dtype):
     return padded if scan_supported(padded, dtype) else hidden
 
 
-def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None):
+def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None,
+                      reverse_from=None):
     """The recurrence at ``padded`` units, cut back to H: zero xw columns
     and zero W_h rows and columns for the added units keep their gates at
     (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step (a ``carry`` is
     zero-padded alike); they add nothing to any sum of the real units, and
     the slice drops their gradients. With ``carry`` it returns ``(out,
-    (c, h))`` cut back to H."""
+    (c, h))`` cut back to H. With ``reverse_from``, grouped as
+    :func:`_scan`."""
 
-    hidden = w_h.shape[0]
+    hidden = w_h.shape[-2]
     w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
     if carry is not None:
         carry = tuple(F.pad(torch.as_tensor(x), (0, padded - hidden))
                       for x in carry)
     result = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse,
-                   lengths, carry)
+                   lengths, carry, reverse_from)
     if carry is None:
         return result[..., :hidden]
 
@@ -149,33 +168,35 @@ def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None):
     return out[..., :hidden], (c[..., :hidden], h[..., :hidden])
 
 
-def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None):
+def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None,
+                reverse_from=None):
     # The Pallas path's compute dtype: bf16 projections keep a bf16 W_h,
     # anything else runs in float32
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
     xw = xw.to(dtype).contiguous()
 
     # Decided from the shape, before any launch
-    hidden = w_h.shape[0]
+    hidden = w_h.shape[-2]
     if lengths is not None:
         lengths = torch.as_tensor(lengths).reshape(-1).to(xw.device)
     if xw.device.type == 'cuda' and kernel_width(hidden, dtype) != hidden:
         return padded_recurrence(xw, w_h, reverse,
-                                 kernel_width(hidden, dtype), lengths, carry)
+                                 kernel_width(hidden, dtype), lengths, carry,
+                                 reverse_from)
 
-    return _scan(xw, w_h, reverse, lengths, carry)
+    return _scan(xw, w_h, reverse, lengths, carry, reverse_from)
 
 
 def _whole(module, w_h):
-    """``w_h`` (H, 4H) as the kernels read it: the columns of a tensor-
-    parallel shard gathered over the module's ``tp_group``, a DTensor made
-    whole."""
+    """``w_h`` (H, 4H), or (S, H, 4H) stacked, as the kernels read it: the
+    columns of a tensor-parallel shard gathered over the module's
+    ``tp_group``, a DTensor made whole."""
 
     if isinstance(w_h, DTensor):
         return w_h.full_tensor()
     group = getattr(module, 'tp_group', None)
-    if group is not None and w_h.shape[1] != 4 * module.features:
-        return gather_columns(w_h, group, dim=1)
+    if group is not None and w_h.shape[-1] != 4 * module.features:
+        return gather_columns(w_h, group, dim=-1)
 
     return w_h
 
@@ -251,3 +272,68 @@ class FastBiLSTM(nn.Module):
                             reverse=True, lengths=lengths)
 
         return torch.cat([out_f, out_b], dim=-1)
+
+
+class GroupedBiLSTM(nn.Module):
+    """S independent BiLSTMs in one recurrence: (S, B, T, E) -> (S, B, T,
+    2H), each stream's [forward | backward] (JAX ``ops/lstm.py:328-402``).
+
+    Parameters are the per-stream stacks of :class:`FastBiLSTM`'s under
+    JAX's names: ``input_proj_{fwd,bwd}_kernel`` (S, E, 4H),
+    ``input_proj_{fwd,bwd}_bias`` (S, 4H) and ``recurrent_kernel_{fwd,bwd}``
+    (S, H, 4H), initialized as JAX's (LeCun normal over E, zero bias, one
+    orthogonal matrix a stream) from ``generator``; ``models.
+    fuse_lm_variables`` / ``unfuse_lm_variables`` convert a ``state_dict``
+    to and from the per-stream layout. The 2S directions' projections are
+    one batched contraction in ``dtype`` (default: the input's), and their
+    recurrences one grouped launch: the forward groups [0, S) and the
+    backward groups [S, 2S), reversed, with ``lengths`` (B,) shared by every
+    group (inference only, as :class:`FastBiLSTM`'s)."""
+
+    def __init__(self, input_size, features, streams=2, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.features = features
+        self.streams = streams
+        self.dtype = dtype
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        four_h = 4 * features
+        for direction in ('fwd', 'bwd'):
+            kernel = nn.Parameter(torch.empty(streams, input_size, four_h))
+            lecun_normal_(kernel, input_size, generator)
+            setattr(self, f'input_proj_{direction}_kernel', kernel)
+            setattr(self, f'input_proj_{direction}_bias',
+                    nn.Parameter(torch.zeros(streams, four_h)))
+        for direction in ('fwd', 'bwd'):
+            recurrent = nn.Parameter(torch.empty(streams, features, four_h))
+            for stream in range(streams):
+                orthogonal_(recurrent[stream], generator)
+            setattr(self, f'recurrent_kernel_{direction}', recurrent)
+
+    def forward(self, inputs, lengths=None):
+        streams, batch, frames, dim_in = inputs.shape
+        if streams != self.streams:
+            raise ValueError(f'expected {self.streams} streams, '
+                             f'got input shape {tuple(inputs.shape)}')
+        dtype = self.dtype if self.dtype is not None else inputs.dtype
+
+        # Both directions of every stream, (2S, B T, 4H) -> (2S, B, T, 4H):
+        # one batched contraction. The input is repeated for the backward
+        # groups rather than broadcast: a broadcast (2, S, ...) product
+        # traced on the card (torch.export) has strides whose flatten
+        # guards the batch to its example's size
+        kernels = torch.cat([self.input_proj_fwd_kernel,
+                             self.input_proj_bwd_kernel]).to(dtype)
+        biases = torch.cat([self.input_proj_fwd_bias,
+                            self.input_proj_bwd_bias]).to(dtype)
+        x = inputs.to(dtype).reshape(streams, batch * frames, dim_in)
+        xw = torch.bmm(x.repeat(2, 1, 1), kernels) + biases[:, None, :]
+        xw = xw.reshape(2 * streams, batch, frames, -1)
+
+        w_h = torch.cat([_whole(self, self.recurrent_kernel_fwd),
+                         _whole(self, self.recurrent_kernel_bwd)])
+        out = _recurrence(xw, w_h, lengths=lengths, reverse_from=streams)
+
+        return torch.cat([out[:streams], out[streams:]], dim=-1)

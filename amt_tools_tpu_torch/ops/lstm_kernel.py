@@ -19,7 +19,15 @@ Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
 - :func:`lstm_bptt` (kernel F, ``_lstm_bwd_kernel`` through
   ``_lstm_grad_bwd``): backpropagation through time from those residuals;
 - :func:`lstm_scan_grad`: the custom VJP ``lstm_scan_pallas_grad``
-  (``:369-440``) as a ``torch.autograd.Function`` over E and F.
+  (``:369-440``) as a ``torch.autograd.Function`` over E and F;
+- :func:`lstm_scan_grouped`, :func:`lstm_scan_residuals_grouped`,
+  :func:`lstm_bptt_grouped` and :func:`lstm_scan_grouped_grad`: B, E, F
+  and the Function over G independent sequences in one launch each (the
+  group on ``blockIdx.y``, the groups from ``reverse_from`` on reversed),
+  the card's counterpart of the one grouped scan behind JAX's
+  ``GroupedBiLSTM`` (``ops/lstm.py:151-199``); a group's arithmetic is its
+  ungrouped launch's, so the results are the per-stream launches' bit for
+  bit.
 
 B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
 tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
@@ -61,7 +69,12 @@ __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'bptt_resident', 'bptt_max_rows', 'cluster_plan',
            'scan_launch_plan', 'bptt_launch_plan', 'scan_supported',
            'scan_cost', 'bptt_cost', 'lstm_scan_op', 'lstm_scan_carried_op',
-           'lstm_scan_residuals_op', 'lstm_bptt_op']
+           'lstm_scan_residuals_op', 'lstm_bptt_op', 'lstm_scan_grouped',
+           'lstm_scan_grouped_plain', 'lstm_scan_residuals_grouped',
+           'lstm_scan_residuals_grouped_plain', 'lstm_bptt_grouped',
+           'lstm_bptt_grouped_plain', 'lstm_scan_grouped_grad',
+           'LSTMScanGroupedGrad', 'lstm_scan_grouped_op',
+           'lstm_scan_residuals_grouped_op', 'lstm_bptt_grouped_op']
 
 MAX_HIDDEN = 1024  # 16 warps a CTA
 CLUSTER = 8        # CTAs a cluster, each owning H / 8 hidden units
@@ -75,11 +88,14 @@ _SCAN_SIGNATURES = {
     'lstm_scan': [_POINTER] * 4 + [_INT] * 7 + [_POINTER],
     'lstm_scan_carried': [_POINTER] * 8 + [_INT] * 7 + [_POINTER],
     'lstm_scan_residuals': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
+    'lstm_scan_grouped': [_POINTER] * 4 + [_INT] * 8 + [_POINTER],
+    'lstm_scan_residuals_grouped': [_POINTER] * 5 + [_INT] * 8 + [_POINTER],
     'lstm_scan_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
     'lstm_scan_smem': [_INT] * 4,
 }
 _BPTT_SIGNATURES = {
     'lstm_bptt': [_POINTER] * 5 + [_INT] * 7 + [_POINTER],
+    'lstm_bptt_grouped': [_POINTER] * 5 + [_INT] * 8 + [_POINTER],
     'lstm_bptt_max_active_clusters': [_INT] * 4 + [ctypes.POINTER(_INT)],
     'lstm_bptt_smem': [_INT] * 4,
 }
@@ -220,29 +236,39 @@ _CLUSTER_KERNELS = {
 }
 
 
-def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan'):
+def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan',
+                 groups=1):
     """Rows a cluster and clusters for a batch, given how many clusters the
     card holds at once: the fewest rows that put every cluster in one wave
     (at B = 128 and 16 active clusters, 8 rows and 16 clusters; at B = 8,
     one row and 8 clusters), within what the buffers fit. ``waves`` is 1
     unless the batch needs more rows than fit. ``kernel`` is ``'scan'`` (B,
-    E) or ``'bptt'`` (F)."""
+    E) or ``'bptt'`` (F).
+
+    A grouped launch of ``groups`` sequences gives each group its own
+    clusters (a cluster holds one group's W_h), ``groups * ceil(batch /
+    rows)`` of them: the fewest rows that still fit one wave (G = 4, B = 8:
+    2 rows, 16 clusters; G = 6, B = 8: 4 rows, 12 clusters), and the most
+    rows the buffers fit where none does (G = 4, B = 128: 16 rows, 32
+    clusters, 2 waves). ``groups=1`` is the ungrouped plan."""
 
     geometry, resident_rule = _CLUSTER_KERNELS[kernel][:2]
     resident = resident_rule(hidden, dtype)
     max_rows = _max_rows(geometry, hidden, dtype, resident)
-    rows = min(max_rows, max(1, -(-batch // active_clusters)))
-    clusters = -(-batch // rows)
+    rows = next((r for r in range(1, max_rows + 1)
+                 if groups * -(-batch // r) <= active_clusters), max_rows)
+    clusters = groups * -(-batch // rows)
 
     return {'rows': rows, 'clusters': clusters, 'ctas': CLUSTER * clusters,
-            'resident': resident, 'max_rows': max_rows,
+            'groups': groups, 'resident': resident, 'max_rows': max_rows,
             'active_clusters': active_clusters,
             'waves': -(-clusters // active_clusters),
             'smem_bytes': geometry(hidden, dtype, rows, resident)['bytes'],
             'threads': geometry(hidden, dtype, rows, resident)['threads']}
 
 
-def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False):
+def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False,
+                 groups=1):
     """:func:`cluster_plan` for a launch on ``device``, with the card's
     answer to ``cudaOccupancyMaxActiveClusters`` at the largest rows the
     buffers fit (cached per device and configuration)."""
@@ -269,19 +295,22 @@ def _launch_plan(kernel, batch, hidden, dtype, device, residuals=False):
     active = cuda_build.cached(_active_clusters,
                                (kernel, device, hidden, bf16, residuals),
                                query_card)
-    return cluster_plan(batch, hidden, dtype, active, kernel)
+    return cluster_plan(batch, hidden, dtype, active, kernel, groups)
 
 
-def scan_launch_plan(batch, hidden, dtype, device, residuals=False):
-    """The launch of kernel B (E with ``residuals``) on ``device``."""
+def scan_launch_plan(batch, hidden, dtype, device, residuals=False,
+                     groups=1):
+    """The launch of kernel B (E with ``residuals``) on ``device``, over
+    ``groups`` sequences."""
 
-    return _launch_plan('scan', batch, hidden, dtype, device, residuals)
+    return _launch_plan('scan', batch, hidden, dtype, device, residuals,
+                        groups)
 
 
-def bptt_launch_plan(batch, hidden, dtype, device):
-    """The launch of kernel F on ``device``."""
+def bptt_launch_plan(batch, hidden, dtype, device, groups=1):
+    """The launch of kernel F on ``device``, over ``groups`` sequences."""
 
-    return _launch_plan('bptt', batch, hidden, dtype, device)
+    return _launch_plan('bptt', batch, hidden, dtype, device, groups=groups)
 
 
 def scan_supported(hidden, dtype):
@@ -442,14 +471,55 @@ def lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse=False):
     return da
 
 
-def _check_inputs(xw, w_h):
+def _stack_groups(results):
+    """Per-group results (tensors, or tuples of them) stacked on a new
+    leading group axis."""
+
+    if isinstance(results[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*results))
+
+    return torch.stack(results)
+
+
+def lstm_scan_grouped_plain(xw, w_h, reverse_from, lengths=None):
+    """(G, B, T, 4H) projections, (G, H, 4H) weights -> (G, B, T, H): group
+    g is :func:`lstm_scan_plain` of its own sequence and weights, reversed
+    for ``g >= reverse_from``; ``lengths`` (B,) are every group's."""
+
+    return _stack_groups([
+        lstm_scan_plain(xw[g], w_h[g], g >= reverse_from, lengths)
+        for g in range(xw.shape[0])])
+
+
+def lstm_scan_residuals_grouped_plain(xw, w_h, reverse_from):
+    """:func:`lstm_scan_residuals_plain` a group -> ``(out, gates, c)``,
+    each with the leading group axis."""
+
+    return _stack_groups([
+        lstm_scan_residuals_plain(xw[g], w_h[g], g >= reverse_from)
+        for g in range(xw.shape[0])])
+
+
+def lstm_bptt_grouped_plain(gates, c_seq, dout, w_h_t, reverse_from):
+    """:func:`lstm_bptt_plain` a group -> da (G, B, T, 4H); the groups
+    from ``reverse_from`` on had a reverse forward."""
+
+    return _stack_groups([
+        lstm_bptt_plain(gates[g], c_seq[g], dout[g], w_h_t[g],
+                        g >= reverse_from)
+        for g in range(gates.shape[0])])
+
+
+def _check_inputs(xw, w_h, grouped=False):
     cuda_build.require_plain('lstm_scan', xw=xw, w_h=w_h)
-    if xw.dim() != 3 or xw.shape[-1] % 4:
-        raise ValueError(f'xw must be (B, T, 4H), got shape {tuple(xw.shape)}')
+    rank = 4 if grouped else 3
+    if xw.dim() != rank or xw.shape[-1] % 4:
+        layout = '(G, B, T, 4H)' if grouped else '(B, T, 4H)'
+        raise ValueError(f'xw must be {layout}, got shape {tuple(xw.shape)}')
     hidden = xw.shape[-1] // 4
-    if tuple(w_h.shape) != (hidden, 4 * hidden):
-        raise ValueError(f'w_h must be ({hidden}, {4 * hidden}), got '
-                         f'{tuple(w_h.shape)}')
+    shape = tuple(xw.shape[:-3]) + (hidden, 4 * hidden)
+    if tuple(w_h.shape) != shape:
+        raise ValueError(f'w_h must be {shape}, got {tuple(w_h.shape)}')
     if xw.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'lstm_scan takes float32 or bf16 xw, got {xw.dtype}')
     if w_h.dtype != xw.dtype:
@@ -475,52 +545,64 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_scan(xw, w_h, reverse, residuals, lengths=None, carry=None):
+def _launch_scan(xw, w_h, reverse, residuals, lengths=None, carry=None,
+                 reverse_from=None):
     """Kernel B (with per-row ``lengths``, an int32 tensor, or none; from a
     float32 ``carry`` ``(c0, h0)``, or zeros), or E with ``residuals``, on
-    CUDA tensors. A carried launch returns ``(out, (c, h))``."""
+    CUDA tensors. A carried launch returns ``(out, (c, h))``. With
+    ``reverse_from`` (no carry) the launch is grouped: xw (G, B, T, 4H),
+    w_h (G, H, 4H), the outputs with the leading G, the groups from
+    ``reverse_from`` on reversed."""
 
-    batch, frames, four_h = xw.shape
+    grouped = reverse_from is not None
+    groups = xw.shape[0] if grouped else 1
+    lead = tuple(xw.shape[:-3])
+    batch, frames, four_h = xw.shape[-3:]
     hidden = four_h // 4
     name = ('lstm_scan_residuals' if residuals else
             'lstm_scan' if carry is None else 'lstm_scan_carried')
+    name += '_grouped' if grouped else ''
     _check_cuda(xw, name, hidden)
     if hidden % 16:
         raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
                          f'(8 CTAs of whole bf16 pairs), got {hidden}')
 
-    out = torch.empty((batch, frames, hidden), dtype=xw.dtype,
+    out = torch.empty(lead + (batch, frames, hidden), dtype=xw.dtype,
                       device=xw.device)
     outputs = [out]
     if residuals:
-        outputs += [torch.empty((batch, frames, four_h), dtype=torch.float32,
-                                device=xw.device),
-                    torch.empty((batch, frames, hidden), dtype=torch.float32,
-                                device=xw.device)]
+        outputs += [torch.empty(lead + (batch, frames, four_h),
+                                dtype=torch.float32, device=xw.device),
+                    torch.empty(lead + (batch, frames, hidden),
+                                dtype=torch.float32, device=xw.device)]
     carried = ()
     if carry is not None:
         final = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
         carried = tuple(t.data_ptr() for t in (*carry, *final))
-    if batch == 0 or frames == 0:
+    if batch == 0 or frames == 0 or groups == 0:
         if carry is not None:  # the carry as the next step would read it,
             # copied: an op returns no input
             return out, (carry[0].clone(),
                          carry[1].to(xw.dtype).float().clone())
         return tuple(outputs) if residuals else out
 
-    plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals)
+    plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals,
+                            groups)
     xw, w_h = _aligned(xw), _aligned(w_h)
     lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
     # kernel B's masked launch takes the lengths' pointer (null: unmasked)
     masks = () if residuals else (
         None if lengths is None else lengths.data_ptr(),)
+    # a grouped launch names its groups and the first reversed one where
+    # an ungrouped one names its direction
+    shape = ((groups, reverse_from, batch, frames, hidden) if grouped else
+             (batch, frames, hidden, int(reverse)))
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, name)(
             xw.data_ptr(), w_h.data_ptr(), *(t.data_ptr() for t in outputs),
-            *masks, *carried, batch, frames, hidden, int(reverse),
-            int(xw.dtype == torch.bfloat16), plan['rows'],
-            int(plan['resident']), stream)
+            *masks, *carried, *shape, int(xw.dtype == torch.bfloat16),
+            plan['rows'], int(plan['resident']), stream)
     cuda_build.check(status, name)
 
     if carry is not None:
@@ -533,7 +615,7 @@ def _check_lengths(lengths, xw):
     each in [0, T]."""
 
     cuda_build.require_plain('lstm_scan', lengths=lengths)
-    batch, frames = xw.shape[:2]
+    batch, frames = xw.shape[-3:-1]
     if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
         raise TypeError(f'lengths must be integers, got {lengths.dtype}')
     if tuple(lengths.shape) != (batch,):
@@ -775,17 +857,19 @@ def lstm_scan_residuals(xw, w_h, reverse=False):
 lstm_scan_residuals.launches = 0
 
 
-def _check_bptt_inputs(gates, c_seq, dout, w_h_t):
+def _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=False):
     cuda_build.require_plain('lstm_bptt', gates=gates, c_seq=c_seq,
                              dout=dout, w_h_t=w_h_t)
-    if gates.dim() != 3 or gates.shape[-1] % 4:
-        raise ValueError(f'gates must be (B, T, 4H), got shape '
+    if gates.dim() != (4 if grouped else 3) or gates.shape[-1] % 4:
+        layout = '(G, B, T, 4H)' if grouped else '(B, T, 4H)'
+        raise ValueError(f'gates must be {layout}, got shape '
                          f'{tuple(gates.shape)}')
-    batch, frames, four_h = gates.shape
+    lead = tuple(gates.shape[:-3])
+    batch, frames, four_h = gates.shape[-3:]
     hidden = four_h // 4
-    shapes = {'c_seq': (c_seq, (batch, frames, hidden)),
-              'dout': (dout, (batch, frames, hidden)),
-              'w_h_t': (w_h_t, (four_h, hidden))}
+    shapes = {'c_seq': (c_seq, lead + (batch, frames, hidden)),
+              'dout': (dout, lead + (batch, frames, hidden)),
+              'w_h_t': (w_h_t, lead + (four_h, hidden))}
     for name, (tensor, shape) in shapes.items():
         if tuple(tensor.shape) != shape:
             raise ValueError(f'{name} must be {shape}, got '
@@ -815,32 +899,44 @@ def lstm_bptt_op(gates: torch.Tensor, c_seq: torch.Tensor,
     if gates.device.type == 'cpu':
         return lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse)
 
-    batch, frames, four_h = gates.shape
+    da = _launch_bptt(gates, c_seq, dout, w_h_t, reverse)
+    cuda_build.count(lstm_bptt, 'launches')
+
+    return da
+
+
+def _launch_bptt(gates, c_seq, dout, w_h_t, reverse, reverse_from=None):
+    """Kernel F on CUDA tensors; with ``reverse_from`` the launch is
+    grouped, every tensor with a leading group axis."""
+
+    grouped = reverse_from is not None
+    groups = gates.shape[0] if grouped else 1
+    batch, frames, four_h = gates.shape[-3:]
     hidden = four_h // 4
-    _check_cuda(gates, 'lstm_bptt', hidden)
+    name = 'lstm_bptt_grouped' if grouped else 'lstm_bptt'
+    _check_cuda(gates, name, hidden)
     if hidden % 16:
-        raise ValueError(f'lstm_bptt kernel supports hidden a multiple of 16 '
+        raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
                          f'(8 CTAs of whole bf16 pairs), got {hidden}')
 
-    da = torch.empty((batch, frames, four_h), dtype=torch.float32,
-                     device=gates.device)
-    if batch == 0 or frames == 0:
+    da = torch.empty(gates.shape, dtype=torch.float32, device=gates.device)
+    if batch == 0 or frames == 0 or groups == 0:
         return da
 
-    plan = bptt_launch_plan(batch, hidden, dout.dtype, gates.device)
+    plan = bptt_launch_plan(batch, hidden, dout.dtype, gates.device, groups)
     gates, c_seq, dout, w_h_t = (_aligned(t) for t in (gates, c_seq, dout,
                                                        w_h_t))
     lib = cuda_build.library('lstm_bptt', _BPTT_SIGNATURES)
+    shape = ((groups, reverse_from, batch, frames, hidden) if grouped else
+             (batch, frames, hidden, int(reverse)))
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.lstm_bptt(gates.data_ptr(), c_seq.data_ptr(),
-                               dout.data_ptr(), w_h_t.data_ptr(),
-                               da.data_ptr(), batch, frames, hidden,
-                               int(reverse),
-                               int(dout.dtype == torch.bfloat16),
-                               plan['rows'], int(plan['resident']), stream)
-    cuda_build.check(status, 'lstm_bptt')
-    cuda_build.count(lstm_bptt, 'launches')
+        status = getattr(lib, name)(
+            gates.data_ptr(), c_seq.data_ptr(), dout.data_ptr(),
+            w_h_t.data_ptr(), da.data_ptr(), *shape,
+            int(dout.dtype == torch.bfloat16), plan['rows'],
+            int(plan['resident']), stream)
+    cuda_build.check(status, name)
 
     return da
 
@@ -877,14 +973,14 @@ lstm_bptt.launches = 0
 
 
 def _shift_prev(x, reverse):
-    """The previous step's value at each t (zero at the sequence's start):
-    t - 1 for a forward scan, t + 1 for a reverse one."""
+    """The previous step's value at each t of (..., T, H) (zero at the
+    sequence's start): t - 1 for a forward scan, t + 1 for a reverse one."""
 
-    zero = torch.zeros_like(x[:, :1])
+    zero = torch.zeros_like(x[..., :1, :])
     if reverse:
-        return torch.cat([x[:, 1:], zero], dim=1)
+        return torch.cat([x[..., 1:, :], zero], dim=-2)
 
-    return torch.cat([zero, x[:, :-1]], dim=1)
+    return torch.cat([zero, x[..., :-1, :]], dim=-2)
 
 
 class LSTMScanGrad(torch.autograd.Function):
@@ -933,3 +1029,215 @@ def lstm_scan_grad(xw, w_h, reverse=False):
     """
 
     return LSTMScanGrad.apply(xw, w_h, reverse)
+
+
+# The grouped launches: G independent sequences with their own W_h in one
+# launch of kernel B, E or F (csrc/lstm_scan.cu, csrc/lstm_bptt.cu, the
+# group on blockIdx.y), the card's counterpart of the JAX package's one
+# grouped scan (``ops/lstm.py`` ``_grouped_lstm_scan``, behind
+# ``GroupedBiLSTM``). Groups [0, reverse_from) run forward and the rest
+# reversed (a grouped BiLSTM's backward directions, with no flipped copy).
+# A group's arithmetic is its ungrouped launch's.
+
+def _check_reverse_from(reverse_from, groups):
+    if not 0 <= reverse_from <= groups:
+        raise ValueError(f'reverse_from must lie in [0, {groups}], got '
+                         f'{reverse_from}')
+
+
+def _grouped_cost(cost, groups):
+    flops, num_bytes = cost
+    return groups * flops, groups * num_bytes
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_grouped',
+                         mutates_args=())
+def lstm_scan_grouped_op(xw: torch.Tensor, w_h: torch.Tensor,
+                         reverse_from: int,
+                         lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped kernel B as an op (inputs as :func:`lstm_scan_grouped`
+    checks them)."""
+
+    if xw.device.type == 'cpu':
+        return lstm_scan_grouped_plain(xw, w_h, reverse_from, lengths)
+
+    out = _launch_scan(xw, w_h, None, residuals=False, lengths=lengths,
+                       reverse_from=reverse_from)
+    cuda_build.count(lstm_scan_grouped, 'launches',
+                     *(('masked_launches',) if lengths is not None else ()))
+
+    return out
+
+
+@lstm_scan_grouped_op.register_fake
+def _(xw, w_h, reverse_from, lengths):
+    return xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
+
+
+def _scan_grouped_op_cost(xw, w_h, reverse_from, lengths):
+    groups, batch, frames, four_h = xw.shape
+
+    return _grouped_cost(scan_cost(batch, frames, four_h // 4, xw.dtype,
+                                   steps=_valid_steps(lengths)), groups)
+
+
+cuda_build.register_cost(lstm_scan_grouped_op, _scan_grouped_op_cost)
+
+
+def lstm_scan_grouped(xw, w_h, reverse_from, lengths=None):
+    """G whole-sequence LSTMs in one launch: (G, B, T, 4H) projections and
+    (G, H, 4H) recurrent kernels in one dtype -> (G, B, T, H).
+
+    Group g is :func:`lstm_scan` of ``xw[g]`` and ``w_h[g]``, reversed for
+    ``g >= reverse_from``; ``lengths`` (B,) are every group's. CUDA tensors
+    go through grouped kernel B, one launch (or raise); CPU tensors through
+    :func:`lstm_scan_grouped_plain`; both through
+    :data:`lstm_scan_grouped_op`."""
+
+    _check_inputs(xw, w_h, grouped=True)
+    _check_reverse_from(reverse_from, xw.shape[0])
+    if lengths is not None:
+        lengths = _check_lengths(lengths, xw)
+
+    return lstm_scan_grouped_op(xw, w_h, int(reverse_from), lengths)
+
+
+lstm_scan_grouped.launches = 0
+lstm_scan_grouped.masked_launches = 0  # those with lengths
+
+
+@torch.library.custom_op(
+    f'{cuda_build.NAMESPACE}::lstm_scan_residuals_grouped', mutates_args=())
+def lstm_scan_residuals_grouped_op(
+        xw: torch.Tensor, w_h: torch.Tensor,
+        reverse_from: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Grouped kernel E as an op -> ``(out, gates, c)``."""
+
+    if xw.device.type == 'cpu':
+        return lstm_scan_residuals_grouped_plain(xw, w_h, reverse_from)
+
+    outputs = _launch_scan(xw, w_h, None, residuals=True,
+                           reverse_from=reverse_from)
+    cuda_build.count(lstm_scan_residuals_grouped, 'launches')
+
+    return outputs
+
+
+@lstm_scan_residuals_grouped_op.register_fake
+def _(xw, w_h, reverse_from):
+    hidden = xw.shape[-1] // 4
+
+    return (xw.new_empty(xw.shape[:-1] + (hidden,)),
+            xw.new_empty(xw.shape, dtype=torch.float32),
+            xw.new_empty(xw.shape[:-1] + (hidden,), dtype=torch.float32))
+
+
+cuda_build.register_cost(
+    lstm_scan_residuals_grouped_op,
+    lambda xw, w_h, reverse_from: _grouped_cost(
+        scan_cost(xw.shape[1], xw.shape[2], xw.shape[3] // 4, xw.dtype,
+                  residuals=True), xw.shape[0]))
+
+
+def lstm_scan_residuals_grouped(xw, w_h, reverse_from):
+    """:func:`lstm_scan_grouped` that also returns the residuals of the
+    backward, ``(out, gates, c)``, each with the leading group axis. CUDA
+    tensors go through grouped kernel E, one launch (or raise); CPU tensors
+    through :func:`lstm_scan_residuals_grouped_plain`."""
+
+    _check_inputs(xw, w_h, grouped=True)
+    _check_reverse_from(reverse_from, xw.shape[0])
+
+    return lstm_scan_residuals_grouped_op(xw, w_h, int(reverse_from))
+
+
+lstm_scan_residuals_grouped.launches = 0
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_bptt_grouped',
+                         mutates_args=())
+def lstm_bptt_grouped_op(gates: torch.Tensor, c_seq: torch.Tensor,
+                         dout: torch.Tensor, w_h_t: torch.Tensor,
+                         reverse_from: int) -> torch.Tensor:
+    """Grouped kernel F as an op -> da (G, B, T, 4H)."""
+
+    if gates.device.type == 'cpu':
+        return lstm_bptt_grouped_plain(gates, c_seq, dout, w_h_t,
+                                       reverse_from)
+
+    da = _launch_bptt(gates, c_seq, dout, w_h_t, None, reverse_from)
+    cuda_build.count(lstm_bptt_grouped, 'launches')
+
+    return da
+
+
+@lstm_bptt_grouped_op.register_fake
+def _(gates, c_seq, dout, w_h_t, reverse_from):
+    return torch.empty_like(gates)
+
+
+cuda_build.register_cost(
+    lstm_bptt_grouped_op,
+    lambda gates, c_seq, dout, w_h_t, reverse_from: _grouped_cost(
+        bptt_cost(gates.shape[1], gates.shape[2], gates.shape[3] // 4,
+                  dout.dtype), gates.shape[0]))
+
+
+def lstm_bptt_grouped(gates, c_seq, dout, w_h_t, reverse_from):
+    """:func:`lstm_bptt` of G groups in one launch: every tensor with a
+    leading group axis (``w_h_t`` (G, 4H, H)), the groups from
+    ``reverse_from`` on with a reverse forward -> da (G, B, T, 4H) float32.
+    CUDA tensors go through grouped kernel F (or raise); CPU tensors
+    through :func:`lstm_bptt_grouped_plain`."""
+
+    _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=True)
+    _check_reverse_from(reverse_from, gates.shape[0])
+
+    return lstm_bptt_grouped_op(gates, c_seq, dout, w_h_t, int(reverse_from))
+
+
+lstm_bptt_grouped.launches = 0
+
+
+class LSTMScanGroupedGrad(torch.autograd.Function):
+    """The differentiable grouped recurrence: grouped kernel E forward,
+    grouped kernel F backward, each one launch for every group, as
+    :class:`LSTMScanGrad` is for one sequence; dW_h of every group is one
+    batched float32 matmul outside the kernel."""
+
+    @staticmethod
+    def forward(ctx, xw, w_h, reverse_from):
+        out, gates, c_seq = lstm_scan_residuals_grouped(
+            xw.contiguous(), w_h.to(xw.dtype).contiguous(), reverse_from)
+        ctx.reverse_from = reverse_from
+        ctx.w_dtype = w_h.dtype
+        ctx.save_for_backward(w_h, out, gates, c_seq)
+
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        w_h, out, gates, c_seq = ctx.saved_tensors
+        groups, hidden = out.shape[0], out.shape[-1]
+        split = ctx.reverse_from
+
+        w_h_t = w_h.transpose(1, 2).to(out.dtype).contiguous()
+        da = lstm_bptt_grouped(gates, c_seq, dout.to(out.dtype).contiguous(),
+                               w_h_t, split)
+
+        # dW_h[g] = sum_t h_prev^T da of group g: one batched float32 matmul
+        h_prev = torch.cat([_shift_prev(out[:split], False),
+                            _shift_prev(out[split:], True)]).float()
+        dw_h = torch.bmm(h_prev.reshape(groups, -1, hidden).transpose(1, 2),
+                         da.reshape(groups, -1, 4 * hidden))
+
+        return da.to(out.dtype), dw_h.to(ctx.w_dtype), None
+
+
+def lstm_scan_grouped_grad(xw, w_h, reverse_from):
+    """Differentiable :func:`lstm_scan_grouped`: (G, B, T, 4H) float32 or
+    bf16 ``xw``, (G, H, 4H) ``w_h`` in any float dtype -> (G, B, T, H) in
+    xw's dtype; under autograd the backward runs grouped kernel F."""
+
+    return LSTMScanGroupedGrad.apply(xw, w_h, reverse_from)

@@ -63,6 +63,12 @@ class _Stage(nn.Module):
 
     def __init__(self, model, name):
         super().__init__()
+        if getattr(model, 'fused_heads', False) or getattr(model, 'fused_lms',
+                                                           False):
+            raise ValueError('the pipeline stages are the per-head modules; '
+                             'convert a fused model with models.'
+                             'unfuse_acoustic_variables / '
+                             'unfuse_lm_variables into a per-head one')
         self.name = name
         self.stage_names = flagship_stage_names(model)
         self.detach_heads = model.detach_heads

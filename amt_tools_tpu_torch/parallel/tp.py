@@ -14,11 +14,15 @@ columns as its plain local parameter, and the layers gather:
   F read it through their raw pointer (``ops.lstm``), as XLA gathers an
   operand around a Pallas call it cannot partition.
 
+- the grouped acoustic stack's ``head_kernels`` (H, K, D) keep their D
+  columns, and ``models.onsetsframes.GroupedAcousticModel`` gathers the
+  per-head projections' output columns;
+- a grouped BiLSTM's stacked (S, H, 4H) recurrent kernels keep their 4H
+  columns, gathered whole before the grouped launch.
+
 The port calls its layers through functions (``linear(x, layer)``), so
 ``torch.distributed.tensor.parallel.parallelize_module``'s hooks would
 never run; the layers read the ``tp_group`` these rules leave on them.
-The grouped head kernels of JAX's rules (``head_kernels``) belong to the
-grouped layouts, which are not ported.
 
 Usage (shard before building the optimizer: the parameters are new)::
 
@@ -44,16 +48,20 @@ def tp_rules_default(axis='model'):
 
     Column-parallel sharding of every wide kernel: the output features of
     the hoisted LSTM input projections, of the dense projections
-    (``Dense_<n>``, ``dense1``; the output heads included) and the 4H
-    columns of the recurrent kernels. Biases follow their weight; small
-    parameters stay replicated. Names are the port's (``nn.Linear`` weights
-    are (out, in), so Flax's ``P(None, axis)`` is ``Shard(0)`` here).
+    (``Dense_<n>``, ``dense1``; the output heads included), the 4H columns
+    of the recurrent kernels (stacked ones too) and the D columns of the
+    grouped acoustic stack's per-head kernels (``head_kernels``, (H, K,
+    D)). Biases follow their weight; small parameters stay replicated.
+    Names are the port's (``nn.Linear`` weights are (out, in), so Flax's
+    ``P(None, axis)`` is ``Shard(0)`` here; JAX left-pads a rule for a
+    stacked leaf, which ``Shard(-1)`` says for the last axis).
     """
 
     return [
         (r'(.*\.)?input_proj(_fwd|_bwd)?\.weight$', Shard(0)),
-        (r'(.*\.)?recurrent_kernel(_fwd|_bwd)?$', Shard(1)),
+        (r'(.*\.)?recurrent_kernel(_fwd|_bwd)?$', Shard(-1)),
         (r'(.*\.)?(Dense_\d+|dense1)\.weight$', Shard(0)),
+        (r'(.*\.)?head_kernels$', Shard(-1)),
     ]
 
 

@@ -10,6 +10,7 @@ repository, so one feature and ground-truth cache serves both packages, and
 import os
 
 __all__ = [
+    'TOOL_DIR',
     'ROOT_DIR',
     'HOME',
     'DEFAULT_DATASETS_DIR',
@@ -69,8 +70,18 @@ __all__ = [
     'MODEL_STATE',
     'CKPT_EXT',
     'TXT_EXT',
+    'UINT',
+    'INT',
+    'INT64',
     'FLOAT',
     'FLOAT32',
+    'FLOAT64',
+    'BFLOAT16',
+    'OPT_STATE',
+    'KEY_LOSS_TABS',
+    'KEY_LOSS_KLD',
+    'KEY_LOSS_INH',
+    'KEY_LOSS_REC',
     'DEFAULT_PIANO_LOWEST_PITCH',
     'DEFAULT_PIANO_HIGHEST_PITCH',
     'DEFAULT_GUITAR_LABELS',
@@ -78,9 +89,10 @@ __all__ = [
     'DEFAULT_GUITAR_NUM_FRETS',
 ]
 
-# The repository root: this file is <root>/amt_tools_tpu_torch/tools/
-ROOT_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+# This package's tools directory, and the repository root above the
+# package: this file is <root>/amt_tools_tpu_torch/tools/
+TOOL_DIR = os.path.dirname(os.path.abspath(__file__))
+ROOT_DIR = os.path.dirname(os.path.dirname(TOOL_DIR))
 
 HOME = os.path.expanduser('~')
 
@@ -127,6 +139,10 @@ KEY_LOSS_ONSETS = 'loss_onsets'
 KEY_LOSS_OFFSETS = 'loss_offsets'
 KEY_LOSS_PITCH = 'loss_pitch'
 KEY_LOSS_VELOCITY = 'loss_velocity'
+KEY_LOSS_TABS = 'loss_tabs'
+KEY_LOSS_KLD = 'loss_kld'
+KEY_LOSS_INH = 'loss_inhib'
+KEY_LOSS_REC = 'loss_recon'
 
 JAMS_NOTE_MIDI = 'note_midi'
 JAMS_PITCH_HZ = 'pitch_contour'
@@ -155,11 +171,17 @@ KEY_TDR = 'tdr'
 
 # Checkpoints are <MODEL_STATE>-<iteration>.<CKPT_EXT>
 MODEL_STATE = 'model'
+OPT_STATE = 'opt-state'
 CKPT_EXT = 'ckpt'
 TXT_EXT = 'txt'
 
+UINT = 'uint'
+INT = 'int'
+INT64 = 'int64'
 FLOAT = 'float'
 FLOAT32 = 'float32'
+FLOAT64 = 'float64'
+BFLOAT16 = 'bfloat16'
 
 DEFAULT_PIANO_LOWEST_PITCH = 21
 DEFAULT_PIANO_HIGHEST_PITCH = 108

@@ -1,9 +1,9 @@
 """Instrument profiles: the mapping from MIDI pitch to activation-map rows.
 
 Copy of the parts of ``amt_tools_tpu/tools/instrument.py`` the piano and
-guitar serving paths need: ``note_to_midi`` (``:33``), ``midi_to_hz``,
-``PianoProfile``, ``TablatureProfile`` (``:112``) and ``GuitarProfile``
-(``:163``).
+guitar serving paths need: ``note_to_midi`` (``:33``), ``midi_to_note``
+(``:54``), ``midi_to_hz``, ``hz_to_midi`` (``:71``), ``PianoProfile``,
+``TablatureProfile`` (``:112``) and ``GuitarProfile`` (``:163``).
 """
 
 import re
@@ -14,7 +14,9 @@ from . import constants
 
 __all__ = [
     'note_to_midi',
+    'midi_to_note',
     'midi_to_hz',
+    'hz_to_midi',
     'InstrumentProfile',
     'PianoProfile',
     'TablatureProfile',
@@ -49,11 +51,28 @@ def note_to_midi(note):
     return 12 * (octave + 1) + pitch_class + offset
 
 
+def midi_to_note(midi):
+    """Convert MIDI pitch number(s) to spelled note name(s) (sharps)."""
+
+    if not np.isscalar(midi):
+        return [midi_to_note(m) for m in np.asarray(midi).flatten()]
+
+    names = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
+    midi = int(round(midi))
+    return f'{names[midi % 12]}{midi // 12 - 1}'
+
+
 def midi_to_hz(midi):
     """Convert MIDI pitch (possibly fractional) to frequency in Hz (A4=440)."""
 
     return 440.0 * (2.0 ** ((np.asarray(midi, dtype=np.float64) - 69) / 12))
 
+
+
+def hz_to_midi(hz):
+    """Convert frequency in Hz to (fractional) MIDI pitch (A4=440)."""
+
+    return 12 * (np.log2(np.asarray(hz, dtype=np.float64)) - np.log2(440.0)) + 69
 
 class InstrumentProfile(object):
     """Generic instrument profile defined by an inclusive MIDI pitch range."""

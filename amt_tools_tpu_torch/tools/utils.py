@@ -23,7 +23,12 @@ datasets: ``slice_pitch_list`` (``:442``), ``sort_pitch_list`` (``:609``),
 (``:1260``), the stacked-representation plumbing (``:1303-1325``),
 ``save_dict_npz`` and ``load_dict_npz`` (``:1517-1548``; the npz files
 are the JAX package's, so either package reads the other's cache) and
-``seed_everything`` (``:1551``, which also seeds torch).
+``seed_everything`` (``:1551``, which also seeds torch). The rest of the
+module's public names (``:135-1590``) close the file: the batched and
+stacked notes, pitch-list, logistic and tablature conversions, the
+activation filters, ``get_frame_times``, the timing helpers, and
+``dict_to_device``, ``dict_detach``, ``array_to_tensor`` and
+``tensor_to_array`` on torch tensors with an explicit device.
 """
 
 import contextlib
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from . import constants
-from .instrument import midi_to_hz
+from .instrument import hz_to_midi, midi_to_hz
 
 __all__ = [
     'to_numpy',
@@ -103,6 +108,53 @@ __all__ = [
     'save_dict_npz',
     'load_dict_npz',
     'seed_everything',
+    'cat_batched_notes',
+    'sort_batched_notes',
+    'filter_batched_note_repeats',
+    'transpose_batched_notes',
+    'stacked_notes_to_batched_notes',
+    'batched_notes_to_hz',
+    'batched_notes_to_midi',
+    'notes_to_midi',
+    'offset_notes',
+    'detect_overlap_notes',
+    'batched_notes_to_stacked_notes',
+    'stacked_notes_to_hz',
+    'stacked_notes_to_midi',
+    'cat_stacked_notes',
+    'filter_stacked_note_repeats',
+    'stacked_notes_to_frets',
+    'find_pitch_bounds_stacked_notes',
+    'pitch_list_to_multi_pitch',
+    'pitch_list_to_midi',
+    'clean_pitch_list',
+    'pack_pitch_list',
+    'unpack_pitch_list',
+    'contains_empties_pitch_list',
+    'detect_overlap_pitch_list',
+    'filter_pitch_list',
+    'stacked_pitch_list_to_hz',
+    'stacked_pitch_list_to_midi',
+    'stacked_pitch_list_to_stacked_multi_pitch',
+    'logistic_to_stacked_multi_pitch',
+    'stacked_pitch_list_to_tablature',
+    'logistic_to_tablature',
+    'stacked_multi_pitch_to_logistic',
+    'tablature_to_logistic',
+    'stacked_notes_to_stacked_onsets',
+    'stacked_notes_to_stacked_offsets',
+    'blur_activations',
+    'normalize_activations',
+    'threshold_activations',
+    'remove_activation_blips',
+    'interpolate_gaps',
+    'get_frame_times',
+    'dict_to_device',
+    'tensor_to_array',
+    'array_to_tensor',
+    'dict_detach',
+    'print_time',
+    'compute_time_difference',
 ]
 
 
@@ -1069,3 +1121,505 @@ def exact_fp32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+# The rest of the JAX module's host helpers (notes, pitch lists, tablature,
+# activations, track dicts and timing), copied; the dict and tensor helpers
+# act on torch tensors
+
+def cat_batched_notes(batched_notes, new_batched_notes):
+    """Concatenate two collections of batched notes along the first axis."""
+
+    return np.concatenate((batched_notes, new_batched_notes), axis=0)
+
+
+def sort_batched_notes(batched_notes, by=0):
+    """Stable-sort batched notes by column (0 onset | 1 offset | 2 pitch)."""
+
+    order = np.argsort(batched_notes[..., by], kind='stable')
+
+    return batched_notes[order]
+
+
+def filter_batched_note_repeats(batched_notes):
+    """Drop duplicate (pitch, onset) notes, keeping the longest duration."""
+
+    batched_notes = np.asarray(batched_notes).reshape(-1, 3)
+
+    # Sort by (onset, offset) so that after the flip the longest duration
+    # appears first among (pitch, onset) duplicates
+    order = np.lexsort((batched_notes[:, 1], batched_notes[:, 0]))
+    batched_notes = np.flip(batched_notes[order], axis=0)
+
+    # Unique over (pitch, onset) pairs keeps the first (longest) occurrence
+    pitches_onsets = batched_notes[:, [2, 0]]
+    keep_indices = np.unique(pitches_onsets, return_index=True, axis=0)[-1]
+
+    return batched_notes[keep_indices]
+
+
+def transpose_batched_notes(batched_notes):
+    """Swap the note and attribute axes of batched notes."""
+
+    return np.transpose(batched_notes, (-1, -2))
+
+
+def stacked_notes_to_batched_notes(stacked_notes, transposed=False):
+    """Concatenate all slices of a stacked batched-notes dict into one array."""
+
+    entries = list(stacked_notes.values())
+
+    return np.concatenate(entries, axis=int(transposed))
+
+
+def batched_notes_to_hz(batched_notes):
+    """Convert the pitch column of batched notes from MIDI to Hz."""
+
+    batched_notes = np.array(batched_notes, copy=True)
+    batched_notes[..., 2] = midi_to_hz(batched_notes[..., 2])
+
+    return batched_notes
+
+
+def batched_notes_to_midi(batched_notes):
+    """Convert the pitch column of batched notes from Hz to MIDI."""
+
+    batched_notes = np.array(batched_notes, copy=True)
+    batched_notes[..., 2] = hz_to_midi(batched_notes[..., 2])
+
+    return batched_notes
+
+
+def notes_to_midi(pitches):
+    """Convert note pitches from Hz to MIDI."""
+
+    return hz_to_midi(pitches)
+
+
+def offset_notes(pitches, intervals, semitones):
+    """Shift note pitches by a number of semitones."""
+
+    return pitches + semitones, intervals
+
+
+def detect_overlap_notes(intervals, decimals=3):
+    """Check whether any note intervals overlap (at millisecond resolution)."""
+
+    intervals = sort_batched_notes(np.asarray(intervals).reshape(-1, 2), by=0)
+    # Flatten to [on_0, off_0, on_1, off_1, ...]: a negative difference means
+    # either an inverted interval or an onset before the previous offset.
+    # (Fixes a latent reference bug: diffing per-row yields durations only.)
+    overlap = np.sum(np.round(np.diff(intervals.flatten()), decimals) < 0) > 0
+
+    return bool(overlap)
+
+
+def batched_notes_to_stacked_notes(batched_notes, transposed=False, i=0):
+    """Wrap batched notes into a single-slice stacked-notes dict."""
+
+    if transposed:
+        batched_notes = transpose_batched_notes(batched_notes)
+
+    pitches, intervals = batched_notes_to_notes(batched_notes)
+
+    return {i: (pitches, intervals)}
+
+
+def stacked_notes_to_hz(stacked_notes):
+    """Convert all pitches in a stacked-notes dict from MIDI to Hz."""
+
+    return {k: (midi_to_hz(p), i) for k, (p, i) in stacked_notes.items()}
+
+
+def stacked_notes_to_midi(stacked_notes):
+    """Convert all pitches in a stacked-notes dict from Hz to MIDI."""
+
+    return {k: (hz_to_midi(p), i) for k, (p, i) in stacked_notes.items()}
+
+
+def cat_stacked_notes(stacked_notes, new_stacked_notes):
+    """Merge two stacked-notes dicts slice-by-slice."""
+
+    merged = dict(stacked_notes)
+    for key, (pitches, intervals) in new_stacked_notes.items():
+        if key in merged:
+            old_pitches, old_intervals = merged[key]
+            merged[key] = (np.append(old_pitches, pitches),
+                           np.concatenate((old_intervals.reshape(-1, 2),
+                                           np.asarray(intervals).reshape(-1, 2)), axis=0))
+        else:
+            merged[key] = (pitches, intervals)
+
+    return merged
+
+
+def filter_stacked_note_repeats(stacked_notes):
+    """Remove (pitch, onset) duplicates within each slice of stacked notes."""
+
+    filtered = {}
+    for key, (pitches, intervals) in stacked_notes.items():
+        batched = filter_batched_note_repeats(notes_to_batched_notes(pitches, intervals))
+        filtered[key] = batched_notes_to_notes(batched)
+
+    return filtered
+
+
+def stacked_notes_to_frets(stacked_notes, tuning=None):
+    """Convert per-string MIDI pitches into fret numbers given a tuning.
+
+    ``tuning`` is a list of the lowest MIDI pitch per slice; by default the
+    slice keys are assumed to be the open-string MIDI pitches.
+    """
+
+    fretted = {}
+    for idx, (key, (pitches, intervals)) in enumerate(stacked_notes.items()):
+        open_pitch = tuning[idx] if tuning is not None else key
+        fretted[key] = (np.round(np.asarray(pitches) - open_pitch).astype(int), intervals)
+
+    return fretted
+
+
+def find_pitch_bounds_stacked_notes(stacked_notes):
+    """Find the lowest/highest pitch present in each slice of stacked notes."""
+
+    bounds = {}
+    for key, (pitches, _) in stacked_notes.items():
+        pitches = np.asarray(pitches)
+        if len(pitches):
+            bounds[key] = (np.min(pitches), np.max(pitches))
+        else:
+            bounds[key] = (None, None)
+
+    return bounds
+
+
+def pitch_list_to_multi_pitch(pitch_list, profile):
+    """Convert a ragged MIDI pitch list into an (F, T) activation map."""
+
+    pitch_list = filter_pitch_list(pitch_list, profile)
+
+    num_pitches = profile.get_range_len()
+    num_frames = len(pitch_list)
+
+    multi_pitch = np.zeros((num_pitches, num_frames))
+
+    counts = get_active_pitch_count(pitch_list)
+    if counts.sum():
+        frame_idcs = np.repeat(np.arange(num_frames), counts)
+        all_pitches = np.concatenate([np.atleast_1d(p) for p in pitch_list]) \
+            if num_frames else np.empty(0)
+        pitch_idcs = np.round(all_pitches - profile.low).astype(int)
+        multi_pitch[pitch_idcs, frame_idcs] = 1
+
+    return multi_pitch
+
+
+def pitch_list_to_midi(pitch_list):
+    """Convert all pitch observations from Hz to MIDI."""
+
+    return [hz_to_midi(p) if len(p) else p for p in pitch_list]
+
+
+def clean_pitch_list(pitch_list):
+    """Remove NaNs and non-positive observations from each frame."""
+
+    return [np.asarray(p)[np.logical_and(~np.isnan(np.asarray(p, dtype=float)),
+                                         np.asarray(p, dtype=float) > 0)]
+            for p in pitch_list]
+
+
+def pack_pitch_list(times, pitch_list):
+    """Pack a ragged pitch list into flat arrays suitable for npz storage."""
+
+    counts = get_active_pitch_count(pitch_list)
+    values = (np.concatenate([np.atleast_1d(p) for p in pitch_list])
+              if len(pitch_list) else np.empty(0))
+
+    return {'times': np.asarray(times), 'counts': counts, 'values': values}
+
+
+def unpack_pitch_list(packed_pitch_list):
+    """Invert :func:`pack_pitch_list`."""
+
+    times = packed_pitch_list['times']
+    counts = packed_pitch_list['counts'].astype(int)
+    values = packed_pitch_list['values']
+
+    splits = np.cumsum(counts)[:-1]
+    pitch_list = np.split(values, splits) if len(counts) else []
+
+    return times, list(pitch_list)
+
+
+def contains_empties_pitch_list(pitch_list):
+    """Check whether any frames contain no pitch observations."""
+
+    return bool(np.any(get_active_pitch_count(pitch_list) == 0))
+
+
+def detect_overlap_pitch_list(pitch_list):
+    """Check whether any frames contain more than one pitch observation."""
+
+    return bool(np.any(get_active_pitch_count(pitch_list) > 1))
+
+
+def filter_pitch_list(pitch_list, profile, suppress_warnings=True):
+    """Remove pitch observations outside the profile's supported range."""
+
+    filtered = []
+    dropped = False
+    for p in pitch_list:
+        p = np.atleast_1d(np.asarray(p, dtype=float))
+        valid = np.logical_and(np.round(p) >= profile.low, np.round(p) <= profile.high)
+        dropped |= bool(np.any(~valid))
+        filtered.append(p[valid])
+
+    if dropped and not suppress_warnings:
+        warnings.warn('Ignoring pitch observations exceeding supported boundaries.',
+                      category=RuntimeWarning)
+
+    return filtered
+
+
+def stacked_pitch_list_to_hz(stacked_pitch_list):
+    """Convert a stacked pitch list from MIDI to Hz."""
+
+    return {k: (t, pitch_list_to_hz(p)) for k, (t, p) in stacked_pitch_list.items()}
+
+
+def stacked_pitch_list_to_midi(stacked_pitch_list):
+    """Convert a stacked pitch list from Hz to MIDI."""
+
+    return {k: (t, pitch_list_to_midi(p)) for k, (t, p) in stacked_pitch_list.items()}
+
+
+def stacked_pitch_list_to_stacked_multi_pitch(stacked_pitch_list, profile):
+    """Discretize each slice of a stacked pitch list into an (S, F, T) stack."""
+
+    stack = [pitch_list_to_multi_pitch(p, profile)
+             for _, p in stacked_pitch_list.values()]
+
+    return np.stack(stack, axis=-3)
+
+
+def logistic_to_stacked_multi_pitch(logistic, profile, silence=True):
+    """Scatter flattened per-string activations into an (..., S, F, T) stack."""
+
+    logistic = to_numpy(logistic)
+    tuning = profile.get_midi_tuning()
+    num_dofs = len(tuning)
+    group = profile.num_pitches + int(silence)
+
+    dims = logistic.shape[:-2] + (num_dofs, profile.get_range_len(), logistic.shape[-1])
+    stacked_multi_pitch = np.zeros(dims)
+
+    for dof in range(num_dofs):
+        acts = logistic[..., dof * group + int(silence): (dof + 1) * group, :]
+        lo = tuning[dof] - profile.low
+        stacked_multi_pitch[..., dof, lo: lo + profile.num_pitches, :] = acts
+
+    return stacked_multi_pitch
+
+
+def stacked_pitch_list_to_tablature(stacked_pitch_list, profile):
+    """Convert a stacked pitch list directly into tablature."""
+
+    smp = stacked_pitch_list_to_stacked_multi_pitch(stacked_pitch_list, profile)
+
+    return stacked_multi_pitch_to_tablature(smp, profile)
+
+
+def logistic_to_tablature(logistic, profile, silence, silence_thr=0.05):
+    """Interpret flattened string/fret activations as tablature class indices."""
+
+    logistic = to_numpy(logistic)
+    tuning = profile.get_midi_tuning()
+    group = profile.num_pitches + int(silence)
+
+    tablature = []
+    for dof in range(len(tuning)):
+        acts = logistic[..., dof * group: (dof + 1) * group, :]
+        max_acts, highest = np.max(acts, axis=-2), np.argmax(acts, axis=-2)
+
+        if silence:
+            highest = highest - 1
+        else:
+            highest = np.where(max_acts <= silence_thr, -1, highest)
+
+        tablature.append(np.expand_dims(highest, axis=-2))
+
+    return np.concatenate(tablature, axis=-2)
+
+
+def stacked_multi_pitch_to_logistic(stacked_multi_pitch, profile, silence=False):
+    """Flatten an (..., S, F, T) stack into per-string/fret activations (..., N, T)."""
+
+    stacked_multi_pitch = to_numpy(stacked_multi_pitch)
+    tuning = profile.get_midi_tuning()
+
+    logistic = []
+    for dof in range(stacked_multi_pitch.shape[-3]):
+        lo = tuning[dof] - profile.low
+        multi_pitch = stacked_multi_pitch[..., dof, lo: lo + profile.num_pitches, :]
+
+        if silence:
+            silence_acts = (np.sum(multi_pitch, axis=-2, keepdims=True) == 0)
+            multi_pitch = np.concatenate((silence_acts.astype(multi_pitch.dtype),
+                                          multi_pitch), axis=-2)
+
+        logistic.append(multi_pitch)
+
+    return np.concatenate(logistic, axis=-2)
+
+
+def tablature_to_logistic(tablature, profile, silence=False):
+    """Convert tablature class indices into unique string/fret activations."""
+
+    smp = tablature_to_stacked_multi_pitch(tablature, profile)
+
+    return stacked_multi_pitch_to_logistic(smp, profile, silence)
+
+
+def stacked_notes_to_stacked_onsets(stacked_notes, times, profile, ambiguity=None):
+    """Per-slice onset maps for stacked notes -> (S, F, T)."""
+
+    stack = [notes_to_onsets(p, i, times, profile, ambiguity)
+             for p, i in stacked_notes.values()]
+
+    return np.stack(stack, axis=-3)
+
+
+def stacked_notes_to_stacked_offsets(stacked_notes, times, profile, ambiguity=None):
+    """Per-slice offset maps for stacked notes -> (S, F, T)."""
+
+    stack = [notes_to_offsets(p, i, times, profile, ambiguity)
+             for p, i in stacked_notes.values()]
+
+    return np.stack(stack, axis=-3)
+
+
+def blur_activations(activations, kernel=None, normalize=False, threshold=False):
+    """Blur activations by convolving with a kernel (identity by default)."""
+
+    from scipy.signal import convolve
+
+    if kernel is None:
+        kernel = np.array([[1.0]])
+
+    activations = convolve(np.asarray(activations, dtype=float),
+                           np.asarray(kernel, dtype=float), mode='same')
+
+    if normalize:
+        activations = normalize_activations(activations)
+    if threshold:
+        activations = threshold_activations(activations)
+
+    return activations
+
+
+def normalize_activations(activations):
+    """Scale activations into [0, 1] by their maximum magnitude."""
+
+    activations = np.asarray(activations, dtype=float)
+    max_val = np.max(np.abs(activations)) if activations.size else 0
+
+    return activations / max_val if max_val > 0 else activations
+
+
+def threshold_activations(activations, threshold=0.5):
+    """Binarize activations at a threshold."""
+
+    activations = to_numpy(activations)
+
+    return np.where(activations >= threshold, 1.0, 0.0).astype(activations.dtype)
+
+
+def remove_activation_blips(activations):
+    """Zero out single-frame positives in activations."""
+
+    activations = np.array(to_numpy(activations), copy=True)
+
+    onsets = multi_pitch_to_onsets(activations)
+    offsets = multi_pitch_to_offsets(activations)
+
+    blip_locations = np.logical_and(onsets > 0, offsets > 0)
+    activations[blip_locations] = 0
+
+    return activations
+
+
+def interpolate_gaps(arr, gap_val=0):
+    """Linearly interpolate across interior runs of ``gap_val`` in a 1-D array."""
+
+    arr = np.array(arr, dtype=float, copy=True)
+
+    is_gap = arr == gap_val
+    gap_onsets = np.append(np.diff(is_gap.astype(int)), [0]) == 1
+    gap_offsets = np.append([0], np.diff((~is_gap).astype(int))) == 1
+
+    onset_idcs, offset_idcs = np.where(gap_onsets)[0], np.where(gap_offsets)[0]
+
+    first_onset = np.min(onset_idcs) if len(onset_idcs) else len(arr)
+    last_offset = np.max(offset_idcs) if len(offset_idcs) else 0
+
+    offset_idcs = offset_idcs[offset_idcs > first_onset]
+    onset_idcs = onset_idcs[onset_idcs < last_offset]
+
+    for start, end in zip(onset_idcs, offset_idcs):
+        arr[start: end + 1] = np.linspace(arr[start], arr[end], end - start + 1)
+
+    return arr
+
+
+def get_frame_times(duration, sample_rate, hop_length):
+    """Frame start times for audio of a given duration."""
+
+    total_num_frames = int(1 + (duration * sample_rate - 1) // hop_length)
+
+    return np.arange(total_num_frames) * hop_length / sample_rate
+
+
+def dict_to_device(track, device):
+    """All array entries of a track dictionary as tensors on ``device``
+    (JAX places them on a JAX device): :func:`dict_to_tensor`."""
+
+    return dict_to_tensor(track, device)
+
+
+def tensor_to_array(data):
+    """Tensor (any device) -> host ndarray (the reference's torch helper)."""
+
+    return to_numpy(data)
+
+
+def array_to_tensor(data, device):
+    """Array-like -> tensor on ``device``."""
+
+    data = data if isinstance(data, torch.Tensor) else np.asarray(data)
+
+    return torch.as_tensor(data).to(device)
+
+
+def dict_detach(track):
+    """Cut all tensor entries of a track dictionary from the gradient
+    graph."""
+
+    return _map_dict(track, lambda a: a.detach()
+                     if isinstance(a, torch.Tensor) else a)
+
+
+def print_time(t, label=None):
+    """Print a time value with an optional label."""
+
+    print(f'{label + " " if label else ""}time : {t} seconds')
+
+
+def compute_time_difference(start_time, pr=True, label=None, decimals=3):
+    """Elapsed seconds since ``start_time`` (optionally printed)."""
+
+    elapsed = round(get_current_time(decimals) - start_time, decimals)
+
+    if pr:
+        print_time(elapsed, label)
+
+    return elapsed

@@ -16,6 +16,14 @@ and changes only leaf names and layouts:
 - ``recurrent_kernel_{fwd,bwd}`` keep their (H, 4H) layout (gate order
   i, f, g, o), which is what the LSTM kernel reads.
 
+The fused layouts' trees convert by the same rules: a grouped conv kernel
+(kh, kw, Cin/G, Cout) becomes (Cout, Cin/G, kh, kw), the layout of
+``nn.Conv2d(groups=G)``; the grouped stack's ``head_kernels`` (H, K, D)
+and ``head_bias`` and the grouped BiLSTM's stacked leaves
+(``input_proj_{fwd,bwd}_kernel`` (S, E, 4H), ``..._bias``,
+``recurrent_kernel_{fwd,bwd}`` (S, H, 4H)) keep JAX's layout, which the
+port's modules store.
+
 The AcousticModel's flatten ahead of ``Dense_0`` and TabCNN's ahead of
 ``dense1`` are feature-major in both packages (the port permutes its NCHW
 activations back to (B, T, F', C) before the reshape), so the dense rows

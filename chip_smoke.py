@@ -190,9 +190,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     at S = 1. Times of phases 32-33 are two processes sharing one card,
     not scaling figures;
 35. kernels A-F through their custom ops (``torch.ops.amt_tools_tpu_torch``;
-    B on its plain, masked and carried schemas), each bit for bit its
-    wrapper with one launch counted a call, then ``torch.library.opcheck``
-    of each on the card at small shapes;
+    B on its plain, masked and carried schemas; B, E and F grouped), each
+    bit for bit its wrapper with one launch counted a call, then
+    ``torch.library.opcheck`` of each on the card at small shapes;
 36. phase 5's bf16 piano pipeline exported (``export.save_serving``, a
     symbolic batch) at 128 x 60 s and loaded: notes equal to the live
     pipeline's, A once and B six times a call, audio-s per wall-s in turns
@@ -208,9 +208,41 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     and the port's example scripts on the card: ``transcribe_file`` on a written WAV,
     ``export_artifact`` at 2 s clips, ``synthetic_demo`` and
     ``synthetic_tabcnn`` at 2 iterations;
+39. grouped kernels B, E and F (``ops.lstm_kernel.lstm_scan_grouped``,
+    ``lstm_scan_residuals_grouped``, ``lstm_bptt_grouped``: one launch for
+    G sequences, the groups from ``reverse_from`` on reversed) at the
+    recipe shapes (G = 4, 8 x 625, H = 256), float32 and bf16, against G
+    per-stream launches of the ungrouped ops (bit for bit expected; else
+    held to the plain tolerances) and their plain versions; masked in bf16;
+    grouped E and F at the velocity plan (G = 6, float32); grouped B at
+    the fused serving shape (G = 4, 64 x 1876, bf16) against its
+    per-stream launches and its plain version; each timed beside its G
+    per-stream launches, its plain version and the sum of the per-stream
+    cuDNN ``nn.LSTM`` calls; the cluster plans of G = 4 and G = 6;
+40. fused piano serving: phase 5's pipeline and its twin
+    ``OnsetsFrames2(fused_heads=True, fused_lms=True)`` on the same weights
+    (``fuse_acoustic_variables``, ``fuse_lm_variables``), 3 requests of
+    ``FUSED_SERVING_CLIPS`` x 60 s: A once, grouped B once and B twice a
+    dispatch; notes equal under phase 33's rule; audio-s per wall-s in
+    turns and peak memory a batch; a float32 pair at 8 clips within
+    ``LOGIT_TOL``;
+41. fused O&F2 training, float32, 8 x 625, Adam: the first step (no
+    dropout) against the per-head step, losses within ``LOSS_TOL`` and
+    gradients (mapped back by the converters) under phase 12b's rule;
+    then ``train()`` in turns with the per-head model and with
+    ``fused_lms`` alone (per-head acoustic stacks): E and F six times a
+    step per-head, grouped E and F once and E and F twice with either
+    fused layout; steps/s; E + F device ms a step;
+42. the fused velocity model (G = 6): grouped E and F once a step, its
+    cluster plans, steps/s in turns with the per-head model;
+43. phase 40's fused pipeline exported (``export.save_serving``, a
+    symbolic batch) and loaded: notes equal to the live fused pipeline's,
+    A once, grouped B once and B twice a call; the same artifact at 8
+    clips;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
-   online and of TabCNN, 10 streamed frames, and one step each of the of_2
+   online and of TabCNN, 10 streamed frames, a fused piano batch and a
+   fused O&F2 training step, and one step each of the of_2
    and tabcnn recipes with their batch loaded from the corpora inside the
    range (the loader's host time in the busy share), under one
    ``profiling.trace`` run (``torch.profiler``; its TensorBoard trace must
@@ -228,7 +260,9 @@ launches a velocity step and a MAESTRO step; A, B and D with their
 launches a rank in phase 33, E and F a step in phases 31 and 32; every
 kernel with its op and its launches under opcheck, A and B with their
 launches in the serving artifact, B in the streaming artifact, A, C, E and
-F in the examples), and one JSON line ``{"ok": true, "device": {...}}``.
+F in the examples; B, E and F with their grouped launch's times (phase 39)
+and its launches in the fused phases 40-43), and one JSON line
+``{"ok": true, "device": {...}}``.
 Every bound comes from the kernel's cost function (``stft_kernel.cost``,
 ``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``), the
 FLOP formula of its op.
@@ -240,6 +274,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -399,17 +434,22 @@ def render_clips(profile, count, seconds, sample_rate=SAMPLE_RATE):
 
 
 def kernel_counters():
-    """Every hand-written kernel's wrapper, by kernel name."""
+    """Every hand-written kernel's wrapper, by kernel name (the grouped
+    launches of B, E and F by their own)."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_grouped
-    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_bptt, lstm_scan,
-                                                     lstm_scan_residuals)
+    from amt_tools_tpu_torch.ops.lstm_kernel import (
+        lstm_bptt, lstm_bptt_grouped, lstm_scan, lstm_scan_grouped,
+        lstm_scan_residuals, lstm_scan_residuals_grouped)
     from amt_tools_tpu_torch.ops.stft_kernel import stft_power
 
     return {'stft_power': stft_power, 'lstm_scan': lstm_scan,
             'cqt_mag': cqt_mag, 'cqt_mag_grouped': cqt_mag_grouped,
             'lstm_scan_residuals': lstm_scan_residuals,
-            'lstm_bptt': lstm_bptt}
+            'lstm_bptt': lstm_bptt,
+            'lstm_scan_grouped': lstm_scan_grouped,
+            'lstm_scan_residuals_grouped': lstm_scan_residuals_grouped,
+            'lstm_bptt_grouped': lstm_bptt_grouped}
 
 
 def route_counters():
@@ -421,7 +461,8 @@ def route_counters():
 
     return ([('stft_power', 'fft', 'fft_launches'),
              ('lstm_scan', 'masked', 'masked_launches'),
-             ('lstm_scan', 'carried', 'carried_launches')] +
+             ('lstm_scan', 'carried', 'carried_launches'),
+             ('lstm_scan_grouped', 'masked', 'masked_launches')] +
             [(name, route, f'{route}_launches')
              for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
 
@@ -4923,6 +4964,29 @@ def op_cases(scale):
              lambda g=gates, c=c_seq, d=dout, w=wht: lstm_kernel.lstm_bptt(
                  g, c, d, w),
              (lstm_kernel.lstm_bptt_op, (gates, c_seq, dout, wht, False)))]
+        # The grouped launches: three groups, the last reversed
+        gxw = randn(3, 4, scale, 4 * HIDDEN, scale=0.5).to(dtype)
+        gwh = randn(3, HIDDEN, 4 * HIDDEN, scale=0.05).to(dtype)
+        _, ggates, gc = lstm_kernel.lstm_scan_residuals_grouped(gxw, gwh, 2)
+        gdout = randn(3, 4, scale, HIDDEN, scale=0.1).to(dtype)
+        gwht = gwh.transpose(1, 2).contiguous()
+        cases += [
+            (f'B {name} grouped', 'lstm_scan_grouped',
+             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_grouped(x, w, 2),
+             (lstm_kernel.lstm_scan_grouped_op, (gxw, gwh, 2, None))),
+            (f'B {name} grouped masked', 'lstm_scan_grouped',
+             lambda x=gxw, w=gwh, n=lengths: lstm_kernel.lstm_scan_grouped(
+                 x, w, 2, n),
+             (lstm_kernel.lstm_scan_grouped_op, (gxw, gwh, 2, lengths))),
+            (f'E {name} grouped', 'lstm_scan_residuals_grouped',
+             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_residuals_grouped(
+                 x, w, 2),
+             (lstm_kernel.lstm_scan_residuals_grouped_op, (gxw, gwh, 2))),
+            (f'F {name} grouped', 'lstm_bptt_grouped',
+             lambda g=ggates, c=gc, d=gdout, w=gwht:
+             lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2),
+             (lstm_kernel.lstm_bptt_grouped_op,
+              (ggates, gc, gdout, gwht, 2)))]
 
     return cases
 
@@ -5379,6 +5443,777 @@ def deployment_phases(pipeline, requests, train_batch, card):
     return ops, artifact, streaming, measured
 
 
+# Phases 39-43: the fused layouts. OnsetsFrames2(fused_heads=True,
+# fused_lms=True): the acoustic heads as one grouped conv stack and the
+# independent language models as one GroupedBiLSTM, whose 2S directions
+# run as one grouped launch of kernel B (serving) or E and F (training)
+
+FUSED_GROUPS = 4           # O&F2's onset and offset BiLSTMs, both ways
+FUSED_VELOCITY_GROUPS = 6  # with the velocity head
+# Both layouts serve 64 x 60 s: at 128 the fused stack holds all three
+# heads' conv1 activations at once (bf16 15.8 GB, and the float32 copy its
+# eval-mode BatchNorm makes, 31.7 GB), and the next allocation found no
+# room on an 80 GB H100 (65.3 GB in use before it)
+FUSED_SERVING_CLIPS = BATCH // 2
+FUSED_TRAIN_STEPS = 10     # train() steps a timed turn
+FUSED_FLOAT32_CLIPS = 8
+
+
+def fused_twin(model, **kwargs):
+    """The fused layout of a per-head O&F2 on the same weights, through
+    ``fuse_acoustic_variables`` (with ``fused_heads``) and
+    ``fuse_lm_variables``, on the same device."""
+
+    import torch
+
+    from amt_tools_tpu_torch.models import (OnsetsFrames2,
+                                            fuse_acoustic_variables,
+                                            fuse_lm_variables)
+
+    options = dict(dim_in=model.dim_in, profile=model.profile,
+                   in_channels=model.in_channels,
+                   model_complexity=model.model_complexity,
+                   dtype=model.dtype, dropout=model.dropout,
+                   estimate_velocity=model.estimate_velocity,
+                   fused_heads=True, fused_lms=True)
+    options.update(kwargs)
+    fused = OnsetsFrames2(generator=torch.Generator().manual_seed(0),
+                          **options)
+    state = model.state_dict()
+    if options['fused_heads']:
+        state = fuse_acoustic_variables(state, model.head_names)
+    fused.load_state_dict(fuse_lm_variables(state, model._fused_lm_streams))
+
+    return fused.to(next(model.parameters()).device)
+
+
+def grouped_design(batch, groups, dtype, residuals=False, bptt=False):
+    """A grouped launch's cluster plan, as a dict and a line of text."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.lstm_kernel import (bptt_launch_plan,
+                                                     scan_launch_plan)
+
+    device = torch.device('cuda')
+    plan = (bptt_launch_plan(batch, HIDDEN, dtype, device, groups) if bptt
+            else scan_launch_plan(batch, HIDDEN, dtype, device, residuals,
+                                  groups))
+    text = (f'{groups} groups x {-(-batch // plan["rows"])} clusters = '
+            f'{plan["clusters"]} clusters of 8 CTAs, {plan["rows"]} rows a '
+            f'cluster, {plan["active_clusters"]} active, {plan["waves"]} '
+            f'wave(s), {plan["smem_bytes"]} bytes of shared memory')
+
+    return plan, text
+
+
+def grouped_errors(got, per_stream, ref, tol, mean_tol, relative):
+    """A grouped output against its per-stream launches (bit for bit, or
+    else held to the plain-version tolerances) and against its plain
+    version: (bit for bit, max and mean against the streams, against the
+    plain version)."""
+
+    import torch
+
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, per_stream))
+    streams = lstm_errors(got, torch.stack(per_stream))
+    plain = lstm_errors(got, ref)
+    pick = (2, 3) if relative else (0, 1)
+
+    for label, errs in (('the per-stream launches', streams),
+                        ('its plain version', plain)):
+        require(errs[pick[0]] <= tol and errs[pick[1]] <= mean_tol,
+                f'a grouped launch disagrees with {label}: {errs}')
+
+    return equal, streams, plain
+
+
+def check_grouped_lstm(card):
+    """Phase 39: grouped kernels B, E and F (one launch for G sequences)
+    at the recipe shapes (G = 4 directions, B = 8, T = 625, H = 256),
+    float32 and bf16, against G per-stream launches of the ungrouped ops
+    (bit for bit expected; else held to the plain tolerances, max and mean
+    printed) and against their plain versions; grouped B with lengths in
+    bf16; grouped E and F at the velocity plan (G = 6, float32); grouped B
+    at the fused serving shape (G = 4, ``FUSED_SERVING_CLIPS`` x 1876,
+    bf16) against the per-stream launches and its plain version. Each
+    timed beside the G per-stream launches, the plain version and the sum
+    of the per-stream cuDNN ``nn.LSTM`` calls; the cluster plans of G = 4
+    and G = 6."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops.lstm_kernel import (
+        bptt_cost, lstm_bptt, lstm_bptt_grouped, lstm_bptt_grouped_plain,
+        lstm_scan, lstm_scan_grouped, lstm_scan_grouped_plain,
+        lstm_scan_residuals, lstm_scan_residuals_grouped,
+        lstm_scan_residuals_grouped_plain, scan_cost)
+
+    groups, split = FUSED_GROUPS, FUSED_GROUPS // 2
+    result = {}
+    with tools.exact_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
+                PEAK_FP32_FLOPS
+            inputs = [lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES, dtype,
+                                  seed=390 + g) for g in range(groups)]
+            xw = torch.stack([i[3] for i in inputs])
+            wh = torch.stack([i[4] for i in inputs])
+            wht = wh.transpose(1, 2).contiguous()
+            g = torch.Generator().manual_seed(39)
+            dout = torch.randn(groups, TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                               generator=g).cuda().to(dtype)
+
+            reverse = [s >= split for s in range(groups)]
+            out = lstm_scan_grouped(xw, wh, split)
+            res = lstm_scan_residuals_grouped(xw, wh, split)
+            da = lstm_bptt_grouped(res[1], res[2], dout, wht, split)
+            alone = [lstm_scan_residuals(xw[s], wh[s], reverse[s])
+                     for s in range(groups)]
+            checks = {
+                'B': grouped_errors(
+                    out, [lstm_scan(xw[s], wh[s], reverse[s])
+                          for s in range(groups)],
+                    lstm_scan_grouped_plain(xw, wh, split), LSTM_TOL[name],
+                    LSTM_MEAN_TOL[name], relative=False),
+                'E gates': grouped_errors(
+                    res[1], [a[1] for a in alone],
+                    lstm_scan_residuals_grouped_plain(xw, wh, split)[1],
+                    RESIDUAL_TOL[name], RESIDUAL_MEAN_TOL[name],
+                    relative=True),
+                'F': grouped_errors(
+                    da, [lstm_bptt(res[1][s], res[2][s], dout[s], wht[s],
+                                   reverse[s]) for s in range(groups)],
+                    lstm_bptt_grouped_plain(res[1], res[2], dout, wht, split),
+                    BPTT_TOL[name], BPTT_MEAN_TOL[name], relative=True)}
+            require(torch.equal(res[0], out),
+                    f'grouped E {name} h differs from grouped B')
+            log(f'grouped lstm {name}, G={groups} (groups {split}.. '
+                f'reversed) at B={TRAIN_BATCH}, T={TRAIN_FRAMES}, '
+                f'H={HIDDEN}: ' + '; '.join(
+                    f'{k} bit for bit the per-stream launches {eq} (max '
+                    f'{s[0]:.3g}, mean {s[1]:.3g}), against the plain '
+                    f'version max {p[0]:.3g} mean {p[1]:.3g} ({p[2]:.3g} of '
+                    f'the largest)' for k, (eq, s, p) in checks.items()))
+
+            if dtype == torch.bfloat16:
+                lengths = torch.tensor([625, 600, 512, 400, 313, 200, 64, 1],
+                                       dtype=torch.int32, device='cuda')
+                masked = lstm_scan_grouped(xw, wh, split, lengths)
+                eq, s, p = grouped_errors(
+                    masked, [lstm_scan(xw[k], wh[k], reverse[k],
+                                       lengths=lengths)
+                             for k in range(groups)],
+                    lstm_scan_grouped_plain(xw, wh, split, lengths),
+                    LSTM_TOL[name], LSTM_MEAN_TOL[name], relative=False)
+                log(f'grouped lstm bf16 with lengths {lengths.tolist()}: bit '
+                    f'for bit the per-stream masked launches {eq} (max '
+                    f'{s[0]:.3g}), against the plain version max {p[0]:.3g} '
+                    f'mean {p[1]:.3g}')
+
+            # Times: the grouped launch, its G per-stream launches, the
+            # plain version, the sum of the per-stream cuDNN nn.LSTM calls
+            modules = [cudnn_lstm(i[0], i[1], i[2], dtype) for i in inputs]
+            lib_outs = [m(x)[0] for m, x in modules]
+            params = [[x] + list(m.parameters()) for m, x in modules]
+            entry = {}
+            for label, kernel, streams, plain, library, cost in (
+                    ('B', lambda: lstm_scan_grouped(xw, wh, split),
+                     lambda: [lstm_scan(xw[s], wh[s], reverse[s])
+                              for s in range(groups)],
+                     lambda: lstm_scan_grouped_plain(xw, wh, split),
+                     lambda: [m(x) for m, x in modules],
+                     scan_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype)),
+                    ('E', lambda: lstm_scan_residuals_grouped(xw, wh, split),
+                     lambda: [lstm_scan_residuals(xw[s], wh[s], reverse[s])
+                              for s in range(groups)],
+                     lambda: lstm_scan_residuals_grouped_plain(xw, wh,
+                                                               split),
+                     lambda: [m(x) for m, x in modules],
+                     scan_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype,
+                               residuals=True)),
+                    ('F', lambda: lstm_bptt_grouped(res[1], res[2], dout, wht,
+                                                    split),
+                     lambda: [lstm_bptt(res[1][s], res[2][s], dout[s],
+                                        wht[s], reverse[s])
+                              for s in range(groups)],
+                     lambda: lstm_bptt_grouped_plain(res[1], res[2], dout,
+                                                     wht, split),
+                     lambda: [torch.autograd.grad(o, p, d, retain_graph=True)
+                              for o, p, d in zip(lib_outs, params, dout)],
+                     bptt_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype))):
+                bound, bound_by = bound_ms(groups * cost[1],
+                                           groups * cost[0], peak)
+                plan, design = grouped_design(TRAIN_BATCH, groups, dtype,
+                                              residuals=label == 'E',
+                                              bptt=label == 'F')
+                entry[label] = {
+                    'ms': time_ms(kernel, reps=5),
+                    'per_stream_ms': time_ms(streams, reps=5),
+                    'plain_ms': time_ms(plain, reps=1),
+                    'library_ms': time_ms(library, reps=5),
+                    'bound_ms': bound, 'bound_by': bound_by,
+                    'max_abs_err': checks['E gates' if label == 'E' else
+                                          label][2][0],
+                    'groups': groups, 'geometry': plan}
+                log(f'grouped {label} {name}, G={groups} at B={TRAIN_BATCH}, '
+                    f'T={TRAIN_FRAMES}: one launch {entry[label]["ms"]:.3f} '
+                    f'ms against {groups} per-stream launches '
+                    f'{entry[label]["per_stream_ms"]:.3f} ms, plain '
+                    f'{entry[label]["plain_ms"]:.3f} ms, {groups} cuDNN '
+                    f'nn.LSTM {"backwards" if label == "F" else "forwards"} '
+                    f'{entry[label]["library_ms"]:.3f} ms, bound '
+                    f'{bound:.3f} ms ({bound_by}); {design} ({card})')
+            result[name] = entry
+            del modules, lib_outs, params
+            torch.cuda.empty_cache()
+
+        for groups_at in (FUSED_GROUPS, FUSED_VELOCITY_GROUPS):
+            for bptt in (False, True):
+                _, design = grouped_design(TRAIN_BATCH, groups_at,
+                                           torch.float32, residuals=not bptt,
+                                           bptt=bptt)
+                log(f'grouped {"F" if bptt else "E"} plan, G={groups_at}, '
+                    f'B={TRAIN_BATCH}, float32: {design}')
+
+        # The velocity model's plan: grouped E and F at G = 6 (three
+        # BiLSTMs, both ways), float32, 8 x 625
+        vgroups = FUSED_VELOCITY_GROUPS
+        vsplit = vgroups // 2
+        inputs = [lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES, torch.float32,
+                              seed=395 + g) for g in range(vgroups)]
+        xw = torch.stack([i[3] for i in inputs])
+        wh = torch.stack([i[4] for i in inputs])
+        wht = wh.transpose(1, 2).contiguous()
+        dout = torch.randn(vgroups, TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                           generator=torch.Generator().manual_seed(395)).cuda()
+        res = lstm_scan_residuals_grouped(xw, wh, vsplit)
+        da = lstm_bptt_grouped(res[1], res[2], dout, wht, vsplit)
+        alone = [lstm_scan_residuals(xw[s], wh[s], s >= vsplit)
+                 for s in range(vgroups)]
+        velocity = {
+            'E gates': grouped_errors(
+                res[1], [a[1] for a in alone],
+                lstm_scan_residuals_grouped_plain(xw, wh, vsplit)[1],
+                RESIDUAL_TOL['float32'], RESIDUAL_MEAN_TOL['float32'],
+                relative=True),
+            'F': grouped_errors(
+                da, [lstm_bptt(res[1][s], res[2][s], dout[s], wht[s],
+                               s >= vsplit) for s in range(vgroups)],
+                lstm_bptt_grouped_plain(res[1], res[2], dout, wht, vsplit),
+                BPTT_TOL['float32'], BPTT_MEAN_TOL['float32'],
+                relative=True)}
+        log(f'grouped lstm float32, G={vgroups} (the velocity plan) at '
+            f'B={TRAIN_BATCH}, T={TRAIN_FRAMES}: ' + '; '.join(
+                f'{k} bit for bit the per-stream launches {eq} (max '
+                f'{s[0]:.3g}), against the plain version max {p[0]:.3g} '
+                f'mean {p[1]:.3g} ({p[2]:.3g} of the largest)'
+                for k, (eq, s, p) in velocity.items()))
+        result['float32']['velocity'] = {
+            k: {'bit_for_bit': eq, 'max_abs_err': p[0]}
+            for k, (eq, s, p) in velocity.items()}
+        del inputs, xw, wh, wht, dout, res, da, alone
+        torch.cuda.empty_cache()
+
+        # The fused serving shape (phase 40): four directions of
+        # FUSED_SERVING_CLIPS clips of 60 s, bf16, against the per-stream
+        # launches and the plain version with phase 4's tolerances
+        clips = FUSED_SERVING_CLIPS
+        frames = 1 + int(CLIP_SECONDS * SAMPLE_RATE) // HOP
+        g = torch.Generator().manual_seed(391)
+        xw = (torch.randn(groups, clips, frames, 4 * HIDDEN, generator=g) *
+              0.5).cuda().to(torch.bfloat16)
+        wh = torch.stack([torch.nn.init.orthogonal_(
+            torch.empty(HIDDEN, 4 * HIDDEN), generator=g)
+            for _ in range(groups)]).cuda().to(torch.bfloat16)
+        out = lstm_scan_grouped(xw, wh, split)
+        equal, s, p = grouped_errors(
+            out, [lstm_scan(xw[k], wh[k], k >= split) for k in range(groups)],
+            lstm_scan_grouped_plain(xw, wh, split), LSTM_TOL['bfloat16'],
+            LSTM_MEAN_TOL['bfloat16'], relative=False)
+        ms = time_ms(lambda: lstm_scan_grouped(xw, wh, split), reps=3)
+        per_ms = time_ms(lambda: [lstm_scan(xw[k], wh[k], k >= split)
+                                  for k in range(groups)], reps=3)
+        flops, num_bytes = scan_cost(clips, frames, HIDDEN, torch.bfloat16)
+        bound, bound_by = bound_ms(groups * num_bytes, groups * flops,
+                                   PEAK_BF16_FLOPS)
+        plan, design = grouped_design(clips, groups, torch.bfloat16)
+        log(f'grouped B bf16 at the fused serving shape, G={groups}, '
+            f'B={clips}, T={frames}: bit for bit the per-stream launches '
+            f'{equal} (max {s[0]:.3g}), against the plain version max '
+            f'{p[0]:.3g} mean {p[1]:.3g}; one launch {ms:.3f} ms against '
+            f'{groups} per-stream launches {per_ms:.3f} ms, bound '
+            f'{bound:.3f} ms ({bound_by}); {design} ({card})')
+        result['bfloat16']['B serving'] = {
+            'ms': ms, 'per_stream_ms': per_ms, 'bound_ms': bound,
+            'bound_by': bound_by, 'bit_for_bit': equal, 'max_abs_err': p[0],
+            'clips': clips, 'groups': groups, 'geometry': plan}
+        del xw, wh, out
+        torch.cuda.empty_cache()
+
+    return result
+
+
+def parity_rows(got, ref, tol):
+    """Phase 33's rule for two sets of logits on the host: the thresholded
+    maps may differ only where the reference logit is within ``tol`` of
+    the threshold. Returns the (B, 88) rows whose maps differ, the number
+    of differing cells and the worst logit difference."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops import decode
+
+    rows, cells, worst = None, 0, 0.0
+    for key in ref:
+        a, b = got[key], ref[key]
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+        differ = (decode.threshold(decode.sigmoid(a.transpose(-1, -2))) !=
+                  decode.threshold(decode.sigmoid(b.transpose(-1, -2))))
+        require(bool((b.transpose(-1, -2)[differ].float().abs() <= tol)
+                     .all()), f'fused {key} maps differ away from the '
+                              f'threshold')
+        cells += int(differ.sum())
+        rows = differ.any(-1) if rows is None else rows | differ.any(-1)
+
+    return rows, cells, worst
+
+
+def notes_outside(rows, got, ref, profile):
+    """Every note of the pitch rows whose maps agree equal; the count of
+    notes compared."""
+
+    compared = 0
+    for b, ((p_got, i_got), (p_ref, i_ref)) in enumerate(zip(got, ref)):
+        keep_got = ~rows[b].numpy()[p_got.astype(int) - profile.low]
+        keep_ref = ~rows[b].numpy()[p_ref.astype(int) - profile.low]
+        require(np.array_equal(p_got[keep_got], p_ref[keep_ref]) and
+                np.array_equal(i_got[keep_got], i_ref[keep_ref]),
+                f'clip {b}: fused notes differ from the per-head notes')
+        compared += int(keep_ref.sum())
+
+    return compared
+
+
+def serve_fused(pipeline, requests, card):
+    """Phase 40: phase 5's bf16 piano pipeline and its fused twin on the
+    same weights, 3 requests of ``FUSED_SERVING_CLIPS`` x 60 s each: A
+    once, grouped B once and B twice (adjoin_lm) a fused dispatch; the
+    notes of the first request equal the per-head pipeline's under phase
+    33's rule (maps may differ only within ``BF16_LOGIT_TOL`` of the
+    threshold); audio-s per wall-s in turns (per-head, fused, fused,
+    per-head) and peak memory a batch. A float32 pair at
+    ``FUSED_FLOAT32_CLIPS`` clips: logits within ``LOGIT_TOL`` (PARITY.md)
+    and the notes under that rule."""
+
+    import torch
+
+    from amt_tools_tpu_torch.serving import (TranscriptionPipeline,
+                                             calibrate_activity)
+
+    model, mel = pipeline.model, pipeline.data_proc
+    profile = model.profile
+    requests = [r[:FUSED_SERVING_CLIPS] for r in requests]
+    fused = fused_twin(model).eval()
+    fused_pipeline = TranscriptionPipeline(fused, mel, capacity=CAPACITY)
+    fused_pipeline(requests[0][:8])  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    results, _ = serve_requests(fused_pipeline, requests)
+    launches = read_launches()
+    log(f'fused piano serving, {REQUESTS} requests of {FUSED_SERVING_CLIPS} '
+        f'x {CLIP_SECONDS:.0f} s: launches {launches}')
+    require(launches['stft_power'] == launches['stft_power_fft'] == REQUESTS,
+            'fused serving: A did not run once a dispatch')
+    require(launches['lstm_scan_grouped'] == REQUESTS and
+            launches['lstm_scan'] == 2 * REQUESTS,
+            'fused serving: not one grouped B and two B a dispatch')
+
+    rows, cells, worst = parity_rows(piano_logits(fused, mel, requests[0]),
+                                     piano_logits(model, mel, requests[0]),
+                                     BF16_LOGIT_TOL)
+    compared = notes_outside(rows, results[0], pipeline(requests[0]),
+                             profile)
+    log(f'fused against per-head bf16 at {FUSED_SERVING_CLIPS} clips: logits '
+        f'within {worst:.3g}; {cells} map cells differ (each within '
+        f'{BF16_LOGIT_TOL} of the threshold); notes identical in '
+        f'{88 * FUSED_SERVING_CLIPS - int(rows.sum())} of '
+        f'{88 * FUSED_SERVING_CLIPS} pitch rows, {compared} notes compared')
+    require(compared > 0, 'fused serving: no notes compared')
+
+    times = {}
+    runs = {'per-head': pipeline, 'fused': fused_pipeline}
+    for turn in ('per-head', 'fused', 'fused', 'per-head'):
+        _, elapsed = serve_requests(runs[turn], requests)
+        times.setdefault(turn, []).append(elapsed)
+    audio_seconds = REQUESTS * FUSED_SERVING_CLIPS * CLIP_SECONDS
+    rates = {turn: [audio_seconds / t for t in ts]
+             for turn, ts in times.items()}
+    peaks = {turn: batch_peaks(runs[turn], requests[:1])[0]
+             for turn in ('per-head', 'fused')}
+    log(f'audio-s per wall-s, {REQUESTS} requests of {FUSED_SERVING_CLIPS} x '
+        f'{CLIP_SECONDS:.0f} s in turns (per-head, fused, fused, per-head): '
+        f'{rates}; peak memory a batch {peaks} GB ({card})')
+
+    # Float32 at a few clips: PARITY.md's logit bound
+    model32 = piano_model(None, 40)
+    calibrate_activity(model32, mel, requests[0][:4].cpu().numpy())
+    fused32 = fused_twin(model32).eval()
+    audio32 = requests[0][:FUSED_FLOAT32_CLIPS]
+    rows32, cells32, worst32 = parity_rows(
+        piano_logits(fused32, mel, audio32),
+        piano_logits(model32, mel, audio32), LOGIT_TOL)
+    compared32 = notes_outside(
+        rows32, TranscriptionPipeline(fused32, mel, capacity=CAPACITY)(
+            audio32),
+        TranscriptionPipeline(model32, mel, capacity=CAPACITY)(audio32),
+        profile)
+    log(f'fused against per-head float32 at {FUSED_FLOAT32_CLIPS} clips: '
+        f'logits within {worst32:.3g} (tolerance {LOGIT_TOL}); {cells32} map '
+        f'cells differ; {compared32} notes compared')
+    require(worst32 <= LOGIT_TOL, 'fused float32 logits differ from the '
+                                  'per-head logits')
+    del model32, fused32
+    torch.cuda.empty_cache()
+
+    return {'launches': launches, 'rates': rates, 'peak_gb': peaks,
+            'logit_err_bf16': worst, 'logit_err_float32': worst32,
+            'pipeline': fused_pipeline, 'requests': requests}
+
+
+def split_heads(fused_store, heads):
+    """Pre-ReLU values of the grouped stack, by per-head name: the
+    head-blocked channels of ``grouped_am.BatchNorm_<i>`` become
+    ``<head>_am.BatchNorm_<i>``."""
+
+    split = {}
+    for name, value in fused_store.items():
+        layer = name.split('.', 1)[1]
+        for head, part in zip(heads, value.chunk(len(heads), dim=1)):
+            split[f'{head}_am.{layer}'] = part
+
+    return split
+
+
+def first_step(model, batch):
+    """One float32 training step's losses, gradients and pre-ReLU values
+    (no optimizer step)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import run_on_batch
+    from amt_tools_tpu_torch.train import _place_batch, step_generator
+
+    pre_relu = {}
+    hooks = record_pre_relu(model, pre_relu)
+    output = run_on_batch(model, _place_batch(batch, torch.device('cuda')),
+                          train=True, generator=step_generator(0, 0, 'cuda'))
+    for hook in hooks:
+        hook.remove()
+    loss = output[tools.KEY_LOSS]
+    loss[tools.KEY_LOSS_TOTAL].backward()
+
+    return ({k: v.item() for k, v in loss.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()}, pre_relu)
+
+
+def train_fused(batch, card):
+    """Phase 41: O&F2 complexity 3, float32, 8 x 625, Adam, per-head and
+    fused on the same weights. The first step without dropout: losses
+    within ``LOSS_TOL`` and gradients under phase 12b's rule (the fused
+    gradients mapped to per-head names by the converters, the ReLU and
+    max-pool decisions the layouts took differently counted per stack).
+    Then ``train()`` with dropout, ``FUSED_TRAIN_STEPS`` steps a turn
+    (per-head, fused_lms, fused, fused, fused_lms, per-head; ``fused_lms``
+    is the grouped language models under per-head acoustic stacks): E and
+    F six times a step per-head; grouped E and F once and E and F twice a
+    step with either fused layout; steps/s; and E + F's device ms a step
+    at the step's shapes by CUDA events."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import (OnsetsFrames2,
+                                            unfuse_acoustic_variables,
+                                            unfuse_lm_variables)
+    from amt_tools_tpu_torch.ops.lstm_kernel import (
+        lstm_bptt, lstm_bptt_grouped, lstm_scan_residuals,
+        lstm_scan_residuals_grouped)
+    from amt_tools_tpu_torch.train import train
+
+    tools.use_exact_fp32()
+    per_head = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                             model_complexity=3, dropout=False,
+                             generator=torch.Generator().manual_seed(41))
+    per_head = per_head.cuda()
+    fused = fused_twin(per_head)
+    heads, streams = per_head.head_names, per_head._fused_lm_streams
+
+    (ref_loss, ref_grads, ref_pre) = first_step(per_head, batch)
+    (got_loss, got_grads, got_pre) = first_step(fused, batch)
+    got_grads = unfuse_lm_variables(unfuse_acoustic_variables(
+        got_grads, heads), streams)
+    got_pre = split_heads(got_pre, heads)
+    loss_err = max(abs(got_loss[k] - ref_loss[k]) / abs(ref_loss[k])
+                   for k in ref_loss)
+    flips = {conv_block(name): decision_flips(ref, got_pre[name],
+                                              pooled=conv_block(name)[1] > 0)
+             for name, ref in ref_pre.items()}
+    ratios = []
+    for name, ref in ref_grads.items():
+        module = name.rsplit('.', 1)[0]
+        scale = max(g.abs().max().item() for n, g in ref_grads.items()
+                    if n.rsplit('.', 1)[0] == module)
+        err = (got_grads[name] - ref).abs().max().item() / scale
+        tol = GRAD_TOL
+        block = conv_block(name)
+        if block is not None and any(
+                sum(counts) for (stack, later), counts in flips.items()
+                if stack == block[0] and later >= block[1]):
+            tol = CONV_BLOCK_GRAD_TOL
+        ratios.append((err / tol, err, name))
+    ratio, err, worst_name = max(ratios)
+    log(f'first float32 step, fused against per-head (no dropout): losses '
+        f'within {loss_err:.3g} (relative; tolerance {LOSS_TOL}); differing '
+        f'ReLU/max-pool decisions by stack and block '
+        f'{ {f"{s} {i}": c for (s, i), c in sorted(flips.items())} }; '
+        f'gradients at most {ratio:.3g} of their tolerance (worst '
+        f'{worst_name}, {err:.3g} of its module\'s largest)')
+    require(loss_err <= LOSS_TOL, 'fused training losses differ from the '
+                                  'per-head losses')
+    require(ratio <= 1.0, 'fused training gradients differ from the '
+                          'per-head gradients')
+    del fused, per_head, ref_pre, got_pre
+    torch.cuda.empty_cache()
+
+    # Steps/s in turns through train(), dropout on: per-head, the grouped
+    # language models alone (fused_lms), and both fused layouts
+    loader = FixedLoader([batch])
+    models = {'per-head': piano_model(None, 42).cuda()}
+    models['fused_lms'] = fused_twin(models['per-head'], fused_heads=False)
+    models['fused'] = fused_twin(models['per-head'])
+    rates, launches = {}, {}
+    for turn in ('per-head', 'fused_lms', 'fused', 'fused', 'fused_lms',
+                 'per-head'):
+        model = models[turn]
+        optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        result = train(model, loader, optimizer, FUSED_TRAIN_STEPS,
+                       log_dir=None, seed=0)
+        torch.cuda.synchronize()
+        rates.setdefault(turn, []).append(
+            result['step'] / (time.perf_counter() - start))
+        launches[turn] = read_launches()
+        require(all(np.isfinite(v).all() for v in result['losses'].values()),
+                f'{turn} training: a loss is not finite')
+    steps = FUSED_TRAIN_STEPS
+    require(launches['per-head']['lstm_scan_residuals'] == 6 * steps and
+            launches['per-head']['lstm_bptt'] == 6 * steps,
+            'per-head training: E and F not six times a step')
+    for turn in ('fused_lms', 'fused'):
+        counts = launches[turn]
+        require(counts['lstm_scan_residuals_grouped'] == steps and
+                counts['lstm_bptt_grouped'] == steps and
+                counts['lstm_scan_residuals'] == 2 * steps and
+                counts['lstm_bptt'] == 2 * steps and
+                counts['lstm_scan'] == 0,
+                f'{turn} training: not grouped E and F once and E and F '
+                f'twice a step')
+    log(f'training O&F2 complexity 3 float32, {TRAIN_BATCH} x '
+        f'{TRAIN_FRAMES}, Adam, {steps} steps a turn (per-head, fused_lms, '
+        f'fused, fused, fused_lms, per-head): steps/s {rates} ({card}); '
+        f'launches a run {launches}')
+
+    # E + F device ms a step at the step's shapes: the grouped onset and
+    # offset BiLSTMs plus adjoin_lm's two directions, against six and six
+    def shapes(groups, width):
+        g = torch.Generator().manual_seed(410 + groups)
+        xw = torch.randn(groups, TRAIN_BATCH, TRAIN_FRAMES, 4 * HIDDEN,
+                         generator=g).cuda() * 0.5
+        wh = torch.randn(groups, HIDDEN, 4 * HIDDEN, generator=g).cuda() * \
+            width
+        return xw, wh, wh.transpose(1, 2).contiguous(), torch.randn(
+            groups, TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, generator=g).cuda()
+
+    xw, wh, wht, dout = shapes(6, 0.05)
+    res = [lstm_scan_residuals(xw[s], wh[s], s % 2 == 1) for s in range(6)]
+    grouped_res = lstm_scan_residuals_grouped(xw[:4], wh[:4], 2)
+
+    def per_head_step():
+        for s in range(6):
+            lstm_scan_residuals(xw[s], wh[s], s % 2 == 1)
+            lstm_bptt(res[s][1], res[s][2], dout[s], wht[s], s % 2 == 1)
+
+    def fused_step():
+        lstm_scan_residuals_grouped(xw[:4], wh[:4], 2)
+        lstm_bptt_grouped(grouped_res[1], grouped_res[2], dout[:4], wht[:4],
+                          2)
+        for s in (4, 5):
+            lstm_scan_residuals(xw[s], wh[s], s % 2 == 1)
+            lstm_bptt(res[s][1], res[s][2], dout[s], wht[s], s % 2 == 1)
+
+    e_f = {}
+    for turn in ('per-head', 'fused', 'fused', 'per-head'):
+        run = per_head_step if turn == 'per-head' else fused_step
+        e_f.setdefault(turn, []).append(time_ms(run, reps=5))
+    log(f'E + F device ms a float32 step at {TRAIN_BATCH} x {TRAIN_FRAMES} '
+        f'(CUDA events, in turns): {e_f} ({card})')
+
+    return {'rates': rates, 'launches': launches, 'e_f_ms': e_f,
+            'loss_err': loss_err, 'grad_ratio': ratio,
+            'models': models, 'loader': loader}
+
+
+def train_fused_velocity(batch, card):
+    """Phase 42: the velocity model (G = 6: three BiLSTMs, both ways),
+    per-head and fused on the same weights, ``FUSED_TRAIN_STEPS`` steps of
+    ``train()`` a turn (per-head, fused, fused, per-head): grouped E and F
+    once a step at 4 rows a cluster (12 clusters), E and F twice;
+    steps/s."""
+
+    import torch
+
+    from amt_tools_tpu_torch.train import train
+
+    per_head = velocity_model(42).cuda()
+    models = {'per-head': per_head, 'fused': fused_twin(per_head)}
+    rates, launches = {}, {}
+    for turn in ('per-head', 'fused', 'fused', 'per-head'):
+        model = models[turn]
+        optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        result = train(model, FixedLoader([batch]), optimizer,
+                       FUSED_TRAIN_STEPS, log_dir=None, seed=0)
+        torch.cuda.synchronize()
+        rates.setdefault(turn, []).append(
+            result['step'] / (time.perf_counter() - start))
+        launches[turn] = read_launches()
+    counts = launches['fused']
+    require(counts['lstm_scan_residuals_grouped'] == FUSED_TRAIN_STEPS and
+            counts['lstm_bptt_grouped'] == FUSED_TRAIN_STEPS and
+            counts['lstm_scan_residuals'] == 2 * FUSED_TRAIN_STEPS,
+            'fused velocity training: not grouped E and F once a step')
+    require(launches['per-head']['lstm_scan_residuals'] ==
+            8 * FUSED_TRAIN_STEPS, 'velocity training: E not 8 times a step')
+    plans = {}
+    for kernel, bptt in (('E', False), ('F', True)):
+        plans[kernel], design = grouped_design(
+            TRAIN_BATCH, FUSED_VELOCITY_GROUPS, torch.float32,
+            residuals=not bptt, bptt=bptt)
+        log(f'fused velocity step, grouped {kernel}: {design}')
+    log(f'velocity training float32, {FUSED_TRAIN_STEPS} steps a turn '
+        f'(per-head, fused, fused, per-head): steps/s {rates} ({card}); '
+        f'launches {launches}')
+
+    return {'rates': rates, 'launches': launches, 'plans': plans}
+
+
+def fused_artifact(serving, card, directory):
+    """Phase 43: the fused bf16 pipeline of phase 40 exported
+    (``export.save_serving``) with its requests' batch as the example, and
+    loaded, with a symbolic batch: notes equal to the live fused
+    pipeline's, A once, grouped B once and B twice a call; the same
+    artifact at ``ARTIFACT_SYMBOLIC_CLIPS`` clips."""
+
+    import torch
+
+    from amt_tools_tpu_torch import export
+
+    pipeline, requests = serving['pipeline'], serving['requests']
+    path = os.path.join(directory, 'piano_fused_bf16.amtx')
+    start = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        meta = export.save_serving(path, pipeline, requests[0].shape[-1],
+                                   batch_size=requests[0].shape[0])
+    export_s = time.perf_counter() - start
+    for warning in caught:
+        log(f'fused export: {str(warning.message)[:300]}')
+    artifact = export.load_serving(path)
+    artifact(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    frozen = artifact(requests[0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    equal, clips = notes_equal(frozen, pipeline(requests[0]))
+    log(f'fused serving artifact: exported in {export_s:.1f} s, symbolic '
+        f'batch {meta["symbolic_batch"]}; at {clips} clips notes equal to '
+        f'the live fused pipeline\'s in {equal}; launches a call {launches} '
+        f'({card})')
+    require(equal == clips, 'the fused artifact\'s notes differ from the '
+                            'live fused pipeline\'s')
+    require(launches['stft_power'] == 1 and
+            launches['lstm_scan_grouped'] == 1 and
+            launches['lstm_scan'] == 2,
+            'the fused artifact did not run A once, grouped B once and B '
+            'twice a call')
+    require(meta['symbolic_batch'], 'the fused artifact did not export '
+                                    'with a symbolic batch')
+    sub = requests[0][:ARTIFACT_SYMBOLIC_CLIPS]
+    equal_sub, _ = notes_equal(artifact(sub), pipeline(sub))
+    require(equal_sub == ARTIFACT_SYMBOLIC_CLIPS,
+            f'the fused artifact at {ARTIFACT_SYMBOLIC_CLIPS} clips differs '
+            f'from the live fused pipeline')
+    del artifact
+    torch.cuda.empty_cache()
+
+    return {'launches': launches, 'export_s': export_s,
+            'symbolic_batch': meta['symbolic_batch']}
+
+
+def fused_phases(pipeline, requests, velocity_batch, card):
+    """Phases 39-43. Returns the readings and the profiler entries of one
+    fused piano batch and one fused training step."""
+
+    import tempfile
+
+    import torch
+
+    from amt_tools_tpu_torch.train import (_place_batch, make_train_step,
+                                           step_generator)
+
+    start = time.perf_counter()
+    grouped = check_grouped_lstm(card)
+    torch.cuda.empty_cache()
+    serving = serve_fused(pipeline, requests, card)
+    torch.cuda.empty_cache()
+    training = train_fused(velocity_batch, card)
+    torch.cuda.empty_cache()
+    velocity = train_fused_velocity(velocity_batch, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='_chip_smoke_deploy_',
+                                     dir=ROOT) as directory:
+        artifact = fused_artifact(serving, card, directory)
+    log(f'phases 39-43 in {time.perf_counter() - start:.1f} s')
+
+    model = training['models']['fused']
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=LEARNING_RATE))
+    device_batch = _place_batch(velocity_batch, torch.device('cuda'))
+    step(device_batch, step_generator(0, 0, 'cuda'))
+    fused_pipeline, fused_requests = serving['pipeline'], serving['requests']
+    entries = [
+        (f'fused piano batch of {FUSED_SERVING_CLIPS} clips',
+         lambda: fused_pipeline(fused_requests[0]),
+         ('stft_power_fft_kernel', 'lstm_scan_kernel')),
+        (f'fused float32 training step of {TRAIN_BATCH} x {TRAIN_FRAMES} '
+         f'frames', lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+         ('lstm_scan_kernel', 'lstm_bptt_kernel'))]
+    del serving['pipeline'], serving['requests'], training['models']
+
+    return {'grouped': grouped, 'serving': serving, 'training': training,
+            'velocity': velocity, 'artifact': artifact}, entries
+
+
 def main():
     import tempfile
 
@@ -5504,6 +6339,15 @@ def main():
                         'without_validation': tab_rates[False]},
                     'streaming': streaming}))
 
+    fused, fused_entries = fused_phases(*piano_live, velocity_batch, card)
+    torch.cuda.empty_cache()
+    log(json.dumps({'fused_serving_audio_s_per_wall_s':
+                    fused['serving']['rates'],
+                    'fused_serving_peak_gb': fused['serving']['peak_gb'],
+                    'fused_training_steps_per_s': fused['training']['rates'],
+                    'fused_training_e_f_ms': fused['training']['e_f_ms'],
+                    'fused_velocity_steps_per_s': fused['velocity']['rates']}))
+
     with tempfile.TemporaryDirectory(prefix='_chip_smoke_corpora_',
                                      dir=ROOT) as root:
         start = time.perf_counter()
@@ -5534,7 +6378,9 @@ def main():
 
         profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
                          velocity_step, online_step, tab_step, stream_frames,
-                         of2_step, gset_step], os.path.join(root, 'trace'))
+                         of2_step, gset_step, *fused_entries],
+                        os.path.join(root, 'trace'))
+        del fused_entries
     ops, artifact, streaming, measured = deployment_phases(
         *piano_live, train_batch, card)
     # The profiled batches hold their pipelines and requests on the card
@@ -5582,6 +6428,28 @@ def main():
     for entry in (residuals, bptt):
         entry['launches_synthetic_demo'] = examples['synthetic_demo'][
             entry['name']]
+
+    # The fused layouts (phases 39-43): the grouped launches of B, E and F,
+    # their times (one launch for G = 4 sequences) and counts
+    grouped = fused['grouped']
+    lstm['grouped'] = {'float32': grouped['float32']['B'],
+                       'bfloat16': grouped['bfloat16']['B'],
+                       'bfloat16_serving': grouped['bfloat16']['B serving']}
+    lstm['launches_grouped_fused_serving'] = fused['serving']['launches'][
+        'lstm_scan_grouped']
+    lstm['launches_fused_serving'] = fused['serving']['launches']['lstm_scan']
+    lstm['launches_grouped_fused_artifact'] = fused['artifact']['launches'][
+        'lstm_scan_grouped']
+    for entry, key in ((residuals, 'E'), (bptt, 'F')):
+        name = entry['name']
+        entry['grouped'] = grouped['float32'][key]
+        for run, counts in (('fused', fused['training']['launches']['fused']),
+                            ('fused_velocity',
+                             fused['velocity']['launches']['fused'])):
+            entry[f'launches_grouped_{run}_per_step'] = (
+                counts[f'{name}_grouped'] / FUSED_TRAIN_STEPS)
+            entry[f'launches_{run}_per_step'] = (counts[name] /
+                                                  FUSED_TRAIN_STEPS)
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,

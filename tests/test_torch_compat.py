@@ -249,6 +249,26 @@ def test_port_rejects_velocity_model():
     assert mine == theirs
 
 
+@pytest.mark.parametrize('flag,word', [('fused_heads',
+                                        'fuse_acoustic_variables'),
+                                       ('fused_lms', 'fuse_lm_variables')])
+def test_port_rejects_fused_models(flag, word):
+    """A fused target is refused with JAX's message: the reference stores
+    per-head stacks, which the converters then fuse."""
+
+    model = OnsetsFrames2(dim_in=DIM_IN, profile=tools.PianoProfile(),
+                          model_complexity=2, **{flag: True})
+    jax_model = JaxOnsetsFrames2(dim_in=DIM_IN, profile=jtools.PianoProfile(),
+                                 model_complexity=2, **{flag: True})
+    reference = _reference(PAIRS[1][1])
+
+    mine, theirs = _refusal(
+        lambda: compat.port_reference_checkpoint(model, reference),
+        lambda: jax_compat.port_reference_checkpoint(jax_model, reference))
+    assert word in mine
+    assert mine == theirs
+
+
 def test_port_rejects_unknown_model():
     mine, theirs = _refusal(
         lambda: compat.port_reference_checkpoint(

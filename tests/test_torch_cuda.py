@@ -44,6 +44,12 @@ Tolerances:
   features (``amt_tools_tpu/ops/pallas_stft.py:30``) and 2e-4 on the CQT
   ones (``amt_tools_tpu/features/cqt.py:29``), float32 sums in another
   order; features read back from the npz cache bit for bit;
+- grouped launches of B, E and F (G sequences in one launch): bit for bit
+  the G per-stream launches (a row's arithmetic does not depend on the
+  cluster that holds it or on the rows beside it), and each against its
+  plain version with the ungrouped kernel's tolerances; dW_h of the
+  grouped gradient, one batched matmul, within 1e-5 of its largest value
+  of the per-stream matmuls (the same sums, maybe blocked otherwise);
 - BPTT (kernel F): da and dW_h = h_prev^T da within 1e-4 (float32) or
   5e-4 (bf16) of their largest value, and 1e-5 or 1e-4 of their mean
   magnitude on the mean, on residuals that both versions share. In bf16 a
@@ -64,7 +70,7 @@ from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.models import run_on_batch as models_run_on_batch
 from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
-from amt_tools_tpu_torch.ops.lstm import FastLSTM
+from amt_tools_tpu_torch.ops.lstm import FastLSTM, GroupedBiLSTM
 from amt_tools_tpu_torch.ops import (cuda_build, decode, lstm_kernel, qconv,
                                      spectral)
 from amt_tools_tpu_torch.ops.cqt_kernel import (ROUTES, cqt_mag,
@@ -82,6 +88,10 @@ from amt_tools_tpu_torch.ops.lstm_kernel import (_shift_prev, bptt_geometry,
                                                  scan_geometry,
                                                  scan_launch_plan,
                                                  scan_max_rows, scan_resident)
+from amt_tools_tpu_torch.ops.lstm_kernel import (
+    cluster_plan, lstm_bptt_grouped, lstm_bptt_grouped_plain,
+    lstm_scan_grouped, lstm_scan_grouped_grad, lstm_scan_grouped_plain,
+    lstm_scan_residuals_grouped, lstm_scan_residuals_grouped_plain)
 from amt_tools_tpu_torch.ops.stft_kernel import (stft_power, stft_power_plain,
                                                  stft_route)
 from amt_tools_tpu_torch.serving import (TablaturePipeline,
@@ -1160,3 +1170,165 @@ def test_audio_file_stream_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert streams[1].query_finished()
     assert frames == 1 + len(streams[0].audio) // 512
     assert stft_power.launches == launches + frames
+
+
+# Grouped launches (the fused_lms layout): G sequences with their own W_h in
+# one launch of B, E or F, the groups from reverse_from on reversed. The
+# velocity model's six directions at the training batch, the O&F2 four at a
+# ragged T, a small ragged batch, and a streamed W_h slice (H = 512)
+GROUPED_SHAPES = [(4, 8, 625, 256), (6, 8, 37, 256), (4, 5, 37, 64),
+                  (2, 3, 300, 512)]
+
+
+def _grouped_inputs(groups, batch, frames, hidden, dtype, device, seed=5):
+    g = torch.Generator().manual_seed(seed + groups * hidden)
+    xw = torch.randn(groups, batch, frames, 4 * hidden, generator=g) * 0.5
+    w_h = torch.stack([torch.nn.init.orthogonal_(
+        torch.empty(hidden, 4 * hidden), generator=g) for _ in range(groups)])
+    dout = torch.randn(groups, batch, frames, hidden, generator=g)
+    return xw.to(device, dtype), w_h.to(device, dtype), dout.to(device, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', GROUPED_SHAPES)
+def test_grouped_lstm_kernels_equal_per_stream_launches(cuda, dtype, shape):
+    """Grouped B, E and F, one launch each, bit for bit the per-stream
+    launches of the ungrouped ops."""
+
+    groups = shape[0]
+    split = groups // 2
+    xw, w_h, dout = _grouped_inputs(*shape, dtype, cuda)
+    w_h_t = w_h.transpose(1, 2).contiguous()
+
+    counts = (lstm_scan_grouped.launches,
+              lstm_scan_residuals_grouped.launches,
+              lstm_bptt_grouped.launches)
+    out = lstm_scan_grouped(xw, w_h, split)
+    res = lstm_scan_residuals_grouped(xw, w_h, split)
+    da = lstm_bptt_grouped(res[1], res[2], dout, w_h_t, split)
+    torch.cuda.synchronize()
+    assert (lstm_scan_grouped.launches, lstm_scan_residuals_grouped.launches,
+            lstm_bptt_grouped.launches) == tuple(c + 1 for c in counts)
+
+    assert torch.equal(res[0], out)
+    for g in range(groups):
+        reverse = g >= split
+        assert torch.equal(out[g], lstm_scan(xw[g], w_h[g], reverse)), g
+        alone = lstm_scan_residuals(xw[g], w_h[g], reverse)
+        for got, want in zip(res, alone):
+            assert torch.equal(got[g], want), g
+        assert torch.equal(da[g], lstm_bptt(alone[1], alone[2], dout[g],
+                                            w_h_t[g], reverse)), g
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_grouped_lstm_kernels_match_plain(cuda, dtype):
+    xw, w_h, dout = _grouped_inputs(4, 3, 37, 64, dtype, cuda)
+    w_h_t = w_h.transpose(1, 2).contiguous()
+
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    diff = (lstm_scan_grouped(xw, w_h, 2).float() -
+            lstm_scan_grouped_plain(xw, w_h, 2).float()).abs()
+    assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+
+    got = lstm_scan_residuals_grouped(xw, w_h, 2)
+    ref = lstm_scan_residuals_grouped_plain(xw, w_h, 2)
+    rel, mean_atol = RESIDUAL_TOL[dtype]
+    for a, b in zip(got[1:], ref[1:]):
+        diff = (a - b).abs()
+        assert diff.max().item() <= rel * b.abs().max().item()
+        assert diff.mean().item() <= mean_atol
+
+    # On residuals both versions share
+    da = lstm_bptt_grouped(ref[1], ref[2], dout, w_h_t, 2)
+    want = lstm_bptt_grouped_plain(ref[1], ref[2], dout, w_h_t, 2)
+    rel, mean_rel = BPTT_TOL[dtype]
+    diff = (da - want).abs()
+    assert diff.max().item() <= rel * want.abs().max().item()
+    assert diff.mean().item() <= mean_rel * want.abs().mean().item()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_masked_grouped_lstm_equals_per_stream(cuda, dtype):
+    """Grouped B with the lengths every group shares, bit for bit the
+    per-stream masked launches; counted as masked."""
+
+    xw, w_h, _ = _grouped_inputs(4, 6, 300, 256, dtype, cuda)
+    lengths = torch.tensor([0, 1, 300, 17, 250, 299], device=cuda)
+
+    masked = lstm_scan_grouped.masked_launches
+    got = lstm_scan_grouped(xw, w_h, 2, lengths)
+    torch.cuda.synchronize()
+    assert lstm_scan_grouped.masked_launches == masked + 1
+    for g in range(4):
+        assert torch.equal(got[g], lstm_scan(xw[g], w_h[g], g >= 2,
+                                             lengths=lengths)), g
+
+
+def test_grouped_lstm_grad_equals_per_stream(cuda):
+    """The grouped Function (grouped E forward, grouped F backward) against
+    the per-stream Function: outputs and d(xw) bit for bit, dW_h within
+    1e-5 of its largest value."""
+
+    xw, w_h, dout = _grouped_inputs(4, 3, 37, 64, torch.float32, cuda)
+    xw.requires_grad_()
+    w_h.requires_grad_()
+    out = lstm_scan_grouped_grad(xw, w_h, 2)
+    out.backward(dout)
+    got = out.detach(), xw.grad.clone(), w_h.grad.clone()
+
+    xw.grad = w_h.grad = None
+    ref = torch.stack([lstm_scan_grad(xw[g], w_h[g], g >= 2)
+                       for g in range(4)])
+    ref.backward(dout)
+    assert torch.equal(got[0], ref.detach())
+    assert torch.equal(got[1], xw.grad)
+    assert ((got[2] - w_h.grad).abs().max().item() <=
+            1e-5 * w_h.grad.abs().max().item())
+
+
+@pytest.mark.parametrize('hidden', [24, 256])
+def test_grouped_bilstm_on_the_card_matches_the_cpu(cuda, hidden):
+    """The layer at a width the kernels take and at one they run zero-
+    padded: one grouped B in eval, one grouped E and one grouped F in a
+    backward; card against CPU within 1e-4 (outputs) and 1e-4 of the
+    largest value (gradients)."""
+
+    g = torch.Generator().manual_seed(hidden)
+    layer = GroupedBiLSTM(40, hidden, streams=3, generator=g)
+    on_card = copy.deepcopy(layer).to(cuda)
+    x = torch.randn(3, 4, 37, 40, generator=g)
+
+    launches = lstm_scan_grouped.launches
+    with torch.no_grad():
+        got = on_card(x.to(cuda))
+    assert lstm_scan_grouped.launches == launches + 1
+    torch.testing.assert_close(got.cpu(), layer(x).detach(), rtol=0,
+                               atol=1e-4)
+
+    counts = (lstm_scan_residuals_grouped.launches,
+              lstm_bptt_grouped.launches)
+    on_card(x.to(cuda)).square().sum().backward()
+    layer(x).square().sum().backward()
+    assert (lstm_scan_residuals_grouped.launches,
+            lstm_bptt_grouped.launches) == tuple(c + 1 for c in counts)
+    for name, param in on_card.named_parameters():
+        ref = dict(layer.named_parameters())[name].grad
+        assert ((param.grad.cpu() - ref).abs().max().item() <=
+                1e-4 * ref.abs().max().item()), name
+
+
+def test_grouped_launch_plans_on_the_card(cuda):
+    """The grouped plans the fused models launch, from the card's own count
+    of clusters: one wave where rows allow it."""
+
+    for kernel_plan in (scan_launch_plan, bptt_launch_plan):
+        for groups, batch in ((4, 8), (6, 8), (4, 128)):
+            plan = kernel_plan(batch, 256, torch.float32, cuda, groups=groups)
+            kernel = 'scan' if kernel_plan is scan_launch_plan else 'bptt'
+            assert plan == cluster_plan(batch, 256, torch.float32,
+                                        plan['active_clusters'], kernel,
+                                        groups)
+            if groups * -(-batch // plan['max_rows']) <= plan['active_clusters']:
+                assert plan['waves'] == 1

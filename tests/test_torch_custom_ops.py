@@ -1,6 +1,7 @@
 """Kernels A-F as custom ops of ``torch.ops.amt_tools_tpu_torch``, on the CPU.
 
-Each op (kernel B with its masked and carried schemas) passes
+Each op (kernel B with its masked and carried schemas, and the grouped
+launches of B, E and F) passes
 ``torch.library.opcheck`` (schema, fake implementation against the real
 one, autograd registration, a trace with symbolic shapes), equals its plain
 version bit for bit, survives ``torch.export`` save and load inside a tiny
@@ -101,6 +102,30 @@ def _cases():
              lambda g=gates, c=c_seq, d=dout, w=wht:
              lstm_kernel.lstm_bptt_plain(g, c, d, w)),
         ]
+        # Three groups, the last reversed
+        gxw = _tensor(rng, 3, 3, FRAMES, 4 * HIDDEN, scale=0.5, dtype=dtype)
+        gwh = _tensor(rng, 3, HIDDEN, 4 * HIDDEN, scale=0.2, dtype=dtype)
+        _, ggates, gc = lstm_kernel.lstm_scan_residuals_grouped_plain(
+            gxw, gwh, 2)
+        gdout = _tensor(rng, 3, 3, FRAMES, HIDDEN, scale=0.1, dtype=dtype)
+        gwht = gwh.transpose(1, 2).contiguous()
+        cases += [
+            (f'B {name} grouped', lstm_kernel.lstm_scan_grouped_op,
+             (gxw, gwh, 2, None),
+             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_grouped_plain(x, w, 2)),
+            (f'B {name} grouped masked', lstm_kernel.lstm_scan_grouped_op,
+             (gxw, gwh, 2, lengths),
+             lambda x=gxw, w=gwh, n=lengths:
+             lstm_kernel.lstm_scan_grouped_plain(x, w, 2, n)),
+            (f'E {name} grouped', lstm_kernel.lstm_scan_residuals_grouped_op,
+             (gxw, gwh, 2),
+             lambda x=gxw, w=gwh:
+             lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2)),
+            (f'F {name} grouped', lstm_kernel.lstm_bptt_grouped_op,
+             (ggates, gc, gdout, gwht, 2),
+             lambda g=ggates, c=gc, d=gdout, w=gwht:
+             lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2)),
+        ]
 
     return cases
 
@@ -194,14 +219,19 @@ def _cost(label, args):
         audio, stack, supports, bins, hop, _ = args
         return cqt_kernel.cost(*audio.shape, hop, stack, supports, bins)
     xw = args[0]
+    # a grouped launch costs its groups times one sequence's
+    groups = xw.shape[0] if 'grouped' in label else 1
+    batch, frames, four_h = xw.shape[-3:]
     if label.startswith('F'):
-        return lstm_kernel.bptt_cost(xw.shape[0], xw.shape[1],
-                                     xw.shape[2] // 4, args[2].dtype)
-    lengths = args[3] if label.startswith('B') else None
-    return lstm_kernel.scan_cost(
-        xw.shape[0], xw.shape[1], xw.shape[2] // 4, xw.dtype,
-        residuals=label.startswith('E'), carried='carried' in label,
-        steps=None if lengths is None else int(lengths.sum()))
+        cost = lstm_kernel.bptt_cost(batch, frames, four_h // 4,
+                                     args[2].dtype)
+    else:
+        lengths = args[3] if label.startswith('B') else None
+        cost = lstm_kernel.scan_cost(
+            batch, frames, four_h // 4, xw.dtype,
+            residuals=label.startswith('E'), carried='carried' in label,
+            steps=None if lengths is None else int(lengths.sum()))
+    return groups * cost[0], groups * cost[1]
 
 
 @pytest.mark.parametrize('case', CASES, ids=IDS)
@@ -268,6 +298,9 @@ def test_fake_implementations_launch_and_count_nothing():
 
     wrappers = (stft_kernel.stft_power, lstm_kernel.lstm_scan,
                 lstm_kernel.lstm_scan_residuals, lstm_kernel.lstm_bptt,
+                lstm_kernel.lstm_scan_grouped,
+                lstm_kernel.lstm_scan_residuals_grouped,
+                lstm_kernel.lstm_bptt_grouped,
                 cqt_kernel.cqt_mag, cqt_kernel.cqt_mag_grouped)
     before = [w.launches for w in wrappers]
     for _, op, args, plain in CASES:

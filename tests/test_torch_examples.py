@@ -209,6 +209,21 @@ def test_synthetic_recipes_run(script, tmp_path, monkeypatch):
     assert 'Final Results' in (run / 'metrics.json').read_text()
 
 
+def test_synthetic_demo_passes_fused_lms(tmp_path, monkeypatch):
+    """``fused_lms`` reaches the model as in the JAX script: the velocity
+    model trains its three language models as one grouped BiLSTM, and V1
+    refuses the flag."""
+
+    run = _run_paper('synthetic_demo.py', tmp_path,
+                     SYNTHETIC + ['estimate_velocity=True', 'fused_lms=True'],
+                     monkeypatch)
+    assert 'Final Results' in (run / 'metrics.json').read_text()
+
+    with pytest.raises(ValueError, match='fused_lms'):
+        _run_paper('synthetic_demo.py', tmp_path / 'v1',
+                   SYNTHETIC + ['fused_lms=True'], monkeypatch)
+
+
 @pytest.fixture(scope='module')
 def corpora(tmp_path_factory):
     base = tmp_path_factory.mktemp('corpora')

@@ -366,3 +366,40 @@ def test_platforms_must_name_the_pipeline_device(served):
 
     with pytest.raises(ValueError, match='platforms'):
         export_serving(pipeline, audio.shape[-1], platforms=['cuda'])
+
+
+def test_fused_pipeline_exports(served):
+    """A fused O&F2 (``fused_heads``, ``fused_lms``; the served variables
+    converted) exports through ``export_serving`` with the grouped kernel
+    B op inside the program, and its artifact gives the live fused
+    pipeline's notes and buffers bit for bit."""
+
+    from amt_tools_tpu_torch.models import (fuse_acoustic_variables,
+                                            fuse_lm_variables)
+
+    audio, variables, _, _, _ = served
+    per_head = _port_model(variables)
+    model = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                          model_complexity=2, fused_heads=True,
+                          fused_lms=True)
+    model.load_state_dict(fuse_lm_variables(
+        fuse_acoustic_variables(per_head.state_dict(), model.head_names),
+        model._fused_lm_streams))
+    pipeline = TranscriptionPipeline(model, MelSpec(n_mels=N_MELS),
+                                     capacity=256, device='cpu')
+
+    data = export_serving(pipeline, audio.shape[-1], batch_size=4)
+    with zipfile.ZipFile(io.BytesIO(data)) as zf:
+        program = torch.export.load(io.BytesIO(zf.read('module.bin')))
+    targets = {str(node.target) for node in program.graph.nodes}
+    assert 'amt_tools_tpu_torch.lstm_scan_grouped.default' in targets
+    assert 'amt_tools_tpu_torch.lstm_scan.default' in targets  # adjoin_lm
+
+    artifact = load_serving(data)
+    live = pipeline(audio)
+    assert any(len(p) for p, _ in live), 'probe produced no notes'
+    _assert_same_notes(artifact(audio), live)
+    buffers = artifact._module(torch.from_numpy(audio))
+    for got, want in zip(buffers, pipeline._decode(torch.from_numpy(audio),
+                                                   256)):
+        assert torch.equal(got, want)

@@ -14,8 +14,11 @@ SGD step of O&F (V1) equals JAX's single-device step (dropout off; loss
 ``rtol=2e-5``, parameters ``rtol=1e-4, atol=1e-6``, the tolerances of
 ``tests/test_tensor_parallel.py``) and the port's one-process step with
 BatchNorm and dropout on (loss ``rtol=1e-5``, parameters and statistics
-``atol=rtol=1e-5``). Mirrors ``tests/test_context_parallel.py`` and
-``tests/test_tensor_parallel.py``.
+``atol=rtol=1e-5``). The fused O&F2 (``fused_heads``, ``fused_lms``)
+shards its grouped ``head_kernels`` and stacked recurrent kernels on their
+last axis, as JAX's left-padded rules do, and its sharded step equals
+JAX's single-device fused step within the same tolerances. Mirrors
+``tests/test_context_parallel.py`` and ``tests/test_tensor_parallel.py``.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ import optax
 
 from amt_tools_tpu import tools as jtools
 from amt_tools_tpu.models import OnsetsFrames as JaxOnsetsFrames
+from amt_tools_tpu.models import OnsetsFrames2 as JaxOnsetsFrames2
 from amt_tools_tpu.models import TabCNN as JaxTabCNN
 from amt_tools_tpu.train import init_state
 from amt_tools_tpu.train import make_train_step as jax_make_train_step
@@ -78,6 +82,13 @@ def runs(tmp_path_factory):
     tp = {name: {'spec': ('of1', dict(OF1, dropout=dropout)),
                  'state': of1_state, 'batch': batch}
           for name, dropout in (('tp_jax', False), ('tp_dropout', True))}
+    fused_kw = dict(OF1, dropout=False, fused_heads=True, fused_lms=True)
+    jax_fused = JaxOnsetsFrames2(profile=jtools.PianoProfile(), **fused_kw)
+    fused_state = init_state(jax_fused, optimizer, jtools.dict_to_jax(batch),
+                             rng=jax.random.PRNGKey(0))
+    tp['tp_fused'] = {'spec': ('of2', fused_kw),
+                      'state': from_flax(fused_state.variables()),
+                      'batch': batch}
 
     inputs = {'feats': feats, 'window_weights': window_weights,
               'track': track, 'tabcnn': from_flax(tab_vars), 'tp': tp,
@@ -92,6 +103,11 @@ def runs(tmp_path_factory):
     new_state, jax_loss = step(state, jtools.dict_to_jax(batch))
     jax_after = {k: v.numpy() for k, v in from_flax(
         jax.device_get(new_state.variables())).items()}
+    fused_step = jax_make_train_step(jax_fused, optimizer, donate=False)
+    fused_state, fused_loss = fused_step(fused_state,
+                                         jtools.dict_to_jax(batch))
+    fused_after = {k: v.numpy() for k, v in from_flax(
+        jax.device_get(fused_state.variables())).items()}
 
     single = {}
     for name, case in tp.items():
@@ -106,6 +122,8 @@ def runs(tmp_path_factory):
     references = {'jax_logits': jax_logits,
                   'jax_step': (float(jax_loss[jtools.KEY_LOSS_TOTAL]),
                                jax_after),
+                  'jax_fused_step': (float(fused_loss[jtools.KEY_LOSS_TOTAL]),
+                                     fused_after),
                   'single': single}
 
     return ranks.results(), references, inputs
@@ -228,3 +246,29 @@ def test_dp_tp_step_with_dropout_matches_one_process(runs):
         for key, value in want['state'].items():
             np.testing.assert_allclose(got['state'][key], value, rtol=1e-5,
                                        atol=1e-5, err_msg=key)
+
+
+def test_tp_fused_layouts_match_the_jax_step(runs):
+    """The fused O&F2's grouped head kernels (H, K, D) and stacked
+    recurrent kernels (S, H, 4H) shard their last axis; the (2 data x 2
+    model) step equals JAX's single-device fused step."""
+
+    ranks, references, inputs = runs
+    jax_loss, jax_after = references['jax_fused_step']
+    full = {k: tuple(v.shape) for k, v in inputs['tp']['tp_fused'][
+        'state'].items()}
+
+    for result in ranks:
+        got = result['tp_fused']
+        for name in ('grouped_am.head_kernels',
+                     'group_lm.recurrent_kernel_fwd',
+                     'group_lm.recurrent_kernel_bwd'):
+            assert name in got['sharded']
+            assert got['local'][name][-1] * 2 == full[name][-1], name
+        assert 'group_lm.input_proj_fwd_kernel' not in got['sharded']
+        np.testing.assert_allclose(got['loss'][tools.KEY_LOSS_TOTAL],
+                                   jax_loss, rtol=2e-5)
+        assert sorted(got['state']) == sorted(jax_after)
+        for key, want in jax_after.items():
+            np.testing.assert_allclose(got['state'][key], want, rtol=1e-4,
+                                       atol=1e-6, err_msg=key)

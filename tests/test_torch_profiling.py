@@ -3,7 +3,9 @@
 - The FLOPs ``FlopCounterMode`` counts for a small O&F2 forward (through
   kernel B's op formula for the six recurrences) equal the count worked out
   from the architecture: the convolutions, the dense layers and the
-  recurrences' 2 H 4H a row and step.
+  recurrences' 2 H 4H a row and step. The fused layouts (one grouped conv
+  stack, one grouped launch of B for four of the recurrences) count the
+  same.
 - ``StageTimer``'s stages, counts and report layout are JAX's on the same
   stages (the times differ).
 - The peaks: 0.0 on the CPU and for an unknown card, the H100 SXM table
@@ -32,9 +34,10 @@ torch.set_num_threads(1)
 BATCH, FRAMES, DIM_IN = 2, 9, 16
 
 
-def _model():
+def _model(fused=False):
     return OnsetsFrames2(dim_in=DIM_IN, profile=tools.PianoProfile(),
-                         model_complexity=2).eval()
+                         model_complexity=2, fused_heads=fused,
+                         fused_lms=fused).eval()
 
 
 def _feats():
@@ -70,6 +73,19 @@ def _analytic_flops(model):
 
 def test_forward_flops_equal_the_analytic_count():
     model, feats = _model(), _feats()
+
+    with torch.no_grad():
+        counted = profiling.compiled_flops(model, feats)
+
+    assert counted == _analytic_flops(model)
+
+
+def test_fused_forward_flops_equal_the_analytic_count():
+    """The fused layouts count the per-head layout's FLOPs: the grouped
+    convolutions by their groups, the grouped launch of B by G times its
+    formula."""
+
+    model, feats = _model(fused=True), _feats()
 
     with torch.no_grad():
         counted = profiling.compiled_flops(model, feats)
