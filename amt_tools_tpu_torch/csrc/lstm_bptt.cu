@@ -74,6 +74,31 @@
 // lstm_scan.cu (blockIdx.y the group, its slabs of every tensor, the groups
 // from `reverse_from` on with a reverse forward); G = 1 is the ungrouped
 // launch.
+//
+// Per-row lengths (kMasked, ungrouped or grouped): the gradient of kernel
+// E's masked forward, in which row b kept its carry and wrote 0 from
+// t = lengths[b] on. At such a step the row writes da = 0, reads no dout
+// and passes its dh and dc carries through: dc stays in its buffer, and dh
+// goes to a held buffer (`dh` below), which the row's next step reads in
+// place of the product (the product of a zero da is not the carry). The
+// row still takes part in every product, exchange and cluster barrier:
+// its cluster exchanges da through DSMEM each step, so no row can leave
+// early. A reverse forward's first valid step (t = len - 1) reads c_prev
+// at t = len, a masked step, where kernel E wrote the carry it kept.
+//
+// A carry (kCarry, one group): the gradient of kernel E's carried forward.
+// c_prev at the forward's first step reads c0 in place of zero; the walk
+// starts from the final carry's gradient (dc_last, dh_last) in place of
+// zeros. Step s forms dh_carry only for s > 0, from the da of step s - 1,
+// so after the last step the kernel exchanges that step's da too and runs
+// one more carry product: dh0, the initial h's gradient (the held dh of a
+// row whose last walked step was masked). dc0 is the last dc * f. The cost
+// is one more DSMEM exchange and product a launch. A row of length 0 passes
+// (dc_last, dh_last) through as (dc0, dh0).
+//
+// The launch without either flag compiles to the code without them, so it
+// stays what it was bit for bit; with either, the CTA holds the dh buffer,
+// which the wrapper's cluster plan sizes (ops/lstm_kernel.py, `hold`).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -182,6 +207,8 @@ __host__ __device__ constexpr size_t round16(size_t bytes) {
 //          same rounded to bf16, what the exchange sends.
 //   red:   slices x row_pad x units_pad float32 partial sums of dh_carry.
 //   dc:    R x units float32, the dc carry.
+//   dh:    (masked or carried launches only) R x units float32, the dh
+//          carry a masked step passes on, or the walk starts from.
 struct BpttGeometry {
   int units;
   int units_pad;
@@ -193,12 +220,12 @@ struct BpttGeometry {
   int row_pad;
   size_t res_gates, res_c, res_dout, res_bytes;  // parts of one buffer
   size_t w_off, da_off, res_off, stage_off, xstage_off, red_off, dc_off,
-      bytes;
+      dh_off, bytes;
 };
 
 __host__ __device__ inline BpttGeometry bptt_geometry(int hidden, int size,
-                                                      int rows,
-                                                      bool resident) {
+                                                      int rows, bool resident,
+                                                      bool hold) {
   BpttGeometry g;
   const int four_h = 4 * hidden;
   g.units = hidden / kCluster;
@@ -241,7 +268,8 @@ __host__ __device__ inline BpttGeometry bptt_geometry(int hidden, int size,
                          : 0);
   g.dc_off = g.red_off + static_cast<size_t>(g.slices) * g.row_pad *
                              g.units_pad * sizeof(float);
-  g.bytes = g.dc_off + g.res_c;
+  g.dh_off = g.dc_off + g.res_c;
+  g.bytes = g.dh_off + (hold ? g.res_c : 0);
   return g;
 }
 
@@ -285,11 +313,11 @@ __device__ __forceinline__ void load_spans(T* dst, int rows, int row0,
 }
 
 // The residuals of step t for the cluster's rows into one buffer
-template <typename T>
+template <bool kCarry, typename T>
 __device__ __forceinline__ void load_residuals(
     unsigned char* buf, const float* gates, const float* c_seq, const T* dout,
-    int batch, int frames, int hidden, int row0, int rows, int t, int t_prev,
-    const BpttGeometry& geo, int rank) {
+    const float* c0, int batch, int frames, int hidden, int row0, int rows,
+    int t, int t_prev, const BpttGeometry& geo, int rank) {
   const int units = geo.units;
   const int col = rank * units;
   const bool wide32 = units % 4 == 0;
@@ -308,10 +336,14 @@ __device__ __forceinline__ void load_residuals(
                return c_seq + (static_cast<size_t>(b) * frames + t) * hidden +
                       col;
              });
-  // c_prev: zero at the sequence's first step
+  // c_prev: at the sequence's first step zero, or the initial cell state
+  // of a carried forward
   const bool has_prev = t_prev >= 0 && t_prev < frames;
-  load_spans(p_dst, rows, row0, batch, 1, units, wide32, has_prev,
+  load_spans(p_dst, rows, row0, batch, 1, units, wide32, has_prev || kCarry,
              [&](int b, int) {
+               if (kCarry && !has_prev) {
+                 return c0 + static_cast<size_t>(b) * hidden + col;
+               }
                return c_seq + (static_cast<size_t>(b) * frames +
                                (has_prev ? t_prev : t)) * hidden + col;
              });
@@ -382,18 +414,34 @@ __device__ __forceinline__ void carry_products(
   }
 }
 
-template <typename T, bool kBf16, bool kResident, int kRowTiles>
+// The carry of kCarry launches: c0, the forward's initial cell state (the
+// first step's c_prev), and the gradient of its final carry (dc_last,
+// dh_last) read at the start; the gradient of its initial carry (dc0, dh0)
+// written at the end; each float32 (batch, hidden)
+struct Carry {
+  const float* c0;
+  const float* dc_last;
+  const float* dh_last;
+  float* dc0;
+  float* dh0;
+};
+
+template <typename T, bool kBf16, bool kResident, int kRowTiles, bool kMasked,
+          bool kCarry>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_bptt_kernel(const float* __restrict__ gates,
                  const float* __restrict__ c_seq, const T* __restrict__ dout,
                  const T* __restrict__ w_ht, float* __restrict__ da,
-                 int batch, int frames, int hidden, int reverse_from,
-                 int rows) {
+                 const int* __restrict__ lengths, Carry state, int batch,
+                 int frames, int hidden, int reverse_from, int rows) {
+  constexpr bool kHold = kMasked || kCarry;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const BpttGeometry geo = bptt_geometry(hidden, sizeof(T), rows, kResident);
+  const BpttGeometry geo =
+      bptt_geometry(hidden, sizeof(T), rows, kResident, kHold);
   // Group blockIdx.y runs its own slab of the residuals, dout, W_h^T and
-  // da; the groups from reverse_from on had a reverse forward
+  // da; the groups from reverse_from on had a reverse forward. The lengths
+  // are every group's.
   const int group = static_cast<int>(blockIdx.y);
   const bool reverse = group >= reverse_from;
   const size_t seq = static_cast<size_t>(batch) * frames * hidden;
@@ -410,6 +458,7 @@ lstm_bptt_kernel(const float* __restrict__ gates,
                     : reinterpret_cast<T*>(stage);
   float* red = reinterpret_cast<float*>(smem + geo.red_off);
   float* dc_buf = reinterpret_cast<float*>(smem + geo.dc_off);
+  float* dh_buf = reinterpret_cast<float*>(smem + geo.dh_off);
 
   const int rank = static_cast<int>(cluster.block_rank());
   const int row0 = (blockIdx.x / kCluster) * rows;
@@ -422,18 +471,100 @@ lstm_bptt_kernel(const float* __restrict__ gates,
   // The forward walked t = 0..T-1 (reverse: T-1..0); this walks back
   auto step_t = [&](int s) { return reverse ? s : frames - 1 - s; };
   auto prev_t = [&](int t) { return reverse ? t + 1 : t - 1; };
+  // kMasked: the true length of batch row r of the cluster
+  auto row_len = [&](int r) {
+    return kMasked && row0 + r < batch ? lengths[row0 + r] : frames;
+  };
 
   for (size_t i = threadIdx.x; i < geo.bytes / 16; i += blockDim.x) {
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
   load_w_rows(w_buf, w_ht, hidden, geo, rank, 0, geo.chunk, wide_w);
-  load_residuals(res_buf, gates, c_seq, dout, batch, frames, hidden, row0,
-                 rows, step_t(0), prev_t(step_t(0)), geo, rank);
+  load_residuals<kCarry>(res_buf, gates, c_seq, dout, state.c0, batch, frames,
+                         hidden, row0, rows, step_t(0), prev_t(step_t(0)),
+                         geo, rank);
   cp_async_commit();
+  if constexpr (kCarry) {  // the walk starts from the final carry's gradient
+    for (int idx = threadIdx.x; idx < rows * units; idx += blockDim.x) {
+      const int r = idx / units;
+      if (row0 + r >= batch) continue;
+      const size_t at = static_cast<size_t>(row0 + r) * hidden + rank * units +
+                        (idx - r * units);
+      dc_buf[idx] = state.dc_last[at];
+      dh_buf[idx] = state.dh_last[at];
+    }
+  }
   cp_async_wait<0>();
   // Every CTA of the cluster is running and zeroed before any remote write
   cluster.sync();
+
+  // dh_carry of step s (the partial sums in `red`) from the da of step s - 1
+  // in `da_prev`; `more`: a product follows, whose first W chunk a
+  // streamed slice loads during this one's last
+  auto carry_partials = [&](int s, const T* da_prev, bool more) {
+    float acc[2][kRowTiles][4];
+    float facc[8 * kRowTiles];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int n = 0; n < kRowTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8 * kRowTiles; ++r) facc[r] = 0.f;
+
+    if constexpr (kResident) {
+      carry_products<kBf16, kRowTiles>(acc, facc, w_buf, da_prev, geo, 0,
+                                       four_h, rows);
+    } else {
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int slot = ((s - 1) * n_chunks + ci) & 1;
+        cp_async_wait<0>();
+        __syncthreads();
+        // The next chunk (the first again after the last, for the next
+        // product) into the slot everyone has finished with
+        const int next = ci + 1 < n_chunks ? ci + 1 : 0;
+        if (ci + 1 < n_chunks || more) {
+          const int k_next = next * geo.chunk;
+          load_w_rows(w_buf + (slot ^ 1) * w_chunk, w_ht, hidden, geo, rank,
+                      k_next, min(geo.chunk, four_h - k_next), wide_w);
+        }
+        cp_async_commit();
+        const int k0 = ci * geo.chunk;
+        carry_products<kBf16, kRowTiles>(acc, facc, w_buf + slot * w_chunk,
+                                         da_prev, geo, k0,
+                                         min(geo.chunk, four_h - k0), rows);
+      }
+    }
+
+    // This thread's partial sums, for the cell update to add in slice order
+    if constexpr (kBf16) {
+      const int lane = threadIdx.x & 31;
+      const int m_tiles = geo.units_pad / 16;
+      const int warp = threadIdx.x >> 5;
+      const int slice = warp / m_tiles;
+      const int u = 16 * (warp % m_tiles) + (lane >> 2);
+      float* dst = red + slice * geo.row_pad * geo.units_pad;
+#pragma unroll
+      for (int n = 0; n < kRowTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // C fragment: unit g (e < 2) or g + 8, batch row 2 tq + (e & 1)
+          const int r = 8 * n + 2 * (lane & 3) + (e & 1);
+          dst[r * geo.units_pad + u + 8 * (e >> 1)] =
+              acc[0][n][e] + acc[1][n][e];
+        }
+    } else {
+      const int u = threadIdx.x % geo.units_pad;
+      const int slice = threadIdx.x / geo.units_pad;
+      float* dst = red + slice * geo.row_pad * geo.units_pad;
+#pragma unroll
+      for (int r = 0; r < 8 * kRowTiles; ++r) {
+        if (r < rows) dst[r * geo.units_pad + u] = facc[r];
+      }
+    }
+  };
 
   for (int s = 0; s < frames; ++s) {
     const int t = step_t(s);
@@ -443,76 +574,16 @@ lstm_bptt_kernel(const float* __restrict__ gates,
 
     // Next step's residuals into the other buffer, during this step
     if (s + 1 < frames) {
-      load_residuals(res_buf + ((s + 1) & 1) * geo.res_bytes, gates, c_seq,
-                     dout, batch, frames, hidden, row0, rows, step_t(s + 1),
-                     prev_t(step_t(s + 1)), geo, rank);
+      load_residuals<kCarry>(res_buf + ((s + 1) & 1) * geo.res_bytes, gates,
+                             c_seq, dout, state.c0, batch, frames, hidden,
+                             row0, rows, step_t(s + 1),
+                             prev_t(step_t(s + 1)), geo, rank);
     }
     cp_async_commit();
 
-    // dh_carry of this step from the previous step's da (none at s = 0)
-    if (s > 0) {
-      float acc[2][kRowTiles][4];
-      float facc[8 * kRowTiles];
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int n = 0; n < kRowTiles; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
-#pragma unroll
-      for (int r = 0; r < 8 * kRowTiles; ++r) facc[r] = 0.f;
-
-      if constexpr (kResident) {
-        carry_products<kBf16, kRowTiles>(acc, facc, w_buf, da_cur, geo, 0,
-                                         four_h, rows);
-      } else {
-        for (int ci = 0; ci < n_chunks; ++ci) {
-          const int slot = ((s - 1) * n_chunks + ci) & 1;
-          cp_async_wait<0>();
-          __syncthreads();
-          // The next chunk (the first again after the last, for the next
-          // step) into the slot everyone has finished with
-          const int next = ci + 1 < n_chunks ? ci + 1 : 0;
-          if (ci + 1 < n_chunks || s + 1 < frames) {
-            const int k_next = next * geo.chunk;
-            load_w_rows(w_buf + (slot ^ 1) * w_chunk, w_ht, hidden, geo, rank,
-                        k_next, min(geo.chunk, four_h - k_next), wide_w);
-          }
-          cp_async_commit();
-          const int k0 = ci * geo.chunk;
-          carry_products<kBf16, kRowTiles>(acc, facc, w_buf + slot * w_chunk,
-                                           da_cur, geo, k0,
-                                           min(geo.chunk, four_h - k0), rows);
-        }
-      }
-
-      // This thread's partial sums, for the cell update to add in slice order
-      if constexpr (kBf16) {
-        const int lane = threadIdx.x & 31;
-        const int m_tiles = geo.units_pad / 16;
-        const int warp = threadIdx.x >> 5;
-        const int slice = warp / m_tiles;
-        const int u = 16 * (warp % m_tiles) + (lane >> 2);
-        float* dst = red + slice * geo.row_pad * geo.units_pad;
-#pragma unroll
-        for (int n = 0; n < kRowTiles; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            // C fragment: unit g (e < 2) or g + 8, batch row 2 tq + (e & 1)
-            const int r = 8 * n + 2 * (lane & 3) + (e & 1);
-            dst[r * geo.units_pad + u + 8 * (e >> 1)] =
-                acc[0][n][e] + acc[1][n][e];
-          }
-      } else {
-        const int u = threadIdx.x % geo.units_pad;
-        const int slice = threadIdx.x / geo.units_pad;
-        float* dst = red + slice * geo.row_pad * geo.units_pad;
-#pragma unroll
-        for (int r = 0; r < 8 * kRowTiles; ++r) {
-          if (r < rows) dst[r * geo.units_pad + u] = facc[r];
-        }
-      }
-    }
+    // dh_carry of this step from the previous step's da (none at s = 0);
+    // a carried launch runs one more product after the last step
+    if (s > 0) carry_partials(s, da_cur, s + 1 < frames || kCarry);
 
     // This step's residuals have landed (only younger groups may be in
     // flight: the next step's residuals, or its first W chunk)
@@ -535,6 +606,27 @@ lstm_bptt_kernel(const float* __restrict__ gates,
           carry += red[(sl * geo.row_pad + r) * geo.units_pad + u];
         }
       }
+      float* st = stage + r * 4 * units + u;
+      if constexpr (kHold) {
+        // The walk's first step starts from the held dh (the final carry's
+        // gradient, or zero), and so does a step after a masked one: the
+        // product of a masked step's da is not its carry
+        const int len = row_len(r);
+        const int t_before = reverse ? t - 1 : t + 1;
+        if (s == 0 || (kMasked && t_before >= len)) carry = dh_buf[idx];
+        if (kMasked && t >= len) {
+          // A masked step kept the forward's carry: da = 0, dout unread,
+          // and dh and dc pass through
+          dh_buf[idx] = carry;
+          st[0] = st[units] = st[2 * units] = st[3 * units] = 0.f;
+          if constexpr (kBf16) {
+            T* xs = xstage + r * 4 * units + u;
+            xs[0] = xs[units] = xs[2 * units] = xs[3 * units] =
+                from_float<T>(0.f);
+          }
+          continue;
+        }
+      }
       const float* gq = r_gates + r * 4 * units + u;
       const float i_g = gq[0];
       const float f_g = gq[units];
@@ -552,7 +644,6 @@ lstm_bptt_kernel(const float* __restrict__ gates,
       const float da_f = dc * c_prev * f_g * (1.f - f_g);
       dc_buf[idx] = dc * f_g;
 
-      float* st = stage + r * 4 * units + u;
       st[0] = da_i;
       st[units] = da_f;
       st[2 * units] = da_g;
@@ -569,8 +660,9 @@ lstm_bptt_kernel(const float* __restrict__ gates,
 
     // The step's da (as the product reads it), through distributed shared
     // memory, into the next-step da buffer of every CTA of the cluster,
-    // then released to the cluster. The last step has no next.
-    const bool exchange = s + 1 < frames;
+    // then released to the cluster. The last step has no next, unless the
+    // launch is carried: its da then feeds the initial carry's product.
+    const bool exchange = kCarry || s + 1 < frames;
     if (exchange) {
       const int piece = wide_w ? 16 : 4;
       const int per_gate = units * static_cast<int>(sizeof(T)) / piece;
@@ -625,6 +717,29 @@ lstm_bptt_kernel(const float* __restrict__ gates,
     }
     if (exchange) cluster_wait();
   }
+
+  // The gradient of the initial carry, after the loop so that no step pays
+  // for it: dh0 is the product of the last step's da (the held dh where
+  // that step was masked), dc0 the dc carry
+  if constexpr (kCarry) {
+    carry_partials(frames, da_buf + (frames & 1) * da_size, false);
+    __syncthreads();
+    const int t_last = step_t(frames - 1);
+    for (int idx = threadIdx.x; idx < rows * units; idx += blockDim.x) {
+      const int r = idx / units;
+      const int u = idx - r * units;
+      if (row0 + r >= batch) continue;
+      float dh0 = 0.f;
+      for (int sl = 0; sl < geo.slices; ++sl) {
+        dh0 += red[(sl * geo.row_pad + r) * geo.units_pad + u];
+      }
+      if (kMasked && t_last >= row_len(r)) dh0 = dh_buf[idx];
+      const size_t at =
+          static_cast<size_t>(row0 + r) * hidden + rank * units + u;
+      state.dh0[at] = dh0;
+      state.dc0[at] = dc_buf[idx];
+    }
+  }
 }
 
 // The launch carries the group count and the first group whose forward
@@ -641,14 +756,18 @@ struct Launch {
   int* active_clusters;  // not null: only ask how many clusters fit
 };
 
-template <typename T, bool kBf16, bool kResident, int kRowTiles>
+template <typename T, bool kBf16, bool kResident, int kRowTiles, bool kMasked,
+          bool kCarry>
 int launch(const float* gates, const float* c_seq, const void* dout,
-           const void* w_ht, float* da, const Launch& l) {
-  const BpttGeometry geo = bptt_geometry(l.hidden, sizeof(T), l.rows, kResident);
+           const void* w_ht, float* da, const int* lengths, Carry carry,
+           const Launch& l) {
+  const BpttGeometry geo = bptt_geometry(l.hidden, sizeof(T), l.rows,
+                                         kResident, kMasked || kCarry);
   if (geo.bytes > kMaxSharedBytes || geo.threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = lstm_bptt_kernel<T, kBf16, kResident, kRowTiles>;
+  auto kernel =
+      lstm_bptt_kernel<T, kBf16, kResident, kRowTiles, kMasked, kCarry>;
   cudaError_t status = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(geo.bytes));
@@ -674,39 +793,75 @@ int launch(const float* gates, const float* c_seq, const void* dout,
   }
   status = cudaLaunchKernelEx(&config, kernel, gates, c_seq,
                               static_cast<const T*>(dout),
-                              static_cast<const T*>(w_ht), da, l.batch,
-                              l.frames, l.hidden, l.reverse_from, l.rows);
+                              static_cast<const T*>(w_ht), da, lengths, carry,
+                              l.batch, l.frames, l.hidden, l.reverse_from,
+                              l.rows);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBf16>
+template <typename T, bool kBf16, bool kMasked, bool kCarry>
 int dispatch(const float* gates, const float* c_seq, const void* dout,
-             const void* w_ht, float* da, int resident, const Launch& l) {
+             const void* w_ht, float* da, const int* lengths, Carry carry,
+             int resident, const Launch& l) {
   if (l.hidden % 16 || l.hidden < 16 || l.rows < 1 || l.rows > kMaxRows ||
       l.groups < 1 || l.groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (resident) {
     if (l.rows <= 8) {
-      return launch<T, kBf16, true, 1>(gates, c_seq, dout, w_ht, da, l);
+      return launch<T, kBf16, true, 1, kMasked, kCarry>(
+          gates, c_seq, dout, w_ht, da, lengths, carry, l);
     }
-    return launch<T, kBf16, true, 2>(gates, c_seq, dout, w_ht, da, l);
+    return launch<T, kBf16, true, 2, kMasked, kCarry>(
+        gates, c_seq, dout, w_ht, da, lengths, carry, l);
   }
   if (l.rows <= 8) {
-    return launch<T, kBf16, false, 1>(gates, c_seq, dout, w_ht, da, l);
+    return launch<T, kBf16, false, 1, kMasked, kCarry>(
+        gates, c_seq, dout, w_ht, da, lengths, carry, l);
   }
-  return launch<T, kBf16, false, 2>(gates, c_seq, dout, w_ht, da, l);
+  return launch<T, kBf16, false, 2, kMasked, kCarry>(gates, c_seq, dout, w_ht,
+                                                     da, lengths, carry, l);
+}
+
+// With lengths, a carry, both or neither: each combination is its own
+// instantiation, so the launch without either compiles to the code without
+// the flags. A carry is one group's. `hold` (an occupancy query only) asks
+// for a masked launch's configuration.
+template <typename T, bool kBf16>
+int dispatch_flags(const float* gates, const float* c_seq, const void* dout,
+                   const void* w_ht, float* da, const int* lengths,
+                   Carry carry, int hold, int resident, const Launch& l) {
+  if (carry.c0 != nullptr) {
+    if (carry.dc_last == nullptr || carry.dh_last == nullptr ||
+        carry.dc0 == nullptr || carry.dh0 == nullptr || l.groups != 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (lengths != nullptr) {
+      return dispatch<T, kBf16, true, true>(gates, c_seq, dout, w_ht, da,
+                                            lengths, carry, resident, l);
+    }
+    return dispatch<T, kBf16, false, true>(gates, c_seq, dout, w_ht, da,
+                                           nullptr, carry, resident, l);
+  }
+  if (lengths != nullptr || hold) {
+    return dispatch<T, kBf16, true, false>(gates, c_seq, dout, w_ht, da,
+                                           lengths, carry, resident, l);
+  }
+  return dispatch<T, kBf16, false, false>(gates, c_seq, dout, w_ht, da,
+                                          nullptr, carry, resident, l);
 }
 
 int run(const float* gates, const float* c_seq, const void* dout,
-        const void* w_ht, float* da, int bf16, int resident,
-        const Launch& l) {
+        const void* w_ht, float* da, const int* lengths, Carry carry,
+        int hold, int bf16, int resident, const Launch& l) {
   if (bf16) {
-    return dispatch<__nv_bfloat16, true>(gates, c_seq, dout, w_ht, da,
-                                         resident, l);
+    return dispatch_flags<__nv_bfloat16, true>(gates, c_seq, dout, w_ht, da,
+                                               lengths, carry, hold, resident,
+                                               l);
   }
-  return dispatch<float, false>(gates, c_seq, dout, w_ht, da, resident, l);
+  return dispatch_flags<float, false>(gates, c_seq, dout, w_ht, da, lengths,
+                                      carry, hold, resident, l);
 }
 
 }  // namespace
@@ -715,48 +870,78 @@ int run(const float* gates, const float* c_seq, const void* dout,
 // float32 from the forward with residuals, dout (batch, frames, hidden) and
 // w_ht (4 * hidden, hidden) both float32 or both bf16 (`bf16` != 0), and
 // da (batch, frames, 4 * hidden) float32, contiguous and 16-byte aligned on
-// the device. `reverse` names the forward's direction. hidden is a multiple
-// of 16; each cluster of 8 CTAs takes `rows` (1..16) batch rows;
-// `resident` keeps the W_h^T slice in shared memory (else it is streamed
-// each step). Launches on `stream` and returns the first CUDA error of the
-// set-up or the launch.
+// the device. `reverse` names the forward's direction. `lengths` is null
+// (every row ran all frames) or int32 (batch) on the device, each in
+// [0, frames]: row b has da = 0 from t = lengths[b] on, and carries its dh
+// and dc through those steps. hidden is a multiple of 16; each cluster of 8
+// CTAs takes `rows` (1..16) batch rows; `resident` keeps the W_h^T slice in
+// shared memory (else it is streamed each step). Launches on `stream` and
+// returns the first CUDA error of the set-up or the launch.
 extern "C" int lstm_bptt(const float* gates, const float* c_seq,
                          const void* dout, const void* w_ht, float* da,
-                         int batch, int frames, int hidden, int reverse,
-                         int bf16, int rows, int resident,
-                         cudaStream_t stream) {
-  return run(gates, c_seq, dout, w_ht, da, bf16, resident,
+                         const int* lengths, int batch, int frames,
+                         int hidden, int reverse, int bf16, int rows,
+                         int resident, cudaStream_t stream) {
+  return run(gates, c_seq, dout, w_ht, da, lengths, Carry{}, 0, bf16,
+             resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
+}
+
+// lstm_bptt of a carried forward: c0 is its initial cell state, (dc_last,
+// dh_last) the gradient of its final carry, which the walk starts from; it
+// writes (dc0, dh0), the gradient of the initial carry. All five float32
+// (batch, hidden), contiguous on the device.
+extern "C" int lstm_bptt_carried(const float* gates, const float* c_seq,
+                                 const void* dout, const void* w_ht,
+                                 float* da, const int* lengths,
+                                 const float* c0, const float* dc_last,
+                                 const float* dh_last, float* dc0, float* dh0,
+                                 int batch, int frames, int hidden,
+                                 int reverse, int bf16, int rows,
+                                 int resident, cudaStream_t stream) {
+  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(gates, c_seq, dout, w_ht, da, lengths,
+             Carry{c0, dc_last, dh_last, dc0, dh0}, 0, bf16, resident,
              Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
                     nullptr});
 }
 
 // Kernel F over `groups` independent sequences in one launch: every tensor
 // of lstm_bptt with a leading group axis (w_ht (groups, 4 * hidden,
-// hidden)); the groups from `reverse_from` on had a reverse forward.
+// hidden)); the groups from `reverse_from` on had a reverse forward;
+// `lengths` (null, or int32 (batch)) are every group's.
 extern "C" int lstm_bptt_grouped(const float* gates, const float* c_seq,
                                  const void* dout, const void* w_ht,
-                                 float* da, int groups, int reverse_from,
-                                 int batch, int frames, int hidden, int bf16,
-                                 int rows, int resident,
+                                 float* da, const int* lengths, int groups,
+                                 int reverse_from, int batch, int frames,
+                                 int hidden, int bf16, int rows, int resident,
                                  cudaStream_t stream) {
-  return run(gates, c_seq, dout, w_ht, da, bf16, resident,
+  return run(gates, c_seq, dout, w_ht, da, lengths, Carry{}, 0, bf16,
+             resident,
              Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
                     nullptr});
 }
 
 // How many clusters of the launch configuration for (hidden, dtype, rows,
-// resident) the card holds at once (cudaOccupancyMaxActiveClusters), into
-// *clusters. Returns the CUDA error of the query.
-extern "C" int lstm_bptt_max_active_clusters(int hidden, int bf16, int rows,
-                                             int resident, int* clusters) {
+// resident; `hold`: a masked or carried launch) the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters. Returns the CUDA error
+// of the query.
+extern "C" int lstm_bptt_max_active_clusters(int hidden, int bf16, int hold,
+                                             int rows, int resident,
+                                             int* clusters) {
   *clusters = 0;
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, bf16, resident,
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, Carry{},
+             hold, bf16, resident,
              Launch{1, 1, kCluster * rows, 1, hidden, rows, nullptr,
                     clusters});
 }
 
-// Shared-memory bytes of one CTA; ops/lstm_kernel.py computes the same.
-extern "C" int lstm_bptt_smem(int hidden, int bf16, int rows, int resident) {
-  return static_cast<int>(
-      bptt_geometry(hidden, bf16 ? 2 : 4, rows, resident != 0).bytes);
+// Shared-memory bytes of one CTA (`hold`: of a masked or carried launch);
+// ops/lstm_kernel.py computes the same.
+extern "C" int lstm_bptt_smem(int hidden, int bf16, int rows, int resident,
+                              int hold) {
+  return static_cast<int>(bptt_geometry(hidden, bf16 ? 2 : 4, rows,
+                                        resident != 0, hold != 0)
+                              .bytes);
 }

@@ -60,8 +60,9 @@
 // Exactly T steps run, so a ragged T needs no padding. H is a multiple of
 // 16 up to 1024.
 //
-// Per-row lengths (kMasked, B only): bucketed evaluation pads each track to
-// a multiple of the bucket and passes its true length. At a step with
+// Per-row lengths (kMasked): bucketed evaluation and masked training pad
+// each track to a multiple of the bucket (or to the crop) and pass its true
+// length. At a step with
 // t >= lengths[b], row b keeps its carry (c in registers, h in the
 // exchanged buffer: the h sent through DSMEM is the old one) and writes 0
 // to `out`, as the JAX package's masked scan step (ops/lstm.py,
@@ -71,8 +72,8 @@
 // prefetch and the one barrier a step are unchanged; the unmasked
 // instantiation compiles to the code without the flag.
 //
-// A carry in and out (kCarry, B only): streaming feeds one frame a launch
-// and threads the state. The kernel starts from a given float32 (c0, h0)
+// A carry in and out (kCarry): streaming feeds one frame a launch and
+// threads the state, and carried training differentiates through it. The kernel starts from a given float32 (c0, h0)
 // (B, H) in place of zeros: c0 into the registers that hold c, h0 into the
 // first h buffer, rounded to bf16 in bf16 mode as every h the product reads
 // is. After the last step it writes the final c and the h the next step
@@ -88,6 +89,10 @@
 // bf16 mode the bf16-rounded values the step used, widened) and the float32
 // cell state c_t, which the BPTT kernel (lstm_bptt.cu) reads back, from the
 // same registers. Its arithmetic is B's, so its h equals B's bit for bit.
+// It takes kMasked and kCarry as B does: at a masked step it writes the
+// kept c as c_t, so that a reverse row's first valid step (t = len - 1)
+// reads the carry it started from as c_prev at t = len; the gates written
+// there are the ones the step computed, which the BPTT does not read.
 // At the training shape (B = 8, T = 625, H = 256, float32) it moves about
 // 51 MB, 0.015 ms at 3.35 TB/s, and does 2.6 GFLOP of recurrent products,
 // 0.039 ms at the 67 TFLOP/s float32 peak; 625 dependent steps are the floor.
@@ -805,43 +810,50 @@ int dispatch(const void* xw, const void* w_h, void* out, float* gates,
       xw, w_h, out, gates, c_seq, lengths, carry, l);
 }
 
-// Kernel B with lengths, a carry, both or neither
-template <typename T, bool kBf16, bool kMasked>
-int dispatch_carry(const void* xw, const void* w_h, void* out,
-                   const int* lengths, Carry carry, int resident,
-                   const Launch& l) {
+// Kernel B, or E with kResiduals, with a carry or without
+template <typename T, bool kBf16, bool kResiduals, bool kMasked>
+int dispatch_carry(const void* xw, const void* w_h, void* out, float* gates,
+                   float* c_seq, const int* lengths, Carry carry,
+                   int resident, const Launch& l) {
   if (carry.c0 != nullptr) {
-    return dispatch<T, kBf16, false, kMasked, true>(
-        xw, w_h, out, nullptr, nullptr, lengths, carry, resident, l);
+    return dispatch<T, kBf16, kResiduals, kMasked, true>(
+        xw, w_h, out, gates, c_seq, lengths, carry, resident, l);
   }
-  return dispatch<T, kBf16, false, kMasked, false>(
-      xw, w_h, out, nullptr, nullptr, lengths, carry, resident, l);
+  return dispatch<T, kBf16, kResiduals, kMasked, false>(
+      xw, w_h, out, gates, c_seq, lengths, carry, resident, l);
 }
 
-// Kernel E (residuals) takes no lengths and no carry: masked and carried
-// training are not ported. A carry is one group's (the streaming launch).
-template <typename T, bool kBf16>
-int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
-                  float* c_seq, const int* lengths, Carry carry, int residuals,
-                  int resident, const Launch& l) {
+// Kernel B or E with lengths, a carry, both or neither. Each combination is
+// its own instantiation, so the launch without either compiles to the code
+// without the flags. A carry is one group's (streaming, or carried
+// training).
+template <typename T, bool kBf16, bool kResiduals>
+int dispatch_flags(const void* xw, const void* w_h, void* out, float* gates,
+                   float* c_seq, const int* lengths, Carry carry,
+                   int resident, const Launch& l) {
   const bool carried = carry.c0 != nullptr;
   if (carried && (carry.h0 == nullptr || carry.c_last == nullptr ||
                   carry.h_last == nullptr || l.groups != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (residuals) {
-    if (lengths != nullptr || carried) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return dispatch<T, kBf16, true, false, false>(
-        xw, w_h, out, gates, c_seq, nullptr, carry, resident, l);
-  }
   if (lengths != nullptr) {
-    return dispatch_carry<T, kBf16, true>(xw, w_h, out, lengths, carry,
-                                          resident, l);
+    return dispatch_carry<T, kBf16, kResiduals, true>(
+        xw, w_h, out, gates, c_seq, lengths, carry, resident, l);
   }
-  return dispatch_carry<T, kBf16, false>(xw, w_h, out, nullptr, carry,
-                                         resident, l);
+  return dispatch_carry<T, kBf16, kResiduals, false>(
+      xw, w_h, out, gates, c_seq, nullptr, carry, resident, l);
+}
+
+template <typename T, bool kBf16>
+int dispatch_type(const void* xw, const void* w_h, void* out, float* gates,
+                  float* c_seq, const int* lengths, Carry carry, int residuals,
+                  int resident, const Launch& l) {
+  if (residuals) {
+    return dispatch_flags<T, kBf16, true>(xw, w_h, out, gates, c_seq,
+                                          lengths, carry, resident, l);
+  }
+  return dispatch_flags<T, kBf16, false>(xw, w_h, out, nullptr, nullptr,
+                                         lengths, carry, resident, l);
 }
 
 int run(const void* xw, const void* w_h, void* out, float* gates,
@@ -912,28 +924,44 @@ extern "C" int lstm_scan_carried(const void* xw, const void* w_h, void* out,
 
 // Kernel E: lstm_scan, and also the float32 residuals gates
 // (batch, frames, 4 * hidden) and c_seq (batch, frames, hidden), contiguous
-// on the device.
+// on the device. `lengths` as lstm_scan's; at a masked step c_seq holds the
+// kept cell state (the c_prev of the row's next valid step in the BPTT) and
+// the gates the step computed, which the BPTT does not read.
 extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
-                                   float* gates, float* c_seq, int batch,
-                                   int frames, int hidden, int reverse,
-                                   int bf16, int rows, int resident,
-                                   cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, bf16, 1, resident,
+                                   float* gates, float* c_seq,
+                                   const int* lengths, int batch, int frames,
+                                   int hidden, int reverse, int bf16, int rows,
+                                   int resident, cudaStream_t stream) {
+  return run(xw, w_h, out, gates, c_seq, lengths, Carry{}, bf16, 1, resident,
+             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
+                    nullptr});
+}
+
+// Kernel E from a carry, as lstm_scan_carried is kernel B from one: the
+// training forward of a carried recurrence (chunks that thread the state).
+extern "C" int lstm_scan_residuals_carried(
+    const void* xw, const void* w_h, void* out, float* gates, float* c_seq,
+    const int* lengths, const float* c0, const float* h0, float* c_last,
+    float* h_last, int batch, int frames, int hidden, int reverse, int bf16,
+    int rows, int resident, cudaStream_t stream) {
+  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(xw, w_h, out, gates, c_seq, lengths,
+             Carry{c0, h0, c_last, h_last}, bf16, 1, resident,
              Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
                     nullptr});
 }
 
 // Kernel E over `groups` sequences in one launch, as lstm_scan_grouped:
 // gates (groups, batch, frames, 4 * hidden) and c_seq (groups, batch,
-// frames, hidden).
+// frames, hidden); `lengths` (null, or int32 (batch)) are every group's.
 extern "C" int lstm_scan_residuals_grouped(const void* xw, const void* w_h,
                                            void* out, float* gates,
-                                           float* c_seq, int groups,
-                                           int reverse_from, int batch,
-                                           int frames, int hidden, int bf16,
-                                           int rows, int resident,
+                                           float* c_seq, const int* lengths,
+                                           int groups, int reverse_from,
+                                           int batch, int frames, int hidden,
+                                           int bf16, int rows, int resident,
                                            cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, nullptr, Carry{}, bf16, 1, resident,
+  return run(xw, w_h, out, gates, c_seq, lengths, Carry{}, bf16, 1, resident,
              Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
                     nullptr});
 }

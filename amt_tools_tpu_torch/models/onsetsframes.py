@@ -308,9 +308,10 @@ class OnlineLanguageModel(nn.Module):
 
     Called without a carry it is the whole-sequence recurrence (kernel B in
     eval, E and F when autograd records) and returns ``(out, None)``; with
-    ``carry=(c, h)`` it runs kernel B from that carry and returns ``(out,
-    new_carry)``, float32 (JAX ``:213-243``, whose layer computes in the
-    input's dtype).
+    ``carry=(c, h)`` it runs from that carry (kernel B, or the carried E
+    and F when autograd records: the gradient reaches the carry) and
+    returns ``(out, new_carry)``, float32 (JAX ``:213-243``, whose layer
+    computes in the input's dtype).
     """
 
     def __init__(self, dim_in, dim_out, generator=None):
@@ -482,8 +483,8 @@ class OnsetsFrames(TranscriptionModel):
 
     def forward(self, feats, generator=None, lengths=None):
         """(B, T, F, C) features -> raw logits; in train mode dropout draws
-        from ``generator``. ``lengths`` (B,) masks padded frames (inference
-        only: the masked recurrence does not train)."""
+        from ``generator``. ``lengths`` (B,) masks padded frames, in
+        evaluation and in training (the masked E and F)."""
 
         output = {}
 
@@ -677,8 +678,9 @@ class OnsetsFramesOnline(OnsetsFrames):
     The V1 heads with ``OnlineLanguageModel`` in place of the BiLSTMs (the
     acoustic stacks take ``lengths``, the recurrences do not, as in JAX).
     ``forward(feats, carries=...)`` returns ``(output, new_carries)``: the
-    onset and adjoin LMs run kernel B from their carries, so frames fed
-    one at a time keep their full recurrent context
+    onset and adjoin LMs run from their carries (kernel B; the carried E
+    and F when autograd records, so chunks train through the chain), and
+    frames fed one at a time keep their full recurrent context
     (``inference.run_online_stateful``). Without carries it is the
     whole-sequence unidirectional model: kernel B in eval, E and F in
     training.

@@ -21,15 +21,17 @@ under the same names, as JAX's ``_input_proj`` (``:34-50``); the recurrence
 stays float.
 
 With ``lengths`` each row keeps its carry and outputs 0 past its length
-(kernel B's masked launch on CUDA, its masked plain version on the CPU), so
-its valid frames equal an unpadded run's bit for bit. ``FastLSTM`` takes
+(the masked launch on CUDA, the masked plain version on the CPU), so its
+valid frames equal an unpadded run's bit for bit. ``FastLSTM`` takes
 ``initial_carry=(c, h)`` and ``return_carry=True`` for streaming (JAX
-``:208-257``): the carry goes to kernel B, which starts from it and returns
-the final one, float32 in both dtypes (JAX's XLA scan keeps it in the
-projections' dtype), so chunks that thread it equal one whole call bit for
-bit. Masked and carried training (kernels E and F with lengths or a carry)
-are not ported: either while autograd records raises; no JAX path trains
-with them.
+``:208-257``): the recurrence starts from the carry and returns the final
+one, float32 in both dtypes (JAX's XLA scan keeps it in the projections'
+dtype), so chunks that thread it equal one whole call bit for bit. Both
+train, as JAX's scan does under ``jax.grad`` (``_masked_step_outputs``
+``:98-108``): kernels E and F take the lengths and the carry, so a masked
+step's gradient passes the row's carries through and the initial carry
+gets its gradient from the returned one's (``lstm_kernel.lstm_scan_grad``);
+a masked or carried CUDA tensor under autograd runs E and F or raises.
 
 ``GroupedBiLSTM`` (JAX ``:328-402``) runs S independent BiLSTMs, (S, B,
 T, E) -> (S, B, T, 2H), as the opt-in ``fused_lms`` layout of the O&F
@@ -98,26 +100,30 @@ def lengths_to_mask(lengths, num_frames):
             lengths[:, None])
 
 
+def _records(*tensors):
+    """Whether autograd records an operation on any of ``tensors``."""
+
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(x) and x.requires_grad for x in tensors)
+
+
 def _scan(xw, w_h, reverse, lengths, carry=None, reverse_from=None):
     """The recurrence; from ``carry`` (a pair ``(c, h)``) it returns
     ``(out, (c, h))``. With ``reverse_from`` it is grouped: (G, B, T, 4H)
     ``xw`` and (G, H, 4H) ``w_h`` in one launch, the groups from
-    ``reverse_from`` on reversed."""
+    ``reverse_from`` on reversed. Kernel B when nothing is differentiated,
+    kernels E and F (masked, carried or grouped alike) when autograd
+    records."""
 
-    if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
-        if lengths is not None:
-            raise NotImplementedError(
-                'masked training (kernels E and F with lengths) is not '
-                'ported; run a masked LSTM under torch.no_grad()')
-        if carry is not None:
-            raise NotImplementedError(
-                'carried training (kernels E and F with a carry) is not '
-                'ported; run a carried LSTM under torch.no_grad()')
+    if _records(xw, w_h, *(carry or ())):
         # W_h goes in uncast: the Function casts it, so dW_h reaches the
         # float32 parameter unrounded
         if reverse_from is not None:
-            return lstm_scan_grouped_grad(xw, w_h, reverse_from)
-        return lstm_scan_grad(xw, w_h, reverse)
+            return lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths)
+        if carry is None:
+            return lstm_scan_grad(xw, w_h, reverse, lengths)
+        return lstm_scan_grad(xw, w_h, reverse, lengths,
+                              initial_carry=carry, return_carry=True)
 
     if reverse_from is not None:
         return lstm_scan_grouped(xw, w_h.to(xw.dtype).contiguous(),
@@ -149,9 +155,9 @@ def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None,
     and zero W_h rows and columns for the added units keep their gates at
     (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step (a ``carry`` is
     zero-padded alike); they add nothing to any sum of the real units, and
-    the slice drops their gradients. With ``carry`` it returns ``(out,
-    (c, h))`` cut back to H. With ``reverse_from``, grouped as
-    :func:`_scan`."""
+    the slice drops their gradients (the padded carry's too: its gradient
+    comes back sliced to H). With ``carry`` it returns ``(out, (c, h))``
+    cut back to H. With ``reverse_from``, grouped as :func:`_scan`."""
 
     hidden = w_h.shape[-2]
     w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
@@ -203,9 +209,10 @@ def _whole(module, w_h):
 
 class FastLSTM(nn.Module):
     """Unidirectional LSTM: (B, T, E) -> (B, T, H); ``lengths`` (B,) masks
-    each row's padded tail (inference only). Pass ``initial_carry=(c, h)``
-    and ``return_carry=True`` for streaming (inference only): the result is
-    then ``((c, h), out)``, as JAX's, with a float32 carry."""
+    each row's padded tail. Pass ``initial_carry=(c, h)`` and
+    ``return_carry=True`` for streaming: the result is then ``((c, h),
+    out)``, as JAX's, with a float32 carry. Either trains: the gradient
+    reaches the initial carry and flows back from the returned one."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -241,7 +248,7 @@ class FastLSTM(nn.Module):
 class FastBiLSTM(nn.Module):
     """Bidirectional LSTM: (B, T, E) -> (B, T, 2H), [forward | backward];
     ``lengths`` (B,) masks each row's padded tail, so the backward
-    direction starts at each row's true end (inference only)."""
+    direction starts at each row's true end."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -288,7 +295,7 @@ class GroupedBiLSTM(nn.Module):
     one batched contraction in ``dtype`` (default: the input's), and their
     recurrences one grouped launch: the forward groups [0, S) and the
     backward groups [S, 2S), reversed, with ``lengths`` (B,) shared by every
-    group (inference only, as :class:`FastBiLSTM`'s)."""
+    group, as :class:`FastBiLSTM`'s."""
 
     def __init__(self, input_size, features, streams=2, dtype=None,
                  generator=None):

@@ -190,7 +190,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     at S = 1. Times of phases 32-33 are two processes sharing one card,
     not scaling figures;
 35. kernels A-F through their custom ops (``torch.ops.amt_tools_tpu_torch``;
-    B on its plain, masked and carried schemas; B, E and F grouped), each
+    B, E and F on their plain, masked and carried schemas, and grouped,
+    plain and masked), each
     bit for bit its wrapper with one launch counted a call, then
     ``torch.library.opcheck`` of each on the card at small shapes;
 36. phase 5's bf16 piano pipeline exported (``export.save_serving``, a
@@ -239,18 +240,52 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     symbolic batch) and loaded: notes equal to the live fused pipeline's,
     A once, grouped B once and B twice a call; the same artifact at 8
     clips;
+44. masked and carried kernels E and F (per-row lengths, a float32 carry)
+    at the training shape, 8 x 625, H = 256, both directions, float32 and
+    bf16, lengths spread over 313-625 with one row at 0 and one at 625, the
+    carry a seeded random (c0, h0) and final-carry gradient: against their
+    plain versions with phase 10's and phase 11's tolerances (the initial
+    carry's gradient by ``CARRY_GRAD_TOL``), padded steps writing 0,
+    lengths = T and a zero carry bit for bit the unmasked launches, the
+    differentiable carried recurrence in chunks of 125 frames against one
+    call, grouped masked E and F at G = 4 bit for bit four per-stream
+    masked launches; each timed beside the unmasked launch, its plain
+    version and cuDNN ``nn.LSTM`` (forward or backward) on a
+    ``pack_padded_sequence`` batch (masked) or from ``(h0, c0)``
+    (carried), the bound over this run's valid row-steps;
+45. masked training at full width: O&F2 complexity 3, float32, Adam 6e-4,
+    on SyntheticPiano tracks (HTK mels by kernel A) cut to 313-625 frames
+    and padded to 625 with ``KEY_VALID_FRAMES``: lengths = T bit for bit
+    the unmasked ``make_train_step`` step; ``train()`` 30 steps on one
+    batch with masked E and F six times a step and B never, the loss
+    falling; steps/s in turns with the unmasked batch; the first masked
+    step (dropout off, SGD) against the CPU under phase 12b's rule; the
+    same with ``fused_lms`` (grouped masked E and F once, masked E and F
+    twice a step); one bf16 step with a finite loss;
+46. carried training: ``OnsetsFramesOnline`` complexity 3 on 8 x 625
+    frames in 5 chunks that thread the carries, the gradient through the
+    chain: carried E and F twice a chunk, ms a step; its onset language
+    model over the chunks against one whole-sequence call (outputs bit for
+    bit, gradients within ``CHUNK_LM_GRAD_TOL``) and against the CPU's
+    plain versions;
+47. the port's side of the convergence differential
+    (``tests/test_torch_convergence.py``): O&F complexity 2, 500 Adam steps
+    on the card from the port's seeded weights, then ``validate`` (masked
+    B); frame and note F1 within 0.04 and 0.10 of the JAX package's run
+    (``CONVERGENCE_JAX_F1``, which the slow test checks);
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, a fused piano batch and a
    fused O&F2 training step, and one step each of the of_2
    and tabcnn recipes with their batch loaded from the corpora inside the
-   range (the loader's host time in the busy share), under one
+   range (the loader's host time in the busy share), and one masked O&F2
+   training step (phase 45), under one
    ``profiling.trace`` run (``torch.profiler``; its TensorBoard trace must
    name kernels A and B): the device
    time by kernel and the busy share of each, whose path's kernels must
    appear in it.
 
-Phases 22-25 and 26-30 each end with a JSON line of their rates. The last
+Phases 22-25, 26-30 and 44-47 each end with a JSON line of their rates. The last
 lines are the card, one ``kernels`` JSON line (A to F; A with its launches
 on MAESTRO with the cache cold and warm and in the file stream; B with its
 masked launches of phases 19 and 27, phase 18's times, its carried
@@ -261,7 +296,9 @@ launches a rank in phase 33, E and F a step in phases 31 and 32; every
 kernel with its op and its launches under opcheck, A and B with their
 launches in the serving artifact, B in the streaming artifact, A, C, E and
 F in the examples; B, E and F with their grouped launch's times (phase 39)
-and its launches in the fused phases 40-43), and one JSON line
+and its launches in the fused phases 40-43; E and F with their masked,
+carried and grouped masked launches a step, times and bounds, phases
+44-46), and one JSON line
 ``{"ok": true, "device": {...}}``.
 Every bound comes from the kernel's cost function (``stft_kernel.cost``,
 ``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``), the
@@ -454,15 +491,19 @@ def kernel_counters():
 
 def route_counters():
     """(kernel, route, attribute) of every counter of a kernel's route:
-    kernel A's FFT route, kernel B's masked launches (with lengths) and
-    carried ones (from a carry), kernels C and D by ``exact``."""
+    kernel A's FFT route, the masked launches (with lengths) and carried
+    ones (from a carry) of kernels B, E and F, the masked grouped launches,
+    kernels C and D by ``exact``."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
 
-    return ([('stft_power', 'fft', 'fft_launches'),
-             ('lstm_scan', 'masked', 'masked_launches'),
-             ('lstm_scan', 'carried', 'carried_launches'),
-             ('lstm_scan_grouped', 'masked', 'masked_launches')] +
+    return ([('stft_power', 'fft', 'fft_launches')] +
+            [(name, route, f'{route}_launches')
+             for name in ('lstm_scan', 'lstm_scan_residuals', 'lstm_bptt')
+             for route in ('masked', 'carried')] +
+            [(name, 'masked', 'masked_launches')
+             for name in ('lstm_scan_grouped', 'lstm_scan_residuals_grouped',
+                          'lstm_bptt_grouped')] +
             [(name, route, f'{route}_launches')
              for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
 
@@ -1470,12 +1511,10 @@ def train_step_both(seed):
     weights from ``seed + 1``) on the CPU and on the card: losses,
     gradients, state after one SGD step and pre-ReLU values, by device."""
 
-    import copy
-
     import torch
 
     from amt_tools_tpu_torch import tools
-    from amt_tools_tpu_torch.models import OnsetsFrames2, run_on_batch
+    from amt_tools_tpu_torch.models import OnsetsFrames2
 
     rng = np.random.RandomState(seed)
     batch = {
@@ -1486,6 +1525,21 @@ def train_step_both(seed):
     model = OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
                           model_complexity=2, dropout=False,
                           generator=torch.Generator().manual_seed(seed + 1))
+
+    return step_both(model, batch)
+
+
+def step_both(model, batch):
+    """One float32 ``run_on_batch(train=True)`` and SGD step of ``model``
+    on ``batch`` (numpy arrays) on the CPU and on the card: losses,
+    gradients, state after the step and pre-ReLU values, by device."""
+
+    import copy
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import run_on_batch
 
     results = {}
     with tools.exact_fp32():
@@ -1512,7 +1566,16 @@ def train_step_both(seed):
 
 def train_against_cpu():
     """Phase 12b: one float32 training step of a narrow O&F2 on each of
-    ``TRAIN_CHECK_SEEDS``, the card (kernels) vs the CPU (plain versions):
+    ``TRAIN_CHECK_SEEDS``, the card (kernels) vs the CPU (plain versions),
+    by :func:`compare_step`."""
+
+    for seed in TRAIN_CHECK_SEEDS:
+        compare_step(f'seed {seed}', *train_step_both(seed))
+
+
+def compare_step(label, cpu, gpu):
+    """A training step on the card against the CPU's (results of
+    :func:`step_both`):
     the losses, every gradient against the largest gradient of its module,
     the parameters and statistics after one SGD step (tolerances above),
     and the ReLU and max-pool decisions each acoustic block took on the two
@@ -1522,65 +1585,64 @@ def train_against_cpu():
     import torch
 
     eps = torch.finfo(torch.float32).eps
-    for seed in TRAIN_CHECK_SEEDS:
-        ((cpu_loss, cpu_grads, cpu_state, cpu_pre),
-         (gpu_loss, gpu_grads, gpu_state, gpu_pre)) = train_step_both(seed)
-        loss_err = max(abs(gpu_loss[k] - cpu_loss[k]) / abs(cpu_loss[k])
-                       for k in cpu_loss)
+    cpu_loss, cpu_grads, cpu_state, cpu_pre = cpu
+    gpu_loss, gpu_grads, gpu_state, gpu_pre = gpu
+    loss_err = max(abs(gpu_loss[k] - cpu_loss[k]) / abs(cpu_loss[k])
+                   for k in cpu_loss)
 
-        # Differing decisions (ReLU, max-pool) by acoustic stack and block
-        flips = {}
-        for name, ref in cpu_pre.items():
-            block = conv_block(name)
-            flips[block] = decision_flips(ref, gpu_pre[name],
-                                          pooled=block[1] > 0)
+    # Differing decisions (ReLU, max-pool) by acoustic stack and block
+    flips = {}
+    for name, ref in cpu_pre.items():
+        block = conv_block(name)
+        flips[block] = decision_flips(ref, gpu_pre[name],
+                                      pooled=block[1] > 0)
 
-        # Each tensor's gradient error and parameter error over its
-        # tolerance; a conv block is held to CONV_BLOCK_GRAD_TOL where a
-        # decision of its stack differs at or after it
-        grad_ratios, param_ratios, block_errs = [], [], {}
-        for name, ref in cpu_grads.items():
-            module = name.rsplit('.', 1)[0]
-            scale = max(g.abs().max().item() for n, g in cpu_grads.items()
-                        if n.rsplit('.', 1)[0] == module)
-            grad_err = (gpu_grads[name] - ref).abs().max().item() / scale
-            tol = GRAD_TOL
-            block = conv_block(name)
-            if block is not None:
-                stack, index = block
-                block_errs[stack] = max(block_errs.get(stack, 0.0), grad_err)
-                if any(sum(counts) for (other, later), counts in flips.items()
-                       if other == stack and later >= index):
-                    tol = CONV_BLOCK_GRAD_TOL
-            grad_ratios.append((grad_err / tol, grad_err, name))
+    # Each tensor's gradient error and parameter error over its
+    # tolerance; a conv block is held to CONV_BLOCK_GRAD_TOL where a
+    # decision of its stack differs at or after it
+    grad_ratios, param_ratios, block_errs = [], [], {}
+    for name, ref in cpu_grads.items():
+        module = name.rsplit('.', 1)[0]
+        scale = max(g.abs().max().item() for n, g in cpu_grads.items()
+                    if n.rsplit('.', 1)[0] == module)
+        grad_err = (gpu_grads[name] - ref).abs().max().item() / scale
+        tol = GRAD_TOL
+        block = conv_block(name)
+        if block is not None:
+            stack, index = block
+            block_errs[stack] = max(block_errs.get(stack, 0.0), grad_err)
+            if any(sum(counts) for (other, later), counts in flips.items()
+                   if other == stack and later >= index):
+                tol = CONV_BLOCK_GRAD_TOL
+        grad_ratios.append((grad_err / tol, grad_err, name))
 
-            param = cpu_state[name]
-            param_tol = (SGD_LR * tol * scale +
-                         2 * eps * param.abs().max().item())
-            param_ratios.append(
-                (gpu_state[name] - param).abs().max().item() / param_tol)
-        grad_ratio, grad_err, grad_name = max(grad_ratios)
-        param_ratio = max(param_ratios)
-        stat_err = max((gpu_state[k].float() - v.float()).abs().max().item()
-                       for k, v in cpu_state.items() if k not in cpu_grads)
+        param = cpu_state[name]
+        param_tol = (SGD_LR * tol * scale +
+                     2 * eps * param.abs().max().item())
+        param_ratios.append(
+            (gpu_state[name] - param).abs().max().item() / param_tol)
+    grad_ratio, grad_err, grad_name = max(grad_ratios)
+    param_ratio = max(param_ratios)
+    stat_err = max((gpu_state[k].float() - v.float()).abs().max().item()
+                   for k, v in cpu_state.items() if k not in cpu_grads)
 
-        log(f'training step float32 card vs CPU, seed {seed}: losses within '
-            f'{loss_err:.3g} (relative; tolerance {LOSS_TOL}); differing '
-            f'ReLU/max-pool decisions in blocks 0-2, and the conv blocks\' '
-            f'worst gradient error over their module\'s largest: ' +
-            ', '.join(f'{stack} ' + ' '.join(
-                f'{flips[stack, i][0]}/{flips[stack, i][1]}'
-                for i in range(3)) + f' {block_errs[stack]:.3g}'
-                for stack in sorted(block_errs)) +
-            f'; gradients at most {grad_ratio:.3g} of their tolerance (worst '
-            f'{grad_name}, {grad_err:.3g} of its module\'s largest); '
-            f'parameters after one SGD step at most {param_ratio:.3g} of '
-            f'theirs; running statistics within {stat_err:.3g} (tolerance '
-            f'{STAT_TOL})')
-        require(loss_err <= LOSS_TOL, 'training losses differ card vs CPU')
-        require(grad_ratio <= 1.0, 'gradients differ card vs CPU')
-        require(param_ratio <= 1.0 and stat_err <= STAT_TOL,
-                'parameters or statistics after a step differ card vs CPU')
+    log(f'training step float32 card vs CPU, {label}: losses within '
+        f'{loss_err:.3g} (relative; tolerance {LOSS_TOL}); differing '
+        f'ReLU/max-pool decisions in blocks 0-2, and the conv blocks\' '
+        f'worst gradient error over their module\'s largest: ' +
+        ', '.join(f'{stack} ' + ' '.join(
+            f'{flips[stack, i][0]}/{flips[stack, i][1]}'
+            for i in range(3)) + f' {block_errs[stack]:.3g}'
+            for stack in sorted(block_errs)) +
+        f'; gradients at most {grad_ratio:.3g} of their tolerance (worst '
+        f'{grad_name}, {grad_err:.3g} of its module\'s largest); '
+        f'parameters after one SGD step at most {param_ratio:.3g} of '
+        f'theirs; running statistics within {stat_err:.3g} (tolerance '
+        f'{STAT_TOL})')
+    require(loss_err <= LOSS_TOL, 'training losses differ card vs CPU')
+    require(grad_ratio <= 1.0, 'gradients differ card vs CPU')
+    require(param_ratio <= 1.0 and stat_err <= STAT_TOL,
+            'parameters or statistics after a step differ card vs CPU')
 
 
 def guitar_cqt(grouped):
@@ -4897,9 +4959,10 @@ def same(got, want):
 
 
 def op_cases(scale):
-    """(label, wrapper call, op call, kernel) for every op and each of B's
-    schemas, on CUDA inputs of ``scale`` frames (opcheck's small shapes
-    when OP_CHECK_FRAMES); the op calls are (op, args)."""
+    """(label, wrapper call, op call, kernel) for every op and each of the
+    schemas of B, E and F (masked, carried, grouped), on CUDA inputs of
+    ``scale`` frames (opcheck's small shapes when OP_CHECK_FRAMES); the op
+    calls are (op, args)."""
 
     import torch
 
@@ -4959,11 +5022,33 @@ def op_cases(scale):
             (f'E {name}', 'lstm_scan_residuals',
              lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_residuals(
                  xw, wh, True),
-             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True))),
+             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True, None))),
+            (f'E {name} masked', 'lstm_scan_residuals',
+             lambda xw=xw, wh=wh, n=lengths: lstm_kernel.lstm_scan_residuals(
+                 xw, wh, True, n),
+             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True, lengths))),
+            (f'E {name} carried', 'lstm_scan_residuals',
+             lambda xw=xw, wh=wh, n=lengths, c=carry: (
+                 lambda r: (*r[:3], *r[3]))(lstm_kernel.lstm_scan_residuals(
+                     xw, wh, False, n, c, return_carry=True)),
+             (lstm_kernel.lstm_scan_residuals_carried_op,
+              (xw, wh, False, lengths, *carry))),
             (f'F {name}', 'lstm_bptt',
              lambda g=gates, c=c_seq, d=dout, w=wht: lstm_kernel.lstm_bptt(
                  g, c, d, w),
-             (lstm_kernel.lstm_bptt_op, (gates, c_seq, dout, wht, False)))]
+             (lstm_kernel.lstm_bptt_op,
+              (gates, c_seq, dout, wht, False, None))),
+            (f'F {name} masked', 'lstm_bptt',
+             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths:
+             lstm_kernel.lstm_bptt(g, c, d, w, True, n),
+             (lstm_kernel.lstm_bptt_op,
+              (gates, c_seq, dout, wht, True, lengths))),
+            (f'F {name} carried', 'lstm_bptt',
+             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths, k=carry:
+             lstm_kernel.lstm_bptt(g, c, d, w, False, n, (k[0], *k)),
+             (lstm_kernel.lstm_bptt_carried_op,
+              (gates, c_seq, dout, wht, False, lengths, carry[0],
+               *carry)))]
         # The grouped launches: three groups, the last reversed
         gxw = randn(3, 4, scale, 4 * HIDDEN, scale=0.5).to(dtype)
         gwh = randn(3, HIDDEN, 4 * HIDDEN, scale=0.05).to(dtype)
@@ -4981,19 +5066,30 @@ def op_cases(scale):
             (f'E {name} grouped', 'lstm_scan_residuals_grouped',
              lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_residuals_grouped(
                  x, w, 2),
-             (lstm_kernel.lstm_scan_residuals_grouped_op, (gxw, gwh, 2))),
+             (lstm_kernel.lstm_scan_residuals_grouped_op,
+              (gxw, gwh, 2, None))),
+            (f'E {name} grouped masked', 'lstm_scan_residuals_grouped',
+             lambda x=gxw, w=gwh, n=lengths:
+             lstm_kernel.lstm_scan_residuals_grouped(x, w, 2, n),
+             (lstm_kernel.lstm_scan_residuals_grouped_op,
+              (gxw, gwh, 2, lengths))),
             (f'F {name} grouped', 'lstm_bptt_grouped',
              lambda g=ggates, c=gc, d=gdout, w=gwht:
              lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2),
              (lstm_kernel.lstm_bptt_grouped_op,
-              (ggates, gc, gdout, gwht, 2)))]
+              (ggates, gc, gdout, gwht, 2, None))),
+            (f'F {name} grouped masked', 'lstm_bptt_grouped',
+             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths:
+             lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2, n),
+             (lstm_kernel.lstm_bptt_grouped_op,
+              (ggates, gc, gdout, gwht, 2, lengths)))]
 
     return cases
 
 
 def check_custom_ops(card):
-    """Phase 35: each of kernels A-F (B on its three schemas) through its
-    custom op, bit for bit its wrapper, one launch counted a call; then
+    """Phase 35: each of kernels A-F (B, E and F on their masked and
+    carried schemas) through its custom op, bit for bit its wrapper, one launch counted a call; then
     ``torch.library.opcheck`` of each on the card at small shapes (the
     schema, the fake implementation against the real one, the autograd
     registration, and a trace with symbolic shapes)."""
@@ -6214,6 +6310,800 @@ def fused_phases(pipeline, requests, velocity_batch, card):
             'velocity': velocity, 'artifact': artifact}, entries
 
 
+# Phases 44-47: masked and carried training (kernels E and F with per-row
+# lengths and a float32 carry), then the port's side of the convergence
+# differential
+
+# Phase 44: valid lengths of the 8 x 625 rows, spread over 313-625 with one
+# row empty and one whole, and the chunks that thread a carry
+TRAIN_LENGTHS = (625, 0, 313, 390, 455, 510, 575, 620)
+CARRY_CHUNK_FRAMES = 125
+# The initial carry's gradient against the plain version, max over the
+# largest and mean over the mean magnitude: float32 as kernel F's da; in
+# bf16 a sum over 4H of da rounded to bf16, where an occasional da the two
+# versions compounded apart rounds the other way (tests/test_torch_cuda.py
+# CARRY_GRAD_TOL)
+CARRY_GRAD_TOL = {'float32': (1e-4, 1e-5), 'bfloat16': (5e-4, 5e-4)}
+CHUNK_GRAD_TOL = {'float32': 1e-6, 'bfloat16': 5e-4}
+ONLINE_CHUNKS = 5
+CHUNK_LM_GRAD_TOL = 1e-5
+# Phase 47 (tests/test_torch_convergence.py, which checks these against the
+# JAX package's run): held-out frame and note F1 of the JAX package's 500
+# Adam steps of O&F complexity 2 on the 13-key corpus from the port's
+# seeded weights, and the agreement the port's run on the card must reach
+CONVERGENCE_JAX_F1 = {'frame': 0.7464994255074684, 'note': 0.7663043478260869}
+CONVERGENCE_TOL = {'frame': 0.04, 'note': 0.10}
+CONVERGENCE_STEPS = 500
+
+
+def route_errors(worst, pairs):
+    """Fold ``lstm_errors`` of each (key, got, ref) into ``worst``."""
+
+    for key, got, ref in pairs:
+        worst[key] = tuple(max(u, v) for u, v in
+                           zip(worst.get(key, (0.0,) * 4),
+                               lstm_errors(got, ref)))
+
+
+def cudnn_masked_ms(x, w_x, w_h, dtype, lengths, carry):
+    """cuDNN ``nn.LSTM`` forward and backward (each alone, ms) on the same
+    weights: on a ``pack_padded_sequence`` batch (cuDNN takes no empty
+    row: a length of 0 counts as 1) or from ``(h0, c0)``."""
+
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    module, xd = cudnn_lstm(x, w_x, w_h, dtype)
+    if lengths is not None:
+        packed = pack_padded_sequence(xd, lengths.clamp(min=1).cpu(),
+                                      batch_first=True, enforce_sorted=False)
+
+        def forward():
+            return module(packed)[0].data
+    else:
+        state = tuple(v.to(dtype)[None].contiguous() for v in carry[::-1])
+
+        def forward():
+            return module(xd, state)[0]
+
+    forward_ms = time_ms(forward, reps=5)
+    out = forward()
+    grad = torch.randn_like(out)
+    params = [xd] + list(module.parameters())
+    backward_ms = time_ms(lambda: torch.autograd.grad(
+        out, params, grad, retain_graph=True), reps=5)
+
+    return forward_ms, backward_ms
+
+
+def check_masked_carried_lstm(card):
+    """Phase 44: masked and carried kernels E and F at the training shape
+    (8 x 625, H = 256), both directions, float32 and bf16: against their
+    plain versions (phases 10 and 11's tolerances; the initial carry's
+    gradient by ``CARRY_GRAD_TOL``), lengths = T and a zero carry bit for
+    bit the unmasked launches, chunks of 125 frames that thread the carry
+    through the differentiable recurrence against one call, grouped masked
+    E and F at G = 4 bit for bit four per-stream masked launches; each
+    timed beside the unmasked launch, the plain version and cuDNN; the
+    bounds from the valid steps. Returns the entries of E and F by route
+    (float32)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.ops import lstm_kernel as lk
+
+    lengths = torch.tensor(TRAIN_LENGTHS, dtype=torch.int32, device='cuda')
+    steps = int(lengths.sum())
+    entries = {}
+    with tools.exact_fp32():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
+                    PEAK_FP32_FLOPS)
+            x, w_x, w_h, xw, wh = lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES,
+                                              dtype, seed=44)
+            g = torch.Generator().manual_seed(45)
+            dout = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN,
+                               generator=g).cuda().to(dtype)
+            c0, h0, dc, dh = (0.5 * torch.randn(TRAIN_BATCH, HIDDEN,
+                                                generator=g).cuda()
+                              for _ in range(4))
+            w_h_t = w_h.t().to(dtype).contiguous()
+            full = torch.full_like(lengths, TRAIN_FRAMES)
+            zeros = torch.zeros_like(c0)
+            routes = {'masked': (lengths, None), 'carried': (None, (c0, h0))}
+            worst = {}
+            for reverse in (False, True):
+                plain_e = lk.lstm_scan_residuals(xw, wh, reverse)
+                plain_f = lk.lstm_bptt(plain_e[1], plain_e[2], dout, w_h_t,
+                                       reverse)
+                for route, (n, carry) in routes.items():
+                    got = lk.lstm_scan_residuals(xw, wh, reverse, n, carry,
+                                                 return_carry=bool(carry))
+                    ref = lk.lstm_scan_residuals_plain(
+                        xw, wh, reverse, n, carry, return_carry=bool(carry))
+                    bptt_carry = (c0, dc, dh) if carry else None
+                    da = lk.lstm_bptt(ref[1], ref[2], dout, w_h_t, reverse,
+                                      n, bptt_carry)
+                    want = lk.lstm_bptt_plain(ref[1], ref[2], dout, w_h_t,
+                                              reverse, n, bptt_carry)
+                    torch.cuda.synchronize()
+                    if carry:
+                        (da, dc0, dh0), (want, want_dc0, want_dh0) = da, want
+                        route_errors(worst, (
+                            (f'{route} dc0', dc0, want_dc0),
+                            (f'{route} dh0', dh0, want_dh0),
+                            (f'{route} c, h', torch.stack(got[3]),
+                             torch.stack(ref[3]))))
+                    h_prev = lk._h_prev(ref[0], reverse, n,
+                                        h0 if carry else None)
+                    route_errors(worst, (
+                        (f'{route} out', got[0], ref[0]),
+                        (f'{route} gates', got[1], ref[1]),
+                        (f'{route} c', got[2], ref[2]),
+                        (f'{route} da', da, want),
+                        (f'{route} dW_h', lk._dw_h(h_prev, da),
+                         lk._dw_h(h_prev, want))))
+                    if n is not None:
+                        mask = (torch.arange(TRAIN_FRAMES, device='cuda')[None]
+                                < n[:, None])
+                        require(not got[0][~mask].any() and
+                                not da[~mask].any(),
+                                f'masked E or F {name} wrote a padded step')
+                # Lengths = T, a zero carry: the unmasked launches bit for bit
+                same = [torch.equal(a, b) for a, b in zip(
+                    lk.lstm_scan_residuals(xw, wh, reverse, full), plain_e)]
+                same += [torch.equal(a, b) for a, b in zip(
+                    lk.lstm_scan_residuals(xw, wh, reverse, None,
+                                           (zeros, zeros)), plain_e)]
+                same.append(torch.equal(lk.lstm_bptt(
+                    plain_e[1], plain_e[2], dout, w_h_t, reverse, full),
+                    plain_f))
+                same.append(torch.equal(lk.lstm_bptt(
+                    plain_e[1], plain_e[2], dout, w_h_t, reverse, None,
+                    (zeros, zeros, zeros))[0], plain_f))
+                require(all(same), f'E or F {name} with lengths = T or a zero '
+                                   f'carry differs from the unmasked launch')
+            log(f'phase 44, E and F {name} masked and carried (8 x 625, '
+                f'lengths {list(TRAIN_LENGTHS)}): ' + '; '.join(
+                    f'{key} max {m:.3g} ({rel:.3g} of the largest), mean '
+                    f'{mean:.3g} ({mean_rel:.3g} of the mean magnitude)'
+                    for key, (m, mean, rel, mean_rel) in sorted(
+                        worst.items())) +
+                '; lengths = T and a zero carry bit for bit the unmasked '
+                'launches')
+            for route in routes:
+                out_err = worst[f'{route} out']
+                require(out_err[0] <= LSTM_TOL[name] and
+                        out_err[1] <= LSTM_MEAN_TOL[name],
+                        f'{route} E {name} h disagrees with its plain version')
+                for key in ('gates', 'c'):
+                    err = worst[f'{route} {key}']
+                    require(err[2] <= RESIDUAL_TOL[name] and
+                            err[1] <= RESIDUAL_MEAN_TOL[name],
+                            f'{route} E {name} {key} disagree with the plain '
+                            f'version')
+                for key in ('da', 'dW_h'):
+                    err = worst[f'{route} {key}']
+                    require(err[2] <= BPTT_TOL[name] and
+                            err[3] <= BPTT_MEAN_TOL[name],
+                            f'{route} F {name} {key} disagrees with its plain '
+                            f'version')
+            for key in ('dc0', 'dh0'):
+                err = worst[f'carried {key}']
+                require(err[2] <= CARRY_GRAD_TOL[name][0] and
+                        err[3] <= CARRY_GRAD_TOL[name][1],
+                        f'carried F {name} {key} disagrees with its plain '
+                        f'version')
+            # c is unbounded: the final carry held to its largest value
+            require(worst['carried c, h'][2] <= LSTM_TOL[name],
+                    f'carried E {name} final carry disagrees')
+
+            chunk_err = check_carried_chunks(xw, w_h, dout, c0, h0, dtype)
+            log(f'phase 44, the carried recurrence {name} in chunks of '
+                f'{CARRY_CHUNK_FRAMES} frames against one call: outputs bit '
+                f'for bit, gradients within {chunk_err:.3g} of their largest '
+                f'(tolerance d(xw) {CHUNK_GRAD_TOL[name]}, others '
+                f'{max(CHUNK_GRAD_TOL[name], 1e-5)})')
+            grouped_masked_equal(dtype, lengths)
+
+            # Times, each beside the unmasked launch, the plain version and
+            # cuDNN; the bounds from this run's valid steps
+            gates, c_seq = plain_e[1], plain_e[2]
+            times = {
+                'E': time_ms(lambda: lk.lstm_scan_residuals(xw, wh), reps=5),
+                'F': time_ms(lambda: lk.lstm_bptt(gates, c_seq, dout, w_h_t),
+                             reps=5)}
+            masked_e = lk.lstm_scan_residuals(xw, wh, False, lengths)
+            carried_e = lk.lstm_scan_residuals(xw, wh, False, None, (c0, h0))
+            runs = {
+                ('E', 'masked'): lambda: lk.lstm_scan_residuals(
+                    xw, wh, False, lengths),
+                ('E', 'carried'): lambda: lk.lstm_scan_residuals(
+                    xw, wh, False, None, (c0, h0), return_carry=True),
+                ('F', 'masked'): lambda: lk.lstm_bptt(
+                    masked_e[1], masked_e[2], dout, w_h_t, False, lengths),
+                ('F', 'carried'): lambda: lk.lstm_bptt(
+                    carried_e[1], carried_e[2], dout, w_h_t, False, None,
+                    (c0, dc, dh))}
+            plains = {
+                ('E', 'masked'): lambda: lk.lstm_scan_residuals_plain(
+                    xw, wh, False, lengths),
+                ('E', 'carried'): lambda: lk.lstm_scan_residuals_plain(
+                    xw, wh, False, None, (c0, h0), return_carry=True),
+                ('F', 'masked'): lambda: lk.lstm_bptt_plain(
+                    masked_e[1], masked_e[2], dout, w_h_t, False, lengths),
+                ('F', 'carried'): lambda: lk.lstm_bptt_plain(
+                    carried_e[1], carried_e[2], dout, w_h_t, False, None,
+                    (c0, dc, dh))}
+            library = {route: cudnn_masked_ms(
+                x, w_x, w_h, dtype, n, carry)
+                for route, (n, carry) in routes.items()}
+            for (kernel, route), run in runs.items():
+                ms = time_ms(run, reps=5)
+                plain_ms = time_ms(plains[kernel, route], reps=1)
+                n = lengths if route == 'masked' else None
+                valid = steps if n is not None else None
+                if kernel == 'E':
+                    flops, num_bytes = lk.scan_cost(
+                        TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype,
+                        residuals=True, carried=route == 'carried',
+                        steps=valid)
+                else:
+                    flops, num_bytes = lk.bptt_cost(
+                        TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype,
+                        carried=route == 'carried', steps=valid)
+                bound, bound_by = bound_ms(num_bytes, flops, peak)
+                library_ms = library[route][0 if kernel == 'E' else 1]
+                err = worst[f'{route} {"out" if kernel == "E" else "da"}'][0]
+                log(f'phase 44, {kernel} {route} {name}: kernel {ms:.3f} ms '
+                    f'(unmasked {times[kernel]:.3f} ms, '
+                    f'{100 * (ms / times[kernel] - 1):+.1f}%), plain '
+                    f'{plain_ms:.3f} ms, cuDNN nn.LSTM '
+                    f'{"forward" if kernel == "E" else "backward"} '
+                    f'{library_ms:.3f} ms ({"packed" if route == "masked" else "from (h0, c0)"}, '
+                    f'with its input projection), bound {bound:.4f} ms '
+                    f'({bound_by}; {valid or TRAIN_BATCH * TRAIN_FRAMES} '
+                    f'valid row-steps)')
+                entries.setdefault(name, {})[kernel, route] = {
+                    'ms': ms, 'unmasked_ms': times[kernel],
+                    'plain_ms': plain_ms, 'bound_ms': bound,
+                    'bound_by': bound_by, 'library_ms': library_ms,
+                    'max_abs_err': err}
+            for kernel, grouped_ms in grouped_masked_times(dtype,
+                                                           lengths).items():
+                entries[name][kernel, 'grouped_masked'] = grouped_ms
+    log(f'phase 44 ({card}) passed')
+
+    return entries
+
+
+def check_carried_chunks(xw, w_h, dout, c0, h0, dtype):
+    """The differentiable carried recurrence (carried E and F) over chunks
+    that thread the carry, against one call from the same carry: outputs
+    bit for bit, gradients within ``CHUNK_GRAD_TOL``. Returns the worst
+    gradient error over its largest value."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.lstm_kernel import lstm_scan_grad
+
+    name = str(dtype).split('.')[-1]
+
+    def grads(chunk):
+        x = xw.detach().clone().requires_grad_()
+        w = w_h.detach().clone().requires_grad_()
+        first = (c0.clone().requires_grad_(), h0.clone().requires_grad_())
+        state, pieces = first, []
+        for start in range(0, TRAIN_FRAMES, chunk):
+            out, state = lstm_scan_grad(x[:, start:start + chunk], w,
+                                        initial_carry=state,
+                                        return_carry=True)
+            pieces.append(out)
+        out = torch.cat(pieces, dim=1)
+        (out.float() * dout.float()).sum().backward()
+        return out.detach(), [x.grad, w.grad, first[0].grad, first[1].grad]
+
+    whole, want = grads(TRAIN_FRAMES)
+    chunked, got = grads(CARRY_CHUNK_FRAMES)
+    require(torch.equal(whole, chunked),
+            f'carried E {name} in chunks differs from one call')
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = lstm_errors(a, b)[2]
+        worst = max(worst, err)
+        tol = CHUNK_GRAD_TOL[name] if i == 0 else max(CHUNK_GRAD_TOL[name],
+                                                      1e-5)
+        require(err <= tol, f'carried F {name} in chunks: gradient {i} off '
+                            f'by {err:.3g} of its largest')
+
+    return worst
+
+
+def grouped_masked_inputs(dtype):
+    import torch
+
+    g = torch.Generator().manual_seed(46)
+    xw = torch.randn(4, TRAIN_BATCH, TRAIN_FRAMES, 4 * HIDDEN,
+                     generator=g) * 0.5
+    w_h = torch.stack([torch.nn.init.orthogonal_(
+        torch.empty(HIDDEN, 4 * HIDDEN), generator=g) for _ in range(4)])
+    dout = torch.randn(4, TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, generator=g)
+    xw, w_h, dout = (t.cuda().to(dtype) for t in (xw, w_h, dout))
+
+    return xw, w_h, dout, w_h.transpose(1, 2).contiguous()
+
+
+def grouped_masked_equal(dtype, lengths):
+    """Grouped masked E and F at G = 4 (the groups from 2 on reversed) bit
+    for bit four per-stream masked launches, and counted as masked."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops import lstm_kernel as lk
+
+    xw, w_h, dout, w_h_t = grouped_masked_inputs(dtype)
+    counts = (lk.lstm_scan_residuals_grouped.masked_launches,
+              lk.lstm_bptt_grouped.masked_launches)
+    res = lk.lstm_scan_residuals_grouped(xw, w_h, 2, lengths)
+    da = lk.lstm_bptt_grouped(res[1], res[2], dout, w_h_t, 2, lengths)
+    torch.cuda.synchronize()
+    require((lk.lstm_scan_residuals_grouped.masked_launches,
+             lk.lstm_bptt_grouped.masked_launches) ==
+            tuple(c + 1 for c in counts), 'grouped masked E/F not counted')
+    for g in range(4):
+        alone = lk.lstm_scan_residuals(xw[g], w_h[g], g >= 2, lengths)
+        require(all(torch.equal(a[g], b) for a, b in zip(res, alone)) and
+                torch.equal(da[g], lk.lstm_bptt(alone[1], alone[2], dout[g],
+                                                w_h_t[g], g >= 2, lengths)),
+                f'grouped masked E or F differs from group {g} alone')
+    log(f'phase 44, grouped masked E and F {str(dtype).split(".")[-1]} at '
+        f'G = 4: bit for bit the four per-stream masked launches')
+
+
+def grouped_masked_times(dtype, lengths):
+    """Grouped masked E and F at G = 4, each timed beside four per-stream
+    masked launches, its grouped plain version and four cuDNN calls on a
+    packed batch; the bound over the valid steps of the four groups."""
+
+    from amt_tools_tpu_torch.ops import lstm_kernel as lk
+
+    xw, w_h, dout, w_h_t = grouped_masked_inputs(dtype)
+    res = lk.lstm_scan_residuals_grouped(xw, w_h, 2, lengths)
+    peak = PEAK_BF16_FLOPS if str(dtype).endswith('bfloat16') else \
+        PEAK_FP32_FLOPS
+    steps = int(lengths.sum())
+    x, w_x, w_h0, _, _ = lstm_inputs(TRAIN_BATCH, TRAIN_FRAMES, dtype,
+                                     seed=47)
+    library = cudnn_masked_ms(x, w_x, w_h0, dtype, lengths, None)
+    result = {}
+    for kernel, run, each, plain, cost in (
+            ('E', lambda: lk.lstm_scan_residuals_grouped(xw, w_h, 2, lengths),
+             lambda: [lk.lstm_scan_residuals(xw[g], w_h[g], g >= 2, lengths)
+                      for g in range(4)],
+             lambda: lk.lstm_scan_residuals_grouped_plain(xw, w_h, 2,
+                                                          lengths),
+             lk.scan_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype,
+                          residuals=True, steps=steps)),
+            ('F', lambda: lk.lstm_bptt_grouped(res[1], res[2], dout, w_h_t, 2,
+                                               lengths),
+             lambda: [lk.lstm_bptt(res[1][g], res[2][g], dout[g], w_h_t[g],
+                                   g >= 2, lengths) for g in range(4)],
+             lambda: lk.lstm_bptt_grouped_plain(res[1], res[2], dout, w_h_t,
+                                                2, lengths),
+             lk.bptt_cost(TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, dtype,
+                          steps=steps))):
+        bound, bound_by = bound_ms(4 * cost[1], 4 * cost[0], peak)
+        result[kernel] = {
+            'ms': time_ms(run, reps=5), 'per_stream_ms': time_ms(each, reps=3),
+            'plain_ms': time_ms(plain, reps=1), 'bound_ms': bound,
+            'bound_by': bound_by,
+            'library_ms': 4 * library[0 if kernel == 'E' else 1]}
+        log(f'phase 44, grouped masked {kernel} {str(dtype).split(".")[-1]} '
+            f'at G = 4: {result[kernel]["ms"]:.3f} ms, four per-stream '
+            f'launches {result[kernel]["per_stream_ms"]:.3f} ms, plain '
+            f'{result[kernel]["plain_ms"]:.3f} ms, four cuDNN calls '
+            f'{result[kernel]["library_ms"]:.3f} ms, bound {bound:.4f} ms '
+            f'({bound_by})')
+
+    return result
+
+
+def padded_batches(card_dataset, count, seed):
+    """``count`` training batches of SyntheticPiano tracks cut to a length
+    in [313, 625] frames and zero-padded to 625, with
+    ``tools.KEY_VALID_FRAMES``: the masked training input."""
+
+    from amt_tools_tpu_torch import tools
+
+    rng = np.random.RandomState(seed)
+    names = list(card_dataset.tracks)
+    batches = []
+    for _ in range(count):
+        parts = {tools.KEY_FEATS: [], tools.KEY_MULTIPITCH: [],
+                 tools.KEY_VALID_FRAMES: []}
+        for row in range(TRAIN_BATCH):
+            track = card_dataset.get_track_data(names[rng.randint(len(
+                names))])
+            length = TRAIN_LENGTHS[row] if row < len(TRAIN_LENGTHS) else \
+                TRAIN_FRAMES
+            length = max(length, 313)
+            for key in (tools.KEY_FEATS, tools.KEY_MULTIPITCH):
+                value = np.zeros(track[key].shape[:-1] + (TRAIN_FRAMES,),
+                                 dtype=np.float32)
+                value[..., :length] = track[key][..., :length]
+                parts[key].append(value)
+            parts[tools.KEY_VALID_FRAMES].append(length)
+        batches.append({k: np.stack(v) for k, v in parts.items()})
+
+    return batches
+
+
+def train_masked(card):
+    """Phase 45: masked training at full width. O&F2 complexity 3, float32,
+    Adam 6e-4 on SyntheticPiano tracks (HTK mels by kernel A) cut to
+    313-625 frames and padded to 625 with valid frames: through
+    ``make_train_step`` (lengths = T bit for bit the unmasked step, under
+    cuDNN's deterministic algorithms) and ``train()`` (30 steps on one
+    batch, masked E and F six times a step, B never, the loss falling),
+    steps/s in turns with the unmasked batch; the first masked step
+    (dropout off, SGD) against the CPU's plain versions under phase 12b's
+    rule; the same with ``fused_lms``
+    (grouped masked E and F once, masked E and F twice a step); one bf16
+    step. Returns the launches a step by layout and a profiler entry."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.datasets import SyntheticPiano
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames2
+    from amt_tools_tpu_torch.train import make_train_step, step_generator
+
+    tools.use_exact_fp32()
+    dataset = SyntheticPiano(num_tracks=8, track_duration=20.0,
+                             data_proc=MelSpec(n_mels=N_MELS, htk=True))
+    batches = padded_batches(dataset, 2, seed=45)
+    batch = batches[0]
+    full = dict(batch, **{tools.KEY_VALID_FRAMES: np.full(
+        TRAIN_BATCH, TRAIN_FRAMES)})
+    unmasked = {k: v for k, v in full.items()
+                if k != tools.KEY_VALID_FRAMES}
+
+    def model(dtype=None, seed=0, **kw):
+        return OnsetsFrames2(dim_in=N_MELS, profile=tools.PianoProfile(),
+                             model_complexity=3, dtype=dtype,
+                             generator=torch.Generator().manual_seed(seed),
+                             **kw)
+
+    def place(data):
+        return {k: torch.from_numpy(np.asarray(v)).cuda()
+                for k, v in data.items()}
+
+    # Lengths = T: the unmasked step bit for bit (losses, parameters and
+    # statistics after one Adam step), dropout from one generator
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for data in (full, unmasked):
+            local = model(seed=3).cuda()
+            step = make_train_step(local, torch.optim.Adam(
+                local.parameters(), lr=LEARNING_RATE))
+            loss = step(place(data), step_generator(0, 0, 'cuda'))
+            states.append(({k: v.item() for k, v in loss.items()},
+                           local.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(states[0][0] == states[1][0] and all(
+        torch.equal(states[0][1][k], states[1][1][k]) for k in states[0][1]),
+        'the masked step with lengths = T differs from the unmasked step')
+    log('phase 45: a masked step with lengths = T is the unmasked step bit '
+        'for bit (losses, parameters and statistics after one Adam step)')
+
+    launches = {}
+    for kw, label, counts in (
+            ({}, 'per-head', {'lstm_scan_residuals_masked': 6,
+                              'lstm_bptt_masked': 6}),
+            ({'fused_lms': True}, 'fused_lms',
+             {'lstm_scan_residuals_grouped_masked': 1,
+              'lstm_bptt_grouped_masked': 1,
+              'lstm_scan_residuals_masked': 2, 'lstm_bptt_masked': 2})):
+        result, got, _ = train_run(
+            model(seed=4, **kw), FixedLoader([batch]), FIT_STEPS,
+            f'phase 45, {FIT_STEPS} masked float32 steps of O&F2 complexity '
+            f'3 ({label}) on one batch, lengths '
+            f'{batch[tools.KEY_VALID_FRAMES].tolist()}',
+            directions=counts['lstm_scan_residuals_masked'])
+        for key, per_step in counts.items():
+            require(got[key] == per_step * FIT_STEPS,
+                    f'phase 45 {label}: {key} ran {got[key]} times in '
+                    f'{FIT_STEPS} steps')
+        losses = result['losses'][tools.KEY_LOSS_TOTAL]
+        log(f'phase 45 {label}: total loss {losses[0]:.6g} -> '
+            f'{losses[-1]:.6g}')
+        require(losses[-1] < losses[0], f'phase 45 {label}: the masked loss '
+                                        f'did not fall')
+        launches[label] = {k: got[k] / FIT_STEPS for k in counts}
+
+        # Steps/s in turns: masked, unmasked, unmasked, masked
+        rates = {'masked': [], 'unmasked': []}
+        for kind in ('masked', 'unmasked', 'unmasked', 'masked'):
+            data = batch if kind == 'masked' else unmasked
+            _, _, rate = train_run(
+                model(seed=5, **kw), FixedLoader([data] * 2), 3,
+                f'phase 45 {label} {kind} turn',
+                directions=counts['lstm_scan_residuals_masked'] if
+                kind == 'masked' else 6 - 4 * bool(kw))
+            rates[kind].append(rate)
+        log(f'phase 45 {label}: steps/s in turns, masked {rates["masked"]}, '
+            f'unmasked {rates["unmasked"]}')
+        launches[label]['steps_per_s'] = rates
+
+    # The first masked step (dropout off, SGD), card against the CPU's
+    # plain versions under phase 12b's rule
+    compare_step(f'the first masked step of O&F2 complexity 3, lengths '
+                 f'{batch[tools.KEY_VALID_FRAMES].tolist()}',
+                 *step_both(model(seed=4, dropout=False), batch))
+
+    bf16 = model(torch.bfloat16, seed=6).cuda()
+    step = make_train_step(bf16, torch.optim.Adam(bf16.parameters(),
+                                                  lr=LEARNING_RATE))
+    loss = step(place(batch), step_generator(0, 0, 'cuda'))
+    require(all(np.isfinite(v.item()) for v in loss.values()),
+            'phase 45: the masked bf16 step gave a loss that is not finite')
+    log(f'phase 45: one masked bf16 step, total loss '
+        f'{loss[tools.KEY_LOSS_TOTAL].item():.6g}')
+
+    profiled = model(seed=7).cuda()
+    step = make_train_step(profiled, torch.optim.Adam(profiled.parameters(),
+                                                      lr=LEARNING_RATE))
+    device_batch = place(batch)
+    step(device_batch, step_generator(0, 0, 'cuda'))
+    log(f'phase 45 ({card}) passed')
+
+    return launches, (
+        f'masked float32 training step of {TRAIN_BATCH} x {TRAIN_FRAMES} '
+        f'frames (lengths {batch[tools.KEY_VALID_FRAMES].tolist()})',
+        lambda: step(device_batch, step_generator(0, 1, 'cuda')),
+        ('lstm_scan_kernel', 'lstm_bptt_kernel'))
+
+
+def train_carried(card):
+    """Phase 46: carried training. ``OnsetsFramesOnline`` complexity 3 on
+    8 x 625 frames in 5 chunks that thread the carries, the gradient
+    through the chain: carried E and F twice a chunk; its language model
+    over the chunks against one whole-sequence call (outputs bit for bit,
+    gradients within ``CHUNK_LM_GRAD_TOL`` of the whole call's largest) and
+    against the CPU's plain versions (phase 11's float32 tolerance); ms a
+    step. Returns the carried launches a chunk."""
+
+    import copy
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.models import OnsetsFramesOnline
+
+    tools.use_exact_fp32()
+    model = OnsetsFramesOnline(dim_in=N_MELS, profile=tools.PianoProfile(),
+                               model_complexity=3,
+                               generator=torch.Generator().manual_seed(8))
+    g = torch.Generator().manual_seed(9)
+    feats = torch.rand(TRAIN_BATCH, 1, N_MELS, TRAIN_FRAMES, generator=g)
+    model = model.cuda().train()
+    feats = model.pre_proc({tools.KEY_FEATS: feats.cuda()})[tools.KEY_FEATS]
+    chunk = TRAIN_FRAMES // ONLINE_CHUNKS
+    optimizer = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        state, total = model.init_carries(TRAIN_BATCH, 'cuda'), 0.0
+        for start in range(0, TRAIN_FRAMES, chunk):
+            out, state = model(feats[:, start:start + chunk],
+                               torch.Generator('cuda').manual_seed(start),
+                               carries=state)
+            total = total + out[tools.KEY_MULTIPITCH].square().mean()
+        total.backward()
+        optimizer.step()
+        return total
+
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = step()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(np.isfinite(loss.item()), 'phase 46: the loss is not finite')
+    for key in ('lstm_scan_residuals_carried', 'lstm_bptt_carried'):
+        require(launches[key] == 2 * ONLINE_CHUNKS,
+                f'phase 46: {key} ran {launches[key]} times in '
+                f'{ONLINE_CHUNKS} chunks')
+    require(launches['lstm_scan'] == 0, 'phase 46: kernel B ran in training')
+    ms = time_ms(step, reps=3)
+    log(f'phase 46: OnsetsFramesOnline complexity 3, {TRAIN_BATCH} x '
+        f'{TRAIN_FRAMES} frames in {ONLINE_CHUNKS} chunks threading the '
+        f'carries: carried E and F twice a chunk, {ms:.3f} ms a step (Adam)')
+
+    # The language model alone: chunks against one call, card against CPU
+    lm = model.onset_lm
+    x = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, lm.FastLSTM_0.input_proj
+                    .in_features, generator=g).cuda()
+    dout = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, lm.dim_out,
+                       generator=g).cuda()
+
+    def lm_grads(module, device, size):
+        module.zero_grad()
+        carry = tuple(v.requires_grad_() for v in module.init_carry(
+            TRAIN_BATCH, device))
+        state, pieces = carry, []
+        xd = x.detach().to(device).requires_grad_()
+        for start in range(0, TRAIN_FRAMES, size):
+            out, state = module(xd[:, start:start + size], state)
+            pieces.append(out)
+        out = torch.cat(pieces, dim=1)
+        (out * dout.to(device)).sum().backward()
+        grads = [p.grad for p in module.parameters()] + [
+            xd.grad, carry[0].grad, carry[1].grad]
+        return out.detach(), [t.detach().cpu() for t in grads]
+
+    whole, want = lm_grads(lm, 'cuda', TRAIN_FRAMES)
+    chunked, got = lm_grads(lm, 'cuda', chunk)
+    require(torch.equal(whole, chunked),
+            'phase 46: the language model over chunks differs from one call')
+    chunk_err = max(lstm_errors(a, b)[2] for a, b in zip(got, want))
+    require(chunk_err <= CHUNK_LM_GRAD_TOL,
+            f'phase 46: chunked gradients off by {chunk_err:.3g}')
+    cpu_out, cpu = lm_grads(copy.deepcopy(lm).cpu(), 'cpu', chunk)
+    out_err = (cpu_out - chunked.cpu()).abs().max().item()
+    cpu_err = max(lstm_errors(a, b)[2] for a, b in zip(got, cpu))
+    log(f'phase 46: the onset language model in {ONLINE_CHUNKS} chunks: '
+        f'outputs bit for bit one call, gradients within {chunk_err:.3g} of '
+        f'its largest (tolerance {CHUNK_LM_GRAD_TOL}); card against the '
+        f'CPU\'s plain versions: outputs within {out_err:.3g} (tolerance '
+        f'{LSTM_TOL["float32"]}), gradients {cpu_err:.3g} of the largest '
+        f'(tolerance {BPTT_TOL["float32"]})')
+    require(out_err <= LSTM_TOL['float32'] and
+            cpu_err <= BPTT_TOL['float32'],
+            'phase 46: the carried step differs card vs CPU')
+    log(f'phase 46 ({card}) passed')
+
+    return {'carried_per_chunk': launches['lstm_scan_residuals_carried'] /
+            ONLINE_CHUNKS, 'ms_per_step': ms}
+
+
+def convergence_on_card(card):
+    """Phase 47: the port's side of the convergence differential
+    (tests/test_torch_convergence.py) on the card: O&F complexity 2 on 48
+    mel bins over ``PianoProfile(52, 64)``, 8 SyntheticPiano tracks of 8 s
+    (6 to train, 2 held out), batch 4, crops of 96 frames from
+    ``RandomState(7)``, Adam 2e-3, dropout off, 500 steps from the port's
+    seeded initialization (generator seed 0: the weights the JAX run of
+    the slow test starts from, converted to its layout), then ``validate``
+    bucketed by 128 frames (masked B). Its frame and note F1 within
+    ``CONVERGENCE_TOL`` of ``CONVERGENCE_JAX_F1``. Under cuDNN's
+    deterministic algorithms, so that a rerun on the card gives the same
+    figures (E and F are deterministic)."""
+
+    import torch
+
+    from amt_tools_tpu_torch import evaluate, tools, transcribe
+    from amt_tools_tpu_torch.datasets import SyntheticPiano
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import OnsetsFrames
+    from amt_tools_tpu_torch.train import make_train_step
+
+    start = time.perf_counter()
+    profile = tools.PianoProfile(52, 64)
+    corpus = SyntheticPiano(base_dir='.', data_proc=MelSpec(n_mels=48),
+                            profile=profile, num_frames=None, num_tracks=8,
+                            track_duration=8.0, notes_per_track=24,
+                            save_data=False, seed=0)
+    tracks = {t: corpus.get_track_data(t) for t in corpus.tracks}
+    names = corpus.tracks
+    model = OnsetsFrames(dim_in=48, profile=profile, model_complexity=2,
+                         dropout=False,
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=2e-3))
+    stream = np.random.RandomState(7)
+    reset_launches()
+    losses = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for _ in range(CONVERGENCE_STEPS):
+        parts = {tools.KEY_FEATS: [], tools.KEY_MULTIPITCH: [],
+                 tools.KEY_ONSETS: []}
+        for _ in range(4):
+            track = tracks[names[:6][stream.randint(6)]]
+            at = stream.randint(0, track[tools.KEY_FEATS].shape[-1] - 96)
+            parts[tools.KEY_FEATS].append(
+                track[tools.KEY_FEATS][..., at:at + 96])
+            for key in (tools.KEY_MULTIPITCH, tools.KEY_ONSETS):
+                parts[key].append(track[key][:, at:at + 96])
+        loss = step({k: torch.from_numpy(np.stack(v).astype(np.float32))
+                     .cuda() for k, v in parts.items()})
+        losses.append(loss[tools.KEY_LOSS_TOTAL].item())
+    torch.backends.cudnn.deterministic = deterministic
+    train_s = time.perf_counter() - start
+    trained = read_launches()
+
+    class Holdout:
+        def __init__(self, held):
+            self.tracks = held
+
+        def get_track_data(self, track_id):
+            return dict(tracks[track_id])
+
+    reset_launches()
+    results = evaluate.validate(
+        model, Holdout(list(names[6:])), evaluate.ComboEvaluator(
+            [evaluate.MultipitchEvaluator(), evaluate.NoteEvaluator()]),
+        transcribe.ComboEstimator([transcribe.NoteTranscriber(
+            profile=profile)]), bucket=128)
+    validated = read_launches()
+    f1 = {'frame': float(results[tools.KEY_MULTIPITCH][tools.KEY_F1]),
+          'note': float(results[tools.KEY_NOTES][tools.KEY_F1])}
+    log(f'phase 47: {CONVERGENCE_STEPS} Adam steps on the card in '
+        f'{train_s:.1f} s (E {trained["lstm_scan_residuals"]} and F '
+        f'{trained["lstm_bptt"]} launches), loss {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}; held-out frame F1 {f1["frame"]:.4f}, note F1 '
+        f'{f1["note"]:.4f} (masked B {validated["lstm_scan_masked"]} '
+        f'launches); the JAX package: {CONVERGENCE_JAX_F1} ({card})')
+    require(losses[-1] < 0.5 * losses[0], 'phase 47: the model did not learn')
+    require(validated['lstm_scan_masked'] > 0,
+            'phase 47: validate did not run masked B')
+    for key, tol in CONVERGENCE_TOL.items():
+        require(abs(f1[key] - CONVERGENCE_JAX_F1[key]) < tol,
+                f'phase 47: {key} F1 {f1[key]:.4f} is not within {tol} of '
+                f'the JAX package\'s {CONVERGENCE_JAX_F1[key]:.4f}')
+
+    return {'f1': f1, 'jax_f1': CONVERGENCE_JAX_F1, 'train_s': train_s,
+            'losses': (losses[0], losses[-1])}
+
+
+def add_masked_entries(residuals, bptt, entries, masked, carried):
+    """Kernels E's and F's masked, carried and grouped masked launches in
+    the ``kernels`` line: phase 44's times (float32, the recipe's; bf16
+    beside them) and the launches a step of phase 45 (a chunk of phase
+    46, carried)."""
+
+    for entry, key in ((residuals, 'E'), (bptt, 'F')):
+        name = entry['name']
+        times = entries['float32']
+        entry['masked'] = dict(times[key, 'masked'], launches_per_step=(
+            masked['per-head'][f'{name}_masked']))
+        entry['carried'] = dict(times[key, 'carried'], launches_per_chunk=(
+            carried['carried_per_chunk']))
+        entry['grouped_masked'] = dict(
+            times[key, 'grouped_masked'], launches_fused_lms_per_step=(
+                masked['fused_lms'][f'{name}_grouped_masked']))
+        entry['bfloat16_masked_carried'] = {
+            route: entries['bfloat16'][key, route]
+            for route in ('masked', 'carried', 'grouped_masked')}
+
+
+def masked_carried_phases(card):
+    """Phases 44-47, timed together."""
+
+    import torch
+
+    start = time.perf_counter()
+    entries = check_masked_carried_lstm(card)
+    torch.cuda.empty_cache()
+    masked, masked_step = train_masked(card)
+    torch.cuda.empty_cache()
+    carried = train_carried(card)
+    torch.cuda.empty_cache()
+    convergence = convergence_on_card(card)
+    torch.cuda.empty_cache()
+    log(json.dumps({'masked_training': masked, 'carried_training': carried,
+                    'convergence': convergence,
+                    'phases_44_47_s': time.perf_counter() - start}))
+
+    return entries, masked, carried, masked_step
+
+
 def main():
     import tempfile
 
@@ -6348,6 +7238,9 @@ def main():
                     'fused_training_e_f_ms': fused['training']['e_f_ms'],
                     'fused_velocity_steps_per_s': fused['velocity']['rates']}))
 
+    (masked_entries, masked_training, carried_training,
+     masked_step) = masked_carried_phases(card)
+
     with tempfile.TemporaryDirectory(prefix='_chip_smoke_corpora_',
                                      dir=ROOT) as root:
         start = time.perf_counter()
@@ -6378,7 +7271,7 @@ def main():
 
         profile_batches([piano_batch, int8_batch, guitar_batch, train_batch,
                          velocity_step, online_step, tab_step, stream_frames,
-                         of2_step, gset_step, *fused_entries],
+                         of2_step, gset_step, *fused_entries, masked_step],
                         os.path.join(root, 'trace'))
         del fused_entries
     ops, artifact, streaming, measured = deployment_phases(
@@ -6386,7 +7279,7 @@ def main():
     # The profiled batches hold their pipelines and requests on the card
     del (piano_batch, int8_batch, guitar_batch, train_batch, velocity_step,
          online_step, tab_step, stream_frames, of2_step, gset_step,
-         piano_live)
+         piano_live, masked_step)
     torch.cuda.empty_cache()
 
     parallel = parallel_phases(card, parallel_dir, piano_reference,
@@ -6450,6 +7343,9 @@ def main():
                 counts[f'{name}_grouped'] / FUSED_TRAIN_STEPS)
             entry[f'launches_{run}_per_step'] = (counts[name] /
                                                   FUSED_TRAIN_STEPS)
+
+    add_masked_entries(residuals, bptt, masked_entries, masked_training,
+                       carried_training)
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,

@@ -56,7 +56,14 @@ Tolerances:
   sum in another order moves an occasional carry-product operand by one
   bf16 ulp; unrounded da or a float32 W_h^T in the carry product moves
   every one and exceeds the mean (``tests/test_torch_lstm_grad.py`` shows
-  both faults do).
+  both faults do);
+- masked and carried E and F: as E and F, padded steps exactly 0, lengths
+  = T and a zero carry bit for bit the unmasked launches, grouped masked
+  launches bit for bit the per-stream ones; the initial carry's gradient
+  by ``CARRY_GRAD_TOL`` against the plain version and within 1e-5 of its
+  largest value against the product of the kernel's own last da; the
+  differentiable carried recurrence in chunks against one call by
+  ``test_carried_grad_in_chunks_equals_one_call``'s bounds.
 """
 
 import copy
@@ -351,17 +358,19 @@ def test_cluster_bptt_matches_plain(cuda, dtype, reverse, shape):
 
 def test_bptt_geometry_matches_the_kernel(cuda):
     """Kernel F's shared-memory layout, computed in the kernel and by the
-    wrapper, agrees."""
+    wrapper, agrees, with and without the dh buffer of a masked or carried
+    launch."""
 
     lib = cuda_build.library('lstm_bptt', lstm_kernel._BPTT_SIGNATURES)
     for hidden in (16, 48, 64, 256, 384, 512, 1024):
         for dtype in (torch.float32, torch.bfloat16):
             resident = bptt_resident(hidden, dtype)
             for rows in (1, 8, bptt_max_rows(hidden, dtype, resident)):
-                assert lib.lstm_bptt_smem(
-                    hidden, int(dtype == torch.bfloat16), rows,
-                    int(resident)) == bptt_geometry(hidden, dtype, rows,
-                                                    resident)['bytes']
+                for hold in (False, True):
+                    assert lib.lstm_bptt_smem(
+                        hidden, int(dtype == torch.bfloat16), rows,
+                        int(resident), int(hold)) == bptt_geometry(
+                            hidden, dtype, rows, resident, hold)['bytes']
 
 
 def test_bptt_training_batch_runs_in_one_wave(cuda):
@@ -968,8 +977,9 @@ def test_carried_lstm_with_lengths(cuda, dtype, reverse):
 def test_carried_fast_lstm_at_a_padded_width(cuda):
     """H = 24 (run zero-padded to 32 units) from a carry, frame by frame:
     the layer on the card against the same layer on the CPU, 1e-4 as kernel
-    B float32, on the outputs and the carry; a carry while autograd records
-    raises (kernels E and F take none)."""
+    B float32, on the outputs and the carry; while autograd records, the
+    carried kernels E and F, whose gradients (the carry's too) are held to
+    the CPU's within 1e-4 of their largest value."""
 
     g = torch.Generator().manual_seed(24)
     layer = FastLSTM(40, 24, generator=g)
@@ -995,9 +1005,22 @@ def test_carried_fast_lstm_at_a_padded_width(cuda):
     torch.testing.assert_close(h.cpu(), want_h, rtol=0, atol=1e-4)
     torch.testing.assert_close(c.cpu(), want_c, rtol=0, atol=1e-4)
 
-    with pytest.raises(NotImplementedError):
-        layer.to(cuda)(x.to(cuda), initial_carry=tuple(t.to(cuda)
-                                                      for t in carry))
+    def grads(module, device):
+        state = tuple(t.detach().to(device).requires_grad_() for t in carry)
+        (c, h), out = module(x.to(device), initial_carry=state,
+                             return_carry=True)
+        (out.square().sum() + c.sum() + h.sum()).backward()
+        return [p.grad.cpu() for p in module.parameters()] + [
+            t.grad.cpu() for t in state]
+
+    want = grads(layer, 'cpu')
+    residuals = lstm_kernel.lstm_scan_residuals.carried_launches
+    bptt = lstm_bptt.carried_launches
+    got = grads(copy.deepcopy(layer).to(cuda), cuda)
+    assert lstm_kernel.lstm_scan_residuals.carried_launches == residuals + 1
+    assert lstm_bptt.carried_launches == bptt + 1
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def _train_step(model, batch, device):
@@ -1332,3 +1355,295 @@ def test_grouped_launch_plans_on_the_card(cuda):
                                         groups)
             if groups * -(-batch // plan['max_rows']) <= plan['active_clusters']:
                 assert plan['waves'] == 1
+
+
+# Kernels E and F with per-row lengths and a carry (masked and carried
+# training): lengths 0, 1, T and between in one batch; the carry a seeded
+# random (c0, h0) and final-carry gradient
+MASKED_TRAIN_SHAPES = [(3, 37, 64), (8, 625, 256)]
+
+
+def _train_lengths(batch, frames, device, seed):
+    """Lengths 0, 1 and T, then random ones; a lone row between 1 and T."""
+
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, frames + 1, (batch,), generator=g)
+    if batch >= 3:
+        lengths[:3] = torch.tensor([0, 1, frames])
+    return lengths.to(device)
+
+
+def _train_carry(batch, hidden, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple((torch.randn(batch, hidden, generator=g) * 0.5).to(device)
+                 for _ in range(4))
+
+
+# The initial carry's gradient in bf16 against the plain version: a sum
+# over 4H of da rounded to bf16, where an occasional da the two versions
+# compounded apart rounds the other way (one bf16 ulp): 5e-4 of the largest
+# value, and 5e-4 of the mean magnitude on the mean (read at H = 512 and
+# 1024: 1.9e-4). Against the kernel's own last da it is one product, held
+# to 1e-5 of its largest value.
+CARRY_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (5e-4, 5e-4)}
+
+
+def _first_step_dh(da, w_h_t, reverse, lengths):
+    """dh0 from a BPTT's own da: round(da) @ W_h^T at each row's first
+    valid forward step (t = 0, or t = lengths - 1 reversed), 0 for a row of
+    length 0."""
+
+    batch, frames = da.shape[:2]
+    lengths = (torch.full((batch,), frames, device=da.device)
+               if lengths is None else lengths.long())
+    first = lengths - 1 if reverse else torch.zeros_like(lengths)
+    step = da[torch.arange(batch, device=da.device), first.clamp(min=0)]
+    dh0 = step.to(w_h_t.dtype).float() @ w_h_t.float()
+    return torch.where((lengths > 0)[:, None], dh0, 0.0)
+
+
+def _held_to(got, ref, rel, mean_rel):
+    diff = (got.float() - ref.float()).abs()
+    assert diff.max().item() <= rel * ref.abs().max().item(), (
+        diff.max().item(), ref.abs().max().item())
+    assert diff.mean().item() <= mean_rel * max(ref.abs().mean().item(),
+                                                1e-30)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', MASKED_TRAIN_SHAPES)
+@pytest.mark.parametrize('masked,carried', [(True, False), (False, True),
+                                            (True, True)])
+def test_masked_carried_e_and_f_match_plain(cuda, dtype, reverse, shape,
+                                            masked, carried):
+    """Masked and carried E against its plain version (out as B, gates and
+    c_seq as E, the final carry as carried B), its h bit for bit the masked
+    or carried B's; F on the residuals both share against its plain
+    version (da, dW_h = h_prev^T da, and the initial carry's gradient as
+    da), each launch counted on its route."""
+
+    batch, frames, hidden = shape
+    xw, w_h, dout = _lstm_inputs(*shape, dtype, cuda)
+    lengths = _train_lengths(batch, frames, cuda, 7) if masked else None
+    c0, h0, dc, dh = _train_carry(batch, hidden, cuda, 8)
+    carry = (c0, h0) if carried else None
+
+    counts = {w: (w.launches, w.masked_launches, w.carried_launches)
+              for w in (lstm_scan_residuals, lstm_bptt)}
+    got = lstm_scan_residuals(xw, w_h, reverse, lengths, carry,
+                              return_carry=carried)
+    ref = lstm_scan_residuals_plain(xw, w_h, reverse, lengths, carry,
+                                    return_carry=carried)
+    scan = lstm_scan(xw, w_h, reverse, lengths, carry, return_carry=carried)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], scan[0] if carried else scan)
+
+    atol, mean_atol = {torch.float32: (1e-4, 1e-5),
+                       torch.bfloat16: (1e-2, 8e-5)}[dtype]
+    diff = (got[0].float() - ref[0].float()).abs()
+    assert diff.max().item() <= atol and diff.mean().item() <= mean_atol
+    rel, mean_tol = RESIDUAL_TOL[dtype]
+    for a, b in zip(got[1:3], ref[1:3]):
+        diff = (a - b).abs()
+        assert diff.max().item() <= rel * b.abs().max().item()
+        assert diff.mean().item() <= mean_tol
+    if carried:
+        assert torch.equal(got[3][0], scan[1][0])
+        assert torch.equal(got[3][1], scan[1][1])
+        for a, b in zip(got[3], ref[3]):
+            assert (a - b).abs().max().item() <= atol * max(
+                1.0, b.abs().max().item())
+    if masked:
+        for row, length in enumerate(lengths.tolist()):
+            assert torch.count_nonzero(got[0][row, length:]) == 0
+
+    gates, c_seq = ref[1], ref[2]
+    w_h_t = w_h.t().contiguous()
+    bptt_carry = (c0, dc, dh) if carried else None
+    da = lstm_bptt(gates, c_seq, dout, w_h_t, reverse, lengths, bptt_carry)
+    want = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse, lengths,
+                           bptt_carry)
+    torch.cuda.synchronize()
+    for wrapper in (lstm_scan_residuals, lstm_bptt):
+        launches, masked_n, carried_n = counts[wrapper]
+        assert wrapper.launches == launches + 1
+        assert wrapper.masked_launches == masked_n + masked
+        assert wrapper.carried_launches == carried_n + carried
+
+    if carried:
+        (da, dc0, dh0), (want, want_dc0, want_dh0) = da, want
+    max_rel, mean_rel = BPTT_TOL[dtype]
+    h_prev = lstm_kernel._h_prev(ref[0], reverse, lengths,
+                                 h0 if carried else None)
+    for a, b in ((da, want), (lstm_kernel._dw_h(h_prev, da),
+                              lstm_kernel._dw_h(h_prev, want))):
+        _held_to(a, b, max_rel, mean_rel)
+    if masked:
+        mask = torch.arange(frames, device=cuda)[None] < lengths[:, None]
+        assert torch.count_nonzero(da[~mask]) == 0
+    if carried:
+        _held_to(dc0, want_dc0, *CARRY_GRAD_TOL[dtype])
+        _held_to(dh0, want_dh0, *CARRY_GRAD_TOL[dtype])
+        own = _first_step_dh(da, w_h_t, reverse, lengths)
+        live = (lengths > 0) if masked else slice(None)
+        assert ((dh0 - own)[live].abs().max().item() <=
+                1e-5 * own.abs().max().item())
+        if masked:  # a row of length 0 passes the final carry's gradient
+            assert torch.equal(dc0[0], dc[0]) and torch.equal(dh0[0], dh[0])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape', [(s[0], 37, s[2]) for s in CLUSTER_SHAPES
+                                   if s[1] == 37])
+def test_masked_carried_f_at_cluster_shapes(cuda, dtype, reverse, shape):
+    """Masked and carried F at kernel F's cluster shapes: one row to past a
+    wave, the W_h^T slice resident and streamed, padded units; against its
+    plain version, da as F and the initial carry's gradient by
+    ``CARRY_GRAD_TOL``, and dh0 against the product of its own last da."""
+
+    batch, frames, hidden = shape
+    xw, w_h, dout = _lstm_inputs(batch, frames, hidden, dtype, cuda,
+                                 seed=batch * 5 + hidden)
+    lengths = _train_lengths(batch, frames, cuda, batch + hidden)
+    c0, h0, dc, dh = _train_carry(batch, hidden, cuda, hidden)
+    out, gates, c_seq, _ = lstm_scan_residuals_plain(
+        xw, w_h, reverse, lengths, (c0, h0), return_carry=True)
+    w_h_t = w_h.t().contiguous()
+
+    got = lstm_bptt(gates, c_seq, dout, w_h_t, reverse, lengths, (c0, dc, dh))
+    want = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse, lengths,
+                           (c0, dc, dh))
+    _held_to(got[0], want[0], *BPTT_TOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        _held_to(a, b, *CARRY_GRAD_TOL[dtype])
+    own = _first_step_dh(got[0], w_h_t, reverse, lengths)
+    live = lengths > 0
+    assert ((got[2] - own)[live].abs().max().item() <=
+            1e-5 * own.abs().max().item())
+    max_rel, mean_rel = BPTT_TOL[dtype]
+    masked = lstm_bptt(gates, c_seq, dout, w_h_t, reverse, lengths)
+    _held_to(masked, lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse,
+                                     lengths), max_rel, mean_rel)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_full_lengths_and_zero_carry_equal_the_plain_launches(cuda, dtype,
+                                                              reverse):
+    """Lengths = T give the unmasked E and F bit for bit, and so does a
+    zero carry with a zero final-carry gradient (da; its extra product
+    changes no da)."""
+
+    xw, w_h, dout = _lstm_inputs(8, 625, 256, dtype, cuda)
+    full = torch.full((8,), 625, dtype=torch.int32, device=cuda)
+    zeros = torch.zeros(8, 256, device=cuda)
+    plain = lstm_scan_residuals(xw, w_h, reverse)
+    for got in (lstm_scan_residuals(xw, w_h, reverse, full),
+                lstm_scan_residuals(xw, w_h, reverse, None, (zeros, zeros)),
+                lstm_scan_residuals(xw, w_h, reverse, full, (zeros, zeros))):
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+    gates, c_seq = plain[1], plain[2]
+    w_h_t = w_h.t().contiguous()
+    da = lstm_bptt(gates, c_seq, dout, w_h_t, reverse)
+    assert torch.equal(lstm_bptt(gates, c_seq, dout, w_h_t, reverse, full), da)
+    for lengths in (None, full):
+        got, dc0, dh0 = lstm_bptt(gates, c_seq, dout, w_h_t, reverse,
+                                  lengths, (zeros, zeros, zeros))
+        assert torch.equal(got, da)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_carried_grad_in_chunks_equals_one_call(cuda, dtype, reverse):
+    """The carried Function over chunks of 125 frames that thread the carry
+    against one call from the same carry: outputs bit for bit, d(xw) within
+    1e-6 (float32) of its largest value, dW_h and the carry's gradients
+    within 1e-5; in bf16 the held tolerance of F."""
+
+    xw, w_h, dout = _lstm_inputs(8, 625, 256, dtype, cuda)
+    c0, h0, _, _ = _train_carry(8, 256, cuda, 9)
+
+    def grads(chunk):
+        x = xw.detach().clone().requires_grad_()
+        w = w_h.detach().float().clone().requires_grad_()
+        carry = (c0.clone().requires_grad_(), h0.clone().requires_grad_())
+        state, pieces = carry, {}
+        starts = list(range(0, 625, chunk))
+        for start in (reversed(starts) if reverse else starts):
+            pieces[start], state = lstm_scan_grad(
+                x[:, start:start + chunk], w, reverse, initial_carry=state,
+                return_carry=True)
+        out = torch.cat([pieces[s] for s in starts], dim=1)
+        (out.float() * dout.float()).sum().backward()
+        return out.detach(), [x.grad, w.grad, carry[0].grad, carry[1].grad]
+
+    whole, want = grads(625)
+    chunked, got = grads(125)
+    assert torch.equal(chunked, whole)
+    tol = 1e-6 if dtype == torch.float32 else 5e-4
+    for i, (a, b) in enumerate(zip(got, want)):
+        limit = (tol if i == 0 else max(tol, 1e-5)) * b.abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= limit, i
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_masked_grouped_e_and_f_equal_per_stream(cuda, dtype):
+    """Grouped E and F with the lengths every group shares, bit for bit the
+    per-stream masked launches; counted as masked."""
+
+    xw, w_h, dout = _grouped_inputs(4, 8, 300, 256, dtype, cuda)
+    w_h_t = w_h.transpose(1, 2).contiguous()
+    lengths = torch.tensor([0, 1, 300, 17, 250, 299, 150, 300], device=cuda)
+
+    counts = (lstm_scan_residuals_grouped.masked_launches,
+              lstm_bptt_grouped.masked_launches)
+    res = lstm_scan_residuals_grouped(xw, w_h, 2, lengths)
+    da = lstm_bptt_grouped(res[1], res[2], dout, w_h_t, 2, lengths)
+    torch.cuda.synchronize()
+    assert (lstm_scan_residuals_grouped.masked_launches,
+            lstm_bptt_grouped.masked_launches) == tuple(c + 1 for c in counts)
+    for g in range(4):
+        reverse = g >= 2
+        alone = lstm_scan_residuals(xw[g], w_h[g], reverse, lengths)
+        for got, want in zip(res, alone):
+            assert torch.equal(got[g], want), g
+        assert torch.equal(da[g], lstm_bptt(alone[1], alone[2], dout[g],
+                                            w_h_t[g], reverse, lengths)), g
+
+    want = lstm_bptt_grouped_plain(res[1], res[2], dout, w_h_t, 2, lengths)
+    _held_to(da, want, *BPTT_TOL[dtype])
+
+
+@pytest.mark.parametrize('hidden', [24, 256])
+def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
+    """FastBiLSTM and GroupedBiLSTM with lengths under autograd: masked E
+    and F on the card (grouped for the grouped layer) against the CPU's
+    plain versions, outputs within 1e-4 and gradients within 1e-4 of their
+    largest value."""
+
+    g = torch.Generator().manual_seed(hidden + 1)
+    layers = (LanguageModel(40, 2 * hidden, generator=g),
+              GroupedBiLSTM(40, hidden, streams=2, generator=g))
+    lengths = torch.tensor([37, 0, 12, 36])
+    for layer, shape in zip(layers, ((4, 37, 40), (2, 4, 37, 40))):
+        x = torch.randn(*shape, generator=g)
+        on_card = copy.deepcopy(layer).to(cuda)
+        grouped = isinstance(layer, GroupedBiLSTM)
+        wrappers = ((lstm_scan_residuals_grouped, lstm_bptt_grouped)
+                    if grouped else (lstm_scan_residuals, lstm_bptt))
+        counts = [w.masked_launches for w in wrappers]
+        got = on_card(x.to(cuda), lengths.to(cuda))
+        got.square().sum().backward()
+        want = layer(x, lengths)
+        want.square().sum().backward()
+        assert [w.masked_launches for w in wrappers] == [
+            c + (1 if grouped else 2) for c in counts]
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   rtol=0, atol=1e-4)
+        for name, param in on_card.named_parameters():
+            ref = dict(layer.named_parameters())[name].grad
+            assert ((param.grad.cpu() - ref).abs().max().item() <=
+                    1e-4 * ref.abs().max().item()), name

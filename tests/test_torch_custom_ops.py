@@ -1,7 +1,7 @@
 """Kernels A-F as custom ops of ``torch.ops.amt_tools_tpu_torch``, on the CPU.
 
-Each op (kernel B with its masked and carried schemas, and the grouped
-launches of B, E and F) passes
+Each op (kernels B, E and F with their masked and carried schemas, and the
+grouped launches of B, E and F, masked or not) passes
 ``torch.library.opcheck`` (schema, fake implementation against the real
 one, autograd registration, a trace with symbolic shapes), equals its plain
 version bit for bit, survives ``torch.export`` save and load inside a tiny
@@ -74,6 +74,7 @@ def _cases():
         lengths = torch.tensor([FRAMES, 3, 0], dtype=torch.int32)
         c0 = _tensor(rng, 3, HIDDEN, scale=0.5)
         h0 = _tensor(rng, 3, HIDDEN, scale=0.5)
+        dc = _tensor(rng, 3, HIDDEN, scale=0.1)
         out, gates, c_seq = lstm_kernel.lstm_scan_residuals_plain(xw, wh)
         dout = _tensor(rng, 3, FRAMES, HIDDEN, scale=0.1, dtype=dtype)
         wht = wh.t().contiguous()
@@ -94,13 +95,46 @@ def _cases():
              lambda wh=wh, c=(c0, h0), xw=xw: (
                  lambda r: (r[0], *r[1]))(lstm_kernel.lstm_scan_plain(
                      xw[:, :0], wh, False, None, c, return_carry=True))),
-            (f'E {name}', lstm_kernel.lstm_scan_residuals_op, (xw, wh, True),
+            (f'E {name}', lstm_kernel.lstm_scan_residuals_op,
+             (xw, wh, True, None),
              lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_residuals_plain(
                  xw, wh, True)),
+            (f'E {name} masked', lstm_kernel.lstm_scan_residuals_op,
+             (xw, wh, True, lengths),
+             lambda xw=xw, wh=wh, n=lengths:
+             lstm_kernel.lstm_scan_residuals_plain(xw, wh, True, n)),
+            (f'E {name} carried', lstm_kernel.lstm_scan_residuals_carried_op,
+             (xw, wh, True, lengths, c0, h0),
+             lambda xw=xw, wh=wh, n=lengths, c=(c0, h0): (
+                 lambda r: (*r[:3], *r[3]))(
+                     lstm_kernel.lstm_scan_residuals_plain(
+                         xw, wh, True, n, c, return_carry=True))),
+            (f'E {name} carried, no frames',
+             lstm_kernel.lstm_scan_residuals_carried_op,
+             (xw[:, :0].contiguous(), wh, False, None, c0, h0),
+             lambda wh=wh, c=(c0, h0), xw=xw: (
+                 lambda r: (*r[:3], *r[3]))(
+                     lstm_kernel.lstm_scan_residuals_plain(
+                         xw[:, :0], wh, False, None, c, return_carry=True))),
             (f'F {name}', lstm_kernel.lstm_bptt_op,
-             (gates, c_seq, dout, wht, False),
+             (gates, c_seq, dout, wht, False, None),
              lambda g=gates, c=c_seq, d=dout, w=wht:
              lstm_kernel.lstm_bptt_plain(g, c, d, w)),
+            (f'F {name} masked', lstm_kernel.lstm_bptt_op,
+             (gates, c_seq, dout, wht, True, lengths),
+             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths:
+             lstm_kernel.lstm_bptt_plain(g, c, d, w, True, n)),
+            (f'F {name} carried', lstm_kernel.lstm_bptt_carried_op,
+             (gates, c_seq, dout, wht, False, lengths, c0, h0, dc),
+             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths,
+             k=(c0, h0, dc): lstm_kernel.lstm_bptt_plain(g, c, d, w, False,
+                                                         n, k)),
+            (f'F {name} carried, no frames', lstm_kernel.lstm_bptt_carried_op,
+             (gates[:, :0].contiguous(), c_seq[:, :0].contiguous(),
+              dout[:, :0].contiguous(), wht, False, None, c0, h0, dc),
+             lambda g=gates, c=c_seq, d=dout, w=wht, k=(c0, h0, dc):
+             lstm_kernel.lstm_bptt_plain(g[:, :0], c[:, :0], d[:, :0], w,
+                                         False, None, k)),
         ]
         # Three groups, the last reversed
         gxw = _tensor(rng, 3, 3, FRAMES, 4 * HIDDEN, scale=0.5, dtype=dtype)
@@ -118,13 +152,22 @@ def _cases():
              lambda x=gxw, w=gwh, n=lengths:
              lstm_kernel.lstm_scan_grouped_plain(x, w, 2, n)),
             (f'E {name} grouped', lstm_kernel.lstm_scan_residuals_grouped_op,
-             (gxw, gwh, 2),
+             (gxw, gwh, 2, None),
              lambda x=gxw, w=gwh:
              lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2)),
+            (f'E {name} grouped masked',
+             lstm_kernel.lstm_scan_residuals_grouped_op,
+             (gxw, gwh, 2, lengths),
+             lambda x=gxw, w=gwh, n=lengths:
+             lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2, n)),
             (f'F {name} grouped', lstm_kernel.lstm_bptt_grouped_op,
-             (ggates, gc, gdout, gwht, 2),
+             (ggates, gc, gdout, gwht, 2, None),
              lambda g=ggates, c=gc, d=gdout, w=gwht:
              lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2)),
+            (f'F {name} grouped masked', lstm_kernel.lstm_bptt_grouped_op,
+             (ggates, gc, gdout, gwht, 2, lengths),
+             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths:
+             lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2, n)),
         ]
 
     return cases
@@ -162,12 +205,14 @@ def test_carried_op_returns_no_input():
     """The carry of zero steps is the input's, copied: an op may not return
     an input or a view of one."""
 
-    _, op, args, _ = next(c for c in CASES
-                          if c[0] == 'B float32 carried, no frames')
-    _, c, h = op(*args)
-
-    assert c.data_ptr() != args[4].data_ptr()
-    assert h.data_ptr() != args[5].data_ptr()
+    for label in ('B float32 carried, no frames',
+                  'E float32 carried, no frames',
+                  'F float32 carried, no frames'):
+        _, op, args, _ = next(c for c in CASES if c[0] == label)
+        outputs = op(*args)
+        inputs = [a.data_ptr() for a in args if isinstance(a, torch.Tensor)]
+        assert not any(x.data_ptr() in inputs for x in outputs
+                       if x.numel()), label
 
 
 class _Calls(torch.nn.Module):
@@ -222,15 +267,17 @@ def _cost(label, args):
     # a grouped launch costs its groups times one sequence's
     groups = xw.shape[0] if 'grouped' in label else 1
     batch, frames, four_h = xw.shape[-3:]
+    lengths = args[5] if label.startswith('F') else args[3]
+    steps = None if lengths is None else int(lengths.sum())
     if label.startswith('F'):
         cost = lstm_kernel.bptt_cost(batch, frames, four_h // 4,
-                                     args[2].dtype)
+                                     args[2].dtype,
+                                     carried='carried' in label, steps=steps)
     else:
-        lengths = args[3] if label.startswith('B') else None
         cost = lstm_kernel.scan_cost(
             batch, frames, four_h // 4, xw.dtype,
             residuals=label.startswith('E'), carried='carried' in label,
-            steps=None if lengths is None else int(lengths.sum()))
+            steps=steps)
     return groups * cost[0], groups * cost[1]
 
 

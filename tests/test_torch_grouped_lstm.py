@@ -169,8 +169,13 @@ def test_grouped_bilstm_refusals():
     layer = GroupedBiLSTM(8, HIDDEN, streams=2)
     with pytest.raises(ValueError, match='expected 2 streams'):
         layer(torch.zeros(3, 1, 4, 8))
-    with pytest.raises(NotImplementedError, match='masked training'):
-        layer(torch.zeros(2, 1, 4, 8), torch.tensor([3]))
+    # Masked training runs (grouped E and F with lengths); lengths that do
+    # not fit the batch are refused
+    x = torch.zeros(2, 1, 4, 8, requires_grad=True)
+    layer(x, torch.tensor([3])).sum().backward()
+    assert not x.grad[:, :, 3:].any()
+    with pytest.raises(ValueError, match='lengths must be'):
+        layer(x, torch.tensor([3, 2]))
     with pytest.raises(ValueError, match='reverse_from'):
         lstm_scan_grouped(torch.zeros(2, 1, 4, 64), torch.zeros(2, 16, 64), 3)
     with pytest.raises(ValueError, match='w_h must be'):
@@ -207,6 +212,28 @@ def test_one_group_is_the_ungrouped_plan(kernel, dtype):
                 assert plan['rows'] == rows
                 assert plan['clusters'] == -(-batch // rows)
                 assert plan['groups'] == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_masked_and_carried_f_hold_a_dh_buffer(dtype):
+    """Kernel F's masked or carried launch holds one more R x H/8 float32
+    buffer (the dh a masked step passes on), after the dc carry; the plan
+    keeps the unmasked launch's residency and takes at most its rows."""
+
+    for hidden in (16, 48, 256, 512, 1024):
+        resident = lstm_kernel.bptt_resident(hidden, dtype)
+        for rows in (1, 4, 8):
+            plain = lstm_kernel.bptt_geometry(hidden, dtype, rows, resident)
+            held = lstm_kernel.bptt_geometry(hidden, dtype, rows, resident,
+                                             hold=True)
+            assert held['parts']['dh'] == plain['parts']['dc']
+            assert held['bytes'] == plain['bytes'] + plain['parts']['dc']
+        for batch in (8, 128):
+            plan = cluster_plan(batch, hidden, dtype, 16, 'bptt')
+            masked = cluster_plan(batch, hidden, dtype, 16, 'bptt', hold=True)
+            assert masked['resident'] == plan['resident']
+            assert masked['max_rows'] <= plan['max_rows']
+            assert masked['smem_bytes'] <= lstm_kernel.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize('source,signatures', [

@@ -193,14 +193,24 @@ def test_zero_padded_width_takes_the_lengths(dtype, reverse):
 
 
 def test_lengths_while_autograd_records_raise():
+    """Lengths while autograd records no longer raise: the masked layer
+    trains (kernels E and F with lengths, their plain versions here), its
+    outputs those of the masked inference bit for bit; a padded frame
+    gets no gradient, and bad lengths still raise."""
+
     layer = FastBiLSTM(8, 16)
-    inputs = torch.randn(2, 5, 8)
+    inputs = torch.randn(2, 5, 8, requires_grad=True)
+    lengths = torch.tensor([5, 3])
 
-    with pytest.raises(NotImplementedError, match='masked training'):
-        layer(inputs, lengths=torch.tensor([5, 3]))
-
+    out = layer(inputs, lengths=lengths)
     with torch.no_grad():
-        assert layer(inputs, lengths=torch.tensor([5, 3])).shape == (2, 5, 32)
+        assert torch.equal(out.detach(), layer(inputs, lengths=lengths))
+    out.square().sum().backward()
+    assert not inputs.grad[1, 3:].any() and inputs.grad[1, :3].any()
+    assert layer.recurrent_kernel_bwd.grad.abs().sum() > 0
+
+    with pytest.raises(ValueError, match=r'\[0, 5\]'):
+        layer(inputs, lengths=torch.tensor([6, 3]))
 
 
 def test_wrapper_checks_lengths():

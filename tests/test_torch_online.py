@@ -155,9 +155,14 @@ def test_fast_lstm_frame_by_frame_equals_whole(dtype):
     assert torch.equal(torch.cat(outs, 1), whole)
     assert all(torch.equal(a, b) for a, b in zip(state, whole_carry))
 
-    # A carry while autograd records is refused (kernels E and F take none)
-    with pytest.raises(NotImplementedError, match='carried training'):
-        port(x, initial_carry=state)
+    # A carry while autograd records trains (kernels E and F from the
+    # carry): the same outputs, and the gradient reaches the carry
+    start = tuple(v.clone().requires_grad_() for v in state)
+    trained = port(x, initial_carry=start)
+    with torch.no_grad():
+        assert torch.equal(trained, port(x, initial_carry=state))
+    trained.float().square().sum().backward()
+    assert all(torch.count_nonzero(v.grad) for v in start)
 
 
 def _online_pair(dim_in=32):
