@@ -15,6 +15,7 @@ dB scaling is an identity and has no counterpart here.
 import numpy as np
 import torch
 
+from .. import profiling
 from ..ops import cuda_build, spectral
 from ..ops.cqt_kernel import cqt_mag, cqt_mag_grouped
 from ..tools.instrument import midi_to_hz, note_to_midi
@@ -111,22 +112,24 @@ class VQT(FeatureModule):
     def process(self, audio):
         """(..., N) float32 audio -> (..., 1, n_bins, T) [0, 1] features."""
 
-        lead = audio.shape[:-1]
-        flat = audio.reshape((-1, audio.shape[-1])).contiguous()
-        bank = self._bank(audio.device)
+        with profiling.span('amt.features'):
+            lead = audio.shape[:-1]
+            flat = audio.reshape((-1, audio.shape[-1])).contiguous()
+            bank = self._bank(audio.device)
 
-        # The CPU contracts in IEEE float32 whatever ``exact`` says, as the
-        # JAX class's XLA route does: ``exact`` selects the kernel's passes
-        exact = self.exact if flat.device.type == 'cuda' else True
-        if self._groups is not None:
-            mag = cqt_mag_grouped(flat, bank, self._group_supports,
-                                  self._group_bins, self.hop_length,
-                                  exact=exact)
-        else:
-            mag = cqt_mag(flat, bank, self._support, self.hop_length,
-                          exact=exact)
+            # The CPU contracts in IEEE float32 whatever ``exact`` says, as
+            # the JAX class's XLA route does: ``exact`` selects the kernel's
+            # passes
+            exact = self.exact if flat.device.type == 'cuda' else True
+            if self._groups is not None:
+                mag = cqt_mag_grouped(flat, bank, self._group_supports,
+                                      self._group_bins, self.hop_length,
+                                      exact=exact)
+            else:
+                mag = cqt_mag(flat, bank, self._support, self.hop_length,
+                              exact=exact)
 
-        return self.post_proc(mag.reshape(lead + mag.shape[1:]))
+            return self.post_proc(mag.reshape(lead + mag.shape[1:]))
 
     def get_times(self, audio, at_start=False):
         times = super().get_times(audio)

@@ -7,6 +7,7 @@ float32 ``torch.matmul`` (the JAX package leaves it to XLA, ``mel.py:37``).
 
 import torch
 
+from .. import profiling
 from ..ops import cuda_build, spectral
 from .stft import STFT
 
@@ -35,10 +36,11 @@ class MelSpec(STFT):
             lambda: torch.from_numpy(self._mel_fb).to(device))
 
     def process(self, audio):
-        power = self._stft_power(audio)
-        mel = torch.matmul(self._filterbank(audio.device), power)
+        with profiling.span('amt.features'):
+            power = self._stft_power(audio)
+            mel = torch.matmul(self._filterbank(audio.device), power)
 
-        return self.post_proc(mel)
+            return self.post_proc(mel)
 
     def to_decibels(self, feats):
         """Mel features are powers: power-dB scaling, per-clip maximum."""

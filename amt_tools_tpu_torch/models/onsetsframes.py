@@ -48,7 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .. import tools
+from .. import profiling, tools
 from ..ops import decode
 from ..ops.layers import (BatchNorm, checkpoint, conv2d_same, conv3x3,
                           dropout, head_linear, lecun_normal_, linear)
@@ -133,12 +133,13 @@ class AcousticModel(nn.Module):
                 torch.is_grad_enabled())
 
     def forward(self, feats, generator=None, lengths=None):
-        if self.remat is True and self._remat(True):
-            return checkpoint(
-                lambda x: self._forward(x, generator, lengths), feats,
-                module=self, generator=generator)
+        with profiling.span('amt.acoustic'):
+            if self.remat is True and self._remat(True):
+                return checkpoint(
+                    lambda x: self._forward(x, generator, lengths), feats,
+                    module=self, generator=generator)
 
-        return self._forward(feats, generator, lengths)
+            return self._forward(feats, generator, lengths)
 
     def _forward(self, feats, generator, lengths):
         # (B, T, F, C) -> (B, C, T, F)
@@ -232,12 +233,14 @@ class GroupedAcousticModel(nn.Module):
         return x
 
     def forward(self, feats, generator=None, lengths=None):
-        if self.remat is True and self.training and torch.is_grad_enabled():
-            return checkpoint(
-                lambda x: self._forward(x, generator, lengths), feats,
-                module=self, generator=generator)
+        with profiling.span('amt.acoustic'):
+            if (self.remat is True and self.training and
+                    torch.is_grad_enabled()):
+                return checkpoint(
+                    lambda x: self._forward(x, generator, lengths), feats,
+                    module=self, generator=generator)
 
-        return self._forward(feats, generator, lengths)
+            return self._forward(feats, generator, lengths)
 
     def _forward(self, feats, generator, lengths):
         # (B, T, F, C) -> (B, C, T, F)

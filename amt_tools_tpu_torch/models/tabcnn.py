@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .. import tools
+from .. import profiling, tools
 from ..ops import frames as frame_ops
 from ..ops.layers import conv2d_valid, conv3x3, dropout, lecun_normal_, linear
 from ..ops.qconv import Int8Conv, Int8Dense
@@ -153,10 +153,11 @@ class TabCNN(TranscriptionModel):
             batch_size = feats.shape[0]
             num_frames = feats.shape[-1] - (self.frame_width - 1)
 
-            x = self._convs(feats)
-            # Per-window pool over its 3 surviving positions keeps
-            # max(pos 0, pos 1) -> full-sequence positions (t, t + 1)
-            x = F.max_pool2d(x, (2, 2), stride=(2, 1))
+            with profiling.span('amt.acoustic'):
+                x = self._convs(feats)
+                # Per-window pool over its 3 surviving positions keeps
+                # max(pos 0, pos 1) -> full-sequence positions (t, t + 1)
+                x = F.max_pool2d(x, (2, 2), stride=(2, 1))
             x = self._dropout(x[..., :num_frames], 0.25, generator)
 
             # (B, C, F', T) -> (B, T, F', C): the windowed flatten order
@@ -165,9 +166,10 @@ class TabCNN(TranscriptionModel):
             batch_size, num_frames = feats.shape[:2]
 
             # Each context window is an independent sample of the stack
-            x = self._convs(feats.reshape((-1,) + feats.shape[2:]))
-            x = self._dropout(F.max_pool2d(x, (2, 2), stride=(2, 2)), 0.25,
-                              generator)
+            with profiling.span('amt.acoustic'):
+                x = self._convs(feats.reshape((-1,) + feats.shape[2:]))
+                x = F.max_pool2d(x, (2, 2), stride=(2, 2))
+            x = self._dropout(x, 0.25, generator)
 
             # (N, C, F', W') -> (N, F', W', C)
             x = x.permute(0, 2, 3, 1)

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor
 
+from .. import profiling
 from ..parallel.collectives import gather_columns
 from .layers import lecun_normal_, linear, orthogonal_
 from .lstm_kernel import (lstm_scan, lstm_scan_grad, lstm_scan_grouped,
@@ -229,20 +230,21 @@ class FastLSTM(nn.Module):
 
     def forward(self, inputs, lengths=None, initial_carry=None,
                 return_carry=False):
-        xw = linear(inputs, self.input_proj, self.dtype)
+        with profiling.span('amt.lstm'):
+            xw = linear(inputs, self.input_proj, self.dtype)
 
-        w_h = _whole(self, self.recurrent_kernel)
-        if initial_carry is None and not return_carry:
-            return _recurrence(xw, w_h, lengths=lengths)
+            w_h = _whole(self, self.recurrent_kernel)
+            if initial_carry is None and not return_carry:
+                return _recurrence(xw, w_h, lengths=lengths)
 
-        if initial_carry is None:
-            zeros = torch.zeros((xw.shape[0], self.features),
-                                device=xw.device)
-            initial_carry = (zeros, zeros)
-        out, carry = _recurrence(xw, w_h, lengths=lengths,
-                                 carry=initial_carry)
+            if initial_carry is None:
+                zeros = torch.zeros((xw.shape[0], self.features),
+                                    device=xw.device)
+                initial_carry = (zeros, zeros)
+            out, carry = _recurrence(xw, w_h, lengths=lengths,
+                                     carry=initial_carry)
 
-        return (carry, out) if return_carry else out
+            return (carry, out) if return_carry else out
 
 
 class FastBiLSTM(nn.Module):
@@ -270,15 +272,18 @@ class FastBiLSTM(nn.Module):
         orthogonal_(self.recurrent_kernel_bwd, generator)
 
     def forward(self, inputs, lengths=None):
-        xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
-        xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
+        with profiling.span('amt.lstm'):
+            xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
+            xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
 
-        out_f = _recurrence(xw_f, _whole(self, self.recurrent_kernel_fwd),
-                            lengths=lengths)
-        out_b = _recurrence(xw_b, _whole(self, self.recurrent_kernel_bwd),
-                            reverse=True, lengths=lengths)
+            out_f = _recurrence(xw_f,
+                                _whole(self, self.recurrent_kernel_fwd),
+                                lengths=lengths)
+            out_b = _recurrence(xw_b,
+                                _whole(self, self.recurrent_kernel_bwd),
+                                reverse=True, lengths=lengths)
 
-        return torch.cat([out_f, out_b], dim=-1)
+            return torch.cat([out_f, out_b], dim=-1)
 
 
 class GroupedBiLSTM(nn.Module):
@@ -320,6 +325,10 @@ class GroupedBiLSTM(nn.Module):
             setattr(self, f'recurrent_kernel_{direction}', recurrent)
 
     def forward(self, inputs, lengths=None):
+        with profiling.span('amt.lstm'):
+            return self._forward(inputs, lengths)
+
+    def _forward(self, inputs, lengths):
         streams, batch, frames, dim_in = inputs.shape
         if streams != self.streams:
             raise ValueError(f'expected {self.streams} streams, '

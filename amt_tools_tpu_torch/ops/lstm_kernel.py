@@ -77,6 +77,7 @@ from typing import Optional
 
 import torch
 
+from .. import profiling
 from . import cuda_build
 
 __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
@@ -1260,15 +1261,17 @@ class LSTMScanGrad(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        w_h, out, gates, c_seq, lengths = ctx.saved_tensors
+        with profiling.span('amt.lstm.backward'):
+            w_h, out, gates, c_seq, lengths = ctx.saved_tensors
 
-        w_h_t = w_h.t().to(out.dtype).contiguous()
-        dout = dout.to(out.dtype).contiguous()
-        _check_bptt_inputs(gates, c_seq, dout, w_h_t)
-        da = lstm_bptt_op(gates, c_seq, dout, w_h_t, ctx.reverse, lengths)
-        dw_h = _dw_h(_h_prev(out, ctx.reverse), da)
+            w_h_t = w_h.t().to(out.dtype).contiguous()
+            dout = dout.to(out.dtype).contiguous()
+            _check_bptt_inputs(gates, c_seq, dout, w_h_t)
+            da = lstm_bptt_op(gates, c_seq, dout, w_h_t, ctx.reverse,
+                              lengths)
+            dw_h = _dw_h(_h_prev(out, ctx.reverse), da)
 
-        return da.to(out.dtype), dw_h.to(ctx.w_dtype), None, None
+            return da.to(out.dtype), dw_h.to(ctx.w_dtype), None, None
 
 
 class LSTMScanCarriedGrad(torch.autograd.Function):
@@ -1295,20 +1298,21 @@ class LSTMScanCarriedGrad(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout, dc_last, dh_last):
-        w_h, out, gates, c_seq, lengths, c0, h0 = ctx.saved_tensors
+        with profiling.span('amt.lstm.backward'):
+            w_h, out, gates, c_seq, lengths, c0, h0 = ctx.saved_tensors
 
-        w_h_t = w_h.t().to(out.dtype).contiguous()
-        dout = dout.to(out.dtype).contiguous()
-        _check_bptt_inputs(gates, c_seq, dout, w_h_t)
-        da, dc0, dh0 = lstm_bptt_carried_op(
-            gates, c_seq, dout, w_h_t, ctx.reverse, lengths, c0,
-            *_check_rows(gates, 'lstm_bptt', dc_last=dc_last,
-                         dh_last=dh_last))
-        dw_h = _dw_h(_h_prev(out, ctx.reverse, lengths, h0), da)
-        w_dtype, c_dtype, h_dtype = ctx.dtypes
+            w_h_t = w_h.t().to(out.dtype).contiguous()
+            dout = dout.to(out.dtype).contiguous()
+            _check_bptt_inputs(gates, c_seq, dout, w_h_t)
+            da, dc0, dh0 = lstm_bptt_carried_op(
+                gates, c_seq, dout, w_h_t, ctx.reverse, lengths, c0,
+                *_check_rows(gates, 'lstm_bptt', dc_last=dc_last,
+                             dh_last=dh_last))
+            dw_h = _dw_h(_h_prev(out, ctx.reverse, lengths, h0), da)
+            w_dtype, c_dtype, h_dtype = ctx.dtypes
 
-        return (da.to(out.dtype), dw_h.to(w_dtype), None, None,
-                dc0.to(c_dtype), dh0.to(h_dtype))
+            return (da.to(out.dtype), dw_h.to(w_dtype), None, None,
+                    dc0.to(c_dtype), dh0.to(h_dtype))
 
 
 def lstm_scan_grad(xw, w_h, reverse=False, lengths=None, initial_carry=None,
@@ -1535,17 +1539,20 @@ class LSTMScanGroupedGrad(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        w_h, out, gates, c_seq, lengths = ctx.saved_tensors
-        split = ctx.reverse_from
+        with profiling.span('amt.lstm.backward'):
+            w_h, out, gates, c_seq, lengths = ctx.saved_tensors
+            split = ctx.reverse_from
 
-        w_h_t = w_h.transpose(1, 2).to(out.dtype).contiguous()
-        dout = dout.to(out.dtype).contiguous()
-        _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=True)
-        da = lstm_bptt_grouped_op(gates, c_seq, dout, w_h_t, split, lengths)
-        h_prev = torch.cat([_h_prev(out[:split], False),
-                            _h_prev(out[split:], True)])
+            w_h_t = w_h.transpose(1, 2).to(out.dtype).contiguous()
+            dout = dout.to(out.dtype).contiguous()
+            _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=True)
+            da = lstm_bptt_grouped_op(gates, c_seq, dout, w_h_t, split,
+                                      lengths)
+            h_prev = torch.cat([_h_prev(out[:split], False),
+                                _h_prev(out[split:], True)])
 
-        return da.to(out.dtype), _dw_h(h_prev, da).to(ctx.w_dtype), None, None
+            return (da.to(out.dtype), _dw_h(h_prev, da).to(ctx.w_dtype),
+                    None, None)
 
 
 def lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths=None):

@@ -1,4 +1,4 @@
-"""Tracing and profiling: traces, stage timers, peaks, FLOPs and MFU.
+"""Tracing and profiling: spans, traces, stage timers, peaks, FLOPs and MFU.
 
 Counterpart of ``amt_tools_tpu/profiling.py`` (``trace``, ``StageTimer``,
 ``block_and_time``, ``peak_flops``, ``compiled_flops``, ``mfu``, and
@@ -21,6 +21,26 @@ Counterpart of ``amt_tools_tpu/profiling.py`` (``trace``, ``StageTimer``,
 - :func:`compiled_cost` adds the bytes of every dispatched op.
 
 Nothing here is compiled: the counts come from one eager run of ``fn``.
+
+The port opens named ranges (:func:`span`) at its layer boundaries, once a
+layer call. A profiler that records, :func:`trace`'s for one, shows them
+on the timeline of the device's work and gives each kernel to the ranges
+around its launch; with no profiler recording they cost one check:
+
+- ``amt.features``: ``MelSpec.process`` and ``VQT.process`` (``CQT``'s);
+- ``amt.acoustic``: ``AcousticModel`` and ``GroupedAcousticModel``'s
+  forwards, TabCNN's conv stack and its max-pool;
+- ``amt.lstm``: ``FastLSTM``, ``FastBiLSTM`` and ``GroupedBiLSTM``'s
+  forwards, the input projections and the recurrences;
+- ``amt.lstm.backward``: the backward of the differentiable recurrences
+  (kernel F, dW_h and d(xw)), on autograd's thread;
+- ``amt.decode``: the serving pipelines' device decode after the model's
+  forward (sigmoid and threshold, or the argmax and local one-hot, then
+  ``notes_on_device``);
+- ``amt.serving.decode_host``: ``finalize``'s host decode of a batch,
+  after its wait for the device, re-decodes after an overflow included;
+- ``amt.train.forward``: the train step's forward and losses
+  (``run_on_batch``), once a microbatch.
 """
 
 import contextlib
@@ -35,7 +55,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .ops import cuda_build
 
-__all__ = ['trace', 'StageTimer', 'block_and_time', 'peak_flops',
+__all__ = ['span', 'trace', 'StageTimer', 'block_and_time', 'peak_flops',
            'compiled_flops', 'mfu', 'compiled_cost', 'peak_hbm_bw']
 
 # Published dense peaks (NVIDIA's data sheet, SXM part, at 700 W): FLOP/s
@@ -53,11 +73,36 @@ _DTYPE_NAMES = {torch.bfloat16: 'bf16', 'bfloat16': 'bf16',
                 torch.int8: 'int8'}
 
 
+# The one context every span gives while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """The port's range named ``name`` around a block: a
+    ``torch.profiler.record_function`` while a profiler records, else one
+    shared ``nullcontext`` (no RecordFunction is made, so nothing of it
+    reaches ``torch.export``).
+
+    Usage::
+
+        with profiling.span('amt.features'):
+            ...
+    """
+
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def trace(log_dir):
     """Capture a ``torch.profiler`` trace into ``log_dir`` (a
     ``*.pt.trace.json`` TensorBoard's profiler plugin reads), the card's
     kernels included where CUDA is available; yields the profiler.
+
+    The trace holds the port's spans (:func:`span`) beside the host's
+    calls and the device's kernels.
 
     Usage::
 

@@ -25,13 +25,29 @@ on its clips of the batch (its rows; the batch must divide over the
 clip's notes,
 in clip order, on every rank (``all_gather_object``; JAX returns them
 from its one controller).
+
+A pipeline counts what its host decode does, in integer attributes that
+only grow: ``clips_decoded``, ``notes_decoded`` (the notes of those
+clips; a tablature clip's over its strings) and ``redecodes``, the clips
+whose notes overflowed ``capacity`` and were decoded again. With a mesh
+each rank counts its own clips. A ``redecodes`` count above 0 means
+``capacity`` is too small for the audio: each re-decode runs that clip's
+whole forward again (features, model and device decode), one clip at a
+time, inside :meth:`finalize`.
+
+Under a profiler (``profiling.trace``) a batch shows the port's spans
+(``profiling.span``): ``amt.features``, ``amt.acoustic``, ``amt.lstm``
+and ``amt.decode`` (the device decode after the forward) inside
+:meth:`dispatch`, and ``amt.serving.decode_host`` (the host decode of the
+batch, re-decodes included) inside :meth:`finalize`, after its wait for
+the device.
 """
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import tools
+from . import profiling, tools
 from .ops import decode
 from .ops.qconv import int8_layers, validate_quant_stats
 from .parallel.mesh import _axis, replicate
@@ -203,6 +219,10 @@ class _ServingPipeline:
         self.profile = model.profile
         self.mesh = mesh
         self._times_cache = {}
+        # The host decode's counts (the module docstring)
+        self.clips_decoded = 0
+        self.notes_decoded = 0
+        self.redecodes = 0
         if mesh is not None:
             replicate(self.model, mesh)
 
@@ -286,9 +306,10 @@ class _ServingPipeline:
             done.synchronize()
         arrays = tuple(h.numpy() for h in host)
 
-        groups = self._finalize_batch(
-            arrays, times,
-            lambda b, capacity: self._decode(audio[b][None], capacity))
+        with profiling.span('amt.serving.decode_host'):
+            groups = self._finalize_batch(
+                arrays, times,
+                lambda b, capacity: self._decode(audio[b][None], capacity))
         if self.mesh is None:
             return groups
 
@@ -303,19 +324,24 @@ class _ServingPipeline:
 
         A clip whose true note count exceeds ``capacity`` is decoded again
         by ``redecode(b, capacity)`` at a capacity that fits it (a multiple
-        of 1024, at least twice the default).
+        of 1024, at least twice the default). Counts the clips, their notes
+        and the re-decodes.
         """
 
         counts = arrays[-1]
         groups = []
         for b in range(counts.shape[0]):
+            clip, row = arrays, b
             needed = int(np.max(counts[b]))
             if needed > self.capacity:
                 capacity = max(2 * self.capacity, -(-needed // 1024) * 1024)
-                redone = tuple(x.cpu().numpy() for x in redecode(b, capacity))
-                groups.append(self._finalize_clip(redone, 0, times))
-            else:
-                groups.append(self._finalize_clip(arrays, b, times))
+                clip = tuple(x.cpu().numpy() for x in redecode(b, capacity))
+                row = 0
+                self.redecodes += 1
+            groups.append(self._finalize_clip(clip, row, times))
+            # Every count fits the capacity the clip was decoded at
+            self.notes_decoded += int(np.sum(clip[-1][row]))
+        self.clips_decoded += counts.shape[0]
 
         return groups
 
@@ -361,7 +387,7 @@ class TranscriptionPipeline(_ServingPipeline):
     def _decode(self, audio, capacity):
         raw = _forward(self.model, self.data_proc, audio)
 
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.span('amt.decode'):
             # Sigmoid and threshold in the logits' dtype (bf16 when serving
             # in bf16), as the JAX pipeline does
             multi_pitch = decode.threshold(
@@ -432,11 +458,12 @@ class TablaturePipeline(_ServingPipeline):
     def _decode(self, audio, capacity):
         raw = _forward(self.model, self.data_proc, audio)
 
-        with torch.inference_mode():
-            tablature = self.model.tablature_out.finalize_output(
-                raw[tools.KEY_TABLATURE])
+        with profiling.span('amt.decode'):
+            with torch.inference_mode():
+                tablature = self.model.tablature_out.finalize_output(
+                    raw[tools.KEY_TABLATURE])
 
-        return self._decode_stage(tablature, capacity)
+            return self._decode_stage(tablature, capacity)
 
     def decode_tablature(self, tablature, times):
         """Decode pre-computed (B, S, T) tablature through the pipeline's

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import tools
+from . import profiling, tools
 from .evaluate import validate
 from .models.common import run_on_batch
 from .ops.layers import BatchNorm, BatchShardGenerator
@@ -129,7 +129,9 @@ def make_train_step(model, optimizer, accum_steps=1, mesh=None):
     into that many microbatches, sums their gradients, divides by
     ``accum_steps`` and applies one update: the per-microbatch average,
     with the BatchNorm statistics threading through the microbatches in
-    turn and each microbatch drawing its own dropout noise.
+    turn and each microbatch drawing its own dropout noise. Each
+    microbatch's forward and losses run inside the span
+    ``amt.train.forward`` (:func:`profiling.span`).
 
     With a ``mesh`` that has a ``data`` dimension, ``batch`` is this rank's
     rows of the global batch (microbatch k of the rank's batch its rows of
@@ -156,8 +158,9 @@ def make_train_step(model, optimizer, accum_steps=1, mesh=None):
         total = None
         with _global_statistics(model, group):
             for microbatch in micro:
-                loss = run_on_batch(model, microbatch, train=True,
-                                    generator=generator)[tools.KEY_LOSS]
+                with profiling.span('amt.train.forward'):
+                    loss = run_on_batch(model, microbatch, train=True,
+                                        generator=generator)[tools.KEY_LOSS]
                 loss[tools.KEY_LOSS_TOTAL].backward()
 
                 loss = {key: value.detach() for key, value in loss.items()}

@@ -66,11 +66,13 @@ Tolerances:
   ``test_carried_grad_in_chunks_equals_one_call``'s bounds.
 """
 
+import collections
 import copy
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
@@ -104,6 +106,7 @@ from amt_tools_tpu_torch.ops.stft_kernel import (stft_power, stft_power_plain,
 from amt_tools_tpu_torch.serving import (TablaturePipeline,
                                          TranscriptionPipeline,
                                          calibrate_tablature_activity)
+from amt_tools_tpu_torch.train import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -1647,3 +1650,79 @@ def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
             ref = dict(layer.named_parameters())[name].grad
             assert ((param.grad.cpu() - ref).abs().max().item() <=
                     1e-4 * ref.abs().max().item()), name
+
+
+def _amt_spans_around_launches(prof):
+    """(device operation, the ``amt.`` host spans around the runtime call
+    that launched it, innermost first) for every device operation of a
+    profile, found by the launch's correlation id."""
+
+    events = prof.events()
+    launches = {e.id: e for e in events
+                if e.device_type == DeviceType.CPU and
+                e.name.startswith(('cuda', 'cu'))}
+    found = []
+    for event in events:
+        if (event.device_type != DeviceType.CUDA or
+                event.name.startswith('amt.')):
+            continue
+        spans = []
+        parent = launches.get(event.id)
+        while parent is not None:
+            if parent.name.startswith('amt.'):
+                spans.append(parent)
+            parent = parent.cpu_parent
+        found.append((event, spans))
+
+    return found
+
+
+def test_spans_share_the_device_clock(cuda):
+    """Under a profiler on the card, a piano batch and an O&F2 train step:
+    every device operation launched inside an ``amt.`` span starts no
+    earlier than that span, and every span the port opens holds launches.
+    The LSTMs' backward, on autograd's device thread, is one
+    ``amt.lstm.backward`` span a direction, holding kernel F."""
+
+    g = torch.Generator().manual_seed(2)
+    mel = MelSpec(n_mels=64)
+    model = OnsetsFrames2(dim_in=64, profile=tools.PianoProfile(),
+                          model_complexity=2, generator=g)
+    pipeline = TranscriptionPipeline(copy.deepcopy(model), mel,
+                                     capacity=256, device=cuda)
+    audio = _audio(2, 32000, seed=3).numpy()
+    step = make_train_step(model.to(cuda),
+                           torch.optim.Adam(model.parameters()))
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 64, 40, generator=g),
+             tools.KEY_MULTIPITCH: (torch.rand(2, 88, 40, generator=g) <
+                                    0.1).float()}
+    batch = {key: value.to(cuda) for key, value in batch.items()}
+    pipeline(audio)
+    step(batch, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        pipeline(audio)
+        step(batch, torch.Generator(cuda).manual_seed(1))
+        torch.cuda.synchronize()
+
+    found = _amt_spans_around_launches(prof)
+    checked = collections.Counter()
+    for operation, spans in found:
+        for span in spans:
+            assert operation.time_range.start >= span.time_range.start, (
+                operation.name, span.name)
+            checked[span.name] += 1
+    assert set(checked) == {'amt.features', 'amt.acoustic', 'amt.lstm',
+                            'amt.decode', 'amt.train.forward',
+                            'amt.lstm.backward'}
+
+    backward = [e for e in prof.events() if e.device_type == DeviceType.CPU
+                and e.name == 'amt.lstm.backward']
+    assert len(backward) == 6
+    bptt = [operation for operation, spans in found
+            if any(s.name == 'amt.lstm.backward' for s in spans) and
+            'lstm_bptt' in operation.name]
+    assert len(bptt) == 6
