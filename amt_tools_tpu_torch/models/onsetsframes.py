@@ -46,11 +46,10 @@ import warnings
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .. import profiling, tools
 from ..ops import decode
-from ..ops.layers import (BatchNorm, checkpoint, conv2d_same, conv3x3,
+from ..ops.layers import (BatchNorm, checkpoint, conv3x3, conv_block,
                           dropout, head_linear, lecun_normal_, linear)
 from ..ops.lstm import FastBiLSTM, FastLSTM, GroupedBiLSTM, lengths_to_mask
 from ..ops.qconv import Int8Conv, Int8Dense
@@ -67,7 +66,11 @@ class AcousticModel(nn.Module):
     """Kelz-style conv stack: (B, T, F, C) features -> (B, T, dim_out).
 
     Three 3x3 conv + BatchNorm + ReLU blocks, two 1x2 max-pools over
-    frequency (F -> F/4), then a dense projection. In train mode with
+    frequency (F -> F/4), then a dense projection. Each block is
+    ``ops.layers.conv_block``: in eval on CUDA, with autograd not recording,
+    a float conv's bias, the BatchNorm, the ReLU and the pool run as one
+    hand-written kernel (``ops.conv_epilogue``) after a bias-free conv, bit
+    for bit the eager ops, which run everywhere else. In train mode with
     ``dropout`` on, dropouts of 0.25 follow blocks 2 and 3 and 0.5 the
     dense, drawn from the forward's ``generator``. ``quant`` (serving only:
     ``False``, ``True`` or ``'static'``) makes ``Conv_1``, ``Conv_2`` and
@@ -121,12 +124,8 @@ class AcousticModel(nn.Module):
         return x
 
     def _block(self, x, conv, norm, pool, generator):
-        x = conv2d_same(x, conv, self.dtype)
-        x = F.relu(norm(x, self.dtype))
-        if pool:
-            x = F.max_pool2d(x, (1, 2), stride=(1, 2))
-            x = self._dropout(x, 0.25, generator)
-        return x
+        x = conv_block(x, conv, norm, pool, self.dtype)
+        return self._dropout(x, 0.25, generator) if pool else x
 
     def _remat(self, mode):
         return (self.remat == mode and self.training and
@@ -192,7 +191,9 @@ class GroupedAcousticModel(nn.Module):
     Channels are head-blocked (head h owns channels [h nf, (h + 1) nf)),
     and each head's flatten is frequency-major, channel-minor, as JAX's
     (``:313-319``) and the per-head stack's. Masks, dropout from the
-    forward's ``generator`` and the max-pools are the per-head stack's;
+    forward's ``generator``, the max-pools and the blocks
+    (``ops.layers.conv_block``, with its eval epilogue kernel on CUDA) are
+    the per-head stack's;
     ``remat=True`` recomputes the whole stack in the backward pass
     (``ops.layers.checkpoint``); the per-block ``'blocks'`` has no fused
     counterpart (JAX ``_grouped_model_cls``)."""
@@ -255,10 +256,8 @@ class GroupedAcousticModel(nn.Module):
         for conv, norm, pool in ((self.Conv_0, self.BatchNorm_0, False),
                                  (self.Conv_1, self.BatchNorm_1, True),
                                  (self.Conv_2, self.BatchNorm_2, True)):
-            x = conv2d_same(x, conv, self.dtype)
-            x = F.relu(norm(x, self.dtype))
+            x = conv_block(x, conv, norm, pool, self.dtype)
             if pool:
-                x = F.max_pool2d(x, (1, 2), stride=(1, 2))
                 x = self._dropout(x, 0.25, generator)
             if mask is not None:
                 x = x * mask.to(x.dtype)

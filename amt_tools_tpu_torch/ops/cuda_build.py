@@ -45,7 +45,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 
-KERNEL_SOURCES = ('stft_power', 'lstm_scan', 'lstm_bptt', 'cqt_mag')
+KERNEL_SOURCES = ('stft_power', 'lstm_scan', 'lstm_bptt', 'cqt_mag',
+                  'conv_epilogue')
 
 # The custom ops' namespace: torch.ops.amt_tools_tpu_torch.<op>
 NAMESPACE = 'amt_tools_tpu_torch'

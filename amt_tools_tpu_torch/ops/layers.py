@@ -11,7 +11,10 @@ or ``conv2d_valid`` runs its own forward: it quantizes its input, carries
 its padding and casts to its own dtype, so a model calls the same helper
 whichever layer it built. :func:`checkpoint` recomputes a function in the
 backward pass (the models' ``remat``) with the same dropout noise and
-without a second update of BatchNorm's running statistics.
+without a second update of BatchNorm's running statistics. :func:`conv_block`
+is one block of the O&F acoustic stacks (conv, BatchNorm, ReLU, the
+optional (1, 2) max-pool); its eval forward on CUDA runs the conv without
+its bias and the rest as one hand-written kernel (``ops.conv_epilogue``).
 
 Data parallelism (``parallel/``): a train-mode :class:`BatchNorm` whose
 ``process_group`` is set takes its statistics over the global batch, and
@@ -32,10 +35,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..parallel.collectives import all_reduce, gather_columns, reduce_grad
+from .conv_epilogue import batch_norm_eval, conv_epilogue
 
 __all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
-           'conv3x3', 'BatchNorm', 'dropout', 'BatchShardGenerator',
-           'lecun_normal_', 'orthogonal_', 'checkpoint']
+           'conv_block', 'conv3x3', 'BatchNorm', 'dropout',
+           'BatchShardGenerator', 'lecun_normal_', 'orthogonal_',
+           'checkpoint']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -137,10 +142,13 @@ def conv2d_same(x, layer, dtype=None):
         return layer(x)
 
     dtype = _compute_dtype(x, dtype)
-    padding = tuple(k // 2 for k in layer.kernel_size)
 
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
-                    padding=padding, groups=layer.groups)
+                    padding=_same_padding(layer), groups=layer.groups)
+
+
+def _same_padding(layer):
+    return tuple(k // 2 for k in layer.kernel_size)
 
 
 def conv2d_valid(x, layer, dtype=None):
@@ -154,12 +162,55 @@ def conv2d_valid(x, layer, dtype=None):
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def conv_block(x, conv, norm, pool, dtype=None):
+    """One block of an O&F acoustic stack on (B, C, T, F): ``conv`` with SAME
+    padding in ``dtype`` (default: x's, as :func:`conv2d_same`), the
+    :class:`BatchNorm` ``norm``, ReLU and, with ``pool``, a (1, 2) max-pool
+    over F.
+
+    In eval on CUDA, with autograd not recording and a float conv, the conv
+    runs without its bias and the bias, the norm, the ReLU and the pool are
+    one pass of ``ops.conv_epilogue``, bit for bit the eager ops. Everything
+    else runs the eager ops: a train-mode norm, a forward autograd records,
+    an int8 conv (``quantized``), a float16 conv, the CPU."""
+
+    if _eager_block(x, conv, norm, _compute_dtype(x, dtype)):
+        x = F.relu(norm(conv2d_same(x, conv, dtype), dtype))
+        return F.max_pool2d(x, (1, 2), stride=(1, 2)) if pool else x
+
+    dtype = _compute_dtype(x, dtype)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None,
+                 padding=_same_padding(conv), groups=conv.groups)
+
+    return conv_epilogue(y, conv.bias.to(dtype),
+                         norm.running_mean.to(torch.float32),
+                         norm.eval_scale().to(torch.float32),
+                         norm.bias.to(torch.float32), pool)
+
+
+def _eager_block(x, conv, norm, dtype):
+    """Whether :func:`conv_block` runs the eager ops rather than the
+    epilogue kernel, which takes float32 and bf16."""
+
+    if (x.device.type != 'cuda' or norm.training or
+            getattr(conv, 'quantized', False) or
+            dtype not in (torch.float32, torch.bfloat16)):
+        return True
+
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, conv.weight, conv.bias, norm.weight,
+                                  norm.bias))
+
+
 class BatchNorm(nn.Module):
     """Batch norm over channel dim 1 with Flax's arithmetic.
 
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast to
     ``dtype`` (default: x's). Parameter names follow ``nn.BatchNorm2d``.
-    In eval mode the statistics are the running ones. In train mode they
+    In eval mode the statistics are the running ones
+    (``ops.conv_epilogue.batch_norm_eval``); in the O&F acoustic stacks'
+    eval forward on CUDA that arithmetic runs inside the epilogue kernel
+    instead, through :func:`conv_block`. In train mode they
     are the batch's, as Flax 0.12 takes them
     (``flax/linen/normalization.py:60-145``): the float32 mean over every
     axis but the channel's, and the fast variance ``max(0, E[x^2] -
@@ -193,22 +244,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, dtype=None):
         dtype = _compute_dtype(x, dtype)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
 
         if self.training:
-            return self._forward_train(x, dtype, shape)
+            return self._forward_train(x, dtype)
 
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return batch_norm_eval(x, self.running_mean, self.eval_scale(),
+                               self.bias, dtype)
 
-        # One float32 buffer updated in place: at serving shapes the
-        # activation is ~10 GB in float32
-        y = x.to(torch.float32, copy=True)
-        y.sub_(self.running_mean.view(shape)).mul_(mul.view(shape))
-        y.add_(self.bias.view(shape))
+    def eval_scale(self):
+        """``rsqrt(running_var + eps) * weight``: eval mode's multiplier."""
 
-        return y.to(dtype)
+        return torch.rsqrt(self.running_var + self.eps) * self.weight
 
-    def _forward_train(self, x, dtype, shape):
+    def _forward_train(self, x, dtype):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         axes = (0,) + tuple(range(2, x.dim()))
         channels = x.shape[1]
         xf = x.float()

@@ -27,7 +27,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    clips, then 3 requests of 128 x 60 s clips with overlapped
    dispatch/finalize. Every kernel's launch count is reset just before the
    requests and read just after; kernels A (on its FFT route) and B must
-   have run. 5b: a
+   have run, and the conv epilogue nine times a dispatch. 5b: a
    narrow float32 copy checks notes and logits on the card against the CPU
    (plain versions);
 6. the full-bank CQT kernel (C) against its plain version of the same
@@ -64,7 +64,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     card, kernel A), batch 8, Adam 6e-4, 3 passes in float32 and 3 in bf16,
     each with a checkpoint; then 30 float32 steps on one batch, whose loss
     must fall. Counts are reset before each run and read after it: E and F
-    six times a step, B never; every loss finite. 12b: one float32
+    six times a step, B and the conv epilogue never; every loss finite. 12b: one float32
     training step of a narrow O&F2 on each of three seeds, card (kernels)
     against the CPU (plain versions), on the losses, the gradients and the
     parameters after one SGD step, with the ReLU and max-pool decisions
@@ -189,9 +189,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``shard_params_tp`` then an O&F2 forward through B, ``pipeline_apply``
     at S = 1. Times of phases 32-33 are two processes sharing one card,
     not scaling figures;
-35. kernels A-F through their custom ops (``torch.ops.amt_tools_tpu_torch``;
-    B, E and F on their plain, masked and carried schemas, and grouped,
-    plain and masked), each
+35. kernels A-F and the conv epilogue through their custom ops
+    (``torch.ops.amt_tools_tpu_torch``; B, E and F on their plain, masked
+    and carried schemas, and grouped, plain and masked), each
     bit for bit its wrapper with one launch counted a call, then
     ``torch.library.opcheck`` of each on the card at small shapes;
 36. phase 5's bf16 piano pipeline exported (``export.save_serving``, a
@@ -273,6 +273,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     on the card from the port's seeded weights, then ``validate`` (masked
     B); frame and note F1 within 0.04 and 0.10 of the JAX package's run
     (``CONVERGENCE_JAX_F1``, which the slow test checks);
+48. the conv blocks' eval epilogue (``ops/conv_epilogue.py``, a kernel of
+    the port with no TPU counterpart) at the piano serving shape, 128 clips
+    x 1876 frames, in the serving pipelines' NCHW layout and in
+    channels-last, for each block shape of an acoustic stack (48 channels x
+    229 bins unpooled and pooled, 96 x 114 pooled): bit for bit its plain
+    version, timed beside it and its byte bound;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, a fused piano batch and a
@@ -298,11 +304,12 @@ launches in the serving artifact, B in the streaming artifact, A, C, E and
 F in the examples; B, E and F with their grouped launch's times (phase 39)
 and its launches in the fused phases 40-43; E and F with their masked,
 carried and grouped masked launches a step, times and bounds, phases
-44-46), and one JSON line
+44-46; the conv epilogue with its phase 48 times, summed over a batch's
+nine launches, and its launches in phase 5), and one JSON line
 ``{"ok": true, "device": {...}}``.
 Every bound comes from the kernel's cost function (``stft_kernel.cost``,
-``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``), the
-FLOP formula of its op.
+``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``,
+``conv_epilogue.cost``), the FLOP formula of its op.
 """
 
 import copy
@@ -474,6 +481,7 @@ def kernel_counters():
     """Every hand-written kernel's wrapper, by kernel name (the grouped
     launches of B, E and F by their own)."""
 
+    from amt_tools_tpu_torch.ops.conv_epilogue import conv_epilogue
     from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_grouped
     from amt_tools_tpu_torch.ops.lstm_kernel import (
         lstm_bptt, lstm_bptt_grouped, lstm_scan, lstm_scan_grouped,
@@ -486,7 +494,8 @@ def kernel_counters():
             'lstm_bptt': lstm_bptt,
             'lstm_scan_grouped': lstm_scan_grouped,
             'lstm_scan_residuals_grouped': lstm_scan_residuals_grouped,
-            'lstm_bptt_grouped': lstm_bptt_grouped}
+            'lstm_bptt_grouped': lstm_bptt_grouped,
+            'conv_epilogue': conv_epilogue}
 
 
 def route_counters():
@@ -1109,6 +1118,9 @@ def serve(clips, profile, card):
             'the STFT kernel left its FFT route on the serving path')
     require(launches['lstm_scan'] >= 6 * REQUESTS,
             'the LSTM kernel did not run six times per dispatch')
+    require(launches['conv_epilogue'] == 9 * REQUESTS,
+            'the conv epilogue did not run once a conv block of the three '
+            'acoustic stacks per dispatch')
     require(len(notes) == REQUESTS * BATCH and min(notes) > 0,
             'a served clip decoded no notes')
 
@@ -1131,6 +1143,79 @@ def serve(clips, profile, card):
                        lambda: pipeline(requests[0]),
                        ('stft_power_fft_kernel', 'lstm_scan_kernel')),
             reference, (pipeline, requests))
+
+
+def check_conv_epilogue():
+    """Phase 48: the conv blocks' eval epilogue (``ops/conv_epilogue.py``)
+    at the piano serving shape, in the serving pipelines' NCHW layout (the
+    main path) and in channels-last: each of the three block shapes of an
+    acoustic stack (48 channels at 229 bins unpooled and pooled, 96 at 114
+    pooled) bit for bit its plain version on the card, timed beside it and
+    its byte bound."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.conv_epilogue import (conv_epilogue,
+                                                       conv_epilogue_plain,
+                                                       cost)
+
+    device = torch.device('cuda')
+    gen = torch.Generator(device=device).manual_seed(48)
+    frames = 1 + int(CLIP_SECONDS * SAMPLE_RATE) // HOP
+    blocks = []
+    for layout in ('nchw', 'channels_last'):
+        for channels, width, pool in ((48, N_MELS, False), (48, N_MELS, True),
+                                      (96, N_MELS // 2, True)):
+            x = torch.randn(BATCH, channels, frames, width, generator=gen,
+                            device=device, dtype=torch.bfloat16)
+            if layout == 'channels_last':
+                x = x.contiguous(memory_format=torch.channels_last)
+            var = torch.rand(channels, generator=gen, device=device) + 0.5
+            vectors = (
+                0.1 * torch.randn(channels, generator=gen, device=device,
+                                  dtype=torch.bfloat16),
+                0.3 * torch.randn(channels, generator=gen, device=device),
+                torch.rsqrt(var + 1e-5) * torch.randn(
+                    channels, generator=gen, device=device),
+                0.2 * torch.randn(channels, generator=gen, device=device))
+
+            got = conv_epilogue(x, *vectors, pool)
+            want = conv_epilogue_plain(x, *vectors, pool)
+            require(got.stride() == want.stride() and
+                    torch.equal(got.view(torch.int16),
+                                want.view(torch.int16)),
+                    f'the conv epilogue at {tuple(x.shape)} {layout}, pool '
+                    f'{pool}, differs from its plain version')
+            del got, want
+            ms = time_ms(lambda: conv_epilogue(x, *vectors, pool), reps=20)
+            plain_ms = time_ms(
+                lambda: conv_epilogue_plain(x, *vectors, pool), reps=3)
+            _, num_bytes = cost(x.shape, x.dtype, pool)
+            bound, bound_by = bound_ms(num_bytes, 0.0, PEAK_BF16_FLOPS)
+            log(f'conv_epilogue at {tuple(x.shape)} bf16 {layout}, pool '
+                f'{pool}: bit for bit the plain version; kernel {ms:.3f} ms, '
+                f'plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}: '
+                f'{num_bytes / 1e9:.3f} GB), {100 * bound / ms:.1f}% of it')
+            blocks.append({'layout': layout, 'shape': list(x.shape),
+                           'pool': pool, 'ms': ms, 'plain_ms': plain_ms,
+                           'bound_ms': bound})
+            del x
+            torch.cuda.empty_cache()
+
+    # A piano batch runs each NCHW block shape once in each of the three
+    # stacks: the serving pipelines hand the stacks NCHW conv outputs
+    main = [b for b in blocks if b['layout'] == 'nchw']
+    return {'name': 'conv_epilogue', 'route': 'cuda',
+            'source': 'amt_tools_tpu_torch/csrc/conv_epilogue.cu',
+            'replaces': None,
+            'ms': 3 * sum(b['ms'] for b in main),
+            'plain_ms': 3 * sum(b['plain_ms'] for b in main),
+            'bound_ms': 3 * sum(b['bound_ms'] for b in main),
+            'bound_by': 'bytes', 'library_ms': None, 'blocks': blocks,
+            'design': 'a port kernel with no TPU counterpart: the conv '
+                      'bias, eval BatchNorm, ReLU and (1, 2) max-pool of an '
+                      'acoustic block in one pass over the bias-free conv '
+                      'output, in its NCHW or channels-last layout'}
 
 
 def piano_logits(model, mel, audio):
@@ -1382,6 +1467,8 @@ def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0,
             f'step')
     require(launches['lstm_scan'] == 0,
             f'{label}: kernel B ran inside a training step')
+    require(launches['conv_epilogue'] == 0,
+            f'{label}: the eval conv epilogue ran inside a training step')
     require(all(np.isfinite(values).all() for values in losses.values()),
             f'{label}: a loss is not finite')
 
@@ -4959,15 +5046,17 @@ def same(got, want):
 
 
 def op_cases(scale):
-    """(label, wrapper call, op call, kernel) for every op and each of the
-    schemas of B, E and F (masked, carried, grouped), on CUDA inputs of
+    """(label, wrapper call, op call, kernel) for every op, each of the
+    schemas of B, E and F (masked, carried, grouped) and the conv epilogue
+    pooled and not, on CUDA inputs of
     ``scale`` frames (opcheck's small shapes when OP_CHECK_FRAMES); the op
     calls are (op, args)."""
 
     import torch
 
     from amt_tools_tpu_torch.features import MelSpec
-    from amt_tools_tpu_torch.ops import cqt_kernel, lstm_kernel, stft_kernel
+    from amt_tools_tpu_torch.ops import (conv_epilogue, cqt_kernel,
+                                         lstm_kernel, stft_kernel)
 
     device = torch.device('cuda')
     gen = torch.Generator(device=device).manual_seed(35)
@@ -5083,13 +5172,25 @@ def op_cases(scale):
              lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2, n),
              (lstm_kernel.lstm_bptt_grouped_op,
               (ggates, gc, gdout, gwht, 2, lengths)))]
+        # The conv blocks' eval epilogue on cuDNN's channels-last layout
+        x = randn(2, scale // 10, N_MELS, 48).to(dtype).permute(0, 3, 1, 2)
+        vectors = (randn(48, scale=0.1).to(dtype), randn(48, scale=0.3),
+                   randn(48), randn(48, scale=0.2))
+        for pool in (False, True):
+            cases.append((
+                f'epilogue {name}{" pooled" if pool else ""}',
+                'conv_epilogue',
+                lambda x=x, v=vectors, p=pool: conv_epilogue.conv_epilogue(
+                    x, *v, p),
+                (conv_epilogue.conv_epilogue_op, (x, *vectors, pool))))
 
     return cases
 
 
 def check_custom_ops(card):
     """Phase 35: each of kernels A-F (B, E and F on their masked and
-    carried schemas) through its custom op, bit for bit its wrapper, one launch counted a call; then
+    carried schemas) and the conv epilogue through its custom op, bit for
+    bit its wrapper, one launch counted a call; then
     ``torch.library.opcheck`` of each on the card at small shapes (the
     schema, the fake implementation against the real one, the autograd
     registration, and a trace with symbolic shapes)."""
@@ -7154,6 +7255,8 @@ def main():
                                                                card)
     check_against_cpu(clips, profile)
     torch.cuda.empty_cache()
+    epilogue = check_conv_epilogue()
+    epilogue['launches'] = launches['conv_epilogue']
     int8_launches, int8_batch = serve_int8(clips, profile, card)
     torch.cuda.empty_cache()
     int8_against_cpu(clips, profile)
@@ -7307,7 +7410,8 @@ def main():
     cqt_grouped['launches_two_rank_serving_per_rank'] = parallel['d_per_rank']
 
     examples = measured['examples']
-    for entry in (stft, lstm, cqt_full, cqt_grouped, residuals, bptt):
+    for entry in (stft, lstm, cqt_full, cqt_grouped, residuals, bptt,
+                  epilogue):
         entry['op'] = f'torch.ops.amt_tools_tpu_torch.{entry["name"]}'
         entry['launches_op_check'] = ops['op_check_launches'][entry['name']]
     stft['launches_serving_artifact'] = artifact['launches']['stft_power']
@@ -7349,7 +7453,7 @@ def main():
 
     log(card)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
-                                  residuals, bptt]}), flush=True)
+                                  residuals, bptt, epilogue]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

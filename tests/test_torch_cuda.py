@@ -63,7 +63,11 @@ Tolerances:
   by ``CARRY_GRAD_TOL`` against the plain version and within 1e-5 of its
   largest value against the product of the kernel's own last da; the
   differentiable carried recurrence in chunks against one call by
-  ``test_carried_grad_in_chunks_equals_one_call``'s bounds.
+  ``test_carried_grad_in_chunks_equals_one_call``'s bounds;
+- the conv blocks' eval epilogue: bit for bit its plain version on the
+  card, NaN payloads included (the same float32 operations in the same
+  order, each rounded once), and a bf16 O&F2 eval forward through it bit
+  for bit the eager ops it replaces.
 """
 
 import collections
@@ -80,8 +84,8 @@ from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.models import run_on_batch as models_run_on_batch
 from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
 from amt_tools_tpu_torch.ops.lstm import FastLSTM, GroupedBiLSTM
-from amt_tools_tpu_torch.ops import (cuda_build, decode, lstm_kernel, qconv,
-                                     spectral)
+from amt_tools_tpu_torch.ops import (conv_epilogue, cuda_build, decode,
+                                     layers, lstm_kernel, qconv, spectral)
 from amt_tools_tpu_torch.ops.cqt_kernel import (ROUTES, cqt_mag,
                                                 cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
@@ -607,6 +611,15 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
         cqt_mag_grouped(torch.zeros(2, 1000, device=cuda),
                         torch.zeros(33 * 16, 2, device=cuda), (16,) * 33,
                         (1,) * 33, 512)
+
+    vectors = [torch.zeros(8, device=cuda) for _ in range(3)]
+    with pytest.raises(TypeError):
+        conv_epilogue.conv_epilogue(
+            torch.zeros(1, 8, 2, 4, device=cuda, dtype=torch.float64),
+            torch.zeros(8, device=cuda, dtype=torch.float64), *vectors, True)
+    with pytest.raises(ValueError):
+        conv_epilogue.conv_epilogue(torch.zeros(1, 8, 2, 4, device=cuda),
+                                    torch.zeros(8), *vectors, True)
 
 
 # -- int8 layers and the padded LSTM widths --------------------------------
@@ -1726,3 +1739,158 @@ def test_spans_share_the_device_clock(cuda):
             if any(s.name == 'amt.lstm.backward' for s in spans) and
             'lstm_bptt' in operation.name]
     assert len(bptt) == 6
+
+
+# -- the conv blocks' eval epilogue ------------------------------------------
+
+
+def _epilogue_inputs(shape, dtype, layout, seed, cuda):
+    """A bias-free conv output on the card in ``layout`` ('channels_last' or
+    'nchw', each also one value off 16-byte alignment), with NaN,
+    infinities, signed zeros and denormals planted and a channel that
+    passes -0.0 to the ReLU, and the block's conv bias and eval BatchNorm
+    vectors."""
+
+    g = torch.Generator().manual_seed(seed)
+    batch, channels, frames, width = shape
+    values = torch.randn(batch, frames, width, channels, generator=g)
+    flat = values.view(-1)
+    specials = torch.tensor([float('nan'), float('inf'), -float('inf'), -0.0,
+                             0.0, 1e-40, -1e-40])
+    picks = torch.randperm(flat.numel(), generator=g)[:7 * 5]
+    flat[picks] = specials.repeat(5)
+    values[..., 0] = -0.0
+    values = values.permute(0, 3, 1, 2).to(dtype)
+    if layout.startswith('nchw'):
+        values = values.contiguous()
+    x = values.to(cuda)
+    if layout.endswith('misaligned'):
+        store = torch.empty(values.numel() + 1, dtype=dtype, device=cuda)
+        x = store[1:].as_strided(values.shape, values.stride())
+        x.copy_(values)
+
+    conv_bias = (0.1 * torch.randn(channels, generator=g)).to(dtype)
+    mean = 0.3 * torch.randn(channels, generator=g)
+    var = torch.rand(channels, generator=g) + 0.5
+    weight = torch.randn(channels, generator=g)
+    bias = 0.2 * torch.randn(channels, generator=g)
+    conv_bias[0], mean[0], var[0], weight[0], bias[0] = -0.0, 0.0, 1.0, 1.0, \
+        -0.0
+    mul = torch.rsqrt(var + 1e-5) * weight
+
+    return [x] + [t.to(cuda) for t in (conv_bias, mean, mul, bias)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize('layout', ['channels_last', 'nchw',
+                                    'channels_last misaligned',
+                                    'nchw misaligned'])
+@pytest.mark.parametrize('shape', [(8, 48, 1876, 229), (2, 96, 13, 114),
+                                   (2, 288, 7, 114), (1, 3, 5, 7),
+                                   (2, 8, 1, 3)])
+@pytest.mark.parametrize('pool', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_conv_epilogue_kernel_matches_plain(cuda, dtype, pool, shape, layout):
+    """The kernel against its plain version on the card, bit for bit, NaN
+    payloads included, on a slice of the piano serving shape (8 of its 128
+    clips) and small odd shapes, on every route: NCHW rows through shared
+    memory, channels-last vectors, and value by value (misaligned)."""
+
+    args = _epilogue_inputs(shape, dtype, layout, sum(shape), cuda)
+    launches = conv_epilogue.conv_epilogue.launches
+
+    got = conv_epilogue.conv_epilogue(*args, pool)
+    want = conv_epilogue.conv_epilogue_plain(*args, pool)
+
+    assert conv_epilogue.conv_epilogue.launches == launches + 1
+    assert got.shape == want.shape and got.stride() == want.stride()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.isnan(got).any()
+
+
+def _of2_for_epilogue(cuda, fused_heads, features):
+    """A bf16 O&F2 at complexity 3 with running statistics and conv biases
+    away from their initial values, and its features: 'pipeline' as the
+    serving pipelines hand them over (``pre_proc`` of (B, 1, F, T), a
+    transposed view: cuDNN then gives NCHW conv outputs), 'contiguous' as
+    (B, T, F, 1) (channels-last conv outputs)."""
+
+    g = torch.Generator().manual_seed(17)
+    model = OnsetsFrames2(dim_in=229, profile=tools.PianoProfile(),
+                          model_complexity=3, dtype=torch.bfloat16,
+                          fused_heads=fused_heads, generator=g).eval()
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, layers.BatchNorm):
+                module.running_mean.normal_(0, 0.3, generator=g)
+                module.running_var.uniform_(0.5, 1.5, generator=g)
+                module.weight.normal_(1, 0.2, generator=g)
+                module.bias.normal_(0, 0.2, generator=g)
+            if isinstance(module, torch.nn.Conv2d):
+                module.bias.normal_(0, 0.1, generator=g)
+
+    if features == 'pipeline':
+        feats = model.pre_proc({tools.KEY_FEATS: torch.rand(
+            4, 1, 229, 600, generator=g)})[tools.KEY_FEATS]
+    else:
+        feats = torch.rand(4, 600, 229, 1, generator=g)
+
+    return model.to(cuda), feats.to(cuda)
+
+
+@pytest.mark.parametrize('features', ['pipeline', 'contiguous'])
+@pytest.mark.parametrize('fused_heads, launches', [(False, 9), (True, 3)])
+def test_of2_eval_forward_takes_the_epilogue_bit_for_bit(cuda, monkeypatch,
+                                                         fused_heads,
+                                                         launches, features):
+    """A bf16 O&F2 eval forward, with and without valid lengths, on both
+    layouts of the features: the kernel once a conv block (3 stacks of 3
+    blocks, or the fused stack's 3), and every output bit for bit the same
+    forward with the kernel's plain version in its place and with the
+    eager ops the stacks ran before the kernel."""
+
+    model, feats = _of2_for_epilogue(cuda, fused_heads, features)
+    lengths = torch.tensor([600, 311, 1, 450], device=cuda)
+
+    def forward(lengths=None):
+        with torch.no_grad():
+            return model(feats, lengths=lengths)
+
+    counted = conv_epilogue.conv_epilogue.launches
+    got = forward(), forward(lengths)
+    assert conv_epilogue.conv_epilogue.launches == counted + 2 * launches
+
+    with monkeypatch.context() as patch:
+        patch.setattr(layers, 'conv_epilogue',
+                      conv_epilogue.conv_epilogue_plain)
+        plain = forward(), forward(lengths)
+    with monkeypatch.context() as patch:
+        patch.setattr(layers, '_eager_block', lambda *args: True)
+        eager = forward(), forward(lengths)
+    assert conv_epilogue.conv_epilogue.launches == counted + 2 * launches
+
+    for want in (plain, eager):
+        for out, ref in zip(got, want):
+            assert out.keys() == ref.keys()
+            for key in out:
+                assert torch.equal(out[key], ref[key]), key
+
+
+def test_train_step_launches_no_epilogue(cuda):
+    """Train-mode BatchNorm and recorded forwards keep the eager ops."""
+
+    g = torch.Generator().manual_seed(18)
+    model = OnsetsFrames2(dim_in=32, profile=tools.PianoProfile(),
+                          model_complexity=2, dropout=False, generator=g)
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 32, 40, generator=g),
+             tools.KEY_MULTIPITCH: (torch.rand(2, 88, 40, generator=g) <
+                                    0.1).float()}
+
+    launches = conv_epilogue.conv_epilogue.launches
+    _train_step(model, batch, cuda)
+    torch.cuda.synchronize()
+
+    assert conv_epilogue.conv_epilogue.launches == launches

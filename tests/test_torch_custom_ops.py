@@ -1,7 +1,9 @@
-"""Kernels A-F as custom ops of ``torch.ops.amt_tools_tpu_torch``, on the CPU.
+"""Kernels A-F and the conv blocks' eval epilogue as custom ops of
+``torch.ops.amt_tools_tpu_torch``, on the CPU.
 
-Each op (kernels B, E and F with their masked and carried schemas, and the
-grouped launches of B, E and F, masked or not) passes
+Each op (kernels B, E and F with their masked and carried schemas, the
+grouped launches of B, E and F, masked or not, and the epilogue, pooled or
+not) passes
 ``torch.library.opcheck`` (schema, fake implementation against the real
 one, autograd registration, a trace with symbolic shapes), equals its plain
 version bit for bit, survives ``torch.export`` save and load inside a tiny
@@ -20,8 +22,8 @@ from torch.library import opcheck
 from torch.utils.flop_counter import FlopCounterMode
 
 from amt_tools_tpu_torch.features import CQT, MelSpec
-from amt_tools_tpu_torch.ops import cqt_kernel, cuda_build, lstm_kernel
-from amt_tools_tpu_torch.ops import stft_kernel
+from amt_tools_tpu_torch.ops import (conv_epilogue, cqt_kernel, cuda_build,
+                                     lstm_kernel, stft_kernel)
 
 torch.set_num_threads(1)
 
@@ -170,6 +172,21 @@ def _cases():
              lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2, n)),
         ]
 
+    # The conv blocks' eval epilogue on a channels-last conv output, an odd
+    # width, unpooled and pooled
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        x = _tensor(rng, 2, 16, 3, 7, dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        conv_bias = _tensor(rng, 16, scale=0.1, dtype=dtype)
+        vectors = [_tensor(rng, 16, scale=0.3) for _ in range(3)]
+        for pool in (False, True):
+            args = (x, conv_bias, *vectors, pool)
+            cases.append((f'epilogue {name}{" pooled" if pool else ""}',
+                          conv_epilogue.conv_epilogue_op, args,
+                          lambda a=args: conv_epilogue.conv_epilogue_plain(
+                              *a)))
+
     return cases
 
 
@@ -257,6 +274,8 @@ def _cost(label, args):
         audio, bank, n_fft, hop, center = args
         return stft_kernel.cost(*audio.shape, n_fft, hop, bank.shape[1] // 2,
                                 center)
+    if label.startswith('epilogue'):
+        return conv_epilogue.cost(args[0].shape, args[0].dtype, args[-1])
     if label == 'C':
         audio, bank, _, hop, _ = args
         return cqt_kernel.cost(*audio.shape, hop, bank)
