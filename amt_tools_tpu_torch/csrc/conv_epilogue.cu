@@ -1,13 +1,15 @@
 // Eval epilogue of a conv block for Hopper (sm_90a): conv bias, BatchNorm
-// with running statistics, ReLU and an optional (1, 2) max-pool, in one
-// pass over the conv's output.
+// with running statistics, ReLU and an optional (1, 2) max- or average
+// pool, in one pass over the conv's output.
 //
 // Replaces no TPU kernel. The JAX package leaves this chain to XLA, which
 // fuses it; the port's eager PyTorch ran it as eight passes over the
 // activation (the bias add, a float32 copy, three in-place float32 passes,
 // the cast back, ReLU, the pool), 47 bytes a bf16 value. It serves the
-// eval forward of the O&F acoustic stacks (ops/layers.py conv_block,
-// through ops/conv_epilogue.py), whose conv runs without its bias.
+// eval forward of the O&F acoustic stacks and of the High-resolution
+// Piano Transcription model's ConvBlocks (ops/layers.py conv_block, through
+// ops/conv_epilogue.py), whose conv runs without its bias; that model's
+// convs have none, and its blocks average-pool.
 //
 // What bounds it on this card: bytes. A value is read once and written
 // once, or half written when pooled: 4 bytes a bf16 value unpooled, 3
@@ -24,9 +26,14 @@
 //                                       no FMA contraction; round to
 //                                       nearest even
 //   r = isnan(y) ? y : fmaxf(y, 0)      ATen's clamp_min, which relu is
-//   pool: m = -inf, then for v in the pair: if (v > m || isnan(v)) m = v,
-//         as ATen's max_pool_forward_nhwc and _nchw; an odd width drops its
-//         last column.
+//   max pool: m = -inf, then for v in the pair: if (v > m || isnan(v))
+//         m = v, as ATen's max_pool_forward_nhwc and _nchw;
+//   average pool: round_T(((0 + a) + b) / 2) in float32, as ATen's
+//         avg_pool2d kernels sum a window into a float32 zero and divide by
+//         its size; an odd width drops its last column either way.
+//   A conv without a bias comes with a bias of -0.0 from the wrapper, which
+//         leaves every value as it is (x + -0.0 = x, signed zeros
+//         included).
 // mul = rsqrt(running_var + eps) * weight comes computed from the wrapper,
 // as BatchNorm computes it; the kernel takes no rsqrt of its own.
 //
@@ -46,7 +53,8 @@
 //     wide for shared memory): one output value a thread, indices by
 //     division. Correct and slow; no model takes it.
 // The last rounding's result is a T value already, so it is stored by its
-// bits, with no third conversion. Each route's comment below says more.
+// bits, with no third conversion; an average is rounded once more. Each
+// route's comment below says more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +67,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 2;             // vectors or pixels a thread
 constexpr int kRowTileBytes = 24576;  // input a block (NCHW pooled)
+
+// The pool of a launch
+constexpr int kNoPool = 0;
+constexpr int kMaxPool = 1;
+constexpr int kAvgPool = 2;
 
 // A value of type T as its raw bits, and its conversions
 template <typename T>
@@ -119,12 +132,19 @@ __device__ __forceinline__ float epilogue(float x, const Channel& ch) {
   return isnan(y) ? y : fmaxf(y, 0.0f);
 }
 
-// The max of a pair as ATen's max-pool kernels take it
-__device__ __forceinline__ float pair_max(float a, float b) {
-  float m = -INFINITY;
-  if (a > m || isnan(a)) m = a;
-  if (b > m || isnan(b)) m = b;
-  return m;
+// The pool of a pair of ReLU outputs, as ATen's max-pool and avg-pool
+// kernels take it, and its bits in T: a maximum is one of the pair, an
+// average is rounded to T
+template <typename T, int kPool>
+__device__ __forceinline__ typename Type<T>::Raw pool_pair(float a, float b) {
+  if constexpr (kPool == kAvgPool) {
+    return Type<T>::store(__fdiv_rn(__fadd_rn(__fadd_rn(0.0f, a), b), 2.0f));
+  } else {
+    float m = -INFINITY;
+    if (a > m || isnan(a)) m = a;
+    if (b > m || isnan(b)) m = b;
+    return Type<T>::bits(m);
+  }
 }
 
 // q = a / d, r = a % d for 0 <= a < 2^51, d >= 1, with inv_d = 1.0 / d
@@ -151,7 +171,7 @@ __device__ __forceinline__ void divmod(long long a, long long d, double inv_d,
 // each load and store of the warp is one contiguous span. (A grid capped at
 // one block an SM slot, each block walking many pixels, ran 10% slower at
 // the serving shapes.)
-template <typename T, bool kPool>
+template <typename T, int kPool>
 __global__ void __launch_bounds__(kThreads)
 epilogue_nhwc_kernel(const typename Type<T>::Raw* __restrict__ x, Params p,
                      typename Type<T>::Raw* __restrict__ out,
@@ -194,10 +214,13 @@ epilogue_nhwc_kernel(const typename Type<T>::Raw* __restrict__ x, Params p,
     Pack res;
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      float v = epilogue<T>(Type<T>::load(a[u].e[j]), ch[j]);
-      if (kPool) v = pair_max(v, epilogue<T>(Type<T>::load(b[u].e[j]),
-                                             ch[j]));
-      res.e[j] = Type<T>::bits(v);
+      const float v = epilogue<T>(Type<T>::load(a[u].e[j]), ch[j]);
+      if constexpr (kPool != kNoPool) {
+        res.e[j] = pool_pair<T, kPool>(
+            v, epilogue<T>(Type<T>::load(b[u].e[j]), ch[j]));
+      } else {
+        res.e[j] = Type<T>::bits(v);
+      }
     }
     __stcs(reinterpret_cast<uint4*>(out + q * channels + c0), res.v);
   }
@@ -275,7 +298,7 @@ epilogue_flat_kernel(const typename Type<T>::Raw* __restrict__ x, Params p,
 // vectors. A row of 229 bf16 values is 458 bytes, so in device memory pairs
 // straddle vectors and rows straddle blocks' vectors; in shared memory
 // neither matters.
-template <typename T>
+template <typename T, int kPool>
 __global__ void __launch_bounds__(kThreads)
 epilogue_pool_rows_kernel(const typename Type<T>::Raw* __restrict__ x,
                           Params p, typename Type<T>::Raw* __restrict__ out,
@@ -321,9 +344,9 @@ epilogue_pool_rows_kernel(const typename Type<T>::Raw* __restrict__ x,
     const Raw* row_in = in_tile + r * width;
     Raw* row_out = out_tile + r * out_width;
     for (int k = lane; k < out_width; k += 32) {
-      row_out[k] = Type<T>::bits(
-          pair_max(epilogue<T>(Type<T>::load(row_in[2 * k]), ch),
-                   epilogue<T>(Type<T>::load(row_in[2 * k + 1]), ch)));
+      row_out[k] = pool_pair<T, kPool>(
+          epilogue<T>(Type<T>::load(row_in[2 * k]), ch),
+          epilogue<T>(Type<T>::load(row_in[2 * k + 1]), ch));
     }
   }
   __syncthreads();
@@ -348,7 +371,7 @@ struct Shape {
   bool channels_last;
 };
 
-template <typename T, bool kPool>
+template <typename T, int kPool>
 __global__ void __launch_bounds__(kThreads)
 epilogue_any_kernel(const typename Type<T>::Raw* __restrict__ x, Params p,
                     typename Type<T>::Raw* __restrict__ out, Shape s) {
@@ -373,12 +396,15 @@ epilogue_any_kernel(const typename Type<T>::Raw* __restrict__ x, Params p,
     next = at + 1;
   }
   const Channel ch = channel<T>(p, c);
-  float v = epilogue<T>(Type<T>::load(x[at]), ch);
-  if (kPool) v = pair_max(v, epilogue<T>(Type<T>::load(x[next]), ch));
-  out[o] = Type<T>::bits(v);
+  const float v = epilogue<T>(Type<T>::load(x[at]), ch);
+  if constexpr (kPool != kNoPool) {
+    out[o] = pool_pair<T, kPool>(v, epilogue<T>(Type<T>::load(x[next]), ch));
+  } else {
+    out[o] = Type<T>::bits(v);
+  }
 }
 
-template <typename T, bool kPool>
+template <typename T, int kPool>
 int launch(const void* x, Params p, void* out, long long batch, int channels,
            int frames, int width, bool channels_last, cudaStream_t stream) {
   using Raw = typename Type<T>::Raw;
@@ -403,7 +429,7 @@ int launch(const void* x, Params p, void* out, long long batch, int channels,
     return static_cast<int>(cudaGetLastError());
   }
 
-  if (!channels_last && aligned && !kPool) {
+  if (!channels_last && aligned && kPool == kNoPool) {
     const long long n = pixels * channels;
     const long long per_block = static_cast<long long>(kThreads) * kUnroll *
                                 kVec;
@@ -426,7 +452,7 @@ int launch(const void* x, Params p, void* out, long long batch, int channels,
   if (kPool && !channels_last && aligned && smem <= 48 * 1024) {
     const long long rows = batch * channels * frames;
     const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-    epilogue_pool_rows_kernel<T>
+    epilogue_pool_rows_kernel<T, kPool>
         <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
             in, p, dst, rows, rows_per_block, channels, frames, 1.0 / frames,
             width, out_width);
@@ -448,14 +474,22 @@ int dispatch(int pool, int channels_last, const void* x, Params p, void* out,
              long long batch, int channels, int frames, int width,
              cudaStream_t stream) {
   // (b, c) planes are counted in 32 bits
-  if (batch < 0 || channels < 1 || frames < 0 || width < 0 ||
-      (pool && width < 2) || batch * channels > 0x7fffffffLL) {
+  if (batch < 0 || channels < 1 || frames < 0 || width < 0 || pool < 0 ||
+      pool > kAvgPool || (pool && width < 2) ||
+      batch * channels > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return pool ? launch<T, true>(x, p, out, batch, channels, frames, width,
-                                channels_last, stream)
-              : launch<T, false>(x, p, out, batch, channels, frames, width,
+  switch (pool) {
+    case kMaxPool:
+      return launch<T, kMaxPool>(x, p, out, batch, channels, frames, width,
                                  channels_last, stream);
+    case kAvgPool:
+      return launch<T, kAvgPool>(x, p, out, batch, channels, frames, width,
+                                 channels_last, stream);
+    default:
+      return launch<T, kNoPool>(x, p, out, batch, channels, frames, width,
+                                channels_last, stream);
+  }
 }
 
 }  // namespace
@@ -463,9 +497,10 @@ int dispatch(int pool, int channels_last, const void* x, Params p, void* out,
 // x (batch, channels, frames, width), the conv's output without its bias,
 // contiguous as NCHW (channels_last 0) or as channels-last, (batch, frames,
 // width, channels) in memory (channels_last 1); conv_bias (channels) in x's
-// type; mean, mul and shift (channels) float32; out (batch, channels,
-// frames, width / 2 if pool else width) in x's type and layout. Launches on
-// `stream` and returns the first CUDA error of the launch.
+// type (-0.0 for a conv without a bias); mean, mul and shift (channels)
+// float32; pool 0 (none), 1 (max) or 2 (average) over (1, 2); out (batch,
+// channels, frames, width / 2 if pool else width) in x's type and layout.
+// Launches on `stream` and returns the first CUDA error of the launch.
 extern "C" int conv_epilogue_f32(int pool, int channels_last, const void* x,
                                  const void* conv_bias, const float* mean,
                                  const float* mul, const float* shift,

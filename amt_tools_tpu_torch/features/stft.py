@@ -7,6 +7,7 @@ framed matmul for CPU audio.
 """
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import cuda_build, spectral
 from ..ops.stft_kernel import stft_power
@@ -18,8 +19,13 @@ class STFT(WaveformWrapper):
     """Short-time Fourier transform magnitude features -> (1, n_fft//2+1, T)."""
 
     def __init__(self, sample_rate=16000, hop_length=512, decibels=True,
-                 win_length=None, center=True, n_fft=2048):
+                 win_length=None, center=True, n_fft=2048,
+                 pad_mode='constant'):
+        if pad_mode not in ('constant', 'reflect'):
+            raise ValueError(f"pad_mode must be 'constant' or 'reflect', got "
+                             f"{pad_mode!r}")
         self.n_fft = n_fft
+        self.pad_mode = pad_mode
 
         if win_length is None:
             win_length = n_fft
@@ -39,12 +45,21 @@ class STFT(WaveformWrapper):
             lambda: torch.from_numpy(self._dft_bank).to(device))
 
     def _stft_power(self, audio):
-        """(..., N) float32 audio -> (..., n_fft//2+1, T) power spectrogram."""
+        """(..., N) float32 audio -> (..., n_fft//2+1, T) power spectrogram.
+
+        Centred frames are zero-padded, or with ``pad_mode='reflect'``
+        reflected (half a frame each side, as ``torch.stft`` pads them),
+        which gives the same T = 1 + N // hop frames."""
 
         lead = audio.shape[:-1]
         flat = audio.reshape((-1, audio.shape[-1])).contiguous()
+        center = self.center
+        if center and self.pad_mode == 'reflect':
+            half = self.n_fft // 2
+            flat = F.pad(flat, (half, half), mode='reflect')
+            center = False
         power = stft_power(flat, self._bank(audio.device), self.n_fft,
-                           self.hop_length, center=self.center)
+                           self.hop_length, center=center)
 
         return power.reshape(lead + power.shape[1:])
 

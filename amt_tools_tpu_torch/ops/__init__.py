@@ -1,5 +1,6 @@
 """Tensor ops: spectral primitives, Hopper kernels with plain versions,
-LSTM layers, framing and the on-device note and tablature decode."""
+LSTM and GRU layers, framing and the on-device note, tablature and
+regression decode."""
 
-from . import (conv_epilogue, cqt_kernel, cuda_build, decode, frames,
-               layers, lstm, lstm_kernel, spectral, stft_kernel)
+from . import (conv_epilogue, cqt_kernel, cuda_build, decode, frames, gru,
+               gru_kernel, layers, lstm, lstm_kernel, spectral, stft_kernel)

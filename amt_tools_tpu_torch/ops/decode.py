@@ -11,6 +11,16 @@ device functions take any number of leading batch axes where the JAX
 functions are vmapped, and produce the same values bit for bit, including
 ``count > capacity`` overflow reports. Class ids are int64 here (torch's
 index type) where JAX gives int32.
+
+The regression decode of the High-resolution Piano Transcription model
+(Kong et al., 2021; the published ``RegressionPostProcessor``), which the
+JAX package lacks, is split the same way: :func:`regression_peaks` and
+:func:`regression_events_on_device` find the peaks of the regressed onset
+and offset curves, their fractional shifts, the onsets' velocities and the
+frame curve's first drop after each onset, over (B, K, T) maps on the
+device, and compact them into fixed-capacity buffers;
+:func:`regression_notes_from_device` assembles one clip's notes from them
+on the host, with numpy over its events.
 """
 
 import warnings
@@ -37,6 +47,9 @@ __all__ = [
     'note_segments',
     'notes_on_device',
     'notes_from_device',
+    'regression_peaks',
+    'regression_events_on_device',
+    'regression_notes_from_device',
     'NOTE_TILE_W',
     'NOTE_TILE_CAP',
 ]
@@ -342,3 +355,190 @@ def notes_from_device(pitch_rows, onset_frames, offset_frames, count,
     intervals = np.stack([times[on], times_ext[off]], axis=-1)
 
     return utils.sort_notes(pitches.astype(float), intervals)
+
+
+##################################################
+# REGRESSION DECODE                              #
+##################################################
+
+
+def regression_peaks(x, threshold, neighbour=2):
+    """(..., T) regressed curves -> a bool map of their peaks: frames t in
+    [``neighbour``, T - ``neighbour``) above ``threshold`` that rise
+    strictly over the ``neighbour`` frames before them and fall strictly
+    over the ``neighbour`` after. Compared in x's dtype."""
+
+    frames = x.shape[-1]
+    peaks = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    if frames < 2 * neighbour + 1:
+        return peaks
+
+    def at(offset):
+        return x[..., neighbour + offset:frames - neighbour + offset]
+
+    found = at(0) > threshold
+    for i in range(neighbour):
+        found &= at(-i - 1) < at(-i)
+        found &= at(i + 1) < at(i)
+    peaks[..., neighbour:frames - neighbour] = found
+
+    return peaks
+
+
+def _compact(mask, capacity):
+    """(B, N) bool -> the flat indices of its first ``capacity`` true
+    entries a row, in order, (B, capacity) int64 (0 past the count), whether
+    each slot holds one, and the true count (B,) int32."""
+
+    csum = torch.cumsum(mask, dim=-1, dtype=torch.int32)
+    count = csum[:, -1] if mask.shape[-1] else torch.zeros(
+        mask.shape[0], dtype=torch.int32, device=mask.device)
+    slots = torch.arange(1, capacity + 1, dtype=torch.int32,
+                         device=mask.device).expand(mask.shape[0], capacity)
+    # The j-th true entry is where the running count first reaches j
+    index = torch.searchsorted(csum, slots.contiguous())
+    live = slots <= count[:, None]
+
+    return torch.where(live, index, 0), live, count
+
+
+def _shifts(x, keys, frames):
+    """The fractional shift of each peak (``keys``, ``frames``: (B, n)) of
+    (B, K, T) curves, from the three frames around it: ``(x[t+1] -
+    x[t-1]) / (x[t] - min(x[t-1], x[t+1])) / 2`` in float32."""
+
+    flat = x.reshape(x.shape[0], -1)
+    at = keys * x.shape[-1] + frames
+    before, centre, after = (torch.gather(flat, 1, at + d).float()
+                             for d in (-1, 0, 1))
+
+    return (after - before) / (centre - torch.minimum(before, after)) / 2
+
+
+def regression_events_on_device(frame, onset, offset, velocity, capacity,
+                                onset_threshold=0.3, offset_threshold=0.3,
+                                frame_threshold=0.1, neighbour=2):
+    """The device stage of the regression decode over (B, K, T) sigmoid
+    maps (frame, regressed onset and offset, velocity): no host
+    synchronisation.
+
+    Returns ``(onset_keys, onset_frames, onset_shifts, velocities, drops,
+    offset_keys, offset_frames, offset_shifts, counts)``: the onset peaks,
+    key-major and in frame order within a key, in (B, capacity) buffers
+    (int32 keys and frames, float32 shifts and velocities, int32 ``drops``:
+    the first frame after the onset where the frame curve is at or below
+    ``frame_threshold``, T where there is none), the offset peaks likewise,
+    and (B, 2) int32 true counts of the onset and offset peaks (a count
+    above ``capacity`` signals overflow). Zero past each count."""
+
+    batch, keys, frames = frame.shape
+    device = frame.device
+
+    def events(curve, threshold):
+        index, live, count = _compact(
+            regression_peaks(curve, threshold, neighbour).reshape(batch, -1),
+            capacity)
+        key, at = index // frames, index % frames
+        # A dead slot reads frame 0's neighbours, clamped, and is zeroed
+        shift = _shifts(curve, key, torch.where(live, at, 1).clamp(
+            1, max(1, frames - 2)))
+        return key, at, torch.where(live, shift, 0.0), live, index, count
+
+    on_key, on_frame, on_shift, on_live, on_index, on_count = events(
+        onset, onset_threshold)
+    off_key, off_frame, off_shift, off_live, _, off_count = events(
+        offset, offset_threshold)
+
+    # The first frame after each onset where the frame curve drops
+    step = torch.arange(frames, dtype=torch.int32, device=device)
+    low = torch.where(frame <= frame_threshold, step, frames)
+    after = torch.flip(torch.cummin(torch.flip(low, (-1,)), dim=-1).values,
+                       (-1,))
+    after = F.pad(after[..., 1:], (0, 1), value=frames)
+    drops = torch.gather(after.reshape(batch, -1), 1, on_index)
+    velocities = torch.gather(velocity.reshape(batch, -1), 1,
+                              on_index).float()
+
+    def ints(x, live):
+        return torch.where(live, x, 0).to(torch.int32)
+
+    return (ints(on_key, on_live), ints(on_frame, on_live), on_shift,
+            torch.where(on_live, velocities, 0.0), ints(drops, on_live),
+            ints(off_key, off_live), ints(off_frame, off_live), off_shift,
+            torch.stack([on_count, off_count], dim=-1))
+
+
+def regression_notes_from_device(onset_keys, onset_frames, onset_shifts,
+                                 velocities, drops, offset_keys, offset_frames,
+                                 offset_shifts, counts, num_frames,
+                                 frame_seconds, low, max_frames=600,
+                                 velocity_scale=128):
+    """The host stage of the regression decode: one clip's buffers of
+    :func:`regression_events_on_device` (numpy) -> ``(pitches, intervals,
+    velocities)``, sorted by onset, then pitch.
+
+    The published ``note_detection_with_onset_offset_regress`` a key, over
+    the clip's events: a note opens at each onset peak; the key's next
+    onset closes it a frame before (offset shift 0); else it closes at the
+    first frame where the frame curve drops to the threshold or below, at
+    the key's first offset peak after the onset instead if that lies at or
+    before the drop and ``offset - onset > drop - offset``; else at
+    ``max_frames`` after the onset, or at the clip's last frame. Times are
+    ``(frame + shift) * frame_seconds``, with the offset shift of the frame
+    the note closes at (0 where it is no offset peak); velocities are
+    ``int(velocity * velocity_scale)``. ``low`` is the first key's MIDI
+    pitch. O(events log events)."""
+
+    capacity = len(onset_keys)
+    counts = [int(c) for c in counts]
+    if max(counts) > capacity:
+        warnings.warn(f'regression_events_on_device overflow: {max(counts)} '
+                      f'peaks > capacity {capacity}; the rest dropped.')
+    n_on, n_off = (min(c, capacity) for c in counts)
+    if n_on == 0:
+        return np.empty(0), np.empty((0, 2)), np.empty(0, dtype=np.int64)
+
+    keys = np.asarray(onset_keys[:n_on], dtype=np.int64)
+    begin = np.asarray(onset_frames[:n_on], dtype=np.int64)
+    drop = np.asarray(drops[:n_on], dtype=np.int64)
+    stride = num_frames + 1
+    never = np.int64(1) << 40
+    # The offset peaks by global index key * stride + frame, ascending, and
+    # a sentinel past every key
+    off_at = np.append(np.asarray(offset_keys[:n_off], dtype=np.int64) *
+                       stride + np.asarray(offset_frames[:n_off],
+                                           dtype=np.int64), never * stride)
+    off_shift = np.append(np.asarray(offset_shifts[:n_off]), 0.0)
+
+    # The key's next onset, and its first offset peak after the onset
+    following = np.full(n_on, never)
+    following[:-1] = np.where(keys[1:] == keys[:-1], begin[1:], never)
+    first = off_at[np.searchsorted(off_at, keys * stride + begin,
+                                   side='right')]
+    offset = np.where(first // stride == keys, first % stride, never)
+
+    limit = np.minimum(begin + max_frames, num_frames - 1)
+    by_onset = following <= np.minimum(drop, limit)
+    by_drop = ~by_onset & (drop <= limit)
+    at_offset = (offset <= drop) & (offset - begin > drop - offset)
+    end = np.where(by_onset, following - 1,
+                   np.where(by_drop, np.where(at_offset, offset, drop),
+                            limit))
+
+    # The offset shift of the frame the note closes at: 0 where it is no
+    # offset peak, or where the next onset closed the note
+    slot = np.searchsorted(off_at, keys * stride + end)
+    end_shift = np.where((off_at[slot] == keys * stride + end) & ~by_onset,
+                         off_shift[slot], 0.0)
+
+    onsets = (begin + np.asarray(onset_shifts[:n_on], dtype=np.float64)) * (
+        frame_seconds)
+    offsets = (end + end_shift.astype(np.float64)) * frame_seconds
+    levels = (np.asarray(velocities[:n_on], dtype=np.float32) *
+              np.float32(velocity_scale)).astype(np.int64)
+    pitches = (keys + low).astype(float)
+
+    order = np.lexsort((pitches, onsets))
+
+    return (pitches[order], np.stack([onsets, offsets], axis=-1)[order],
+            levels[order])

@@ -12,9 +12,11 @@ its padding and casts to its own dtype, so a model calls the same helper
 whichever layer it built. :func:`checkpoint` recomputes a function in the
 backward pass (the models' ``remat``) with the same dropout noise and
 without a second update of BatchNorm's running statistics. :func:`conv_block`
-is one block of the O&F acoustic stacks (conv, BatchNorm, ReLU, the
-optional (1, 2) max-pool); its eval forward on CUDA runs the conv without
-its bias and the rest as one hand-written kernel (``ops.conv_epilogue``).
+is one conv of an acoustic stack (conv, BatchNorm, ReLU, the optional
+(1, 2) max- or average pool: O&F's blocks, and the two convs of a
+High-resolution Piano Transcription ConvBlock, whose convs have no bias);
+its eval forward on CUDA runs the conv without its bias and the rest as
+one hand-written kernel (``ops.conv_epilogue``).
 
 Data parallelism (``parallel/``): a train-mode :class:`BatchNorm` whose
 ``process_group`` is set takes its statistics over the global batch, and
@@ -38,7 +40,7 @@ from ..parallel.collectives import all_reduce, gather_columns, reduce_grad
 from .conv_epilogue import batch_norm_eval, conv_epilogue
 
 __all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
-           'conv_block', 'conv3x3', 'BatchNorm', 'dropout',
+           'conv_block', 'dense_block', 'conv3x3', 'BatchNorm', 'dropout',
            'BatchShardGenerator', 'lecun_normal_', 'orthogonal_',
            'checkpoint']
 
@@ -107,7 +109,7 @@ def linear(x, layer, dtype=None):
     if group is not None:
         x = reduce_grad(x, group)
 
-    y = F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    y = F.linear(x.to(dtype), layer.weight.to(dtype), _bias(layer, dtype))
 
     return y if group is None else gather_columns(y, group)
 
@@ -143,8 +145,14 @@ def conv2d_same(x, layer, dtype=None):
 
     dtype = _compute_dtype(x, dtype)
 
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), _bias(layer, dtype),
                     padding=_same_padding(layer), groups=layer.groups)
+
+
+def _bias(layer, dtype):
+    """``layer``'s bias in ``dtype``, or None for a layer without one."""
+
+    return None if layer.bias is None else layer.bias.to(dtype)
 
 
 def _same_padding(layer):
@@ -162,11 +170,11 @@ def conv2d_valid(x, layer, dtype=None):
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def conv_block(x, conv, norm, pool, dtype=None):
-    """One block of an O&F acoustic stack on (B, C, T, F): ``conv`` with SAME
-    padding in ``dtype`` (default: x's, as :func:`conv2d_same`), the
-    :class:`BatchNorm` ``norm``, ReLU and, with ``pool``, a (1, 2) max-pool
-    over F.
+def conv_block(x, conv, norm, pool, dtype=None, avg=False):
+    """One block of an O&F acoustic stack on (B, C, T, F): ``conv`` (with
+    or without a bias) with SAME padding in ``dtype`` (default: x's, as
+    :func:`conv2d_same`), the :class:`BatchNorm` ``norm``, ReLU and, with
+    ``pool``, a (1, 2) max-pool over F, or with ``avg`` an average pool.
 
     In eval on CUDA, with autograd not recording and a float conv, the conv
     runs without its bias and the bias, the norm, the ReLU and the pool are
@@ -176,16 +184,48 @@ def conv_block(x, conv, norm, pool, dtype=None):
 
     if _eager_block(x, conv, norm, _compute_dtype(x, dtype)):
         x = F.relu(norm(conv2d_same(x, conv, dtype), dtype))
-        return F.max_pool2d(x, (1, 2), stride=(1, 2)) if pool else x
+        if not pool:
+            return x
+        return (F.avg_pool2d(x, (1, 2), stride=(1, 2)) if avg else
+                F.max_pool2d(x, (1, 2), stride=(1, 2)))
 
     dtype = _compute_dtype(x, dtype)
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None,
                  padding=_same_padding(conv), groups=conv.groups)
 
-    return conv_epilogue(y, conv.bias.to(dtype),
-                         norm.running_mean.to(torch.float32),
-                         norm.eval_scale().to(torch.float32),
-                         norm.bias.to(torch.float32), pool)
+    args = (y, _bias(conv, dtype), norm.running_mean.to(torch.float32),
+            norm.eval_scale().to(torch.float32), norm.bias.to(torch.float32),
+            pool)
+
+    return conv_epilogue(*args, avg=avg)
+
+
+def dense_block(x, layer, norm, dtype=None, weight=None):
+    """``relu(norm(layer(x)))`` over the last axis of (..., K): the
+    ``nn.Linear`` ``layer`` (with or without a bias; ``weight``, when given,
+    in place of its weight) in ``dtype`` (default: x's), then the
+    :class:`BatchNorm` ``norm`` over its N outputs, which it takes as
+    channels, and ReLU.
+
+    The eval forward on CUDA that autograd does not record runs the product
+    without a bias and the rest as one pass of ``ops.conv_epilogue``, on the
+    (rows, N, 1, 1) view of the product, as :func:`conv_block` does."""
+
+    dtype = _compute_dtype(x, dtype)
+    lead = x.shape[:-1]
+    weight = layer.weight if weight is None else weight
+    if _eager_block(x, layer, norm, dtype):
+        y = F.linear(x.to(dtype), weight.to(dtype), _bias(layer, dtype))
+        y = F.relu(norm(y.reshape(-1, y.shape[-1]), dtype))
+        return y.reshape(lead + (-1,))
+
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    y = conv_epilogue(y.reshape(-1, y.shape[-1], 1, 1), _bias(layer, dtype),
+                      norm.running_mean.to(torch.float32),
+                      norm.eval_scale().to(torch.float32),
+                      norm.bias.to(torch.float32), False)
+
+    return y.reshape(lead + (-1,))
 
 
 def _eager_block(x, conv, norm, dtype):
@@ -198,8 +238,8 @@ def _eager_block(x, conv, norm, dtype):
         return True
 
     return torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, conv.weight, conv.bias, norm.weight,
-                                  norm.bias))
+        t is not None and t.requires_grad
+        for t in (x, conv.weight, conv.bias, norm.weight, norm.bias))
 
 
 class BatchNorm(nn.Module):

@@ -29,14 +29,18 @@ around its launch; with no profiler recording they cost one check:
 
 - ``amt.features``: ``MelSpec.process`` and ``VQT.process`` (``CQT``'s);
 - ``amt.acoustic``: ``AcousticModel`` and ``GroupedAcousticModel``'s
-  forwards, TabCNN's conv stack and its max-pool;
+  forwards, TabCNN's conv stack and its max-pool, the four conv stacks of
+  ``RegressCRNN`` with their ``fc5``;
 - ``amt.lstm``: ``FastLSTM``, ``FastBiLSTM`` and ``GroupedBiLSTM``'s
   forwards, the input projections and the recurrences;
+- ``amt.gru``: each grouped GRU layer of ``ops.gru.bigru_layers`` (the
+  High-resolution Piano Transcription model's four a forward), the input
+  projections and the recurrence (kernel G);
 - ``amt.lstm.backward``: the backward of the differentiable recurrences
   (kernel F, dW_h and d(xw)), on autograd's thread;
 - ``amt.decode``: the serving pipelines' device decode after the model's
   forward (sigmoid and threshold, or the argmax and local one-hot, then
-  ``notes_on_device``);
+  ``notes_on_device``; or the regression decode's device stage);
 - ``amt.serving.decode_host``: ``finalize``'s host decode of a batch,
   after its wait for the device, re-decodes after an overflow included;
 - ``amt.train.forward``: the train step's forward and losses

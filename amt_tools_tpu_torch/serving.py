@@ -11,7 +11,12 @@ runs feature extraction (the STFT kernel), the model forward (the LSTM
 kernel), the sigmoid threshold and the full note decode on the device; one
 guitar dispatch runs the CQT (kernel C or D), TabCNN, the per-string argmax
 and the per-string note decode. The host gets four fixed-capacity int32
-buffers per batch.
+buffers per batch. :class:`RegressionPipeline` serves the High-resolution
+Piano Transcription model (``models.RegressCRNN``, which the JAX package
+lacks): its dispatch runs the features, the model (kernel G for its GRUs)
+and the regression decode's device stage (``decode.
+regression_events_on_device``); its host stage assembles each clip's notes
+from the compacted events.
 
 :meth:`dispatch` never waits for the device: it enqueues the work and the
 copy of the buffers into pinned host memory, and returns. Dispatching batch
@@ -37,7 +42,8 @@ time, inside :meth:`finalize`.
 
 Under a profiler (``profiling.trace``) a batch shows the port's spans
 (``profiling.span``): ``amt.features``, ``amt.acoustic``, ``amt.lstm``
-and ``amt.decode`` (the device decode after the forward) inside
+(``amt.gru`` for the GRU layers) and ``amt.decode`` (the device decode
+after the forward) inside
 :meth:`dispatch`, and ``amt.serving.decode_host`` (the host decode of the
 batch, re-decodes included) inside :meth:`finalize`, after its wait for
 the device.
@@ -52,7 +58,8 @@ from .ops import decode
 from .ops.qconv import int8_layers, validate_quant_stats
 from .parallel.mesh import _axis, replicate
 
-__all__ = ['TranscriptionPipeline', 'TablaturePipeline', 'calibrate_activity',
+__all__ = ['TranscriptionPipeline', 'TablaturePipeline',
+           'RegressionPipeline', 'calibrate_activity',
            'calibrate_tablature_activity', 'calibrate_quant_stats']
 
 
@@ -232,6 +239,11 @@ class _ServingPipeline:
     def _finalize_clip(self, arrays, b, times):
         raise NotImplementedError
 
+    def _notes_in(self, counts):
+        """The notes of one clip's counts (all within its capacity)."""
+
+        return int(np.sum(counts))
+
     def _times_for(self, num_samples):
         """Frame times depend only on the clip length; cache (16 lengths)."""
 
@@ -340,7 +352,7 @@ class _ServingPipeline:
                 self.redecodes += 1
             groups.append(self._finalize_clip(clip, row, times))
             # Every count fits the capacity the clip was decoded at
-            self.notes_decoded += int(np.sum(clip[-1][row]))
+            self.notes_decoded += self._notes_in(clip[-1][row])
         self.clips_decoded += counts.shape[0]
 
         return groups
@@ -492,3 +504,66 @@ class TablaturePipeline(_ServingPipeline):
                     rows[b, slc], on[b, slc], off[b, slc], counts[b, slc],
                     times, self.profile, low=int(tuning[slc]))
                 for slc in range(counts.shape[1])}
+
+
+class RegressionPipeline(_ServingPipeline):
+    """Audio batches in, per-clip ``(pitches, intervals, velocities)`` notes
+    out, from the regressed onset and offset times of the High-resolution
+    Piano Transcription model (the published ``RegressionPostProcessor``'s
+    notes; the pedal model is a separate network and not served).
+
+    One dispatch runs the features, the model's forward and, inside
+    ``amt.decode``, the sigmoids of its four heads and
+    ``decode.regression_events_on_device``: the onset and offset peaks with
+    their shifts, the onsets' velocities and the frame curve's first drop
+    after each onset, compacted into buffers of ``capacity`` events a
+    clip. :meth:`finalize` assembles each clip's notes on the host
+    (``decode.regression_notes_from_device``); a clip with more onset or
+    offset peaks than ``capacity`` is decoded again at a capacity that fits.
+
+    Parameters
+    ----------
+    model : RegressCRNN
+        Moved to ``device``; its forward returns the ``frame``,
+        ``reg_onset``, ``reg_offset`` and ``velocity`` logits.
+    data_proc : FeatureModule
+        Feature extraction run on the device via ``process`` (``MelSpec``
+        with ``absolute_db`` for the published model).
+    capacity : int
+        Onset (and offset) peaks a clip before a re-decode.
+    device : str or torch.device, optional
+        Where the pipeline runs: CUDA unless given.
+    mesh : DeviceMesh, optional
+        Data-parallel serving over the mesh's ``data`` dimension.
+
+    The decode takes the published settings: onset and offset thresholds
+    0.3, frame threshold 0.1, notes of at most 600 frames, velocities
+    ``int(velocity * 128)``.
+    """
+
+    def __init__(self, model, data_proc, capacity=2048, device=None,
+                 mesh=None):
+        super().__init__(model, data_proc, capacity, device=device, mesh=mesh)
+
+    def _decode(self, audio, capacity):
+        raw = _forward(self.model, self.data_proc, audio)
+
+        with torch.inference_mode(), profiling.span('amt.decode'):
+            # The sigmoid in the logits' dtype, compared in float32
+            curves = {key: torch.sigmoid(value).float().transpose(-1, -2)
+                      for key, value in raw.items()}
+
+            return decode.regression_events_on_device(
+                curves['frame'], curves['reg_onset'], curves['reg_offset'],
+                curves['velocity'], capacity)
+
+    def _finalize_clip(self, arrays, b, times):
+        return decode.regression_notes_from_device(
+            *(x[b] for x in arrays), num_frames=len(times),
+            frame_seconds=(self.data_proc.hop_length /
+                           self.data_proc.sample_rate),
+            low=self.profile.low)
+
+    def _notes_in(self, counts):
+        # One note an onset peak
+        return int(counts[0])

@@ -279,6 +279,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     channels-last, for each block shape of an acoustic stack (48 channels x
     229 bins unpooled and pooled, 96 x 114 pooled): bit for bit its plain
     version, timed beside it and its byte bound;
+49. kernel G (``ops/gru_kernel.py``, the grouped GRU scan of the
+    High-resolution Piano Transcription model, a kernel of the port with no
+    TPU counterpart) at the ``hpt-serve-bf16`` cell's shapes, 64 clips x
+    6,001 frames, H = 256, bf16: the launch of the four stacks' first (or
+    second) layers, 8 directions, and that of a conditioning BiGRU, 2; each
+    against its plain version (the card tests' bf16 bound), timed beside it,
+    its bound and cuDNN ``torch.nn.GRU`` over the same recurrences (one
+    bidirectional layer a stack, input projection included), with its
+    cluster launch. ``python3 chip_smoke.py gru`` runs it alone, after the
+    build;
+50. one bf16 forward of the High-resolution Piano Transcription model
+    (``models.RegressCRNN`` as ``serving.RegressionPipeline`` runs it,
+    features included) over the ``hpt-serve-bf16`` cell's batch, 64
+    rendered clips of 60 s: with the counters zeroed just before it, 4
+    launches of kernel G, 36 of the conv epilogue and no ``torch.nn.GRU``
+    call; then the epilogue's bias-free routes at that forward's
+    channels-last block shapes (first convs unpooled, second convs
+    average-pooled) bit for bit its plain version, timed beside its byte
+    bound. ``python3 chip_smoke.py hpt`` runs phases 49 and 50 alone, after
+    the build;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, a fused piano batch and a
@@ -292,7 +312,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    appear in it.
 
 Phases 22-25, 26-30 and 44-47 each end with a JSON line of their rates. The last
-lines are the card, one ``kernels`` JSON line (A to F; A with its launches
+lines are phase 50's ``hpt_forward`` JSON line (its launches, the warm
+forward's time and the bias-free epilogue's times beside their bounds,
+summed over a forward's 32 conv launches), the card, one ``kernels`` JSON line (A to F; A with its launches
 on MAESTRO with the cache cold and warm and in the file stream; B with its
 masked launches of phases 19 and 27, phase 18's times, its carried
 launches of phases 25 and 29 and phase 25a's times; C with its launches in
@@ -305,11 +327,13 @@ F in the examples; B, E and F with their grouped launch's times (phase 39)
 and its launches in the fused phases 40-43; E and F with their masked,
 carried and grouped masked launches a step, times and bounds, phases
 44-46; the conv epilogue with its phase 48 times, summed over a batch's
-nine launches, and its launches in phase 5), and one JSON line
+nine launches, and its launches in phase 5; kernel G with its phase 49
+times, summed over a batch's four launches), and one JSON line
 ``{"ok": true, "device": {...}}``.
 Every bound comes from the kernel's cost function (``stft_kernel.cost``,
 ``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``,
-``conv_epilogue.cost``), the FLOP formula of its op.
+``conv_epilogue.cost``, ``gru_kernel.gru_scan_cost``), the FLOP formula of
+its op.
 """
 
 import copy
@@ -1216,6 +1240,232 @@ def check_conv_epilogue():
                       'bias, eval BatchNorm, ReLU and (1, 2) max-pool of an '
                       'acoustic block in one pass over the bias-free conv '
                       'output, in its NCHW or channels-last layout'}
+
+
+# Kernel G at the hpt-serve-bf16 cell's shapes (phase 49)
+GRU_BATCH = 64
+GRU_FRAMES = 6001
+GRU_HIDDEN = 256
+
+
+def check_gru_scan():
+    """Phase 49: kernel G at the hpt-serve-bf16 cell's shapes, bf16: a
+    forward's launches of 8 directions (the stacks' first or second GRU
+    layers) and of 2 (a conditioning BiGRU), each against its plain version,
+    timed beside it, its bound and cuDNN ``nn.GRU`` over the same
+    recurrences."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.gru_kernel import (gru_launch_plan,
+                                                    gru_scan_cost,
+                                                    gru_scan_grouped,
+                                                    gru_scan_plain)
+
+    device = torch.device('cuda')
+    dtype = torch.bfloat16
+    hidden = GRU_HIDDEN
+    gen = torch.Generator(device=device).manual_seed(49)
+    launches = []
+    for groups, dim_in in ((8, 768), (2, 176)):
+        xw = (0.5 * torch.randn(groups, GRU_BATCH, GRU_FRAMES, 3 * hidden,
+                                generator=gen, device=device)).to(dtype)
+        bound = hidden ** -0.5
+        w_h = ((2 * torch.rand(groups, hidden, 3 * hidden, generator=gen,
+                               device=device) - 1) * bound).to(dtype)
+        b_hn = (2 * torch.rand(groups, hidden, generator=gen,
+                               device=device) - 1) * bound
+        reverse_from = groups // 2
+
+        got = gru_scan_grouped(xw, w_h, b_hn, reverse_from).float()
+        start = time.perf_counter()
+        want = gru_scan_plain(xw, w_h, b_hn, reverse_from).float()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - start)
+        err = (got - want).abs()
+        worst, mean = float(err.max()), float(err.mean())
+        require(worst <= 1e-2 and mean <= 1e-4,
+                f'kernel G at G = {groups} differs from its plain version: '
+                f'max {worst:.3g}, mean {mean:.3g}')
+        del got, want, err
+
+        ms = time_ms(lambda: gru_scan_grouped(xw, w_h, b_hn, reverse_from),
+                     reps=3)
+        flops, num_bytes = gru_scan_cost(GRU_BATCH, GRU_FRAMES, hidden,
+                                         dtype, groups)
+        least, bound_by = bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
+        plan = gru_launch_plan(GRU_BATCH, hidden, dtype, device, groups)
+        del xw, w_h, b_hn
+        torch.cuda.empty_cache()
+
+        # The library over the same recurrences: one bidirectional layer a
+        # BiGRU of the launch, its input projection included
+        gru = torch.nn.GRU(dim_in, hidden, batch_first=True,
+                           bidirectional=True).to(device=device, dtype=dtype)
+        x = torch.randn(GRU_BATCH, GRU_FRAMES, dim_in, generator=gen,
+                        device=device, dtype=dtype)
+        with torch.no_grad():
+            library_ms = (groups // 2) * time_ms(lambda: gru(x), reps=1)
+        del gru, x
+        torch.cuda.empty_cache()
+
+        log(f'gru_scan_grouped at G = {groups} x {GRU_BATCH} x {GRU_FRAMES}, '
+            f'H {hidden}, bf16: max {worst:.3g}, mean {mean:.3g} from the '
+            f'plain version; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, '
+            f'bound {least:.3f} ms ({bound_by}), cuDNN nn.GRU '
+            f'{library_ms:.3f} ms; {plan["clusters"]} clusters of '
+            f'{plan["rows"]} rows, {plan["active_clusters"]} resident, '
+            f'{plan["waves"]} wave(s), {plan["smem_bytes"]} bytes of shared '
+            f'memory a CTA')
+        require(ms < library_ms, f'kernel G at G = {groups} is not faster '
+                f'than cuDNN nn.GRU ({ms:.3f} against {library_ms:.3f} ms)')
+        launches.append({'groups': groups, 'ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': least, 'bound_by': bound_by,
+                         'library_ms': library_ms, 'max_err': worst,
+                         'mean_err': mean, 'plan': plan})
+
+    # A forward of the hpt model: two launches of 8 directions, two of 2
+    weights = (2, 2)
+    return {'name': 'gru_scan_grouped', 'route': 'cuda',
+            'source': 'amt_tools_tpu_torch/csrc/gru_scan.cu',
+            'replaces': None,
+            **{key: sum(w * launch[key] for w, launch in zip(weights,
+                                                             launches))
+               for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
+            'bound_by': 'bytes', 'launches': launches,
+            'design': 'a port kernel with no TPU counterpart: kernel B\'s '
+                      'clusters of 8 CTAs for three gates, W_h resident, h '
+                      'exchanged each step, the groups on blockIdx.y'}
+
+
+
+# The hpt-serve-bf16 cell's batch (phase 50)
+HPT_BATCH = 64
+HPT_HOP = 160
+HPT_WIDTHS = (48, 64, 96, 128)
+
+
+def check_hpt_forward():
+    """Phase 50: one bf16 forward of the High-resolution Piano Transcription
+    model (``models.RegressCRNN``, seeded random weights) as
+    ``serving.RegressionPipeline`` runs it, features included, over the
+    hpt-serve-bf16 cell's batch (64 rendered clips of 60 s, 6,001 frames):
+    with the counters zeroed just before it, kernel G runs 4 times, the
+    conv epilogue 36 (two a ConvBlock, one a stack's ``fc5``) and
+    ``torch.nn.GRU`` never. Then the epilogue's bias-free routes at that
+    forward's channels-last block shapes (each block's first conv
+    unpooled, its second average-pooled) bit for bit its plain version,
+    timed beside its byte bound."""
+
+    import torch
+
+    from amt_tools_tpu_torch import tools
+    from amt_tools_tpu_torch.features import MelSpec
+    from amt_tools_tpu_torch.models import RegressCRNN
+    from amt_tools_tpu_torch.ops.conv_epilogue import (conv_epilogue,
+                                                       conv_epilogue_plain,
+                                                       cost)
+    from amt_tools_tpu_torch.ops.gru_kernel import gru_scan_grouped
+    from amt_tools_tpu_torch.serving import RegressionPipeline
+
+    device = torch.device('cuda')
+    profile = tools.PianoProfile()
+    mel = MelSpec(sample_rate=SAMPLE_RATE, hop_length=HPT_HOP, n_mels=N_MELS,
+                  n_fft=N_FFT, fmin=30, fmax=8000, absolute_db=True,
+                  pad_mode='reflect')
+    model = RegressCRNN(dim_in=N_MELS, profile=profile, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(50))
+    pipeline = RegressionPipeline(model, mel, device=device)
+    require(not any(isinstance(m, torch.nn.GRU)
+                    for m in pipeline.model.modules()),
+            'phase 50: the hpt model holds a torch.nn.GRU')
+    audio = torch.from_numpy(render_clips(profile, HPT_BATCH,
+                                          CLIP_SECONDS)).to(device)
+
+    def forward():
+        with torch.inference_mode():
+            feats = pipeline.data_proc.process(audio)
+            batch = pipeline.model.pre_proc({tools.KEY_FEATS: feats})
+            return pipeline.model(batch[tools.KEY_FEATS])
+
+    library_calls = []
+    library_forward = torch.nn.GRU.forward
+
+    def counted(self, *args, **kwargs):
+        library_calls.append(type(self).__name__)
+        return library_forward(self, *args, **kwargs)
+
+    torch.nn.GRU.forward = counted
+    try:
+        gru_scan_grouped.launches = 0
+        conv_epilogue.launches = 0
+        out = forward()
+        torch.cuda.synchronize()
+        launches = {'gru_scan_grouped': gru_scan_grouped.launches,
+                    'conv_epilogue': conv_epilogue.launches,
+                    'nn.GRU': len(library_calls)}
+    finally:
+        torch.nn.GRU.forward = library_forward
+    frames = out['frame'].shape[1]
+    require(frames == 1 + int(CLIP_SECONDS * SAMPLE_RATE) // HPT_HOP,
+            f'phase 50: the forward gave {frames} frames')
+    require(all(bool(torch.isfinite(v).all()) for v in out.values()),
+            'phase 50: the bf16 forward gave a logit that is not finite')
+    require(launches == {'gru_scan_grouped': 4, 'conv_epilogue': 36,
+                         'nn.GRU': 0},
+            f'phase 50: a forward launched {launches}, not G 4 times, the '
+            f'epilogue 36 and nn.GRU never')
+    del out
+    forward_ms = time_ms(forward, reps=2)
+    log(f'phase 50: RegressCRNN bf16 forward at {HPT_BATCH} x {frames} '
+        f'frames: {launches}; {forward_ms:.1f} ms warm, features included')
+    del pipeline, model, audio
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(50)
+    blocks = []
+    width = N_MELS
+    for channels in HPT_WIDTHS:
+        for pool in (False, True):
+            x = torch.randn(HPT_BATCH, channels, frames, width, generator=gen,
+                            device=device, dtype=torch.bfloat16).contiguous(
+                                memory_format=torch.channels_last)
+            var = torch.rand(channels, generator=gen, device=device) + 0.5
+            vectors = (
+                None, 0.3 * torch.randn(channels, generator=gen,
+                                        device=device),
+                torch.rsqrt(var + 1e-5) * torch.randn(
+                    channels, generator=gen, device=device),
+                0.2 * torch.randn(channels, generator=gen, device=device))
+
+            got = conv_epilogue(x, *vectors, pool, avg=True)
+            want = conv_epilogue_plain(x, *vectors, pool, avg=True)
+            require(got.stride() == want.stride() and
+                    torch.equal(got.view(torch.int16),
+                                want.view(torch.int16)),
+                    f'phase 50: the bias-free epilogue at {tuple(x.shape)} '
+                    f'channels-last, average pool {pool}, differs from its '
+                    f'plain version')
+            del got, want
+            ms = time_ms(lambda: conv_epilogue(x, *vectors, pool, avg=True),
+                         reps=10)
+            _, num_bytes = cost(x.shape, x.dtype, pool, conv_bias=False)
+            bound, _ = bound_ms(num_bytes, 0.0, PEAK_BF16_FLOPS)
+            log(f'conv_epilogue at {tuple(x.shape)} bf16 channels-last, no '
+                f'conv bias, average pool {pool}: bit for bit the plain '
+                f'version; kernel {ms:.3f} ms, bound {bound:.3f} ms, '
+                f'{100 * bound / ms:.1f}% of it')
+            blocks.append({'shape': list(x.shape), 'avg_pool': pool,
+                           'ms': ms, 'bound_ms': bound})
+            del x
+            torch.cuda.empty_cache()
+        width //= 2
+
+    # A forward runs each block shape once in each of the four stacks
+    return {'phase': 50, 'launches': launches, 'forward_ms': forward_ms,
+            'epilogue_ms': 4 * sum(b['ms'] for b in blocks),
+            'epilogue_bound_ms': 4 * sum(b['bound_ms'] for b in blocks),
+            'blocks': blocks}
 
 
 def piano_logits(model, mel, audio):
@@ -7205,7 +7455,7 @@ def masked_carried_phases(card):
     return entries, masked, carried, masked_step
 
 
-def main():
+def main(argv=()):
     import tempfile
 
     import torch
@@ -7229,6 +7479,18 @@ def main():
     log(f'built {sorted(report)} in {time.perf_counter() - start:.1f} s')
     for name, info in report.items():
         log(f'{name}: nvcc {info["seconds"]:.1f} s\n{info["ptxas"]}')
+
+    if list(argv) in (['gru'], ['hpt']):
+        with tools.exact_fp32():
+            gru = check_gru_scan()
+            hpt = check_hpt_forward() if argv[0] == 'hpt' else None
+        log(card)
+        print(json.dumps({'kernels': [dict(gru, op='torch.ops.'
+                                           'amt_tools_tpu_torch.'
+                                           'gru_scan_grouped')]}), flush=True)
+        if hpt is not None:
+            print(json.dumps({'hpt_forward': hpt}), flush=True)
+        return
 
     # The batches the spawned ranks of phase 33 read (git-ignored; removed
     # at the end, or at exit)
@@ -7451,13 +7713,22 @@ def main():
     add_masked_entries(residuals, bptt, masked_entries, masked_training,
                        carried_training)
 
+    torch.cuda.empty_cache()
+    with tools.exact_fp32():
+        gru = check_gru_scan()
+        torch.cuda.empty_cache()
+        hpt = check_hpt_forward()
+    gru['op'] = 'torch.ops.amt_tools_tpu_torch.gru_scan_grouped'
+
     log(card)
+    print(json.dumps({'hpt_forward': hpt}), flush=True)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
-                                  residuals, bptt, epilogue]}), flush=True)
+                                  residuals, bptt, epilogue, gru]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == '__main__':
-    main()
+    main(sys.argv[1:])

@@ -217,9 +217,9 @@ def calls(monkeypatch):
 
     seen = []
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         seen.append(args[-1])
-        return ce.conv_epilogue(*args)
+        return ce.conv_epilogue(*args, **kwargs)
 
     monkeypatch.setattr(layers, 'conv_epilogue', spy)
     return seen
@@ -330,3 +330,116 @@ def test_cpu_forwards_run_the_eager_ops(kind, dtype, train, calls,
 
     assert calls == []
     assert _same_bits(got, want)
+
+
+# The average pool and the bias-free conv (the High-resolution Piano
+# Transcription model's ConvBlocks), and its fc5 through the (rows, N, 1, 1)
+# view
+
+
+def _eager_avg(x, conv_bias, mean, var, weight, bias, pool):
+    """The eager ops of a bias-free block (``conv_bias`` None) or one with a
+    bias, average-pooled: BatchNorm's eval arithmetic, ReLU,
+    ``F.avg_pool2d``."""
+
+    shape = (1, -1, 1, 1)
+    if conv_bias is not None:
+        x = x + conv_bias.view(shape)
+    mul = torch.rsqrt(var + EPS) * weight
+    y = x.to(torch.float32, copy=True)
+    y.sub_(mean.view(shape)).mul_(mul.view(shape))
+    y.add_(bias.view(shape))
+    y = F.relu(y.to(x.dtype))
+
+    return F.avg_pool2d(y, (1, 2), stride=(1, 2)) if pool else y
+
+
+@pytest.mark.parametrize('layout', [torch.contiguous_format,
+                                    torch.channels_last])
+@pytest.mark.parametrize('shape', [(2, 48, 3, 229), (1, 64, 5, 114),
+                                   (2, 96, 4, 57), (1, 128, 3, 28),
+                                   (3, 8, 2, 7)])
+@pytest.mark.parametrize('with_bias', [False, True])
+@pytest.mark.parametrize('pool', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plain_average_pool_and_no_bias_equal_the_eager_ops(
+        shape, with_bias, pool, dtype, layout):
+    x, conv_bias, mean, var, weight, bias = _inputs(shape, dtype,
+                                                    sum(shape) + 7)
+    x = x.contiguous(memory_format=layout)
+    conv_bias = conv_bias if with_bias else None
+    mul = torch.rsqrt(var + EPS) * weight
+
+    got = ce.conv_epilogue(x, conv_bias, mean, mul, bias, pool, avg=True)
+    want = _eager_avg(x, conv_bias, mean, var, weight, bias, pool)
+
+    assert _same_bits(got, want) and got.stride() == want.stride()
+    assert got.is_contiguous(memory_format=layout)
+
+
+def test_no_bias_keeps_signed_zeros():
+    """A bias-free conv adds nothing, where adding a zero bias would turn
+    -0.0 into +0.0 on the way to the norm."""
+
+    x = torch.tensor([-0.0, 0.0, -1.0, 2.0]).view(1, 1, 1, 4)
+    zero = torch.zeros(1)
+    got = ce.conv_epilogue(x, None, zero, torch.ones(1), torch.tensor([-0.0]),
+                           False)
+    assert _same_bits(got, F.relu(x))
+
+
+@pytest.mark.parametrize('pool', [False, True])
+def test_cost_counts_the_vectors_of_a_bias_free_conv(pool):
+    with_bias = ce.cost((2, 48, 3, 229), torch.bfloat16, pool)
+    without = ce.cost((2, 48, 3, 229), torch.bfloat16, pool, conv_bias=False)
+    assert with_bias[1] - without[1] == 2 * 48
+    assert with_bias == ce.cost((2, 48, 3, 229), torch.bfloat16, pool, True)
+
+
+@pytest.mark.parametrize('avg', [False, True])
+def test_fake_average_pool_gives_the_pooled_shape(avg):
+    with FakeTensorMode():
+        x = torch.empty(2, 48, 3, 229, dtype=torch.bfloat16, device='cuda',
+                        memory_format=torch.channels_last)
+        vectors = [torch.empty(48, device='cuda') for _ in range(3)]
+        out = ce.conv_epilogue(x, None, *vectors, True, avg)
+    assert out.shape == (2, 48, 3, 114)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_the_hpt_conv_block_takes_the_kernel_twice(monkeypatch):
+    """On fake CUDA tensors in eval, a ConvBlock's two convs each run one
+    pass of the epilogue with no conv bias, the second average-pooled, and
+    fc5's norm and ReLU one more, unpooled; on the CPU the eager ops, bit
+    for bit the plain version's."""
+
+    from amt_tools_tpu_torch.models import hpt
+
+    seen = []
+
+    def spy(x, conv_bias, mean, mul, bias, pool, avg=False):
+        seen.append((conv_bias is None, pool, avg, tuple(x.shape)))
+        return ce.conv_epilogue(x, conv_bias, mean, mul, bias, pool, avg)
+
+    monkeypatch.setattr(layers, 'conv_epilogue', spy)
+    class Embed(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stack = hpt.AcousticCRNN(229, 88, dtype=torch.bfloat16)
+
+        def forward(self, x):
+            return self.stack.embed(x)
+
+    model = Embed().eval()
+    with FakeTensorMode():
+        state = {name: torch.empty(t.shape, dtype=t.dtype, device='cuda')
+                 for name, t in [*model.named_parameters(),
+                                 *model.named_buffers()]}
+        x = torch.empty(2, 1, 5, 229, device='cuda')
+        with torch.no_grad():
+            out = functional_call(model, state, (x,))
+    assert out.shape == (2, 5, 768) and out.dtype == torch.bfloat16
+    assert seen[:2] == [(True, False, False, (2, 48, 5, 229)),
+                        (True, True, True, (2, 48, 5, 229))]
+    assert len(seen) == 9 and seen[-1] == (True, False, False,
+                                           (10, 768, 1, 1))

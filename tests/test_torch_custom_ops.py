@@ -23,7 +23,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.ops import (conv_epilogue, cqt_kernel, cuda_build,
-                                     lstm_kernel, stft_kernel)
+                                     gru_kernel, lstm_kernel, stft_kernel)
 
 torch.set_num_threads(1)
 
@@ -186,6 +186,22 @@ def _cases():
                           conv_epilogue.conv_epilogue_op, args,
                           lambda a=args: conv_epilogue.conv_epilogue_plain(
                               *a)))
+        # A bias-free conv, average-pooled (the hpt model's ConvBlocks)
+        args = (x, None, *vectors, True, True)
+        cases.append((f'epilogue {name} bias-free average',
+                      conv_epilogue.conv_epilogue_op, args,
+                      lambda a=args: conv_epilogue.conv_epilogue_plain(*a)))
+
+    # Kernel G over three groups, the last two reversed
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        xw = _tensor(rng, 3, 2, FRAMES, 3 * HIDDEN, scale=0.5, dtype=dtype)
+        wh = _tensor(rng, 3, HIDDEN, 3 * HIDDEN, scale=0.2, dtype=dtype)
+        bhn = _tensor(rng, 3, HIDDEN, scale=0.1)
+        cases.append((f'G {name} grouped', gru_kernel.gru_scan_grouped_op,
+                      (xw, wh, bhn, 1),
+                      lambda x=xw, w=wh, b=bhn: gru_kernel.gru_scan_plain(
+                          x, w, b, 1)))
 
     return cases
 
@@ -275,7 +291,13 @@ def _cost(label, args):
         return stft_kernel.cost(*audio.shape, n_fft, hop, bank.shape[1] // 2,
                                 center)
     if label.startswith('epilogue'):
-        return conv_epilogue.cost(args[0].shape, args[0].dtype, args[-1])
+        return conv_epilogue.cost(args[0].shape, args[0].dtype, args[5],
+                                  conv_bias=args[1] is not None)
+    if label.startswith('G'):
+        xw = args[0]
+        groups, batch, frames, three_h = xw.shape
+        return gru_kernel.gru_scan_cost(batch, frames, three_h // 3,
+                                        xw.dtype, groups)
     if label == 'C':
         audio, bank, _, hop, _ = args
         return cqt_kernel.cost(*audio.shape, hop, bank)

@@ -1,7 +1,8 @@
 """The port's spans (``profiling.span``) and the serving pipelines' host
 decode counters, on the CPU.
 
-- Under ``torch.profiler`` a piano batch, a guitar batch and an O&F2
+- Under ``torch.profiler`` a piano batch, a guitar batch, a High-resolution
+  Piano Transcription batch and an O&F2
   train step hold each ``amt.`` span where the port opens it, once a layer
   call: the features, the acoustic stacks, the LSTM layers and the device
   decode inside ``dispatch``, the device decode after the forward, the
@@ -159,6 +160,40 @@ def test_a_guitar_batch_holds_every_serving_span(guitar):
     decode, = _intervals(prof, 'amt.decode')
     acoustic, = _intervals(prof, 'amt.acoustic')
     assert decode.start >= acoustic.end
+    assert len(notes) == len(audio)
+
+
+def test_an_hpt_batch_holds_every_serving_span_and_four_gru_layers():
+    """The High-resolution Piano Transcription pipeline: its four stacks'
+    convs and fc5 in one ``amt.acoustic``, its GRU layers in four
+    ``amt.gru`` (the stacks' first and second layers, the onset and the
+    frame conditioning), the regression decode's device stage in
+    ``amt.decode`` after them and its host stage in
+    ``amt.serving.decode_host``."""
+
+    from amt_tools_tpu_torch.models import RegressCRNN
+    from amt_tools_tpu_torch.serving import RegressionPipeline
+
+    mel = MelSpec(hop_length=160, fmin=30, fmax=8000, absolute_db=True,
+                  pad_mode='reflect')
+    pipeline = RegressionPipeline(
+        RegressCRNN(dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0)), mel,
+        device='cpu')
+    audio = _audio(tools.PianoProfile(), 16000, 0.1)
+    prof, notes = _serve_profiled(pipeline, audio)
+
+    assert _spans(prof) == {
+        ('amt.features', ('test.dispatch',)): 1,
+        ('amt.acoustic', ('test.dispatch',)): 1,
+        ('amt.gru', ('test.dispatch',)): 4,
+        ('amt.decode', ('test.dispatch',)): 1,
+        ('amt.serving.decode_host', ('test.finalize',)): 1}
+    decode, = _intervals(prof, 'amt.decode')
+    acoustic, = _intervals(prof, 'amt.acoustic')
+    grus = _intervals(prof, 'amt.gru')
+    assert all(gru.start >= acoustic.end for gru in grus)
+    assert decode.start >= max(gru.end for gru in grus)
     assert len(notes) == len(audio)
 
 
