@@ -22,10 +22,14 @@ every conv block's output, so a conv at the valid/padded boundary sees
 exactly the SAME padding of an unpadded run, and mask the language
 models' recurrences.
 
-The acoustic stacks run NCHW as (B, C, T, F); the JAX package runs NHWC
-(B, T, F, C). Before the dense projection the port permutes back to
-(B, T, F/4, C), so the flatten is feature-major (index f * C + c) exactly
-as in the JAX package (``onsetsframes.py:157-158``).
+The acoustic stacks index their tensors as (B, C, T, F); the JAX package
+runs NHWC (B, T, F, C). Before the dense projection the port permutes back
+to (B, T, F/4, C), so the flatten is feature-major (index f * C + c)
+exactly as in the JAX package (``onsetsframes.py:157-158``). An eval
+forward on CUDA that autograd does not record, with float convs, holds the
+stack channels-last in memory (``ops.layers.stack_layout``), so cuDNN's
+bf16 kernels need no NCHW<->NHWC conversions and that permute is a view;
+every other forward keeps the layout its features arrive in.
 
 The opt-in fused layouts (JAX ``:246-342``, ``:540-549``, ``:577-700``):
 ``fused_heads`` runs every acoustic head as one ``GroupedAcousticModel``
@@ -50,7 +54,8 @@ import torch.nn as nn
 from .. import profiling, tools
 from ..ops import decode
 from ..ops.layers import (BatchNorm, checkpoint, conv3x3, conv_block,
-                          dropout, head_linear, lecun_normal_, linear)
+                          dropout, head_linear, lecun_normal_, linear,
+                          stack_layout)
 from ..ops.lstm import FastBiLSTM, FastLSTM, GroupedBiLSTM, lengths_to_mask
 from ..ops.qconv import Int8Conv, Int8Dense
 from .common import LogisticBank, RegressionBank, TranscriptionModel
@@ -70,11 +75,13 @@ class AcousticModel(nn.Module):
     ``ops.layers.conv_block``: in eval on CUDA, with autograd not recording,
     a float conv's bias, the BatchNorm, the ReLU and the pool run as one
     hand-written kernel (``ops.conv_epilogue``) after a bias-free conv, bit
-    for bit the eager ops, which run everywhere else. In train mode with
-    ``dropout`` on, dropouts of 0.25 follow blocks 2 and 3 and 0.5 the
-    dense, drawn from the forward's ``generator``. ``quant`` (serving only:
-    ``False``, ``True`` or ``'static'``) makes ``Conv_1``, ``Conv_2`` and
-    ``Dense_0`` int8 layers; ``Conv_0`` stays float (JAX ``:92-98``).
+    for bit the eager ops, which run everywhere else; such a forward runs
+    the whole stack channels-last (``ops.layers.stack_layout``). In train
+    mode with ``dropout`` on, dropouts of 0.25 follow blocks 2 and 3 and
+    0.5 the dense, drawn from the forward's ``generator``. ``quant``
+    (serving only: ``False``, ``True`` or ``'static'``) makes ``Conv_1``,
+    ``Conv_2`` and ``Dense_0`` int8 layers; ``Conv_0`` stays float (JAX
+    ``:92-98``).
     ``remat`` recomputes in the backward pass what a training forward would
     keep: ``True`` the whole stack (JAX ``nn.remat(AcousticModel)``,
     ``:517-537``), ``'blocks'`` each conv block (``block_remat``,
@@ -141,8 +148,11 @@ class AcousticModel(nn.Module):
             return self._forward(feats, generator, lengths)
 
     def _forward(self, feats, generator, lengths):
+        blocks = ((self.Conv_0, self.BatchNorm_0, False),
+                  (self.Conv_1, self.BatchNorm_1, True),
+                  (self.Conv_2, self.BatchNorm_2, True))
         # (B, T, F, C) -> (B, C, T, F)
-        x = feats.permute(0, 3, 1, 2)
+        x = stack_layout(feats.permute(0, 3, 1, 2), self, blocks, self.dtype)
 
         mask = None
         if lengths is not None:
@@ -155,9 +165,6 @@ class AcousticModel(nn.Module):
             x = self._block(x, conv, norm, pool, generator)
             return x if mask is None else x * mask.to(x.dtype)
 
-        blocks = ((self.Conv_0, self.BatchNorm_0, False),
-                  (self.Conv_1, self.BatchNorm_1, True),
-                  (self.Conv_2, self.BatchNorm_2, True))
         for conv, norm, pool in blocks:
             if self._remat('blocks'):
                 x = checkpoint(
@@ -168,6 +175,7 @@ class AcousticModel(nn.Module):
                 x = block(x, conv, norm, pool)
 
         # (B, C, T, F/4) -> (B, T, F/4, C) -> (B, T, F/4 * C), feature-major
+        # (a view of a channels-last x)
         x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[:2] + (-1,))
 
@@ -191,9 +199,9 @@ class GroupedAcousticModel(nn.Module):
     Channels are head-blocked (head h owns channels [h nf, (h + 1) nf)),
     and each head's flatten is frequency-major, channel-minor, as JAX's
     (``:313-319``) and the per-head stack's. Masks, dropout from the
-    forward's ``generator``, the max-pools and the blocks
-    (``ops.layers.conv_block``, with its eval epilogue kernel on CUDA) are
-    the per-head stack's;
+    forward's ``generator``, the max-pools, the blocks
+    (``ops.layers.conv_block``, with its eval epilogue kernel on CUDA) and
+    their layout (``ops.layers.stack_layout``) are the per-head stack's;
     ``remat=True`` recomputes the whole stack in the backward pass
     (``ops.layers.checkpoint``); the per-block ``'blocks'`` has no fused
     counterpart (JAX ``_grouped_model_cls``)."""
@@ -244,8 +252,11 @@ class GroupedAcousticModel(nn.Module):
             return self._forward(feats, generator, lengths)
 
     def _forward(self, feats, generator, lengths):
+        blocks = ((self.Conv_0, self.BatchNorm_0, False),
+                  (self.Conv_1, self.BatchNorm_1, True),
+                  (self.Conv_2, self.BatchNorm_2, True))
         # (B, T, F, C) -> (B, C, T, F)
-        x = feats.permute(0, 3, 1, 2)
+        x = stack_layout(feats.permute(0, 3, 1, 2), self, blocks, self.dtype)
 
         mask = None
         if lengths is not None:
@@ -253,9 +264,7 @@ class GroupedAcousticModel(nn.Module):
                                    x.shape[2])[:, None, :, None].to(x.dtype)
             x = x * mask
 
-        for conv, norm, pool in ((self.Conv_0, self.BatchNorm_0, False),
-                                 (self.Conv_1, self.BatchNorm_1, True),
-                                 (self.Conv_2, self.BatchNorm_2, True)):
+        for conv, norm, pool in blocks:
             x = conv_block(x, conv, norm, pool, self.dtype)
             if pool:
                 x = self._dropout(x, 0.25, generator)
@@ -263,7 +272,8 @@ class GroupedAcousticModel(nn.Module):
                 x = x * mask.to(x.dtype)
 
         # (B, heads * nf3, T, F/4) -> (B, T, heads, F/4 * nf3): each head's
-        # channels, flattened frequency-major and channel-minor
+        # channels, flattened frequency-major and channel-minor (one copy in
+        # either layout: channels-last holds F/4 outside the heads)
         batch, _, frames, freqs = x.shape
         x = x.reshape(batch, self.heads, self.nf3, frames, freqs)
         x = x.permute(0, 3, 1, 4, 2).reshape(batch, frames, self.heads,

@@ -16,7 +16,8 @@ is one conv of an acoustic stack (conv, BatchNorm, ReLU, the optional
 (1, 2) max- or average pool: O&F's blocks, and the two convs of a
 High-resolution Piano Transcription ConvBlock, whose convs have no bias);
 its eval forward on CUDA runs the conv without its bias and the rest as
-one hand-written kernel (``ops.conv_epilogue``).
+one hand-written kernel (``ops.conv_epilogue``), and :func:`stack_layout`
+puts an O&F stack whose every block does so in channels-last.
 
 Data parallelism (``parallel/``): a train-mode :class:`BatchNorm` whose
 ``process_group`` is set takes its statistics over the global batch, and
@@ -37,12 +38,13 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..parallel.collectives import all_reduce, gather_columns, reduce_grad
+from . import cuda_build
 from .conv_epilogue import batch_norm_eval, conv_epilogue
 
 __all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
-           'conv_block', 'dense_block', 'conv3x3', 'BatchNorm', 'dropout',
-           'BatchShardGenerator', 'lecun_normal_', 'orthogonal_',
-           'checkpoint']
+           'conv_block', 'stack_layout', 'dense_block', 'conv3x3',
+           'BatchNorm', 'dropout', 'BatchShardGenerator', 'lecun_normal_',
+           'orthogonal_', 'checkpoint']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -240,6 +242,35 @@ def _eager_block(x, conv, norm, dtype):
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
         for t in (x, conv.weight, conv.bias, norm.weight, norm.bias))
+
+
+def stack_layout(x, module, blocks, dtype=None):
+    """The (B, C, T, F) input of an O&F acoustic stack ``module``, whose
+    ``blocks`` are its (conv, norm, ...) :func:`conv_block` arguments, in
+    the memory layout the stack runs in.
+
+    Where every block takes the epilogue kernel (a CUDA x, an eval-mode
+    stack, a float conv, autograd not recording), x goes channels-last:
+    cuDNN's bf16 kernels work in NHWC, so an NCHW stack has each conv's
+    input and output converted, while a channels-last input keeps every conv
+    output, the epilogue's and the flatten before the dense layer in that
+    layout. ``stack_layout.channels_last`` counts those forwards (at trace
+    time under ``torch.export``). Every other forward keeps x as it is."""
+
+    dtype = _compute_dtype(x, dtype)
+    recorded = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+    if (module.training or recorded or
+            any(_eager_block(x, conv, norm, dtype)
+                for conv, norm, *_ in blocks)):
+        return x
+
+    cuda_build.count(stack_layout, 'channels_last')
+
+    return x.to(memory_format=torch.channels_last)
+
+
+stack_layout.channels_last = 0
 
 
 class BatchNorm(nn.Module):

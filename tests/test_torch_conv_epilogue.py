@@ -11,6 +11,9 @@
 - The route: on fake CUDA tensors (``FakeTensorMode``, no card needed) an
   eval forward that autograd does not record calls the op once a block; a
   recorded forward, a train-mode forward and an int8 conv do not.
+- The stacks' layout (``ops.layers.stack_layout``): channels-last, counted,
+  for a CUDA eval forward of float convs that autograd does not record; x
+  itself for the CPU, a recorded forward, train mode and an int8 conv.
 - On the CPU the stacks' eval and train forwards run the eager ops, bit for
   bit those written out here.
 
@@ -283,6 +286,69 @@ def test_route_decision(case, eager):
                         requires_grad=case == 'input recorded')
         with context:
             assert layers._eager_block(x, conv, norm, dtype) == eager
+
+
+def _blocks(model):
+    return [(getattr(model, f'Conv_{i}'), getattr(model, f'BatchNorm_{i}'))
+            for i in range(3)]
+
+
+@pytest.mark.parametrize('conv', ['float', 'int8'])
+@pytest.mark.parametrize('train', [False, True])
+@pytest.mark.parametrize('grad', ['no_grad', 'recorded'])
+@pytest.mark.parametrize('device', ['cpu', 'cuda'])
+def test_stack_layout_decision(device, grad, train, conv):
+    """``stack_layout`` puts a stack's input channels-last, and counts it,
+    only for a CUDA input to an eval-mode stack of float convs that autograd
+    does not record; every other case (the CPU, a recorded forward, train
+    mode, an int8 ``Conv_1``) gets x itself back, the serving pipelines'
+    transposed view."""
+
+    model = _model('per-head', quant=conv == 'int8').train(train)
+    context = torch.enable_grad() if grad == 'recorded' else torch.no_grad()
+    counted = layers.stack_layout.channels_last
+
+    with FakeTensorMode():
+        # (B, C, F, T) features as the pipelines hand them to the stacks
+        x = torch.empty(2, 1, 16, 12, device=device).permute(0, 1, 3, 2)
+        with context:
+            out = layers.stack_layout(x, model, _blocks(model),
+                                      torch.bfloat16)
+
+    channels_last = (device, grad, train, conv) == ('cuda', 'no_grad', False,
+                                                   'float')
+    assert layers.stack_layout.channels_last == counted + channels_last
+    if channels_last:
+        assert out.shape == x.shape
+        assert out.is_contiguous(memory_format=torch.channels_last)
+    else:
+        assert out is x
+
+
+@pytest.mark.parametrize('mode', ['eval', 'inference'])
+@pytest.mark.parametrize('kind', ['per-head', 'grouped'])
+def test_fake_cuda_eval_forward_runs_the_stack_channels_last(kind, mode,
+                                                              monkeypatch):
+    """On fake CUDA tensors an eval forward counts one channels-last stack,
+    whose first block receives the features channels-last. (What layout
+    cuDNN then gives the conv outputs, and the valid lengths' mask, which
+    builds its frame index on the device, show on a card only:
+    ``tests/test_torch_cuda.py``.)"""
+
+    layouts = []
+
+    def spy(x, *args, **kwargs):
+        layouts.append(x.is_contiguous(memory_format=torch.channels_last))
+        return layers.conv_block(x, *args, **kwargs)
+
+    monkeypatch.setattr(onsetsframes, 'conv_block', spy)
+    counted = layers.stack_layout.channels_last
+
+    out = _fake_cuda_forward(_model(kind), mode)
+
+    assert layers.stack_layout.channels_last == counted + 1
+    assert len(layouts) == 3 and layouts[0]
+    assert out.dtype == torch.bfloat16
 
 
 def _block_before_the_kernel(x, conv, norm, pool, dtype=None):

@@ -67,7 +67,9 @@ Tolerances:
 - the conv blocks' eval epilogue: bit for bit its plain version on the
   card, NaN payloads included (the same float32 operations in the same
   order, each rounded once), and a bf16 O&F2 eval forward through it bit
-  for bit the eager ops it replaces.
+  for bit the eager ops it replaces, in the same layout;
+- the O&F stacks' channels-last eval forward against the same forward kept
+  NCHW: the logits by ``LAYOUT_LOGIT_TOL``; a training step bit for bit.
 """
 
 import collections
@@ -82,6 +84,7 @@ from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import CQT, MelSpec
 from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.models import run_on_batch as models_run_on_batch
+from amt_tools_tpu_torch.models import onsetsframes
 from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
 from amt_tools_tpu_torch.ops.lstm import FastLSTM, GroupedBiLSTM
 from amt_tools_tpu_torch.ops import (conv_epilogue, cuda_build, decode,
@@ -1841,6 +1844,13 @@ def _of2_for_epilogue(cuda, fused_heads, features):
     return model.to(cuda), feats.to(cuda)
 
 
+def _channels_last_stack(x, *args):
+    """``ops.layers.stack_layout`` taking channels-last whatever the
+    forward: the eager ops in the layout the kernel's forward runs in."""
+
+    return x.to(memory_format=torch.channels_last)
+
+
 @pytest.mark.parametrize('features', ['pipeline', 'contiguous'])
 @pytest.mark.parametrize('fused_heads, launches', [(False, 9), (True, 3)])
 def test_of2_eval_forward_takes_the_epilogue_bit_for_bit(cuda, monkeypatch,
@@ -1850,7 +1860,8 @@ def test_of2_eval_forward_takes_the_epilogue_bit_for_bit(cuda, monkeypatch,
     layouts of the features: the kernel once a conv block (3 stacks of 3
     blocks, or the fused stack's 3), and every output bit for bit the same
     forward with the kernel's plain version in its place and with the
-    eager ops the stacks ran before the kernel."""
+    eager ops the stacks ran before the kernel, in the stacks' channels-last
+    layout."""
 
     model, feats = _of2_for_epilogue(cuda, fused_heads, features)
     lengths = torch.tensor([600, 311, 1, 450], device=cuda)
@@ -1869,6 +1880,7 @@ def test_of2_eval_forward_takes_the_epilogue_bit_for_bit(cuda, monkeypatch,
         plain = forward(), forward(lengths)
     with monkeypatch.context() as patch:
         patch.setattr(layers, '_eager_block', lambda *args: True)
+        patch.setattr(onsetsframes, 'stack_layout', _channels_last_stack)
         eager = forward(), forward(lengths)
     assert conv_epilogue.conv_epilogue.launches == counted + 2 * launches
 
@@ -1877,6 +1889,87 @@ def test_of2_eval_forward_takes_the_epilogue_bit_for_bit(cuda, monkeypatch,
             assert out.keys() == ref.keys()
             for key in out:
                 assert torch.equal(out[key], ref[key]), key
+
+
+# Logits of a bf16 O&F2 eval forward whose stacks run channels-last against
+# the same forward in NCHW: the two layouts take other cuDNN algorithms,
+# whose float32 sums round to bf16 apart where a value lies near a rounding
+# boundary (one ulp, 2^-8 relative). The eval forward is continuous (no
+# decision jumps: ReLU, max-pool and the LSTMs move as their inputs do), so
+# a logit moves by a few ulps at most: 2^-5 of the largest logit, and 2^-9
+# of the mean magnitude on the mean. A flatten in another order or a mask
+# left off moves most logits by their own size.
+LAYOUT_LOGIT_TOL = (2.0 ** -5, 2.0 ** -9)
+
+
+@pytest.mark.parametrize('lengths', [None, [600, 311, 1, 450]])
+@pytest.mark.parametrize('fused_heads, stacks', [(False, 3), (True, 1)])
+def test_of2_eval_forward_runs_the_stacks_channels_last(cuda, monkeypatch,
+                                                        fused_heads, stacks,
+                                                        lengths):
+    """A bf16 O&F2 eval forward on the serving pipelines' features (a
+    transposed view), per-head and fused, with and without valid lengths:
+    each stack counted once as channels-last, every conv output reaching
+    the epilogue channels-last, and the logits within
+    ``LAYOUT_LOGIT_TOL`` of the same forward with the stacks kept NCHW."""
+
+    model, feats = _of2_for_epilogue(cuda, fused_heads, 'pipeline')
+    if lengths is not None:
+        lengths = torch.tensor(lengths, device=cuda)
+    layouts = []
+
+    def spy(x, *args, **kwargs):
+        layouts.append(conv_epilogue._channels_last(x))
+        return conv_epilogue.conv_epilogue(x, *args, **kwargs)
+
+    def forward():
+        with torch.no_grad():
+            return model(feats, lengths=lengths)
+
+    counted = layers.stack_layout.channels_last
+    with monkeypatch.context() as patch:
+        patch.setattr(layers, 'conv_epilogue', spy)
+        got = forward()
+    assert layers.stack_layout.channels_last == counted + stacks
+    assert layouts == [True] * 3 * stacks
+
+    with monkeypatch.context() as patch:
+        patch.setattr(layers, 'conv_epilogue', spy)
+        patch.setattr(onsetsframes, 'stack_layout', lambda x, *args: x)
+        nchw = forward()
+    assert layouts[3 * stacks:] == [False] * 3 * stacks
+
+    assert got.keys() == nchw.keys()
+    for key in got:
+        _held_to(got[key], nchw[key], *LAYOUT_LOGIT_TOL)
+
+
+def test_train_step_keeps_the_stacks_nchw(cuda, monkeypatch):
+    """A train-mode O&F2 step (float32, dropout off) counts no
+    channels-last stack, and its losses and gradients are bit for bit the
+    step's with the stacks' layout rule taken out (cuDNN's deterministic
+    algorithms on both)."""
+
+    g = torch.Generator().manual_seed(19)
+    model = OnsetsFrames2(dim_in=32, profile=tools.PianoProfile(),
+                          model_complexity=2, dropout=False, generator=g)
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 32, 40, generator=g),
+             tools.KEY_MULTIPITCH: (torch.rand(2, 88, 40, generator=g) <
+                                    0.1).float()}
+
+    counted = layers.stack_layout.channels_last
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        losses, grads = _train_step(model, batch, cuda)
+        with monkeypatch.context() as patch:
+            patch.setattr(onsetsframes, 'stack_layout', lambda x, *args: x)
+            want_losses, want_grads = _train_step(model, batch, cuda)
+    assert layers.stack_layout.channels_last == counted
+
+    assert losses == want_losses
+    assert grads.keys() == want_grads.keys()
+    for name in grads:
+        assert torch.equal(grads[name], want_grads[name]), name
 
 
 def test_train_step_launches_no_epilogue(cuda):
