@@ -866,59 +866,33 @@ int run(const float* gates, const float* c_seq, const void* dout,
 
 }  // namespace
 
-// gates (batch, frames, 4 * hidden) and c_seq (batch, frames, hidden) as
-// float32 from the forward with residuals, dout (batch, frames, hidden) and
-// w_ht (4 * hidden, hidden) both float32 or both bf16 (`bf16` != 0), and
-// da (batch, frames, 4 * hidden) float32, contiguous and 16-byte aligned on
-// the device. `reverse` names the forward's direction. `lengths` is null
-// (every row ran all frames) or int32 (batch) on the device, each in
-// [0, frames]: row b has da = 0 from t = lengths[b] on, and carries its dh
-// and dc through those steps. hidden is a multiple of 16; each cluster of 8
-// CTAs takes `rows` (1..16) batch rows; `resident` keeps the W_h^T slice in
-// shared memory (else it is streamed each step). Launches on `stream` and
-// returns the first CUDA error of the set-up or the launch.
+// Kernel F over `groups` independent sequences in one launch: gates
+// (groups, batch, frames, 4 * hidden) and c_seq (groups, batch, frames,
+// hidden) as float32 from the forward with residuals, dout (groups, batch,
+// frames, hidden) and w_ht (groups, 4 * hidden, hidden) both float32 or
+// both bf16 (`bf16` != 0), and da (groups, batch, frames, 4 * hidden)
+// float32, contiguous and 16-byte aligned on the device. The groups from
+// `reverse_from` on had a reverse forward. `lengths` is null (every row ran
+// all frames) or int32 (batch) on the device, each in [0, frames], every
+// group's: row b has da = 0 from t = lengths[b] on, and carries its dh and
+// dc through those steps. With c0 not null the forward was carried: c0 is
+// its initial cell state, (dc_last, dh_last) the gradient of its final
+// carry, which the walk starts from, and the launch writes (dc0, dh0), the
+// gradient of the initial carry (all five float32 (batch, hidden) on the
+// device); a carry is one group's, so `groups` is then 1. hidden is a
+// multiple of 16; each cluster of 8 CTAs takes `rows` (1..16) batch rows of
+// one group; `resident` keeps the W_h^T slice in shared memory (else it is
+// streamed each step). Launches on `stream` and returns the first CUDA
+// error of the set-up or the launch.
 extern "C" int lstm_bptt(const float* gates, const float* c_seq,
                          const void* dout, const void* w_ht, float* da,
-                         const int* lengths, int batch, int frames,
-                         int hidden, int reverse, int bf16, int rows,
-                         int resident, cudaStream_t stream) {
-  return run(gates, c_seq, dout, w_ht, da, lengths, Carry{}, 0, bf16,
-             resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// lstm_bptt of a carried forward: c0 is its initial cell state, (dc_last,
-// dh_last) the gradient of its final carry, which the walk starts from; it
-// writes (dc0, dh0), the gradient of the initial carry. All five float32
-// (batch, hidden), contiguous on the device.
-extern "C" int lstm_bptt_carried(const float* gates, const float* c_seq,
-                                 const void* dout, const void* w_ht,
-                                 float* da, const int* lengths,
-                                 const float* c0, const float* dc_last,
-                                 const float* dh_last, float* dc0, float* dh0,
-                                 int batch, int frames, int hidden,
-                                 int reverse, int bf16, int rows,
-                                 int resident, cudaStream_t stream) {
-  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                         const int* lengths, const float* c0,
+                         const float* dc_last, const float* dh_last,
+                         float* dc0, float* dh0, int groups, int reverse_from,
+                         int batch, int frames, int hidden, int bf16,
+                         int rows, int resident, cudaStream_t stream) {
   return run(gates, c_seq, dout, w_ht, da, lengths,
              Carry{c0, dc_last, dh_last, dc0, dh0}, 0, bf16, resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel F over `groups` independent sequences in one launch: every tensor
-// of lstm_bptt with a leading group axis (w_ht (groups, 4 * hidden,
-// hidden)); the groups from `reverse_from` on had a reverse forward;
-// `lengths` (null, or int32 (batch)) are every group's.
-extern "C" int lstm_bptt_grouped(const float* gates, const float* c_seq,
-                                 const void* dout, const void* w_ht,
-                                 float* da, const int* lengths, int groups,
-                                 int reverse_from, int batch, int frames,
-                                 int hidden, int bf16, int rows, int resident,
-                                 cudaStream_t stream) {
-  return run(gates, c_seq, dout, w_ht, da, lengths, Carry{}, 0, bf16,
-             resident,
              Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
                     nullptr});
 }

@@ -870,98 +870,37 @@ int run(const void* xw, const void* w_h, void* out, float* gates,
 
 }  // namespace
 
-// xw (batch, frames, 4 * hidden), w_h (hidden, 4 * hidden) and out
-// (batch, frames, hidden), contiguous and 16-byte aligned on the device,
-// all float32 or all bf16 (`bf16` != 0). `lengths` is null (every row runs
-// all frames) or int32 (batch) on the device, each in [0, frames]. hidden
-// is a multiple of 16; each cluster of 8 CTAs takes `rows` (1..16) batch
-// rows; `resident` keeps the W_h slice in shared memory (else it is
-// streamed each step). Launches on `stream` and returns the first CUDA
-// error of the set-up or the launch.
+// Kernel B over `groups` independent sequences in one launch, or kernel E
+// where `gates` and `c_seq` are given: xw (groups, batch, frames,
+// 4 * hidden), w_h (groups, hidden, 4 * hidden) and out (groups, batch,
+// frames, hidden), contiguous and 16-byte aligned on the device, all
+// float32 or all bf16 (`bf16` != 0); the groups from `reverse_from` on walk
+// back to front and write their outputs in natural order. E also writes
+// the float32 residuals gates (groups, batch, frames, 4 * hidden) and c_seq
+// (groups, batch, frames, hidden); at a masked step c_seq holds the kept
+// cell state (the c_prev of the row's next valid step in the BPTT) and
+// gates the ones the step computed, which the BPTT does not read.
+// `lengths` is null (every row runs all frames) or int32 (batch) on the
+// device, each in [0, frames], every group's. With c0 not null the launch
+// starts from the carry c0, h0 in place of zeros and writes the final
+// c_last, h_last (all four float32 (batch, hidden) on the device; h_last is
+// the h the next step would read, in bf16 mode bf16-rounded; a row's final
+// carry is its state at its last valid step); a carry is one group's, so
+// `groups` is then 1. hidden is a multiple of 16; each cluster of 8 CTAs
+// takes `rows` (1..16) batch rows of one group; `resident` keeps the W_h
+// slice in shared memory (else it is streamed each step). Launches on
+// `stream` and returns the first CUDA error of the set-up or the launch.
 extern "C" int lstm_scan(const void* xw, const void* w_h, void* out,
-                         const int* lengths, int batch, int frames, int hidden,
-                         int reverse, int bf16, int rows, int resident,
-                         cudaStream_t stream) {
-  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, bf16, 0,
-             resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel B over `groups` independent sequences in one launch: xw (groups,
-// batch, frames, 4 * hidden), w_h (groups, hidden, 4 * hidden), out
-// (groups, batch, frames, hidden), the groups from `reverse_from` on
-// walking back to front; `lengths` (null, or int32 (batch)) are every
-// group's. Otherwise as lstm_scan.
-extern "C" int lstm_scan_grouped(const void* xw, const void* w_h, void* out,
-                                 const int* lengths, int groups,
-                                 int reverse_from, int batch, int frames,
-                                 int hidden, int bf16, int rows, int resident,
-                                 cudaStream_t stream) {
-  return run(xw, w_h, out, nullptr, nullptr, lengths, Carry{}, bf16, 0,
-             resident,
-             Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel B from a carry: lstm_scan starting from c0, h0 in place of zeros,
-// writing the final c_last, h_last (all four float32 (batch, hidden),
-// contiguous on the device; h_last is the h the next step would read, in
-// bf16 mode bf16-rounded). `lengths` as lstm_scan's: a row's final carry is
-// its state at its last valid step.
-extern "C" int lstm_scan_carried(const void* xw, const void* w_h, void* out,
-                                 const int* lengths, const float* c0,
-                                 const float* h0, float* c_last,
-                                 float* h_last, int batch, int frames,
-                                 int hidden, int reverse, int bf16, int rows,
-                                 int resident, cudaStream_t stream) {
-  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return run(xw, w_h, out, nullptr, nullptr, lengths,
-             Carry{c0, h0, c_last, h_last}, bf16, 0, resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel E: lstm_scan, and also the float32 residuals gates
-// (batch, frames, 4 * hidden) and c_seq (batch, frames, hidden), contiguous
-// on the device. `lengths` as lstm_scan's; at a masked step c_seq holds the
-// kept cell state (the c_prev of the row's next valid step in the BPTT) and
-// the gates the step computed, which the BPTT does not read.
-extern "C" int lstm_scan_residuals(const void* xw, const void* w_h, void* out,
-                                   float* gates, float* c_seq,
-                                   const int* lengths, int batch, int frames,
-                                   int hidden, int reverse, int bf16, int rows,
-                                   int resident, cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, lengths, Carry{}, bf16, 1, resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel E from a carry, as lstm_scan_carried is kernel B from one: the
-// training forward of a carried recurrence (chunks that thread the state).
-extern "C" int lstm_scan_residuals_carried(
-    const void* xw, const void* w_h, void* out, float* gates, float* c_seq,
-    const int* lengths, const float* c0, const float* h0, float* c_last,
-    float* h_last, int batch, int frames, int hidden, int reverse, int bf16,
-    int rows, int resident, cudaStream_t stream) {
-  if (c0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                         float* gates, float* c_seq, const int* lengths,
+                         const float* c0, const float* h0, float* c_last,
+                         float* h_last, int groups, int reverse_from,
+                         int batch, int frames, int hidden, int bf16,
+                         int rows, int resident, cudaStream_t stream) {
+  if ((gates == nullptr) != (c_seq == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return run(xw, w_h, out, gates, c_seq, lengths,
-             Carry{c0, h0, c_last, h_last}, bf16, 1, resident,
-             Launch{1, reverse ? 0 : 1, batch, frames, hidden, rows, stream,
-                    nullptr});
-}
-
-// Kernel E over `groups` sequences in one launch, as lstm_scan_grouped:
-// gates (groups, batch, frames, 4 * hidden) and c_seq (groups, batch,
-// frames, hidden); `lengths` (null, or int32 (batch)) are every group's.
-extern "C" int lstm_scan_residuals_grouped(const void* xw, const void* w_h,
-                                           void* out, float* gates,
-                                           float* c_seq, const int* lengths,
-                                           int groups, int reverse_from,
-                                           int batch, int frames, int hidden,
-                                           int bf16, int rows, int resident,
-                                           cudaStream_t stream) {
-  return run(xw, w_h, out, gates, c_seq, lengths, Carry{}, bf16, 1, resident,
+             Carry{c0, h0, c_last, h_last}, bf16, gates != nullptr, resident,
              Launch{groups, reverse_from, batch, frames, hidden, rows, stream,
                     nullptr});
 }

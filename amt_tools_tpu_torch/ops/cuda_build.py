@@ -17,6 +17,8 @@ increments the wrappers' launch counters under a lock, and :func:`cached`
 fills a device-side cache (banks, twiddles, occupancy answers) once.
 :func:`require_plain` refuses a tensor a kernel cannot read through its
 data pointer (a DTensor or another wrapper subclass), on every route.
+:func:`cluster_rows` is the cluster kernels' one rule for the batch rows a
+cluster takes.
 
 Each kernel is reached through a ``torch.library`` custom op in the
 :data:`NAMESPACE` namespace (``torch.ops.amt_tools_tpu_torch.*``), defined
@@ -39,7 +41,8 @@ import time
 from pathlib import Path
 
 __all__ = ['KERNEL_SOURCES', 'NAMESPACE', 'OP_COSTS', 'build', 'library',
-           'check', 'count', 'cached', 'require_plain', 'register_cost']
+           'check', 'count', 'cached', 'require_plain', 'register_cost',
+           'cluster_rows']
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -185,6 +188,17 @@ def _traced(value):
     return isinstance(value, torch.Tensor) and (
         is_fake(value) or type(value) not in (torch.Tensor,
                                               torch.nn.Parameter))
+
+
+def cluster_rows(batch, groups, max_rows, active_clusters):
+    """Batch rows a cluster for a launch of ``groups`` sequences of
+    ``batch`` rows, each group on its own ``ceil(batch / rows)`` clusters,
+    given how many clusters the card holds at once: the fewest rows that
+    put every cluster in one wave, or ``max_rows`` (the most the buffers
+    fit) where none does. The rule of kernels B, E, F and G."""
+
+    return next((rows for rows in range(1, max_rows + 1)
+                 if groups * -(-batch // rows) <= active_clusters), max_rows)
 
 
 def check(status, kernel):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from .. import profiling
 from .gru_kernel import gru_scan_grouped, gru_scan_plain
+from .layers import records
 
 __all__ = ['BiGRU', 'bigru_layers']
 
@@ -78,12 +79,6 @@ class BiGRU(nn.Module):
         return bigru_layers([self], [inputs])[0]
 
 
-def _records(grus, inputs):
-    return torch.is_grad_enabled() and (
-        any(x.requires_grad for x in inputs) or
-        any(p.requires_grad for gru in grus for p in gru.parameters()))
-
-
 def _projection_bias(bias_ih, bias_hh, hidden):
     """``b_ih`` plus the hidden biases of the r and z gates (float32)."""
 
@@ -98,11 +93,12 @@ def _layer(grus, layer, inputs, dtype):
     streams = len(grus)
     hidden = grus[0].hidden_size
     batch, frames, _ = inputs[0].shape
-    records = _records(grus, inputs)
+    recorded = records(*inputs, *(p for gru in grus
+                                  for p in gru.parameters()))
     directions = [(gru, x, gru.layer_parameters(layer, suffix))
                   for suffix in _SUFFIXES for gru, x in zip(grus, inputs)]
 
-    if records:
+    if recorded:
         xw = torch.stack([
             F.linear(x.to(dtype), w_ih.to(dtype),
                      _projection_bias(b_ih, b_hh, hidden).to(dtype))
@@ -121,7 +117,7 @@ def _layer(grus, layer, inputs, dtype):
     b_hn = torch.stack([b_hh[2 * hidden:].float()
                         for _, _, (_, _, _, b_hh) in directions]).contiguous()
 
-    if records:
+    if recorded:
         out = gru_scan_plain(xw, w_h, b_hn, streams)
     else:
         out = gru_scan_grouped(xw, w_h, b_hn, streams)

@@ -4,7 +4,7 @@ The JAX package has no GRU, so no TPU kernel stands behind this one. It
 serves the bidirectional GRUs of the High-resolution Piano Transcription
 model (``models/hpt.py`` through ``ops/gru.py``): G independent sequences in
 one launch, each with its own recurrent weights, the groups from
-``reverse_from`` on walking back to front, as grouped kernel B does
+``reverse_from`` on walking back to front, as kernel B does
 (``ops/lstm_kernel.py`` ``lstm_scan_grouped``).
 
 Over hoisted input projections ``xw`` (G, B, T, 3H) that already hold
@@ -107,14 +107,11 @@ def _max_rows(hidden, dtype):
 
 def cluster_plan(batch, hidden, dtype, active_clusters, groups=1):
     """Rows a cluster and clusters for a launch of ``groups`` sequences of
-    ``batch`` rows, given how many clusters the card holds at once: the
-    fewest rows that put every cluster in one wave, or the most the
-    buffers fit where none does (kernel B's rule,
-    ``lstm_kernel.cluster_plan``)."""
+    ``batch`` rows, given how many clusters the card holds at once
+    (:func:`cuda_build.cluster_rows`)."""
 
     max_rows = _max_rows(hidden, dtype)
-    rows = next((r for r in range(1, max_rows + 1)
-                 if groups * -(-batch // r) <= active_clusters), max_rows)
+    rows = cuda_build.cluster_rows(batch, groups, max_rows, active_clusters)
     clusters = groups * -(-batch // rows)
 
     return {'rows': rows, 'clusters': clusters, 'ctas': CLUSTER * clusters,

@@ -44,7 +44,7 @@ from .conv_epilogue import batch_norm_eval, conv_epilogue
 __all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
            'conv_block', 'stack_layout', 'dense_block', 'conv3x3',
            'BatchNorm', 'dropout', 'BatchShardGenerator', 'lecun_normal_',
-           'orthogonal_', 'checkpoint']
+           'orthogonal_', 'checkpoint', 'records']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -230,6 +230,15 @@ def dense_block(x, layer, norm, dtype=None, weight=None):
     return y.reshape(lead + (-1,))
 
 
+def records(*tensors):
+    """Whether autograd records an operation on any of ``tensors``: grad
+    mode is on and one of them (None and non-tensors aside) requires
+    grad."""
+
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
 def _eager_block(x, conv, norm, dtype):
     """Whether :func:`conv_block` runs the eager ops rather than the
     epilogue kernel, which takes float32 and bf16."""
@@ -239,9 +248,7 @@ def _eager_block(x, conv, norm, dtype):
             dtype not in (torch.float32, torch.bfloat16)):
         return True
 
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (x, conv.weight, conv.bias, norm.weight, norm.bias))
+    return records(x, conv.weight, conv.bias, norm.weight, norm.bias)
 
 
 def stack_layout(x, module, blocks, dtype=None):
@@ -258,9 +265,7 @@ def stack_layout(x, module, blocks, dtype=None):
     time under ``torch.export``). Every other forward keeps x as it is."""
 
     dtype = _compute_dtype(x, dtype)
-    recorded = torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for p in module.parameters()))
-    if (module.training or recorded or
+    if (module.training or records(x, *module.parameters()) or
             any(_eager_block(x, conv, norm, dtype)
                 for conv, norm, *_ in blocks)):
         return x

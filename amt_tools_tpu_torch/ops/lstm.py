@@ -4,11 +4,12 @@ Counterparts of ``amt_tools_tpu/ops/lstm.py`` ``FastLSTM`` (``:208``) and
 ``FastBiLSTM`` (``:260``) from a zero carry, whole or masked by per-row
 ``lengths`` (bucketed evaluation, ``lengths_to_mask`` ``:202``): the input
 projection for every step is one ``nn.Linear`` over
-(B, T, E), and the recurrence runs in the Hopper kernels on CUDA tensors:
-:func:`ops.lstm_kernel.lstm_scan` (kernel B) when nothing differentiates
-it, :func:`ops.lstm_kernel.lstm_scan_grad` (kernels E and F) when autograd
-records, as ``lstm_scan_pallas_grad`` forwards to ``lstm_scan_pallas``
-outside ``jax.grad``. A CUDA width the kernels do not take
+(B, T, E), and the recurrence runs in the Hopper kernels on CUDA tensors,
+each direction as one group of a grouped launch:
+:func:`ops.lstm_kernel.lstm_scan_grouped` (kernel B) when nothing
+differentiates it, :func:`ops.lstm_kernel.lstm_scan_grouped_grad` (kernels
+E and F) when autograd records, as ``lstm_scan_pallas_grad`` forwards to
+``lstm_scan_pallas`` outside ``jax.grad``. A CUDA width the kernels do not take
 (:func:`ops.lstm_kernel.scan_supported` is false, e.g. H = 24) runs them
 zero-padded to the next multiple of 16 (:func:`kernel_width`,
 :func:`padded_recurrence`), where the JAX layers fall back to their XLA
@@ -30,7 +31,7 @@ dtype), so chunks that thread it equal one whole call bit for bit. Both
 train, as JAX's scan does under ``jax.grad`` (``_masked_step_outputs``
 ``:98-108``): kernels E and F take the lengths and the carry, so a masked
 step's gradient passes the row's carries through and the initial carry
-gets its gradient from the returned one's (``lstm_kernel.lstm_scan_grad``);
+gets its gradient from the returned one's (``lstm_kernel.LSTMScanGrad``);
 a masked or carried CUDA tensor under autograd runs E and F or raises.
 
 ``GroupedBiLSTM`` (JAX ``:328-402``) runs S independent BiLSTMs, (S, B,
@@ -58,9 +59,9 @@ from torch.distributed.tensor import DTensor
 
 from .. import profiling
 from ..parallel.collectives import gather_columns
-from .layers import lecun_normal_, linear, orthogonal_
-from .lstm_kernel import (lstm_scan, lstm_scan_grad, lstm_scan_grouped,
-                          lstm_scan_grouped_grad, scan_supported)
+from .layers import lecun_normal_, linear, orthogonal_, records
+from .lstm_kernel import (lstm_scan_grouped, lstm_scan_grouped_grad,
+                          one_sequence, scan_supported)
 from .qconv import Int8Dense
 
 __all__ = ['FastLSTM', 'FastBiLSTM', 'GroupedBiLSTM', 'kernel_width',
@@ -101,40 +102,20 @@ def lengths_to_mask(lengths, num_frames):
             lengths[:, None])
 
 
-def _records(*tensors):
-    """Whether autograd records an operation on any of ``tensors``."""
+def _scan(xw, w_h, reverse_from, lengths, carry=None):
+    """The recurrence of (G, B, T, 4H) ``xw`` and (G, H, 4H) ``w_h`` in one
+    launch, the groups from ``reverse_from`` on reversed; from ``carry`` (a
+    pair ``(c, h)``, G = 1) it returns ``(out, (c, h))``. Kernel B when
+    nothing is differentiated, kernels E and F when autograd records."""
 
-    return torch.is_grad_enabled() and any(
-        torch.is_tensor(x) and x.requires_grad for x in tensors)
-
-
-def _scan(xw, w_h, reverse, lengths, carry=None, reverse_from=None):
-    """The recurrence; from ``carry`` (a pair ``(c, h)``) it returns
-    ``(out, (c, h))``. With ``reverse_from`` it is grouped: (G, B, T, 4H)
-    ``xw`` and (G, H, 4H) ``w_h`` in one launch, the groups from
-    ``reverse_from`` on reversed. Kernel B when nothing is differentiated,
-    kernels E and F (masked, carried or grouped alike) when autograd
-    records."""
-
-    if _records(xw, w_h, *(carry or ())):
+    if records(xw, w_h, *(carry or ())):
         # W_h goes in uncast: the Function casts it, so dW_h reaches the
         # float32 parameter unrounded
-        if reverse_from is not None:
-            return lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths)
-        if carry is None:
-            return lstm_scan_grad(xw, w_h, reverse, lengths)
-        return lstm_scan_grad(xw, w_h, reverse, lengths,
-                              initial_carry=carry, return_carry=True)
+        return lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths, carry,
+                                      return_carry=carry is not None)
 
-    if reverse_from is not None:
-        return lstm_scan_grouped(xw, w_h.to(xw.dtype).contiguous(),
-                                 reverse_from, lengths)
-    if carry is None:
-        return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
-                         lengths=lengths)
-
-    return lstm_scan(xw, w_h.to(xw.dtype).contiguous(), reverse=reverse,
-                     lengths=lengths, initial_carry=carry, return_carry=True)
+    return lstm_scan_grouped(xw, w_h.to(xw.dtype).contiguous(), reverse_from,
+                             lengths, carry, return_carry=carry is not None)
 
 
 def kernel_width(hidden, dtype):
@@ -150,23 +131,22 @@ def kernel_width(hidden, dtype):
     return padded if scan_supported(padded, dtype) else hidden
 
 
-def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None,
-                      reverse_from=None):
-    """The recurrence at ``padded`` units, cut back to H: zero xw columns
+def _padded_scan(xw, w_h, reverse_from, lengths, carry, padded):
+    """:func:`_scan` at ``padded`` units, cut back to H: zero xw columns
     and zero W_h rows and columns for the added units keep their gates at
     (0.5, 0.5, 0, 0.5), so c = h = 0 for them at every step (a ``carry`` is
     zero-padded alike); they add nothing to any sum of the real units, and
     the slice drops their gradients (the padded carry's too: its gradient
     comes back sliced to H). With ``carry`` it returns ``(out, (c, h))``
-    cut back to H. With ``reverse_from``, grouped as :func:`_scan`."""
+    cut back to H."""
 
     hidden = w_h.shape[-2]
     w_h = F.pad(_pad_units(w_h, hidden, padded), (0, 0, 0, padded - hidden))
     if carry is not None:
         carry = tuple(F.pad(torch.as_tensor(x), (0, padded - hidden))
                       for x in carry)
-    result = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h, reverse,
-                   lengths, carry, reverse_from)
+    result = _scan(_pad_units(xw, hidden, padded).contiguous(), w_h,
+                   reverse_from, lengths, carry)
     if carry is None:
         return result[..., :hidden]
 
@@ -175,8 +155,19 @@ def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None,
     return out[..., :hidden], (c[..., :hidden], h[..., :hidden])
 
 
-def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None,
-                reverse_from=None):
+def padded_recurrence(xw, w_h, reverse, padded, lengths=None, carry=None):
+    """One (B, T, 4H) sequence's recurrence at ``padded`` units, cut back
+    to H (:func:`_padded_scan` at G = 1); with ``carry`` ``(c, h)`` it
+    returns ``(out, (c, h))``."""
+
+    return one_sequence(_padded_scan, (xw, w_h), reverse, lengths, carry,
+                        padded=padded)
+
+
+def _recurrence(xw, w_h, reverse_from, lengths=None, carry=None):
+    """The recurrence of (G, B, T, 4H) ``xw`` and (G, H, 4H) ``w_h``, at a
+    width the kernels take."""
+
     # The Pallas path's compute dtype: bf16 projections keep a bf16 W_h,
     # anything else runs in float32
     dtype = torch.bfloat16 if xw.dtype == torch.bfloat16 else torch.float32
@@ -187,11 +178,10 @@ def _recurrence(xw, w_h, reverse=False, lengths=None, carry=None,
     if lengths is not None:
         lengths = torch.as_tensor(lengths).reshape(-1).to(xw.device)
     if xw.device.type == 'cuda' and kernel_width(hidden, dtype) != hidden:
-        return padded_recurrence(xw, w_h, reverse,
-                                 kernel_width(hidden, dtype), lengths, carry,
-                                 reverse_from)
+        return _padded_scan(xw, w_h, reverse_from, lengths, carry,
+                            kernel_width(hidden, dtype))
 
-    return _scan(xw, w_h, reverse, lengths, carry, reverse_from)
+    return _scan(xw, w_h, reverse_from, lengths, carry)
 
 
 def _whole(module, w_h):
@@ -235,14 +225,15 @@ class FastLSTM(nn.Module):
 
             w_h = _whole(self, self.recurrent_kernel)
             if initial_carry is None and not return_carry:
-                return _recurrence(xw, w_h, lengths=lengths)
+                return one_sequence(_recurrence, (xw, w_h), False, lengths,
+                                    None)
 
             if initial_carry is None:
                 zeros = torch.zeros((xw.shape[0], self.features),
                                     device=xw.device)
                 initial_carry = (zeros, zeros)
-            out, carry = _recurrence(xw, w_h, lengths=lengths,
-                                     carry=initial_carry)
+            out, carry = one_sequence(_recurrence, (xw, w_h), False, lengths,
+                                      initial_carry)
 
             return (carry, out) if return_carry else out
 
@@ -276,12 +267,12 @@ class FastBiLSTM(nn.Module):
             xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
             xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
 
-            out_f = _recurrence(xw_f,
-                                _whole(self, self.recurrent_kernel_fwd),
-                                lengths=lengths)
-            out_b = _recurrence(xw_b,
-                                _whole(self, self.recurrent_kernel_bwd),
-                                reverse=True, lengths=lengths)
+            out_f = one_sequence(_recurrence, (
+                xw_f, _whole(self, self.recurrent_kernel_fwd)), False,
+                lengths, None)
+            out_b = one_sequence(_recurrence, (
+                xw_b, _whole(self, self.recurrent_kernel_bwd)), True,
+                lengths, None)
 
             return torch.cat([out_f, out_b], dim=-1)
 
@@ -350,6 +341,6 @@ class GroupedBiLSTM(nn.Module):
 
         w_h = torch.cat([_whole(self, self.recurrent_kernel_fwd),
                          _whole(self, self.recurrent_kernel_bwd)])
-        out = _recurrence(xw, w_h, lengths=lengths, reverse_from=streams)
+        out = _recurrence(xw, w_h, streams, lengths)
 
         return torch.cat([out[:streams], out[streams:]], dim=-1)

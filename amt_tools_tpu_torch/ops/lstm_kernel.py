@@ -1,67 +1,64 @@
 """LSTM recurrence: the Hopper kernels and their plain PyTorch versions.
 
 Port of the fused Pallas kernels of ``amt_tools_tpu/ops/pallas_lstm.py``:
+kernel B (``_lstm_kernel`` through ``lstm_scan_pallas``), the
+whole-sequence recurrence over hoisted input projections, forward only;
+kernel E (``_lstm_fwd_res_kernel`` through ``_lstm_fwd_res``), the same
+recurrence, which also returns the float32 gate activations and cell
+states; kernel F (``_lstm_bwd_kernel`` through ``_lstm_grad_bwd``),
+backpropagation through time from those residuals; and the custom VJP
+``lstm_scan_pallas_grad`` (``:369-440``) as one ``torch.autograd.Function``
+over E and F, :class:`LSTMScanGrad`.
 
-- :func:`lstm_scan` (kernel B, ``_lstm_kernel`` through
-  ``lstm_scan_pallas``): the whole-sequence recurrence from a zero carry
-  over hoisted input projections, forward only; with per-row ``lengths``
-  (bucketed evaluation) a row keeps its carry and writes 0 past its
-  length, the JAX masked scan's step (``ops/lstm.py:98-108``) with the
-  kernel's float32 carry, so its valid frames equal an unpadded run's bit
-  for bit (``lstm_scan.masked_launches`` counts these launches); from a
-  given float32 carry ``(c, h)`` in place of zeros, returning the final
-  one (streaming, JAX ``FastLSTM(initial_carry, return_carry)``,
-  ``ops/lstm.py:208-257``), so chunks that thread the carry equal one
-  whole call bit for bit (``lstm_scan.carried_launches``);
-- :func:`lstm_scan_residuals` (kernel E, ``_lstm_fwd_res_kernel`` through
-  ``_lstm_fwd_res``): the same recurrence, which also returns the float32
-  gate activations and cell states, with lengths and from a carry as B
-  (``lstm_scan_residuals.masked_launches``, ``.carried_launches``);
-- :func:`lstm_bptt` (kernel F, ``_lstm_bwd_kernel`` through
-  ``_lstm_grad_bwd``): backpropagation through time from those residuals;
-  with lengths a masked step has da = 0 and passes its carries' gradients
-  through, and from the gradient of a final carry it returns the initial
-  carry's (``lstm_bptt.masked_launches``, ``.carried_launches``);
-- :func:`lstm_scan_grad`: the custom VJP ``lstm_scan_pallas_grad``
-  (``:369-440``) as a ``torch.autograd.Function`` over E and F
-  (:class:`LSTMScanGrad`, masked or not; :class:`LSTMScanCarriedGrad`
-  from a carry, returning the final one). The Pallas kernels take neither
-  lengths nor a carry, and JAX differentiates those cases through its XLA
-  scan (``ops/lstm.py:98-148``); these are its semantics, with the
-  kernels' float32 carry;
-- :func:`lstm_scan_grouped`, :func:`lstm_scan_residuals_grouped`,
-  :func:`lstm_bptt_grouped` and :func:`lstm_scan_grouped_grad`: B, E, F
-  and the Function over G independent sequences in one launch each (the
-  group on ``blockIdx.y``, the groups from ``reverse_from`` on reversed),
-  the card's counterpart of the one grouped scan behind JAX's
-  ``GroupedBiLSTM`` (``ops/lstm.py:151-199``); a group's arithmetic is its
-  ungrouped launch's, so the results are the per-stream launches' bit for
-  bit.
+Every launch is grouped: G independent sequences, each with its own W_h,
+the group on ``blockIdx.y`` and the groups from ``reverse_from`` on walking
+back to front, the card's counterpart of the one grouped scan behind JAX's
+``GroupedBiLSTM`` (``ops/lstm.py:151-199``). A group's arithmetic does not
+depend on G, so a grouped launch equals its groups' launches bit for bit.
+:func:`lstm_scan_grouped` (B), :func:`lstm_scan_residuals_grouped` (E),
+:func:`lstm_bptt_grouped` (F) and :func:`lstm_scan_grouped_grad` (the
+Function) are the implementation; :func:`lstm_scan`,
+:func:`lstm_scan_residuals`, :func:`lstm_bptt` and :func:`lstm_scan_grad`
+run one (B, T, ·) sequence through them at G = 1 (``reverse_from`` 0 for a
+reverse scan, 1 for a forward one).
 
-B and E launch ``csrc/lstm_scan.cu`` and F ``csrc/lstm_bptt.cu`` for CUDA
-tensors; CPU tensors run the ``*_plain`` versions, Python loops over T that
-repeat the kernels' arithmetic. Each wrapper checks its inputs and calls a
-custom op of ``torch.ops.amt_tools_tpu_torch``: ``lstm_scan`` (B, with
-optional lengths), ``lstm_scan_carried`` (B from the carry ``c0``, ``h0``,
-with optional lengths, returning ``(out, c, h)``), ``lstm_scan_residuals``
-(E, optional lengths), ``lstm_scan_residuals_carried`` (E from a carry,
-returning ``(out, gates, c_seq, c, h)``), ``lstm_bptt`` (F, optional
-lengths) and ``lstm_bptt_carried`` (F from ``c0`` and the final carry's
-gradient ``dc_last``, ``dh_last``, returning ``(da, dc0, dh0)``). An op's
-real implementation launches the kernel and counts the launch on CUDA
-tensors and runs the plain version on CPU tensors; :func:`scan_cost` and
-:func:`bptt_cost` are their FLOP formulas and byte counts (over the valid
-row-steps of a masked launch). The Functions stay
-``torch.autograd.Function`` classes over the E and F ops; dW_h = sum
-h_prev^T da is one float32 matmul outside the kernel, whose h_prev is h0
-at a row's first step when a carry is given (for a reverse row with
-lengths, t = lengths - 1). All three kernels run as thread-block clusters
-of 8 CTAs, each CTA owning H/8 hidden units and holding their slice of W_h
-(B, E: H x 4H/8) or of W_h^T (F: 4H x H/8) on chip; B and E exchange h, F
-exchanges da. What sets a launch (rows a cluster, clusters, a resident or
-streamed slice, shared memory) is computed here, by :func:`scan_geometry`
-or :func:`bptt_geometry` and :func:`cluster_plan`, from the card's answer
-to ``cudaOccupancyMaxActiveClusters``.
+Each takes per-row ``lengths`` (bucketed evaluation; every group's): a row
+keeps its carry and writes 0 past its length, the JAX masked scan's step
+(``ops/lstm.py:98-108``) with the kernels' float32 carry, so its valid
+frames equal an unpadded run's bit for bit; in F a masked step has da = 0
+and passes its carries' gradients through. At G = 1 each also takes a
+float32 carry (the kernels' carry is one group's): B and E start from
+``(c, h)`` in place of zeros and return the final one (streaming, JAX
+``FastLSTM(initial_carry, return_carry)``, ``ops/lstm.py:208-257``), so
+chunks that thread it equal one whole call bit for bit; F starts from the
+final carry's gradient and returns the initial one's. The Pallas kernels
+take neither lengths nor a carry, and JAX differentiates those cases
+through its XLA scan (``ops/lstm.py:98-148``); these are its semantics.
+
+Each wrapper checks its inputs and calls one custom op of
+``torch.ops.amt_tools_tpu_torch`` a kernel: ``lstm_scan`` (B),
+``lstm_scan_residuals`` (E) and ``lstm_bptt`` (F), each over (G, B, T, ·)
+tensors with an int ``reverse_from``, optional lengths and an optional
+carry, returning a list: the outputs, then the carry's when one is given.
+An op's real implementation launches ``csrc/lstm_scan.cu`` (B, E) or
+``csrc/lstm_bptt.cu`` (F) through its one C entry and counts the launch
+on CUDA tensors (``launches``, ``masked_launches``, ``carried_launches``
+and ``grouped_launches``, for G > 1, on :func:`lstm_scan`,
+:func:`lstm_scan_residuals` and :func:`lstm_bptt`), and runs the
+``*_plain`` versions, Python loops over T that repeat the kernels'
+arithmetic, on CPU tensors. :func:`scan_cost` and :func:`bptt_cost`, times
+G, are their FLOP formulas and byte counts (over the valid row-steps of a
+masked launch). dW_h = sum h_prev^T da is a float32 matmul outside the
+kernel (one ``mm`` at G = 1), whose h_prev is h0 at a row's first step when
+a carry is given (for a reverse row with lengths, t = lengths - 1).
+
+All three kernels run as thread-block clusters of 8 CTAs, each CTA owning
+H/8 hidden units and holding their slice of W_h (B, E: H x 4H/8) or of
+W_h^T (F: 4H x H/8) on chip; B and E exchange h, F exchanges da. What sets
+a launch (rows a cluster, clusters, a resident or streamed slice, shared
+memory) is computed here, by :func:`scan_geometry` or
+:func:`bptt_geometry` and :func:`cluster_plan`, from the card's answer to
+``cudaOccupancyMaxActiveClusters``.
 
 Numerics follow the Pallas kernels (``pallas_lstm.py:71-109``, ``:260-288``):
 the carries are float32; with bf16 projections the recurrent product reads
@@ -86,15 +83,11 @@ __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_scan_residuals',
            'scan_resident', 'scan_max_rows', 'bptt_geometry',
            'bptt_resident', 'bptt_max_rows', 'cluster_plan',
            'scan_launch_plan', 'bptt_launch_plan', 'scan_supported',
-           'scan_cost', 'bptt_cost', 'lstm_scan_op', 'lstm_scan_carried_op',
-           'lstm_scan_residuals_op', 'lstm_bptt_op', 'lstm_scan_grouped',
-           'lstm_scan_grouped_plain', 'lstm_scan_residuals_grouped',
-           'lstm_scan_residuals_grouped_plain', 'lstm_bptt_grouped',
-           'lstm_bptt_grouped_plain', 'lstm_scan_grouped_grad',
-           'LSTMScanGroupedGrad', 'lstm_scan_grouped_op',
-           'lstm_scan_residuals_grouped_op', 'lstm_bptt_grouped_op',
-           'LSTMScanCarriedGrad', 'lstm_scan_residuals_carried_op',
-           'lstm_bptt_carried_op']
+           'scan_cost', 'bptt_cost', 'lstm_scan_op', 'lstm_scan_residuals_op',
+           'lstm_bptt_op', 'lstm_scan_grouped', 'lstm_scan_grouped_plain',
+           'lstm_scan_residuals_grouped', 'lstm_scan_residuals_grouped_plain',
+           'lstm_bptt_grouped', 'lstm_bptt_grouped_plain',
+           'lstm_scan_grouped_grad', 'one_sequence']
 
 MAX_HIDDEN = 1024  # 16 warps a CTA
 CLUSTER = 8        # CTAs a cluster, each owning H / 8 hidden units
@@ -105,19 +98,12 @@ MAX_SHARED_BYTES = 232448  # 227 KB, the most a block may use on Hopper
 _POINTER, _INT = ctypes.c_void_p, ctypes.c_int
 
 _SCAN_SIGNATURES = {
-    'lstm_scan': [_POINTER] * 4 + [_INT] * 7 + [_POINTER],
-    'lstm_scan_carried': [_POINTER] * 8 + [_INT] * 7 + [_POINTER],
-    'lstm_scan_residuals': [_POINTER] * 6 + [_INT] * 7 + [_POINTER],
-    'lstm_scan_residuals_carried': [_POINTER] * 10 + [_INT] * 7 + [_POINTER],
-    'lstm_scan_grouped': [_POINTER] * 4 + [_INT] * 8 + [_POINTER],
-    'lstm_scan_residuals_grouped': [_POINTER] * 6 + [_INT] * 8 + [_POINTER],
+    'lstm_scan': [_POINTER] * 10 + [_INT] * 8 + [_POINTER],
     'lstm_scan_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
     'lstm_scan_smem': [_INT] * 4,
 }
 _BPTT_SIGNATURES = {
-    'lstm_bptt': [_POINTER] * 6 + [_INT] * 7 + [_POINTER],
-    'lstm_bptt_carried': [_POINTER] * 11 + [_INT] * 7 + [_POINTER],
-    'lstm_bptt_grouped': [_POINTER] * 6 + [_INT] * 8 + [_POINTER],
+    'lstm_bptt': [_POINTER] * 11 + [_INT] * 8 + [_POINTER],
     'lstm_bptt_max_active_clusters': [_INT] * 5 + [ctypes.POINTER(_INT)],
     'lstm_bptt_smem': [_INT] * 5,
 }
@@ -267,7 +253,8 @@ def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan',
     """Rows a cluster and clusters for a batch, given how many clusters the
     card holds at once: the fewest rows that put every cluster in one wave
     (at B = 128 and 16 active clusters, 8 rows and 16 clusters; at B = 8,
-    one row and 8 clusters), within what the buffers fit. ``waves`` is 1
+    one row and 8 clusters), within what the buffers fit
+    (:func:`cuda_build.cluster_rows`). ``waves`` is 1
     unless the batch needs more rows than fit. ``kernel`` is ``'scan'`` (B,
     E) or ``'bptt'`` (F).
 
@@ -276,7 +263,7 @@ def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan',
     rows)`` of them: the fewest rows that still fit one wave (G = 4, B = 8:
     2 rows, 16 clusters; G = 6, B = 8: 4 rows, 12 clusters), and the most
     rows the buffers fit where none does (G = 4, B = 128: 16 rows, 32
-    clusters, 2 waves). ``groups=1`` is the ungrouped plan. ``hold`` sizes
+    clusters, 2 waves). ``groups=1`` is one sequence's plan. ``hold`` sizes
     kernel F's masked or carried launch, whose dh buffer may fit fewer
     rows; it keeps the unmasked launch's residency."""
 
@@ -285,8 +272,7 @@ def cluster_plan(batch, hidden, dtype, active_clusters, kernel='scan',
     if hold:
         geometry = functools.partial(geometry, hold=True)
     max_rows = _max_rows(geometry, hidden, dtype, resident)
-    rows = next((r for r in range(1, max_rows + 1)
-                 if groups * -(-batch // r) <= active_clusters), max_rows)
+    rows = cuda_build.cluster_rows(batch, groups, max_rows, active_clusters)
     clusters = groups * -(-batch // rows)
 
     return {'rows': rows, 'clusters': clusters, 'ctas': CLUSTER * clusters,
@@ -586,14 +572,124 @@ def lstm_bptt_grouped_plain(gates, c_seq, dout, w_h_t, reverse_from,
         for g in range(gates.shape[0])])
 
 
-def _check_inputs(xw, w_h, grouped=False):
+def _check_cuda(x, name, hidden):
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name} runs on CUDA or CPU tensors, not '
+                         f'{x.device}')
+    if hidden > MAX_HIDDEN:
+        raise ValueError(f'{name} kernel supports hidden <= {MAX_HIDDEN}, '
+                         f'got {hidden}')
+    if hidden % 16:
+        raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
+                         f'(8 CTAs of whole bf16 pairs), got {hidden}')
+
+
+def _aligned(x):
+    """``x``, or a copy of it where its data does not start on 16 bytes."""
+
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _pointer(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_scan(xw, w_h, reverse_from, residuals, lengths, carry):
+    """Kernel B, or E with ``residuals``, on CUDA tensors (G, B, T, 4H) and
+    (G, H, 4H), the groups from ``reverse_from`` on reversed, with per-row
+    ``lengths`` (int32, or None) and from a float32 ``carry`` ``(c0, h0)``,
+    each (1, B, H) (or None) -> ``[out]``, with the residuals ``gates`` and
+    ``c_seq`` after it and with a carry the final ``c`` and ``h`` last."""
+
+    groups, batch, frames, four_h = xw.shape
+    hidden = four_h // 4
+    name = 'lstm_scan_residuals' if residuals else 'lstm_scan'
+    _check_cuda(xw, name, hidden)
+
+    outputs = [torch.empty(xw.shape[:-1] + (hidden,), dtype=xw.dtype,
+                           device=xw.device)]
+    if residuals:
+        outputs += [torch.empty(xw.shape, dtype=torch.float32,
+                                device=xw.device),
+                    torch.empty(xw.shape[:-1] + (hidden,),
+                                dtype=torch.float32, device=xw.device)]
+    if carry is not None:
+        outputs += [torch.empty_like(carry[0]), torch.empty_like(carry[1])]
+    if batch == 0 or frames == 0 or groups == 0:
+        if carry is not None:  # the carry as the next step would read it,
+            # copied: an op returns no input
+            outputs[-2:] = [carry[0].clone(),
+                            carry[1].to(xw.dtype).float().clone()]
+        return outputs
+
+    plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device, residuals,
+                            groups)
+    xw, w_h = _aligned(xw), _aligned(w_h)
+    gates, c_seq = outputs[1:3] if residuals else (None, None)
+    pointers = [_pointer(x) for x in (
+        xw, w_h, outputs[0], gates, c_seq, lengths,
+        *(carry or (None, None)),
+        *(outputs[-2:] if carry is not None else (None, None)))]
+    lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.lstm_scan(
+            *pointers, groups, reverse_from, batch, frames, hidden,
+            int(xw.dtype == torch.bfloat16), plan['rows'],
+            int(plan['resident']), stream)
+    cuda_build.check(status, name)
+
+    return outputs
+
+
+def _launch_bptt(gates, c_seq, dout, w_h_t, reverse_from, lengths, carry):
+    """Kernel F on CUDA tensors with a leading group axis, the groups from
+    ``reverse_from`` on from a reverse forward, with per-row ``lengths``
+    (int32, or None) and from ``carry`` ``(c0, dc_last, dh_last)``, float32
+    (1, B, H) each (or None) -> ``[da]``, with a carry ``dc0`` and ``dh0``
+    after it."""
+
+    groups, batch, frames, four_h = gates.shape
+    hidden = four_h // 4
+    _check_cuda(gates, 'lstm_bptt', hidden)
+
+    outputs = [torch.empty(gates.shape, dtype=torch.float32,
+                           device=gates.device)]
+    if carry is not None:
+        outputs += [torch.empty_like(carry[1]), torch.empty_like(carry[2])]
+    if batch == 0 or frames == 0 or groups == 0:
+        # zero steps pass the final carry's gradient through, copied
+        if carry is not None:
+            outputs[1:] = [carry[1].clone(), carry[2].clone()]
+        return outputs
+
+    plan = bptt_launch_plan(batch, hidden, dout.dtype, gates.device, groups,
+                            hold=lengths is not None or carry is not None)
+    gates, c_seq, dout, w_h_t = (_aligned(t) for t in (gates, c_seq, dout,
+                                                       w_h_t))
+    pointers = [_pointer(x) for x in (
+        gates, c_seq, dout, w_h_t, outputs[0], lengths,
+        *(carry or (None,) * 3),
+        *(outputs[1:] if carry is not None else (None, None)))]
+    lib = cuda_build.library('lstm_bptt', _BPTT_SIGNATURES)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.lstm_bptt(
+            *pointers, groups, reverse_from, batch, frames, hidden,
+            int(dout.dtype == torch.bfloat16), plan['rows'],
+            int(plan['resident']), stream)
+    cuda_build.check(status, 'lstm_bptt')
+
+    return outputs
+
+
+def _check_inputs(xw, w_h, reverse_from):
     cuda_build.require_plain('lstm_scan', xw=xw, w_h=w_h)
-    rank = 4 if grouped else 3
-    if xw.dim() != rank or xw.shape[-1] % 4:
-        layout = '(G, B, T, 4H)' if grouped else '(B, T, 4H)'
-        raise ValueError(f'xw must be {layout}, got shape {tuple(xw.shape)}')
+    if xw.dim() != 4 or xw.shape[-1] % 4:
+        raise ValueError(f'xw must be (G, B, T, 4H) (a sequence: (B, T, '
+                         f'4H)), got shape {tuple(xw.shape)}')
     hidden = xw.shape[-1] // 4
-    shape = tuple(xw.shape[:-3]) + (hidden, 4 * hidden)
+    shape = (xw.shape[0], hidden, 4 * hidden)
     if tuple(w_h.shape) != shape:
         raise ValueError(f'w_h must be {shape}, got {tuple(w_h.shape)}')
     if xw.dtype not in (torch.float32, torch.bfloat16):
@@ -604,90 +700,52 @@ def _check_inputs(xw, w_h, grouped=False):
         raise ValueError(f'xw on {xw.device} but w_h on {w_h.device}')
     if not (xw.is_contiguous() and w_h.is_contiguous()):
         raise ValueError('lstm_scan takes contiguous xw and w_h')
+    _check_reverse_from(reverse_from, xw.shape[0])
 
 
-def _check_cuda(x, name, hidden):
-    if x.device.type != 'cuda':
-        raise ValueError(f'{name} runs on CUDA or CPU tensors, not '
-                         f'{x.device}')
-    if hidden > MAX_HIDDEN:
-        raise ValueError(f'{name} kernel supports hidden <= {MAX_HIDDEN}, '
-                         f'got {hidden}')
-
-
-def _aligned(x):
-    """``x``, or a copy of it where its data does not start on 16 bytes."""
-
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
-def _launch_scan(xw, w_h, reverse, residuals, lengths=None, carry=None,
-                 reverse_from=None):
-    """Kernel B, or E with ``residuals``, on CUDA tensors: with per-row
-    ``lengths`` (an int32 tensor, or none), from a float32 ``carry`` ``(c0,
-    h0)`` (or zeros). A carried launch returns its outputs and ``(c, h)``,
-    the final carry. With ``reverse_from`` (no carry) the launch is
-    grouped: xw (G, B, T, 4H), w_h (G, H, 4H), the outputs with the leading
-    G, the groups from ``reverse_from`` on reversed."""
-
-    grouped = reverse_from is not None
-    groups = xw.shape[0] if grouped else 1
-    lead = tuple(xw.shape[:-3])
-    batch, frames, four_h = xw.shape[-3:]
+def _check_bptt_inputs(gates, c_seq, dout, w_h_t, reverse_from):
+    cuda_build.require_plain('lstm_bptt', gates=gates, c_seq=c_seq,
+                             dout=dout, w_h_t=w_h_t)
+    if gates.dim() != 4 or gates.shape[-1] % 4:
+        raise ValueError(f'gates must be (G, B, T, 4H) (a sequence: (B, T, '
+                         f'4H)), got shape {tuple(gates.shape)}')
+    groups, batch, frames, four_h = gates.shape
     hidden = four_h // 4
-    name = 'lstm_scan_residuals' if residuals else 'lstm_scan'
-    name += ('_grouped' if grouped else '') + (
-        '' if carry is None else '_carried')
-    _check_cuda(xw, name, hidden)
-    if hidden % 16:
-        raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
-                         f'(8 CTAs of whole bf16 pairs), got {hidden}')
+    shapes = {'c_seq': (c_seq, (groups, batch, frames, hidden)),
+              'dout': (dout, (groups, batch, frames, hidden)),
+              'w_h_t': (w_h_t, (groups, four_h, hidden))}
+    for name, (tensor, shape) in shapes.items():
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f'{name} must be {shape}, got '
+                             f'{tuple(tensor.shape)}')
+    if gates.dtype != torch.float32 or c_seq.dtype != torch.float32:
+        raise TypeError('lstm_bptt takes float32 gates and c_seq')
+    if dout.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'lstm_bptt takes float32 or bf16 dout, got '
+                        f'{dout.dtype}')
+    if w_h_t.dtype != dout.dtype:
+        raise TypeError(f'w_h_t ({w_h_t.dtype}) must match dout '
+                        f'({dout.dtype})')
+    tensors = (gates, c_seq, dout, w_h_t)
+    if any(t.device != gates.device for t in tensors):
+        raise ValueError('lstm_bptt takes its tensors on one device')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError('lstm_bptt takes contiguous tensors')
+    _check_reverse_from(reverse_from, groups)
 
-    out = torch.empty(lead + (batch, frames, hidden), dtype=xw.dtype,
-                      device=xw.device)
-    outputs = [out]
-    if residuals:
-        outputs += [torch.empty(lead + (batch, frames, four_h),
-                                dtype=torch.float32, device=xw.device),
-                    torch.empty(lead + (batch, frames, hidden),
-                                dtype=torch.float32, device=xw.device)]
-    carried = ()
-    if carry is not None:
-        final = (torch.empty_like(carry[0]), torch.empty_like(carry[1]))
-        carried = tuple(t.data_ptr() for t in (*carry, *final))
-    if batch == 0 or frames == 0 or groups == 0:
-        if carry is not None:  # the carry as the next step would read it,
-            # copied: an op returns no input
-            final = (carry[0].clone(), carry[1].to(xw.dtype).float().clone())
-    else:
-        plan = scan_launch_plan(batch, hidden, xw.dtype, xw.device,
-                                residuals, groups)
-        xw, w_h = _aligned(xw), _aligned(w_h)
-        lib = cuda_build.library('lstm_scan', _SCAN_SIGNATURES)
-        # a grouped launch names its groups and the first reversed one
-        # where an ungrouped one names its direction
-        shape = ((groups, reverse_from, batch, frames, hidden) if grouped
-                 else (batch, frames, hidden, int(reverse)))
-        with torch.cuda.device(xw.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = getattr(lib, name)(
-                xw.data_ptr(), w_h.data_ptr(),
-                *(t.data_ptr() for t in outputs),
-                None if lengths is None else lengths.data_ptr(), *carried,
-                *shape, int(xw.dtype == torch.bfloat16), plan['rows'],
-                int(plan['resident']), stream)
-        cuda_build.check(status, name)
 
-    outputs = tuple(outputs) if residuals else out
-    if carry is not None:
-        return outputs, final
-    return outputs
+def _check_reverse_from(reverse_from, groups):
+    if not 0 <= reverse_from <= groups:
+        raise ValueError(f'reverse_from must lie in [0, {groups}], got '
+                         f'{reverse_from}')
 
 
 def _check_lengths(lengths, xw):
     """Per-row lengths as the kernel takes them: int32 (B,) on xw's device,
-    each in [0, T]."""
+    each in [0, T]; None stays None."""
 
+    if lengths is None:
+        return None
     cuda_build.require_plain('lstm_scan', lengths=lengths)
     batch, frames = xw.shape[-3:-1]
     if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
@@ -704,17 +762,22 @@ def _check_lengths(lengths, xw):
 
 
 def _check_rows(xw, kernel, **tensors):
-    """Float32 (B, H) carries (or their gradients) as the kernels take
-    them: each contiguous on xw's device, (B, H) of xw (B, T, 4H) or the
-    gates."""
+    """Float32 (1, B, H) carries (or their gradients) as the kernels take
+    them: each contiguous on xw's device, of the one group of xw (1, B, T,
+    4H) or of the gates. A carry is taken at G = 1 only: the kernels'
+    carry is one group's."""
 
-    batch, hidden = xw.shape[0], xw.shape[-1] // 4
+    groups, batch, _, four_h = xw.shape
+    if groups != 1:
+        raise ValueError(f'{kernel} takes a carry at one group only, got '
+                         f'{groups} groups')
     checked = []
     for name, x in tensors.items():
         x = torch.as_tensor(x)
         cuda_build.require_plain(kernel, **{name: x})
-        if tuple(x.shape) != (batch, hidden):
-            raise ValueError(f'{name} must be ({batch}, {hidden}), got '
+        if tuple(x.shape) != (1, batch, four_h // 4):
+            raise ValueError(f'{name} must be (1, {batch}, {four_h // 4}) '
+                             f'(a sequence: ({batch}, {four_h // 4})), got '
                              f'{tuple(x.shape)}')
         if not x.dtype.is_floating_point:
             raise TypeError(f'{name} must be floating point, got {x.dtype}')
@@ -724,14 +787,17 @@ def _check_rows(xw, kernel, **tensors):
     return tuple(checked)
 
 
-def _check_carry(initial_carry, xw):
-    """A carry as the kernels take it: float32 ``(c, h)``, each (B, H),
-    contiguous on xw's device (zeros when none is given)."""
+def _check_carry(initial_carry, xw, return_carry=True):
+    """A carry as the kernels take it: float32 ``(c, h)``, each (1, B, H),
+    contiguous on xw's device; zeros when none is given but one is
+    returned, and ``(None, None)`` when neither."""
 
     if initial_carry is None:
-        zeros = torch.zeros((xw.shape[0], xw.shape[-1] // 4),
+        if not return_carry:
+            return None, None
+        zeros = torch.zeros((1, xw.shape[1], xw.shape[-1] // 4),
                             dtype=torch.float32, device=xw.device)
-        return zeros, zeros.clone()
+        initial_carry = (zeros, zeros.clone())
     if len(initial_carry) != 2:
         raise ValueError('initial_carry must be a pair (c, h)')
 
@@ -741,11 +807,12 @@ def _check_carry(initial_carry, xw):
 
 def scan_cost(batch, frames, hidden, dtype, residuals=False, carried=False,
               steps=None):
-    """``(flops, bytes)`` of one launch of kernel B (E with ``residuals``):
-    the recurrent product, 2 H 4H operations a row and step, over ``steps``
-    row-steps (``batch * frames`` unless lengths say fewer); xw and W_h read
-    and h written once in ``dtype``, E's float32 gates and cell states
-    written, a float32 carry read and written, int32 lengths read."""
+    """``(flops, bytes)`` of one sequence of a launch of kernel B (E with
+    ``residuals``): the recurrent product, 2 H 4H operations a row and
+    step, over ``steps`` row-steps (``batch * frames`` unless lengths say
+    fewer); xw and W_h read and h written once in ``dtype``, E's float32
+    gates and cell states written, a float32 carry read and written, int32
+    lengths read. A launch of G groups costs G times this."""
 
     size = torch.finfo(dtype).bits // 8
     rows = batch * frames
@@ -762,13 +829,13 @@ def scan_cost(batch, frames, hidden, dtype, residuals=False, carried=False,
 
 
 def bptt_cost(batch, frames, hidden, dtype, carried=False, steps=None):
-    """``(flops, bytes)`` of one launch of kernel F: the carry product, 2 4H
-    H operations a row and step, over ``steps`` row-steps (``batch *
-    frames`` unless lengths say fewer), and with ``carried`` one more a row
-    for the initial carry's gradient; the float32 gates and cell states
-    read and the float32 da written, dout and W_h^T read in ``dtype``, the
-    float32 c0 and final carry's gradient read and the initial carry's
-    written."""
+    """``(flops, bytes)`` of one sequence of a launch of kernel F: the carry
+    product, 2 4H H operations a row and step, over ``steps`` row-steps
+    (``batch * frames`` unless lengths say fewer), and with ``carried`` one
+    more a row for the initial carry's gradient; the float32 gates and cell
+    states read and the float32 da written, dout and W_h^T read in
+    ``dtype``, the float32 c0 and final carry's gradient read and the
+    initial carry's written. A launch of G groups costs G times this."""
 
     size = torch.finfo(dtype).bits // 8
     rows = batch * frames
@@ -794,34 +861,14 @@ def _valid_steps(lengths):
     return int(lengths.sum())
 
 
-def _count(wrapper, lengths, carried=False):
-    """One launch of ``wrapper``'s kernel, and of its masked or carried
-    route."""
+def _count(wrapper, groups, lengths, carried):
+    """One launch of ``wrapper``'s kernel, and of its masked, carried or
+    grouped (G > 1) route."""
 
     cuda_build.count(wrapper, 'launches',
                      *(('masked_launches',) if lengths is not None else ()),
-                     *(('carried_launches',) if carried else ()))
-
-
-@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan',
-                         mutates_args=())
-def lstm_scan_op(xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
-                 lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """Kernel B as an op (inputs as :func:`lstm_scan` checks them; lengths
-    int32 on xw's device, or None)."""
-
-    if xw.device.type == 'cpu':
-        return lstm_scan_plain(xw, w_h, reverse, lengths)
-
-    out = _launch_scan(xw, w_h, reverse, residuals=False, lengths=lengths)
-    _count(lstm_scan, lengths)
-
-    return out
-
-
-@lstm_scan_op.register_fake
-def _(xw, w_h, reverse, lengths):
-    return xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
+                     *(('carried_launches',) if carried else ()),
+                     *(('grouped_launches',) if groups > 1 else ()))
 
 
 def _fresh(outputs, inputs):
@@ -832,359 +879,303 @@ def _fresh(outputs, inputs):
                  for x in outputs)
 
 
-@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_carried',
-                         mutates_args=())
-def lstm_scan_carried_op(
-        xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
-        lengths: Optional[torch.Tensor], c0: torch.Tensor,
-        h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel B from the float32 carry ``(c0, h0)`` as an op -> ``(out, c,
-    h)``, the final carry as :func:`lstm_scan` returns it."""
+def _carried_plain(plain, tensors, reverse_from, lengths, carry, **kwargs):
+    """A plain version over the one group of ``tensors`` from ``carry``
+    (each (1, B, H)) -> its outputs, the carry it returns last, each with
+    the group axis."""
 
+    carry = tuple(x[0] for x in carry)
+    result = plain(*(t[0] for t in tensors), reverse_from == 0, lengths,
+                   carry, **kwargs)
+    flat = [x for r in result for x in (r if isinstance(r, tuple) else (r,))]
+
+    return [x[None] for x in _fresh(flat, carry)]
+
+
+def _scan_op(wrapper, xw, w_h, reverse_from, lengths, c0, h0, residuals):
+    carry = None if c0 is None else (c0, h0)
     if xw.device.type == 'cpu':
-        out, (c, h) = lstm_scan_plain(xw, w_h, reverse, lengths, (c0, h0),
-                                      return_carry=True)
-        return (out, *_fresh((c, h), (c0, h0)))
+        if carry is not None:
+            plain = (lstm_scan_residuals_plain if residuals else
+                     lstm_scan_plain)
+            return _carried_plain(plain, (xw, w_h), reverse_from, lengths,
+                                  carry, return_carry=True)
+        if residuals:
+            return list(lstm_scan_residuals_grouped_plain(
+                xw, w_h, reverse_from, lengths))
+        return [lstm_scan_grouped_plain(xw, w_h, reverse_from, lengths)]
 
-    out, (c, h) = _launch_scan(xw, w_h, reverse, residuals=False,
-                               lengths=lengths, carry=(c0, h0))
-    _count(lstm_scan, lengths, carried=True)
+    outputs = _launch_scan(xw, w_h, reverse_from, residuals, lengths, carry)
+    _count(wrapper, xw.shape[0], lengths, carry is not None)
 
-    return out, c, h
-
-
-@lstm_scan_carried_op.register_fake
-def _(xw, w_h, reverse, lengths, c0, h0):
-    out = xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
-
-    return out, torch.empty_like(c0), torch.empty_like(h0)
+    return outputs
 
 
-def _scan_op_cost(xw, w_h, reverse, lengths, *carry, residuals=False):
-    batch, frames, four_h = xw.shape
+def _scan_fake(xw, c0, h0, residuals):
+    hidden = xw.shape[-1] // 4
+    outputs = [xw.new_empty(xw.shape[:-1] + (hidden,))]
+    if residuals:
+        outputs += [xw.new_empty(xw.shape, dtype=torch.float32),
+                    xw.new_empty(xw.shape[:-1] + (hidden,),
+                                 dtype=torch.float32)]
+    if c0 is not None:
+        outputs += [torch.empty_like(c0), torch.empty_like(h0)]
 
-    return scan_cost(batch, frames, four_h // 4, xw.dtype, residuals,
-                     carried=bool(carry), steps=_valid_steps(lengths))
+    return outputs
+
+
+def _scan_op_cost(xw, w_h, reverse_from, lengths, c0=None, h0=None,
+                  residuals=False):
+    groups, batch, frames, four_h = xw.shape
+    flops, num_bytes = scan_cost(batch, frames, four_h // 4, xw.dtype,
+                                 residuals, carried=c0 is not None,
+                                 steps=_valid_steps(lengths))
+
+    return groups * flops, groups * num_bytes
+
+
+@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan',
+                         mutates_args=())
+def lstm_scan_op(xw: torch.Tensor, w_h: torch.Tensor, reverse_from: int,
+                 lengths: Optional[torch.Tensor], c0: Optional[torch.Tensor],
+                 h0: Optional[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel B as an op -> ``[out]``, or ``[out, c, h]`` from the carry
+    ``(c0, h0)`` (inputs as :func:`lstm_scan_grouped` checks them)."""
+
+    return _scan_op(lstm_scan, xw, w_h, reverse_from, lengths, c0, h0,
+                    residuals=False)
+
+
+@lstm_scan_op.register_fake
+def _(xw, w_h, reverse_from, lengths, c0, h0):
+    return _scan_fake(xw, c0, h0, residuals=False)
 
 
 cuda_build.register_cost(lstm_scan_op, _scan_op_cost)
-cuda_build.register_cost(lstm_scan_carried_op, _scan_op_cost)
-
-
-def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
-              return_carry=False):
-    """Whole-sequence LSTM: (B, T, 4H) -> (B, T, H).
-
-    ``xw`` holds the hoisted input projections including the bias, ``w_h``
-    the (H, 4H) recurrent kernel in the same dtype (float32 or bf16; gate
-    order i, f, g, o). ``reverse`` walks back to front and writes outputs in
-    natural order. ``lengths`` (B,) integers in [0, T] mask each row's
-    padded tail: from ``t = lengths[b]`` on, row b keeps its carry and
-    writes 0, so its valid frames equal an unpadded run's bit for bit (a
-    reverse scan starts at the row's true end). ``initial_carry`` ``(c,
-    h)``, each (B, H), starts the recurrence in place of zeros, in float32;
-    with ``return_carry`` the result is ``(out, (c, h))``: the float32
-    final state, h as the next step reads it (rounded to bf16 in bf16
-    mode), so a sequence cut into chunks that thread it equals one whole
-    call bit for bit. CUDA tensors go through the Hopper kernel (or raise);
-    CPU tensors through :func:`lstm_scan_plain`; both through
-    :data:`lstm_scan_op`, or :data:`lstm_scan_carried_op` with a carry.
-    """
-
-    _check_inputs(xw, w_h)
-    if lengths is not None:
-        lengths = _check_lengths(lengths, xw)
-    carried = initial_carry is not None or return_carry
-    if not carried:
-        return lstm_scan_op(xw, w_h, reverse, lengths)
-
-    out, c, h = lstm_scan_carried_op(xw, w_h, reverse, lengths,
-                                     *_check_carry(initial_carry, xw))
-
-    return (out, (c, h)) if return_carry else out
-
-
-lstm_scan.launches = 0
-lstm_scan.masked_launches = 0  # those of lstm_scan.launches with lengths
-lstm_scan.carried_launches = 0  # those with a carry in and out
 
 
 @torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_residuals',
                          mutates_args=())
 def lstm_scan_residuals_op(
-        xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
-        lengths: Optional[torch.Tensor]
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel E as an op -> ``(out, gates, c)``; lengths as
-    :data:`lstm_scan_op`'s."""
+        xw: torch.Tensor, w_h: torch.Tensor, reverse_from: int,
+        lengths: Optional[torch.Tensor], c0: Optional[torch.Tensor],
+        h0: Optional[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel E as an op -> ``[out, gates, c_seq]``, with ``c`` and ``h``
+    after them from the carry ``(c0, h0)``."""
 
-    if xw.device.type == 'cpu':
-        return lstm_scan_residuals_plain(xw, w_h, reverse, lengths)
-
-    outputs = _launch_scan(xw, w_h, reverse, residuals=True, lengths=lengths)
-    _count(lstm_scan_residuals, lengths)
-
-    return outputs
-
-
-def _residuals_fake(xw):
-    hidden = xw.shape[-1] // 4
-
-    return (xw.new_empty(xw.shape[:-1] + (hidden,)),
-            xw.new_empty(xw.shape, dtype=torch.float32),
-            xw.new_empty(xw.shape[:-1] + (hidden,), dtype=torch.float32))
+    return _scan_op(lstm_scan_residuals, xw, w_h, reverse_from, lengths, c0,
+                    h0, residuals=True)
 
 
 @lstm_scan_residuals_op.register_fake
-def _(xw, w_h, reverse, lengths):
-    return _residuals_fake(xw)
+def _(xw, w_h, reverse_from, lengths, c0, h0):
+    return _scan_fake(xw, c0, h0, residuals=True)
 
 
-@torch.library.custom_op(
-    f'{cuda_build.NAMESPACE}::lstm_scan_residuals_carried', mutates_args=())
-def lstm_scan_residuals_carried_op(
-        xw: torch.Tensor, w_h: torch.Tensor, reverse: bool,
-        lengths: Optional[torch.Tensor], c0: torch.Tensor, h0: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-           torch.Tensor]:
-    """Kernel E from the float32 carry ``(c0, h0)`` as an op -> ``(out,
-    gates, c_seq, c, h)``, the final carry as :func:`lstm_scan` returns
-    it."""
-
-    if xw.device.type == 'cpu':
-        out, gates, c_seq, (c, h) = lstm_scan_residuals_plain(
-            xw, w_h, reverse, lengths, (c0, h0), return_carry=True)
-        return (out, gates, c_seq, *_fresh((c, h), (c0, h0)))
-
-    (out, gates, c_seq), (c, h) = _launch_scan(
-        xw, w_h, reverse, residuals=True, lengths=lengths, carry=(c0, h0))
-    _count(lstm_scan_residuals, lengths, carried=True)
-
-    return out, gates, c_seq, c, h
-
-
-@lstm_scan_residuals_carried_op.register_fake
-def _(xw, w_h, reverse, lengths, c0, h0):
-    return (*_residuals_fake(xw), torch.empty_like(c0), torch.empty_like(h0))
-
-
-cuda_build.register_cost(
-    lstm_scan_residuals_op,
-    functools.partial(_scan_op_cost, residuals=True))
-cuda_build.register_cost(
-    lstm_scan_residuals_carried_op,
-    functools.partial(_scan_op_cost, residuals=True))
-
-
-def lstm_scan_residuals(xw, w_h, reverse=False, lengths=None,
-                        initial_carry=None, return_carry=False):
-    """:func:`lstm_scan` that also returns the residuals of the backward:
-    ``(out, gates, c)`` with float32 gate activations (B, T, 4H) in order
-    i, f, g, o and float32 cell states (B, T, H), and with
-    ``return_carry`` the final carry after them, ``(out, gates, c, (c_last,
-    h_last))``. ``lengths`` and ``initial_carry`` as :func:`lstm_scan`'s; a
-    masked step's cell state is the kept one. CUDA tensors go through
-    kernel E (or raise); CPU tensors through
-    :func:`lstm_scan_residuals_plain`; both through
-    :data:`lstm_scan_residuals_op`, or
-    :data:`lstm_scan_residuals_carried_op` with a carry."""
-
-    _check_inputs(xw, w_h)
-    if lengths is not None:
-        lengths = _check_lengths(lengths, xw)
-    if initial_carry is None and not return_carry:
-        return lstm_scan_residuals_op(xw, w_h, reverse, lengths)
-
-    *outputs, c, h = lstm_scan_residuals_carried_op(
-        xw, w_h, reverse, lengths, *_check_carry(initial_carry, xw))
-
-    return (*outputs, (c, h)) if return_carry else tuple(outputs)
-
-
-lstm_scan_residuals.launches = 0
-lstm_scan_residuals.masked_launches = 0  # those with lengths
-lstm_scan_residuals.carried_launches = 0  # those with a carry in and out
-
-
-def _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=False):
-    cuda_build.require_plain('lstm_bptt', gates=gates, c_seq=c_seq,
-                             dout=dout, w_h_t=w_h_t)
-    if gates.dim() != (4 if grouped else 3) or gates.shape[-1] % 4:
-        layout = '(G, B, T, 4H)' if grouped else '(B, T, 4H)'
-        raise ValueError(f'gates must be {layout}, got shape '
-                         f'{tuple(gates.shape)}')
-    lead = tuple(gates.shape[:-3])
-    batch, frames, four_h = gates.shape[-3:]
-    hidden = four_h // 4
-    shapes = {'c_seq': (c_seq, lead + (batch, frames, hidden)),
-              'dout': (dout, lead + (batch, frames, hidden)),
-              'w_h_t': (w_h_t, lead + (four_h, hidden))}
-    for name, (tensor, shape) in shapes.items():
-        if tuple(tensor.shape) != shape:
-            raise ValueError(f'{name} must be {shape}, got '
-                             f'{tuple(tensor.shape)}')
-    if gates.dtype != torch.float32 or c_seq.dtype != torch.float32:
-        raise TypeError('lstm_bptt takes float32 gates and c_seq')
-    if dout.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'lstm_bptt takes float32 or bf16 dout, got '
-                        f'{dout.dtype}')
-    if w_h_t.dtype != dout.dtype:
-        raise TypeError(f'w_h_t ({w_h_t.dtype}) must match dout '
-                        f'({dout.dtype})')
-    tensors = (gates, c_seq, dout, w_h_t)
-    if any(t.device != gates.device for t in tensors):
-        raise ValueError('lstm_bptt takes its tensors on one device')
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError('lstm_bptt takes contiguous tensors')
-
-
-def _launch_bptt(gates, c_seq, dout, w_h_t, reverse, reverse_from=None,
-                 lengths=None, carry=None):
-    """Kernel F on CUDA tensors, with per-row ``lengths`` (int32, or none)
-    and from ``carry`` ``(c0, dc_last, dh_last)`` (float32 (B, H) each, or
-    none: zeros), then returning ``(da, dc0, dh0)``; with ``reverse_from``
-    (no carry) the launch is grouped, every tensor with a leading group
-    axis."""
-
-    grouped = reverse_from is not None
-    groups = gates.shape[0] if grouped else 1
-    batch, frames, four_h = gates.shape[-3:]
-    hidden = four_h // 4
-    name = 'lstm_bptt' + ('_grouped' if grouped else '') + (
-        '' if carry is None else '_carried')
-    _check_cuda(gates, name, hidden)
-    if hidden % 16:
-        raise ValueError(f'{name} kernel supports hidden a multiple of 16 '
-                         f'(8 CTAs of whole bf16 pairs), got {hidden}')
-
-    da = torch.empty(gates.shape, dtype=torch.float32, device=gates.device)
-    carried = ()
-    if carry is not None:
-        initial = (torch.empty_like(carry[1]), torch.empty_like(carry[2]))
-        carried = tuple(t.data_ptr() for t in (*carry, *initial))
-    if batch == 0 or frames == 0 or groups == 0:
-        # zero steps pass the final carry's gradient through, copied
-        initial = (carry[1].clone(), carry[2].clone()) if carry else None
-    else:
-        plan = bptt_launch_plan(batch, hidden, dout.dtype, gates.device,
-                                groups, hold=lengths is not None or
-                                carry is not None)
-        gates, c_seq, dout, w_h_t = (_aligned(t) for t in (gates, c_seq,
-                                                           dout, w_h_t))
-        lib = cuda_build.library('lstm_bptt', _BPTT_SIGNATURES)
-        shape = ((groups, reverse_from, batch, frames, hidden) if grouped
-                 else (batch, frames, hidden, int(reverse)))
-        with torch.cuda.device(gates.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = getattr(lib, name)(
-                gates.data_ptr(), c_seq.data_ptr(), dout.data_ptr(),
-                w_h_t.data_ptr(), da.data_ptr(),
-                None if lengths is None else lengths.data_ptr(), *carried,
-                *shape, int(dout.dtype == torch.bfloat16), plan['rows'],
-                int(plan['resident']), stream)
-        cuda_build.check(status, name)
-
-    return da if carry is None else (da, *initial)
+cuda_build.register_cost(lstm_scan_residuals_op,
+                         functools.partial(_scan_op_cost, residuals=True))
 
 
 @torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_bptt',
                          mutates_args=())
 def lstm_bptt_op(gates: torch.Tensor, c_seq: torch.Tensor,
-                 dout: torch.Tensor, w_h_t: torch.Tensor, reverse: bool,
-                 lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """Kernel F as an op -> da (inputs as :func:`lstm_bptt` checks them;
-    lengths int32 on the gates' device, or None)."""
+                 dout: torch.Tensor, w_h_t: torch.Tensor, reverse_from: int,
+                 lengths: Optional[torch.Tensor], c0: Optional[torch.Tensor],
+                 dc_last: Optional[torch.Tensor],
+                 dh_last: Optional[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel F as an op -> ``[da]``, or ``[da, dc0, dh0]`` from the
+    gradient ``(dc_last, dh_last)`` of the forward's final carry, reading
+    ``c0`` as its first step's ``c_prev`` (inputs as
+    :func:`lstm_bptt_grouped` checks them)."""
 
+    carry = None if c0 is None else (c0, dc_last, dh_last)
     if gates.device.type == 'cpu':
-        return lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse, lengths)
+        if carry is None:
+            return [lstm_bptt_grouped_plain(gates, c_seq, dout, w_h_t,
+                                            reverse_from, lengths)]
+        return _carried_plain(lstm_bptt_plain, (gates, c_seq, dout, w_h_t),
+                              reverse_from, lengths, carry)
 
-    da = _launch_bptt(gates, c_seq, dout, w_h_t, reverse, lengths=lengths)
-    _count(lstm_bptt, lengths)
+    outputs = _launch_bptt(gates, c_seq, dout, w_h_t, reverse_from, lengths,
+                           carry)
+    _count(lstm_bptt, gates.shape[0], lengths, carry is not None)
 
-    return da
+    return outputs
 
 
 @lstm_bptt_op.register_fake
-def _(gates, c_seq, dout, w_h_t, reverse, lengths):
-    return torch.empty_like(gates)
+def _(gates, c_seq, dout, w_h_t, reverse_from, lengths, c0, dc_last,
+      dh_last):
+    outputs = [torch.empty_like(gates)]
+    if c0 is not None:
+        outputs += [torch.empty_like(dc_last), torch.empty_like(dh_last)]
+
+    return outputs
 
 
-@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_bptt_carried',
-                         mutates_args=())
-def lstm_bptt_carried_op(
-        gates: torch.Tensor, c_seq: torch.Tensor, dout: torch.Tensor,
-        w_h_t: torch.Tensor, reverse: bool, lengths: Optional[torch.Tensor],
-        c0: torch.Tensor, dc_last: torch.Tensor, dh_last: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel F from the gradient ``(dc_last, dh_last)`` of the forward's
-    final carry, reading ``c0`` as its first step's ``c_prev``, as an op ->
-    ``(da, dc0, dh0)``."""
+def _bptt_op_cost(gates, c_seq, dout, w_h_t, reverse_from, lengths, c0=None,
+                  dc_last=None, dh_last=None):
+    groups, batch, frames, four_h = gates.shape
+    flops, num_bytes = bptt_cost(batch, frames, four_h // 4, dout.dtype,
+                                 carried=c0 is not None,
+                                 steps=_valid_steps(lengths))
 
-    carry = (c0, dc_last, dh_last)
-    if gates.device.type == 'cpu':
-        da, dc0, dh0 = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse,
-                                       lengths, carry)
-        return (da, *_fresh((dc0, dh0), carry))
-
-    da, dc0, dh0 = _launch_bptt(gates, c_seq, dout, w_h_t, reverse,
-                                lengths=lengths, carry=carry)
-    _count(lstm_bptt, lengths, carried=True)
-
-    return da, dc0, dh0
-
-
-@lstm_bptt_carried_op.register_fake
-def _(gates, c_seq, dout, w_h_t, reverse, lengths, c0, dc_last, dh_last):
-    return (torch.empty_like(gates), torch.empty_like(dc_last),
-            torch.empty_like(dh_last))
-
-
-def _bptt_op_cost(gates, c_seq, dout, w_h_t, reverse, lengths, *carry):
-    batch, frames, four_h = gates.shape
-
-    return bptt_cost(batch, frames, four_h // 4, dout.dtype,
-                     carried=bool(carry), steps=_valid_steps(lengths))
+    return groups * flops, groups * num_bytes
 
 
 cuda_build.register_cost(lstm_bptt_op, _bptt_op_cost)
-cuda_build.register_cost(lstm_bptt_carried_op, _bptt_op_cost)
+
+
+def lstm_scan_grouped(xw, w_h, reverse_from, lengths=None, initial_carry=None,
+                      return_carry=False):
+    """G whole-sequence LSTMs in one launch: (G, B, T, 4H) projections and
+    (G, H, 4H) recurrent kernels in one dtype -> (G, B, T, H).
+
+    ``xw`` holds the hoisted input projections including the bias, ``w_h``
+    the recurrent kernels in the same dtype (float32 or bf16; gate order
+    i, f, g, o). Group g walks front to back for ``g < reverse_from`` and
+    back to front (writing its outputs in natural order) from there on.
+    ``lengths`` (B,) integers in [0, T], every group's, mask each row's
+    padded tail: from ``t = lengths[b]`` on, row b keeps its carry and
+    writes 0, so its valid frames equal an unpadded run's bit for bit (a
+    reverse scan starts at the row's true end). ``initial_carry`` ``(c,
+    h)``, each (1, B, H), starts the recurrence of one group (G = 1) in
+    place of zeros, in float32; with ``return_carry`` the result is ``(out,
+    (c, h))``: the float32 final state, h as the next step reads it
+    (rounded to bf16 in bf16 mode), so a sequence cut into chunks that
+    thread it equals one whole call bit for bit. CUDA tensors go through
+    kernel B, one launch (or raise); CPU tensors through the plain
+    versions; both through :data:`lstm_scan_op`."""
+
+    _check_inputs(xw, w_h, reverse_from)
+    out, *final = lstm_scan_op(xw, w_h, int(reverse_from),
+                               _check_lengths(lengths, xw),
+                               *_check_carry(initial_carry, xw, return_carry))
+
+    return (out, tuple(final)) if return_carry else out
+
+
+def lstm_scan_residuals_grouped(xw, w_h, reverse_from, lengths=None,
+                                initial_carry=None, return_carry=False):
+    """:func:`lstm_scan_grouped` that also returns the residuals of the
+    backward: ``(out, gates, c)`` with float32 gate activations (G, B, T,
+    4H) in order i, f, g, o and float32 cell states (G, B, T, H), and with
+    ``return_carry`` the final carry after them, ``(out, gates, c, (c_last,
+    h_last))``; a masked step's cell state is the kept one. CUDA tensors go
+    through kernel E, one launch (or raise); CPU tensors through the plain
+    versions; both through :data:`lstm_scan_residuals_op`."""
+
+    _check_inputs(xw, w_h, reverse_from)
+    outputs = lstm_scan_residuals_op(
+        xw, w_h, int(reverse_from), _check_lengths(lengths, xw),
+        *_check_carry(initial_carry, xw, return_carry))
+
+    if return_carry:
+        return (*outputs[:3], tuple(outputs[3:]))
+    return tuple(outputs[:3])
+
+
+def lstm_bptt_grouped(gates, c_seq, dout, w_h_t, reverse_from, lengths=None,
+                      carry=None):
+    """BPTT over the residuals of :func:`lstm_scan_residuals_grouped` ->
+    d(xw) as float32 (G, B, T, 4H).
+
+    ``gates`` (G, B, T, 4H) and ``c_seq`` (G, B, T, H) are float32;
+    ``dout`` (G, B, T, H) and the transposed recurrent kernels ``w_h_t``
+    (G, 4H, H) are in the forward's compute dtype (float32 or bf16). The
+    groups from ``reverse_from`` on had a reverse forward; ``lengths`` (B,),
+    every group's, name its masked rows: a row has da = 0 past its length
+    and carries its gradients through. ``carry`` ``(c0, dc_last,
+    dh_last)``, each (1, B, H) of one group (G = 1), names the forward's
+    initial cell state and the gradient of its final carry; the result is
+    then ``(da, dc0, dh0)``, float32, the gradient of its initial carry
+    (:func:`lstm_bptt_plain`). CUDA tensors go through kernel F, one launch
+    (or raise); CPU tensors through the plain versions; both through
+    :data:`lstm_bptt_op`."""
+
+    _check_bptt_inputs(gates, c_seq, dout, w_h_t, reverse_from)
+    if carry is not None:
+        if len(carry) != 3:
+            raise ValueError('carry must be (c0, dc_last, dh_last)')
+        carry = _check_rows(gates, 'lstm_bptt', c0=carry[0],
+                            dc_last=carry[1], dh_last=carry[2])
+    result = lstm_bptt_op(gates, c_seq, dout, w_h_t, int(reverse_from),
+                          _check_lengths(lengths, gates),
+                          *(carry or (None,) * 3))
+
+    return result[0] if carry is None else tuple(result)
+
+
+def one_sequence(grouped, tensors, reverse, lengths, carry, **kwargs):
+    """``grouped(*tensors, reverse_from, lengths, carry, **kwargs)`` over
+    one sequence: its tensors and carry given a leading group axis of one,
+    run forward or reversed (``reverse_from`` 1 or 0), the results (tensors
+    or nested tuples of them) without the axis."""
+
+    if carry is not None:
+        carry = tuple(torch.as_tensor(x)[None] for x in carry)
+    result = grouped(*(t[None] for t in tensors), 0 if reverse else 1,
+                     lengths, carry, **kwargs)
+
+    return _first_group(result)
+
+
+def _first_group(result):
+    if isinstance(result, tuple):
+        return tuple(_first_group(x) for x in result)
+
+    return result.squeeze(0)
+
+
+def lstm_scan(xw, w_h, reverse=False, lengths=None, initial_carry=None,
+              return_carry=False):
+    """Whole-sequence LSTM: (B, T, 4H) projections, (H, 4H) recurrent
+    kernel -> (B, T, H), :func:`lstm_scan_grouped` at G = 1 (``reverse``
+    walks back to front and writes outputs in natural order; a carry
+    ``(c, h)`` is (B, H) each)."""
+
+    return one_sequence(lstm_scan_grouped, (xw, w_h), reverse, lengths,
+                        initial_carry, return_carry=return_carry)
+
+
+lstm_scan.launches = 0
+lstm_scan.masked_launches = 0  # those of lstm_scan.launches with lengths
+lstm_scan.carried_launches = 0  # those with a carry in and out
+lstm_scan.grouped_launches = 0  # those of more than one group
+
+
+def lstm_scan_residuals(xw, w_h, reverse=False, lengths=None,
+                        initial_carry=None, return_carry=False):
+    """:func:`lstm_scan` that also returns the residuals of the backward,
+    :func:`lstm_scan_residuals_grouped` at G = 1: ``(out, gates, c)``, each
+    (B, T, ·), and with ``return_carry`` the final carry after them."""
+
+    return one_sequence(lstm_scan_residuals_grouped, (xw, w_h), reverse,
+                        lengths, initial_carry, return_carry=return_carry)
+
+
+lstm_scan_residuals.launches = 0
+lstm_scan_residuals.masked_launches = 0  # those with lengths
+lstm_scan_residuals.carried_launches = 0  # those with a carry in and out
+lstm_scan_residuals.grouped_launches = 0  # those of more than one group
 
 
 def lstm_bptt(gates, c_seq, dout, w_h_t, reverse=False, lengths=None,
               carry=None):
     """BPTT over the residuals of :func:`lstm_scan_residuals` -> d(xw) as
-    float32 (B, T, 4H).
+    float32 (B, T, 4H), :func:`lstm_bptt_grouped` at G = 1: ``w_h_t`` is
+    (4H, H), ``reverse`` the forward's direction, a ``carry`` ``(c0,
+    dc_last, dh_last)`` (B, H) each, and the result then ``(da, dc0,
+    dh0)``."""
 
-    ``gates`` (B, T, 4H) and ``c_seq`` (B, T, H) are float32; ``dout``
-    (B, T, H) and the transposed recurrent kernel ``w_h_t`` (4H, H) are in
-    the forward's compute dtype (float32 or bf16). ``reverse`` names the
-    forward's direction, ``lengths`` (B,) its masked rows: a row has da = 0
-    past its length and carries its gradients through. ``carry`` ``(c0,
-    dc_last, dh_last)``, each (B, H), names the forward's initial cell state
-    and the gradient of its final carry; the result is then ``(da, dc0,
-    dh0)``, float32, the gradient of its initial carry
-    (:func:`lstm_bptt_plain`). CUDA tensors go through kernel F (or raise);
-    CPU tensors through :func:`lstm_bptt_plain`; both through
-    :data:`lstm_bptt_op`, or :data:`lstm_bptt_carried_op` with a carry.
-    """
-
-    _check_bptt_inputs(gates, c_seq, dout, w_h_t)
-    if lengths is not None:
-        lengths = _check_lengths(lengths, gates)
-    if carry is None:
-        return lstm_bptt_op(gates, c_seq, dout, w_h_t, reverse, lengths)
-    if len(carry) != 3:
-        raise ValueError('carry must be (c0, dc_last, dh_last)')
-
-    return lstm_bptt_carried_op(gates, c_seq, dout, w_h_t, reverse, lengths,
-                                *_check_rows(gates, 'lstm_bptt',
-                                             c0=carry[0], dc_last=carry[1],
-                                             dh_last=carry[2]))
+    return one_sequence(lstm_bptt_grouped, (gates, c_seq, dout, w_h_t),
+                        reverse, lengths, carry)
 
 
 lstm_bptt.launches = 0
 lstm_bptt.masked_launches = 0  # those with lengths
 lstm_bptt.carried_launches = 0  # those with a carry's gradient in and out
+lstm_bptt.grouped_launches = 0  # those of more than one group
 
 
 def _shift_prev(x, reverse):
@@ -1198,19 +1189,21 @@ def _shift_prev(x, reverse):
     return torch.cat([zero, x[..., :-1, :]], dim=-2)
 
 
-def _h_prev(out, reverse, lengths=None, h0=None):
-    """The float32 h each step's recurrent product read, (B, T, H): the
-    previous step's output (a masked step's is 0, and its da is too), and
-    at a row's first step ``h0`` as the step read it, rounded to out's
-    dtype (zero without a carry). A reverse row with lengths starts at
-    ``t = lengths - 1``, where the shifted output reads a masked step."""
+def _h_prev(out, reverse_from, lengths=None, h0=None):
+    """The float32 h each step's recurrent product read, (G, B, T, H): the
+    previous step's output (a masked step's is 0, and its da is too), the
+    groups from ``reverse_from`` on reversed, and at a row's first step
+    ``h0`` (1, B, H) as the step read it, rounded to out's dtype (zero
+    without a carry). A reverse row with lengths starts at ``t = lengths -
+    1``, where the shifted output reads a masked step."""
 
-    prev = _shift_prev(out, reverse).float()
+    prev = torch.cat([_shift_prev(out[:reverse_from], False),
+                      _shift_prev(out[reverse_from:], True)]).float()
     if h0 is None:
         return prev
 
-    batch, frames = out.shape[:2]
-    if not reverse:
+    batch, frames = out.shape[1:3]
+    if reverse_from:
         first = torch.zeros(batch, dtype=torch.int64, device=out.device)
     elif lengths is None:
         first = torch.full((batch,), frames - 1, device=out.device)
@@ -1219,25 +1212,28 @@ def _h_prev(out, reverse, lengths=None, h0=None):
     at_first = torch.arange(frames, device=out.device) == first[:, None]
 
     return torch.where(at_first[..., None],
-                       h0.to(out.dtype).float()[:, None, :], prev)
+                       h0.to(out.dtype).float()[:, :, None, :], prev)
 
 
 def _dw_h(h_prev, da):
-    """dW_h = sum over rows and steps of h_prev^T da, one float32 matmul
-    outside the kernel (batched over a leading group axis)."""
+    """dW_h = sum over rows and steps of h_prev^T da, a float32 matmul
+    outside the kernel: one ``mm`` for one group, batched over more."""
 
-    hidden = h_prev.shape[-1]
-    if h_prev.dim() == 3:
-        return h_prev.reshape(-1, hidden).t() @ da.reshape(-1, 4 * hidden)
+    groups, hidden = h_prev.shape[0], h_prev.shape[-1]
+    if groups == 1:
+        return (h_prev.reshape(-1, hidden).t() @
+                da.reshape(-1, 4 * hidden))[None]
 
-    groups = h_prev.shape[0]
     return torch.bmm(h_prev.reshape(groups, -1, hidden).transpose(1, 2),
                      da.reshape(groups, -1, 4 * hidden))
 
 
 class LSTMScanGrad(torch.autograd.Function):
-    """The differentiable recurrence: kernel E forward, kernel F backward,
-    masked by per-row ``lengths`` or not.
+    """The differentiable recurrence of G groups: kernel E forward, kernel
+    F backward, each one launch for every group; masked by per-row
+    ``lengths`` or not; from a carry ``(c0, h0)`` (G = 1) or zeros, and
+    then returning ``(out, c, h)`` with the final carry, whose gradient
+    reaches ``c0`` and ``h0``.
 
     Takes ``w_h`` in its parameter dtype and casts it to the compute dtype
     inside (bf16 when ``xw`` is bf16, else float32), so ``dW_h`` comes back
@@ -1246,319 +1242,75 @@ class LSTMScanGrad(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, xw, w_h, reverse, lengths=None):
+    def forward(ctx, xw, w_h, reverse_from, lengths=None, c0=None, h0=None):
         xw, w = xw.contiguous(), w_h.to(xw.dtype).contiguous()
-        _check_inputs(xw, w)
-        if lengths is not None:
-            lengths = _check_lengths(lengths, xw)
-        out, gates, c_seq = lstm_scan_residuals_op(xw, w, reverse, lengths)
-        ctx.reverse = reverse
-        ctx.w_dtype = w_h.dtype
-        ctx.save_for_backward(w_h, out, gates, c_seq, lengths)
-
-        return out
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        with profiling.span('amt.lstm.backward'):
-            w_h, out, gates, c_seq, lengths = ctx.saved_tensors
-
-            w_h_t = w_h.t().to(out.dtype).contiguous()
-            dout = dout.to(out.dtype).contiguous()
-            _check_bptt_inputs(gates, c_seq, dout, w_h_t)
-            da = lstm_bptt_op(gates, c_seq, dout, w_h_t, ctx.reverse,
-                              lengths)
-            dw_h = _dw_h(_h_prev(out, ctx.reverse), da)
-
-            return da.to(out.dtype), dw_h.to(ctx.w_dtype), None, None
-
-
-class LSTMScanCarriedGrad(torch.autograd.Function):
-    """The differentiable recurrence from a carry: kernel E from ``(c0,
-    h0)`` forward, returning ``(out, c, h)`` with the final carry, and
-    kernel F backward from the final carry's gradient, giving gradients to
-    ``xw``, ``w_h``, ``c0`` and ``h0``; masked by ``lengths`` or not."""
-
-    @staticmethod
-    def forward(ctx, xw, w_h, reverse, lengths, c0, h0):
-        xw, w = xw.contiguous(), w_h.to(xw.dtype).contiguous()
-        _check_inputs(xw, w)
-        if lengths is not None:
-            lengths = _check_lengths(lengths, xw)
-        carry = _check_carry((c0, h0), xw)
-        out, gates, c_seq, c, h = lstm_scan_residuals_carried_op(
-            xw, w, reverse, lengths, *carry)
-        ctx.reverse = reverse
-        ctx.dtypes = (w_h.dtype, c0.dtype, h0.dtype)
+        _check_inputs(xw, w, reverse_from)
+        lengths = _check_lengths(lengths, xw)
+        carry = _check_carry(None if c0 is None else (c0, h0), xw,
+                             return_carry=False)
+        out, gates, c_seq, *final = lstm_scan_residuals_op(
+            xw, w, int(reverse_from), lengths, *carry)
+        ctx.reverse_from = int(reverse_from)
+        ctx.dtypes = (w_h.dtype,) + ((c0.dtype, h0.dtype) if final else ())
         ctx.save_for_backward(w_h, out, gates, c_seq, lengths, *carry)
 
-        return out, c, h
+        return (out, *final) if final else out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, dout, dc_last, dh_last):
+    def backward(ctx, dout, *dfinal):
         with profiling.span('amt.lstm.backward'):
             w_h, out, gates, c_seq, lengths, c0, h0 = ctx.saved_tensors
 
-            w_h_t = w_h.t().to(out.dtype).contiguous()
+            w_h_t = w_h.transpose(-1, -2).to(out.dtype).contiguous()
             dout = dout.to(out.dtype).contiguous()
-            _check_bptt_inputs(gates, c_seq, dout, w_h_t)
-            da, dc0, dh0 = lstm_bptt_carried_op(
-                gates, c_seq, dout, w_h_t, ctx.reverse, lengths, c0,
-                *_check_rows(gates, 'lstm_bptt', dc_last=dc_last,
-                             dh_last=dh_last))
-            dw_h = _dw_h(_h_prev(out, ctx.reverse, lengths, h0), da)
-            w_dtype, c_dtype, h_dtype = ctx.dtypes
+            _check_bptt_inputs(gates, c_seq, dout, w_h_t, ctx.reverse_from)
+            if c0 is not None:
+                dfinal = _check_rows(gates, 'lstm_bptt', dc_last=dfinal[0],
+                                     dh_last=dfinal[1])
+            da, *dcarry = lstm_bptt_op(gates, c_seq, dout, w_h_t,
+                                       ctx.reverse_from, lengths, c0,
+                                       *(dfinal or (None, None)))
+            h_prev = _h_prev(out, ctx.reverse_from, lengths, h0)
+            w_dtype, *carry_dtypes = ctx.dtypes
 
-            return (da.to(out.dtype), dw_h.to(w_dtype), None, None,
-                    dc0.to(c_dtype), dh0.to(h_dtype))
+            return (da.to(out.dtype), _dw_h(h_prev, da).to(w_dtype), None,
+                    None, *([d.to(t) for d, t in zip(dcarry, carry_dtypes)]
+                            or (None, None)))
+
+
+def lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths=None,
+                           initial_carry=None, return_carry=False):
+    """Differentiable :func:`lstm_scan_grouped`: (G, B, T, 4H) float32 or
+    bf16 ``xw``, (G, H, 4H) ``w_h`` in any float dtype -> (G, B, T, H) in
+    xw's dtype, or ``(out, (c, h))`` with ``return_carry``; ``lengths`` and
+    ``initial_carry`` as :func:`lstm_scan_grouped`'s.
+
+    The same outputs as :func:`lstm_scan_grouped` (kernel E is kernel B's
+    body); under autograd the backward runs kernel F and returns ``d(xw)``
+    in xw's dtype, ``dW_h`` in w_h's and the initial carry's gradient in
+    its own dtypes."""
+
+    if initial_carry is None and return_carry:
+        initial_carry = _check_carry(None, xw)
+    carry = (None, None) if initial_carry is None else initial_carry
+    if len(carry) != 2:
+        raise ValueError('initial_carry must be a pair (c, h)')
+    result = LSTMScanGrad.apply(xw, w_h, reverse_from, lengths, *carry)
+    if initial_carry is None:
+        return result
+
+    out, c, h = result
+
+    return (out, (c, h)) if return_carry else out
 
 
 def lstm_scan_grad(xw, w_h, reverse=False, lengths=None, initial_carry=None,
                    return_carry=False):
     """Differentiable :func:`lstm_scan`: (B, T, 4H) float32 or bf16 ``xw``,
     (H, 4H) ``w_h`` in any float dtype -> (B, T, H) in xw's dtype, or
-    ``(out, (c, h))`` with ``return_carry``; ``lengths`` and
-    ``initial_carry`` as :func:`lstm_scan`'s.
-
-    The same outputs as :func:`lstm_scan` (kernel E is kernel B's body);
-    under autograd the backward runs kernel F and returns ``d(xw)`` in xw's
-    dtype, ``dW_h`` in w_h's and the initial carry's gradient in its own
-    dtypes.
-    """
-
-    if initial_carry is None and not return_carry:
-        return LSTMScanGrad.apply(xw, w_h, reverse, lengths)
-
-    if initial_carry is None:
-        initial_carry = _check_carry(None, xw)
-    out, c, h = LSTMScanCarriedGrad.apply(xw, w_h, reverse, lengths,
-                                          *initial_carry)
-
-    return (out, (c, h)) if return_carry else out
-
-
-# The grouped launches: G independent sequences with their own W_h in one
-# launch of kernel B, E or F (csrc/lstm_scan.cu, csrc/lstm_bptt.cu, the
-# group on blockIdx.y), the card's counterpart of the JAX package's one
-# grouped scan (``ops/lstm.py`` ``_grouped_lstm_scan``, behind
-# ``GroupedBiLSTM``). Groups [0, reverse_from) run forward and the rest
-# reversed (a grouped BiLSTM's backward directions, with no flipped copy).
-# A group's arithmetic is its ungrouped launch's; lengths are every group's.
-
-def _check_reverse_from(reverse_from, groups):
-    if not 0 <= reverse_from <= groups:
-        raise ValueError(f'reverse_from must lie in [0, {groups}], got '
-                         f'{reverse_from}')
-
-
-def _grouped_cost(cost, groups):
-    flops, num_bytes = cost
-    return groups * flops, groups * num_bytes
-
-
-@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_scan_grouped',
-                         mutates_args=())
-def lstm_scan_grouped_op(xw: torch.Tensor, w_h: torch.Tensor,
-                         reverse_from: int,
-                         lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """Grouped kernel B as an op (inputs as :func:`lstm_scan_grouped`
-    checks them)."""
-
-    if xw.device.type == 'cpu':
-        return lstm_scan_grouped_plain(xw, w_h, reverse_from, lengths)
-
-    out = _launch_scan(xw, w_h, None, residuals=False, lengths=lengths,
-                       reverse_from=reverse_from)
-    _count(lstm_scan_grouped, lengths)
-
-    return out
-
-
-@lstm_scan_grouped_op.register_fake
-def _(xw, w_h, reverse_from, lengths):
-    return xw.new_empty(xw.shape[:-1] + (xw.shape[-1] // 4,))
-
-
-def _scan_grouped_op_cost(xw, w_h, reverse_from, lengths, residuals=False):
-    groups, batch, frames, four_h = xw.shape
-
-    return _grouped_cost(scan_cost(batch, frames, four_h // 4, xw.dtype,
-                                   residuals, steps=_valid_steps(lengths)),
-                         groups)
-
-
-cuda_build.register_cost(lstm_scan_grouped_op, _scan_grouped_op_cost)
-
-
-def lstm_scan_grouped(xw, w_h, reverse_from, lengths=None):
-    """G whole-sequence LSTMs in one launch: (G, B, T, 4H) projections and
-    (G, H, 4H) recurrent kernels in one dtype -> (G, B, T, H).
-
-    Group g is :func:`lstm_scan` of ``xw[g]`` and ``w_h[g]``, reversed for
-    ``g >= reverse_from``; ``lengths`` (B,) are every group's. CUDA tensors
-    go through grouped kernel B, one launch (or raise); CPU tensors through
-    :func:`lstm_scan_grouped_plain`; both through
-    :data:`lstm_scan_grouped_op`."""
-
-    _check_inputs(xw, w_h, grouped=True)
-    _check_reverse_from(reverse_from, xw.shape[0])
-    if lengths is not None:
-        lengths = _check_lengths(lengths, xw)
-
-    return lstm_scan_grouped_op(xw, w_h, int(reverse_from), lengths)
-
-
-lstm_scan_grouped.launches = 0
-lstm_scan_grouped.masked_launches = 0  # those with lengths
-
-
-@torch.library.custom_op(
-    f'{cuda_build.NAMESPACE}::lstm_scan_residuals_grouped', mutates_args=())
-def lstm_scan_residuals_grouped_op(
-        xw: torch.Tensor, w_h: torch.Tensor, reverse_from: int,
-        lengths: Optional[torch.Tensor]
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Grouped kernel E as an op -> ``(out, gates, c)``."""
-
-    if xw.device.type == 'cpu':
-        return lstm_scan_residuals_grouped_plain(xw, w_h, reverse_from,
-                                                 lengths)
-
-    outputs = _launch_scan(xw, w_h, None, residuals=True, lengths=lengths,
-                           reverse_from=reverse_from)
-    _count(lstm_scan_residuals_grouped, lengths)
-
-    return outputs
-
-
-@lstm_scan_residuals_grouped_op.register_fake
-def _(xw, w_h, reverse_from, lengths):
-    return _residuals_fake(xw)
-
-
-cuda_build.register_cost(
-    lstm_scan_residuals_grouped_op,
-    functools.partial(_scan_grouped_op_cost, residuals=True))
-
-
-def lstm_scan_residuals_grouped(xw, w_h, reverse_from, lengths=None):
-    """:func:`lstm_scan_grouped` that also returns the residuals of the
-    backward, ``(out, gates, c)``, each with the leading group axis;
-    ``lengths`` (B,) are every group's. CUDA tensors go through grouped
-    kernel E, one launch (or raise); CPU tensors through
-    :func:`lstm_scan_residuals_grouped_plain`."""
-
-    _check_inputs(xw, w_h, grouped=True)
-    _check_reverse_from(reverse_from, xw.shape[0])
-    if lengths is not None:
-        lengths = _check_lengths(lengths, xw)
-
-    return lstm_scan_residuals_grouped_op(xw, w_h, int(reverse_from),
-                                          lengths)
-
-
-lstm_scan_residuals_grouped.launches = 0
-lstm_scan_residuals_grouped.masked_launches = 0  # those with lengths
-
-
-@torch.library.custom_op(f'{cuda_build.NAMESPACE}::lstm_bptt_grouped',
-                         mutates_args=())
-def lstm_bptt_grouped_op(gates: torch.Tensor, c_seq: torch.Tensor,
-                         dout: torch.Tensor, w_h_t: torch.Tensor,
-                         reverse_from: int,
-                         lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """Grouped kernel F as an op -> da (G, B, T, 4H)."""
-
-    if gates.device.type == 'cpu':
-        return lstm_bptt_grouped_plain(gates, c_seq, dout, w_h_t,
-                                       reverse_from, lengths)
-
-    da = _launch_bptt(gates, c_seq, dout, w_h_t, None, reverse_from, lengths)
-    _count(lstm_bptt_grouped, lengths)
-
-    return da
-
-
-@lstm_bptt_grouped_op.register_fake
-def _(gates, c_seq, dout, w_h_t, reverse_from, lengths):
-    return torch.empty_like(gates)
-
-
-cuda_build.register_cost(
-    lstm_bptt_grouped_op,
-    lambda gates, c_seq, dout, w_h_t, reverse_from, lengths: _grouped_cost(
-        bptt_cost(gates.shape[1], gates.shape[2], gates.shape[3] // 4,
-                  dout.dtype, steps=_valid_steps(lengths)), gates.shape[0]))
-
-
-def lstm_bptt_grouped(gates, c_seq, dout, w_h_t, reverse_from, lengths=None):
-    """:func:`lstm_bptt` of G groups in one launch: every tensor with a
-    leading group axis (``w_h_t`` (G, 4H, H)), the groups from
-    ``reverse_from`` on with a reverse forward, ``lengths`` (B,) every
-    group's -> da (G, B, T, 4H) float32. CUDA tensors go through grouped
-    kernel F (or raise); CPU tensors through
-    :func:`lstm_bptt_grouped_plain`."""
-
-    _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=True)
-    _check_reverse_from(reverse_from, gates.shape[0])
-    if lengths is not None:
-        lengths = _check_lengths(lengths, gates)
-
-    return lstm_bptt_grouped_op(gates, c_seq, dout, w_h_t, int(reverse_from),
-                                lengths)
-
-
-lstm_bptt_grouped.launches = 0
-lstm_bptt_grouped.masked_launches = 0  # those with lengths
-
-
-class LSTMScanGroupedGrad(torch.autograd.Function):
-    """The differentiable grouped recurrence: grouped kernel E forward,
-    grouped kernel F backward, each one launch for every group, as
-    :class:`LSTMScanGrad` is for one sequence, masked by ``lengths`` (B,)
-    or not; dW_h of every group is one batched float32 matmul outside the
-    kernel."""
-
-    @staticmethod
-    def forward(ctx, xw, w_h, reverse_from, lengths=None):
-        xw, w = xw.contiguous(), w_h.to(xw.dtype).contiguous()
-        _check_inputs(xw, w, grouped=True)
-        _check_reverse_from(reverse_from, xw.shape[0])
-        if lengths is not None:
-            lengths = _check_lengths(lengths, xw)
-        out, gates, c_seq = lstm_scan_residuals_grouped_op(
-            xw, w, int(reverse_from), lengths)
-        ctx.reverse_from = reverse_from
-        ctx.w_dtype = w_h.dtype
-        ctx.save_for_backward(w_h, out, gates, c_seq, lengths)
-
-        return out
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        with profiling.span('amt.lstm.backward'):
-            w_h, out, gates, c_seq, lengths = ctx.saved_tensors
-            split = ctx.reverse_from
-
-            w_h_t = w_h.transpose(1, 2).to(out.dtype).contiguous()
-            dout = dout.to(out.dtype).contiguous()
-            _check_bptt_inputs(gates, c_seq, dout, w_h_t, grouped=True)
-            da = lstm_bptt_grouped_op(gates, c_seq, dout, w_h_t, split,
-                                      lengths)
-            h_prev = torch.cat([_h_prev(out[:split], False),
-                                _h_prev(out[split:], True)])
-
-            return (da.to(out.dtype), _dw_h(h_prev, da).to(ctx.w_dtype),
-                    None, None)
-
-
-def lstm_scan_grouped_grad(xw, w_h, reverse_from, lengths=None):
-    """Differentiable :func:`lstm_scan_grouped`: (G, B, T, 4H) float32 or
-    bf16 ``xw``, (G, H, 4H) ``w_h`` in any float dtype -> (G, B, T, H) in
-    xw's dtype; ``lengths`` (B,) every group's; under autograd the backward
-    runs grouped kernel F."""
-
-    return LSTMScanGroupedGrad.apply(xw, w_h, reverse_from, lengths)
+    ``(out, (c, h))`` with ``return_carry``; :func:`lstm_scan_grouped_grad`
+    at G = 1."""
+
+    return one_sequence(lstm_scan_grouped_grad, (xw, w_h), reverse,
+                        lengths, initial_carry, return_carry=return_carry)

@@ -212,7 +212,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``synthetic_tabcnn`` at 2 iterations;
 39. grouped kernels B, E and F (``ops.lstm_kernel.lstm_scan_grouped``,
     ``lstm_scan_residuals_grouped``, ``lstm_bptt_grouped``: one launch for
-    G sequences, the groups from ``reverse_from`` on reversed) at the
+    G sequences, the groups from ``reverse_from`` on reversed; one
+    sequence is one group) at the
     recipe shapes (G = 4, 8 x 625, H = 256), float32 and bf16, against G
     per-stream launches of the ungrouped ops (bit for bit expected; else
     held to the plain tolerances) and their plain versions; masked in bf16;
@@ -515,41 +516,32 @@ def render_clips(profile, count, seconds, sample_rate=SAMPLE_RATE):
 
 
 def kernel_counters():
-    """Every hand-written kernel's wrapper, by kernel name (the grouped
-    launches of B, E and F by their own)."""
+    """Every hand-written kernel's wrapper, by kernel name."""
 
     from amt_tools_tpu_torch.ops.conv_epilogue import conv_epilogue
     from amt_tools_tpu_torch.ops.cqt_kernel import cqt_mag, cqt_mag_grouped
-    from amt_tools_tpu_torch.ops.lstm_kernel import (
-        lstm_bptt, lstm_bptt_grouped, lstm_scan, lstm_scan_grouped,
-        lstm_scan_residuals, lstm_scan_residuals_grouped)
+    from amt_tools_tpu_torch.ops.lstm_kernel import (lstm_bptt, lstm_scan,
+                                                     lstm_scan_residuals)
     from amt_tools_tpu_torch.ops.stft_kernel import stft_power
 
     return {'stft_power': stft_power, 'lstm_scan': lstm_scan,
             'cqt_mag': cqt_mag, 'cqt_mag_grouped': cqt_mag_grouped,
             'lstm_scan_residuals': lstm_scan_residuals,
-            'lstm_bptt': lstm_bptt,
-            'lstm_scan_grouped': lstm_scan_grouped,
-            'lstm_scan_residuals_grouped': lstm_scan_residuals_grouped,
-            'lstm_bptt_grouped': lstm_bptt_grouped,
-            'conv_epilogue': conv_epilogue}
+            'lstm_bptt': lstm_bptt, 'conv_epilogue': conv_epilogue}
 
 
 def route_counters():
     """(kernel, route, attribute) of every counter of a kernel's route:
-    kernel A's FFT route, the masked launches (with lengths) and carried
-    ones (from a carry) of kernels B, E and F, the masked grouped launches,
-    kernels C and D by ``exact``."""
+    kernel A's FFT route, the masked launches (with lengths), carried ones
+    (from a carry) and grouped ones (more than one group) of kernels B, E
+    and F, kernels C and D by ``exact``."""
 
     from amt_tools_tpu_torch.ops.cqt_kernel import ROUTES
 
     return ([('stft_power', 'fft', 'fft_launches')] +
             [(name, route, f'{route}_launches')
              for name in ('lstm_scan', 'lstm_scan_residuals', 'lstm_bptt')
-             for route in ('masked', 'carried')] +
-            [(name, 'masked', 'masked_launches')
-             for name in ('lstm_scan_grouped', 'lstm_scan_residuals_grouped',
-                          'lstm_bptt_grouped')] +
+             for route in ('masked', 'carried', 'grouped')] +
             [(name, route, f'{route}_launches')
              for name in ('cqt_mag', 'cqt_mag_grouped') for route in ROUTES])
 
@@ -566,7 +558,9 @@ def read_launches():
     """Launch counts by kernel, and by route as ``<kernel>_<route>``:
     ``stft_power_fft`` (kernel A's FFT route), ``lstm_scan_masked`` (kernel
     B with lengths), ``lstm_scan_carried`` (kernel B from a carry),
-    ``cqt_mag_bf16x3`` and the other routes of kernels C and D."""
+    ``lstm_scan_grouped`` (kernel B over more than one group; every launch
+    of B, grouped or not, counts in ``lstm_scan``), ``cqt_mag_bf16x3`` and
+    the other routes of kernels C and D."""
 
     counters = kernel_counters()
     launches = {name: wrapper.launches for name, wrapper in counters.items()}
@@ -5576,9 +5570,9 @@ def same(got, want):
 
 
 def op_cases(scale):
-    """(label, wrapper call, op call, kernel) for every op, each of the
-    schemas of B, E and F (masked, carried, grouped) and the conv epilogue
-    pooled and not, on CUDA inputs of
+    """(label, wrapper call, op call, kernel) for every op, B, E and F on
+    one sequence (plain, masked, carried) and on three groups (plain,
+    masked), and the conv epilogue pooled and not, on CUDA inputs of
     ``scale`` frames (opcheck's small shapes when OP_CHECK_FRAMES); the op
     calls are (op, args)."""
 
@@ -5624,84 +5618,93 @@ def op_cases(scale):
         out, gates, c_seq = lstm_kernel.lstm_scan_residuals(xw, wh)
         dout = randn(4, scale, HIDDEN, scale=0.1).to(dtype)
         wht = wh.t().contiguous()
+        # One sequence is one group (reverse_from 1 forward, 0 reversed):
+        # the wrapper's results as the op's list
+        one, res1 = (xw[None], wh[None]), (gates[None], c_seq[None],
+                                             dout[None], wht[None])
+        c1 = tuple(x[None] for x in carry)
+
+        def group(*results):
+            return [x[None] for r in results
+                    for x in (r if isinstance(r, tuple) else (r,))]
+
         cases += [
             (f'B {name}', 'lstm_scan',
-             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan(xw, wh),
-             (lstm_kernel.lstm_scan_op, (xw, wh, False, None))),
+             lambda xw=xw, wh=wh: group(lstm_kernel.lstm_scan(xw, wh)),
+             (lstm_kernel.lstm_scan_op, (*one, 1, None, None, None))),
             (f'B {name} masked', 'lstm_scan',
-             lambda xw=xw, wh=wh, n=lengths: lstm_kernel.lstm_scan(
-                 xw, wh, reverse=True, lengths=n),
-             (lstm_kernel.lstm_scan_op, (xw, wh, True, lengths))),
+             lambda xw=xw, wh=wh, n=lengths: group(lstm_kernel.lstm_scan(
+                 xw, wh, reverse=True, lengths=n)),
+             (lstm_kernel.lstm_scan_op, (*one, 0, lengths, None, None))),
             (f'B {name} carried', 'lstm_scan',
-             lambda xw=xw, wh=wh, c=carry: (lambda r: (r[0], *r[1]))(
-                 lstm_kernel.lstm_scan(xw, wh, initial_carry=c,
-                                       return_carry=True)),
-             (lstm_kernel.lstm_scan_carried_op, (xw, wh, False, None,
-                                                 *carry))),
+             lambda xw=xw, wh=wh, c=carry: group(*lstm_kernel.lstm_scan(
+                 xw, wh, initial_carry=c, return_carry=True)),
+             (lstm_kernel.lstm_scan_op, (*one, 1, None, *c1))),
             (f'E {name}', 'lstm_scan_residuals',
-             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_residuals(
-                 xw, wh, True),
-             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True, None))),
+             lambda xw=xw, wh=wh: group(*lstm_kernel.lstm_scan_residuals(
+                 xw, wh, True)),
+             (lstm_kernel.lstm_scan_residuals_op,
+              (*one, 0, None, None, None))),
             (f'E {name} masked', 'lstm_scan_residuals',
-             lambda xw=xw, wh=wh, n=lengths: lstm_kernel.lstm_scan_residuals(
-                 xw, wh, True, n),
-             (lstm_kernel.lstm_scan_residuals_op, (xw, wh, True, lengths))),
+             lambda xw=xw, wh=wh, n=lengths: group(
+                 *lstm_kernel.lstm_scan_residuals(xw, wh, True, n)),
+             (lstm_kernel.lstm_scan_residuals_op,
+              (*one, 0, lengths, None, None))),
             (f'E {name} carried', 'lstm_scan_residuals',
-             lambda xw=xw, wh=wh, n=lengths, c=carry: (
-                 lambda r: (*r[:3], *r[3]))(lstm_kernel.lstm_scan_residuals(
-                     xw, wh, False, n, c, return_carry=True)),
-             (lstm_kernel.lstm_scan_residuals_carried_op,
-              (xw, wh, False, lengths, *carry))),
+             lambda xw=xw, wh=wh, n=lengths, c=carry: group(
+                 *lstm_kernel.lstm_scan_residuals(xw, wh, False, n, c,
+                                                  return_carry=True)),
+             (lstm_kernel.lstm_scan_residuals_op,
+              (*one, 1, lengths, *c1))),
             (f'F {name}', 'lstm_bptt',
-             lambda g=gates, c=c_seq, d=dout, w=wht: lstm_kernel.lstm_bptt(
-                 g, c, d, w),
-             (lstm_kernel.lstm_bptt_op,
-              (gates, c_seq, dout, wht, False, None))),
+             lambda g=gates, c=c_seq, d=dout, w=wht: group(
+                 lstm_kernel.lstm_bptt(g, c, d, w)),
+             (lstm_kernel.lstm_bptt_op, (*res1, 1, None, None, None, None))),
             (f'F {name} masked', 'lstm_bptt',
-             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths:
-             lstm_kernel.lstm_bptt(g, c, d, w, True, n),
+             lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths: group(
+                 lstm_kernel.lstm_bptt(g, c, d, w, True, n)),
              (lstm_kernel.lstm_bptt_op,
-              (gates, c_seq, dout, wht, True, lengths))),
+              (*res1, 0, lengths, None, None, None))),
             (f'F {name} carried', 'lstm_bptt',
              lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths, k=carry:
-             lstm_kernel.lstm_bptt(g, c, d, w, False, n, (k[0], *k)),
-             (lstm_kernel.lstm_bptt_carried_op,
-              (gates, c_seq, dout, wht, False, lengths, carry[0],
-               *carry)))]
-        # The grouped launches: three groups, the last reversed
+             group(*lstm_kernel.lstm_bptt(g, c, d, w, False, n,
+                                          (k[0], *k))),
+             (lstm_kernel.lstm_bptt_op,
+              (*res1, 1, lengths, c1[0], *c1)))]
+        # Three groups, the last reversed
         gxw = randn(3, 4, scale, 4 * HIDDEN, scale=0.5).to(dtype)
         gwh = randn(3, HIDDEN, 4 * HIDDEN, scale=0.05).to(dtype)
         _, ggates, gc = lstm_kernel.lstm_scan_residuals_grouped(gxw, gwh, 2)
         gdout = randn(3, 4, scale, HIDDEN, scale=0.1).to(dtype)
         gwht = gwh.transpose(1, 2).contiguous()
         cases += [
-            (f'B {name} grouped', 'lstm_scan_grouped',
-             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_grouped(x, w, 2),
-             (lstm_kernel.lstm_scan_grouped_op, (gxw, gwh, 2, None))),
-            (f'B {name} grouped masked', 'lstm_scan_grouped',
-             lambda x=gxw, w=gwh, n=lengths: lstm_kernel.lstm_scan_grouped(
-                 x, w, 2, n),
-             (lstm_kernel.lstm_scan_grouped_op, (gxw, gwh, 2, lengths))),
-            (f'E {name} grouped', 'lstm_scan_residuals_grouped',
-             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_residuals_grouped(
-                 x, w, 2),
-             (lstm_kernel.lstm_scan_residuals_grouped_op,
-              (gxw, gwh, 2, None))),
-            (f'E {name} grouped masked', 'lstm_scan_residuals_grouped',
-             lambda x=gxw, w=gwh, n=lengths:
-             lstm_kernel.lstm_scan_residuals_grouped(x, w, 2, n),
-             (lstm_kernel.lstm_scan_residuals_grouped_op,
-              (gxw, gwh, 2, lengths))),
-            (f'F {name} grouped', 'lstm_bptt_grouped',
-             lambda g=ggates, c=gc, d=gdout, w=gwht:
-             lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2),
-             (lstm_kernel.lstm_bptt_grouped_op,
-              (ggates, gc, gdout, gwht, 2, None))),
-            (f'F {name} grouped masked', 'lstm_bptt_grouped',
-             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths:
-             lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2, n),
-             (lstm_kernel.lstm_bptt_grouped_op,
-              (ggates, gc, gdout, gwht, 2, lengths)))]
+            (f'B {name} grouped', 'lstm_scan',
+             lambda x=gxw, w=gwh: [lstm_kernel.lstm_scan_grouped(x, w, 2)],
+             (lstm_kernel.lstm_scan_op, (gxw, gwh, 2, None, None, None))),
+            (f'B {name} grouped masked', 'lstm_scan',
+             lambda x=gxw, w=gwh, n=lengths: [lstm_kernel.lstm_scan_grouped(
+                 x, w, 2, n)],
+             (lstm_kernel.lstm_scan_op, (gxw, gwh, 2, lengths, None, None))),
+            (f'E {name} grouped', 'lstm_scan_residuals',
+             lambda x=gxw, w=gwh: list(
+                 lstm_kernel.lstm_scan_residuals_grouped(x, w, 2)),
+             (lstm_kernel.lstm_scan_residuals_op,
+              (gxw, gwh, 2, None, None, None))),
+            (f'E {name} grouped masked', 'lstm_scan_residuals',
+             lambda x=gxw, w=gwh, n=lengths: list(
+                 lstm_kernel.lstm_scan_residuals_grouped(x, w, 2, n)),
+             (lstm_kernel.lstm_scan_residuals_op,
+              (gxw, gwh, 2, lengths, None, None))),
+            (f'F {name} grouped', 'lstm_bptt',
+             lambda g=ggates, c=gc, d=gdout, w=gwht: [
+                 lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2)],
+             (lstm_kernel.lstm_bptt_op,
+              (ggates, gc, gdout, gwht, 2, None, None, None, None))),
+            (f'F {name} grouped masked', 'lstm_bptt',
+             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths: [
+                 lstm_kernel.lstm_bptt_grouped(g, c, d, w, 2, n)],
+             (lstm_kernel.lstm_bptt_op,
+              (ggates, gc, gdout, gwht, 2, lengths, None, None, None)))]
         # The conv blocks' eval epilogue on cuDNN's channels-last layout
         x = randn(2, scale // 10, N_MELS, 48).to(dtype).permute(0, 3, 1, 2)
         vectors = (randn(48, scale=0.1).to(dtype), randn(48, scale=0.3),
@@ -6557,7 +6560,7 @@ def serve_fused(pipeline, requests, card):
     require(launches['stft_power'] == launches['stft_power_fft'] == REQUESTS,
             'fused serving: A did not run once a dispatch')
     require(launches['lstm_scan_grouped'] == REQUESTS and
-            launches['lstm_scan'] == 2 * REQUESTS,
+            launches['lstm_scan'] == 3 * REQUESTS,
             'fused serving: not one grouped B and two B a dispatch')
 
     # Channels-last, the grouped convs run other cuDNN kernels than the
@@ -6755,8 +6758,8 @@ def train_fused(batch, card):
         counts = launches[turn]
         require(counts['lstm_scan_residuals_grouped'] == steps and
                 counts['lstm_bptt_grouped'] == steps and
-                counts['lstm_scan_residuals'] == 2 * steps and
-                counts['lstm_bptt'] == 2 * steps and
+                counts['lstm_scan_residuals'] == 3 * steps and
+                counts['lstm_bptt'] == 3 * steps and
                 counts['lstm_scan'] == 0,
                 f'{turn} training: not grouped E and F once and E and F '
                 f'twice a step')
@@ -6834,7 +6837,7 @@ def train_fused_velocity(batch, card):
     counts = launches['fused']
     require(counts['lstm_scan_residuals_grouped'] == FUSED_TRAIN_STEPS and
             counts['lstm_bptt_grouped'] == FUSED_TRAIN_STEPS and
-            counts['lstm_scan_residuals'] == 2 * FUSED_TRAIN_STEPS,
+            counts['lstm_scan_residuals'] == 3 * FUSED_TRAIN_STEPS,
             'fused velocity training: not grouped E and F once a step')
     require(launches['per-head']['lstm_scan_residuals'] ==
             8 * FUSED_TRAIN_STEPS, 'velocity training: E not 8 times a step')
@@ -6888,7 +6891,7 @@ def fused_artifact(serving, card, directory):
                             'live fused pipeline\'s')
     require(launches['stft_power'] == 1 and
             launches['lstm_scan_grouped'] == 1 and
-            launches['lstm_scan'] == 2,
+            launches['lstm_scan'] == 3,
             'the fused artifact did not run A once, grouped B once and B '
             'twice a call')
     require(meta['symbolic_batch'], 'the fused artifact did not export '
@@ -7075,15 +7078,15 @@ def check_masked_carried_lstm(card):
                             (f'{route} dh0', dh0, want_dh0),
                             (f'{route} c, h', torch.stack(got[3]),
                              torch.stack(ref[3]))))
-                    h_prev = lk._h_prev(ref[0], reverse, n,
-                                        h0 if carry else None)
+                    h_prev = lk._h_prev(ref[0][None], 0 if reverse else 1,
+                                        n, h0[None] if carry else None)
                     route_errors(worst, (
                         (f'{route} out', got[0], ref[0]),
                         (f'{route} gates', got[1], ref[1]),
                         (f'{route} c', got[2], ref[2]),
                         (f'{route} da', da, want),
-                        (f'{route} dW_h', lk._dw_h(h_prev, da),
-                         lk._dw_h(h_prev, want))))
+                        (f'{route} dW_h', lk._dw_h(h_prev, da[None]),
+                         lk._dw_h(h_prev, want[None]))))
                     if n is not None:
                         mask = (torch.arange(TRAIN_FRAMES, device='cuda')[None]
                                 < n[:, None])
@@ -7283,14 +7286,14 @@ def grouped_masked_equal(dtype, lengths):
     from amt_tools_tpu_torch.ops import lstm_kernel as lk
 
     xw, w_h, dout, w_h_t = grouped_masked_inputs(dtype)
-    counts = (lk.lstm_scan_residuals_grouped.masked_launches,
-              lk.lstm_bptt_grouped.masked_launches)
+    wrappers = (lk.lstm_scan_residuals, lk.lstm_bptt)
+    counts = [(w.masked_launches, w.grouped_launches) for w in wrappers]
     res = lk.lstm_scan_residuals_grouped(xw, w_h, 2, lengths)
     da = lk.lstm_bptt_grouped(res[1], res[2], dout, w_h_t, 2, lengths)
     torch.cuda.synchronize()
-    require((lk.lstm_scan_residuals_grouped.masked_launches,
-             lk.lstm_bptt_grouped.masked_launches) ==
-            tuple(c + 1 for c in counts), 'grouped masked E/F not counted')
+    require([(w.masked_launches, w.grouped_launches) for w in wrappers] ==
+            [(masked + 1, grouped + 1) for masked, grouped in counts],
+            'grouped masked E/F not counted')
     for g in range(4):
         alone = lk.lstm_scan_residuals(xw[g], w_h[g], g >= 2, lengths)
         require(all(torch.equal(a[g], b) for a, b in zip(res, alone)) and
@@ -7446,9 +7449,8 @@ def train_masked(card):
             ({}, 'per-head', {'lstm_scan_residuals_masked': 6,
                               'lstm_bptt_masked': 6}),
             ({'fused_lms': True}, 'fused_lms',
-             {'lstm_scan_residuals_grouped_masked': 1,
-              'lstm_bptt_grouped_masked': 1,
-              'lstm_scan_residuals_masked': 2, 'lstm_bptt_masked': 2})):
+             {'lstm_scan_residuals_grouped': 1, 'lstm_bptt_grouped': 1,
+              'lstm_scan_residuals_masked': 3, 'lstm_bptt_masked': 3})):
         result, got, _ = train_run(
             model(seed=4, **kw), FixedLoader([batch]), FIT_STEPS,
             f'phase 45, {FIT_STEPS} masked float32 steps of O&F2 complexity '
@@ -7474,7 +7476,7 @@ def train_masked(card):
                 model(seed=5, **kw), FixedLoader([data] * 2), 3,
                 f'phase 45 {label} {kind} turn',
                 directions=counts['lstm_scan_residuals_masked'] if
-                kind == 'masked' else 6 - 4 * bool(kw))
+                kind == 'masked' else 6 - 3 * bool(kw))
             rates[kind].append(rate)
         log(f'phase 45 {label}: steps/s in turns, masked {rates["masked"]}, '
             f'unmasked {rates["unmasked"]}')

@@ -1242,15 +1242,14 @@ def test_grouped_lstm_kernels_equal_per_stream_launches(cuda, dtype, shape):
     xw, w_h, dout = _grouped_inputs(*shape, dtype, cuda)
     w_h_t = w_h.transpose(1, 2).contiguous()
 
-    counts = (lstm_scan_grouped.launches,
-              lstm_scan_residuals_grouped.launches,
-              lstm_bptt_grouped.launches)
+    wrappers = (lstm_scan, lstm_scan_residuals, lstm_bptt)
+    counts = [(w.launches, w.grouped_launches) for w in wrappers]
     out = lstm_scan_grouped(xw, w_h, split)
     res = lstm_scan_residuals_grouped(xw, w_h, split)
     da = lstm_bptt_grouped(res[1], res[2], dout, w_h_t, split)
     torch.cuda.synchronize()
-    assert (lstm_scan_grouped.launches, lstm_scan_residuals_grouped.launches,
-            lstm_bptt_grouped.launches) == tuple(c + 1 for c in counts)
+    assert [(w.launches, w.grouped_launches) for w in wrappers] == [
+        (n + 1, grouped + 1) for n, grouped in counts]
 
     assert torch.equal(res[0], out)
     for g in range(groups):
@@ -1299,13 +1298,60 @@ def test_masked_grouped_lstm_equals_per_stream(cuda, dtype):
     xw, w_h, _ = _grouped_inputs(4, 6, 300, 256, dtype, cuda)
     lengths = torch.tensor([0, 1, 300, 17, 250, 299], device=cuda)
 
-    masked = lstm_scan_grouped.masked_launches
+    counts = lstm_scan.masked_launches, lstm_scan.grouped_launches
     got = lstm_scan_grouped(xw, w_h, 2, lengths)
     torch.cuda.synchronize()
-    assert lstm_scan_grouped.masked_launches == masked + 1
+    assert (lstm_scan.masked_launches, lstm_scan.grouped_launches) == (
+        counts[0] + 1, counts[1] + 1)
     for g in range(4):
         assert torch.equal(got[g], lstm_scan(xw[g], w_h[g], g >= 2,
                                              lengths=lengths)), g
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_one_sequence_is_a_one_group_launch(cuda, dtype, reverse):
+    """B, E and F on one sequence, plain, masked and carried, bit for bit
+    group 0 of a launch of one group (``reverse_from`` 0 reversed, 1
+    forward); neither counts as a grouped launch."""
+
+    batch, frames, hidden = 8, 300, 256
+    xw, w_h, dout = _lstm_inputs(batch, frames, hidden, dtype, cuda)
+    lengths = _train_lengths(batch, frames, cuda, 7)
+    c0, h0, dc, dh = _train_carry(batch, hidden, cuda, 8)
+    w_h_t = w_h.t().contiguous()
+    reverse_from = 0 if reverse else 1
+    wrappers = (lstm_scan, lstm_scan_residuals, lstm_bptt)
+    grouped = [w.grouped_launches for w in wrappers]
+
+    def first(result):
+        if isinstance(result, tuple):
+            return tuple(first(x) for x in result)
+        return result[0]
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(map(same, a, b))
+        return torch.equal(a, b)
+
+    for n, carried in ((None, False), (lengths, False), (lengths, True)):
+        carry = (c0, h0) if carried else None
+        one = carry and tuple(x[None] for x in carry)
+        assert same(lstm_scan(xw, w_h, reverse, n, carry, carried),
+                    first(lstm_scan_grouped(xw[None], w_h[None],
+                                            reverse_from, n, one, carried)))
+        res = lstm_scan_residuals(xw, w_h, reverse, n, carry, carried)
+        assert same(res, first(lstm_scan_residuals_grouped(
+            xw[None], w_h[None], reverse_from, n, one, carried)))
+        bptt_carry = (c0, dc, dh) if carried else None
+        assert same(lstm_bptt(res[1], res[2], dout, w_h_t, reverse, n,
+                              bptt_carry),
+                    first(lstm_bptt_grouped(
+                        res[1][None], res[2][None], dout[None], w_h_t[None],
+                        reverse_from, n,
+                        bptt_carry and tuple(x[None] for x in bptt_carry))))
+    torch.cuda.synchronize()
+    assert [w.grouped_launches for w in wrappers] == grouped
 
 
 def test_grouped_lstm_grad_equals_per_stream(cuda):
@@ -1342,19 +1388,19 @@ def test_grouped_bilstm_on_the_card_matches_the_cpu(cuda, hidden):
     on_card = copy.deepcopy(layer).to(cuda)
     x = torch.randn(3, 4, 37, 40, generator=g)
 
-    launches = lstm_scan_grouped.launches
+    launches = lstm_scan.grouped_launches
     with torch.no_grad():
         got = on_card(x.to(cuda))
-    assert lstm_scan_grouped.launches == launches + 1
+    assert lstm_scan.grouped_launches == launches + 1
     torch.testing.assert_close(got.cpu(), layer(x).detach(), rtol=0,
                                atol=1e-4)
 
-    counts = (lstm_scan_residuals_grouped.launches,
-              lstm_bptt_grouped.launches)
+    counts = (lstm_scan_residuals.grouped_launches,
+              lstm_bptt.grouped_launches)
     on_card(x.to(cuda)).square().sum().backward()
     layer(x).square().sum().backward()
-    assert (lstm_scan_residuals_grouped.launches,
-            lstm_bptt_grouped.launches) == tuple(c + 1 for c in counts)
+    assert (lstm_scan_residuals.grouped_launches,
+            lstm_bptt.grouped_launches) == tuple(c + 1 for c in counts)
     for name, param in on_card.named_parameters():
         ref = dict(layer.named_parameters())[name].grad
         assert ((param.grad.cpu() - ref).abs().max().item() <=
@@ -1493,10 +1539,10 @@ def test_masked_carried_e_and_f_match_plain(cuda, dtype, reverse, shape,
     if carried:
         (da, dc0, dh0), (want, want_dc0, want_dh0) = da, want
     max_rel, mean_rel = BPTT_TOL[dtype]
-    h_prev = lstm_kernel._h_prev(ref[0], reverse, lengths,
-                                 h0 if carried else None)
-    for a, b in ((da, want), (lstm_kernel._dw_h(h_prev, da),
-                              lstm_kernel._dw_h(h_prev, want))):
+    h_prev = lstm_kernel._h_prev(ref[0][None], 0 if reverse else 1, lengths,
+                                 h0[None] if carried else None)
+    for a, b in ((da, want), (lstm_kernel._dw_h(h_prev, da[None]),
+                              lstm_kernel._dw_h(h_prev, want[None]))):
         _held_to(a, b, max_rel, mean_rel)
     if masked:
         mask = torch.arange(frames, device=cuda)[None] < lengths[:, None]
@@ -1617,13 +1663,13 @@ def test_masked_grouped_e_and_f_equal_per_stream(cuda, dtype):
     w_h_t = w_h.transpose(1, 2).contiguous()
     lengths = torch.tensor([0, 1, 300, 17, 250, 299, 150, 300], device=cuda)
 
-    counts = (lstm_scan_residuals_grouped.masked_launches,
-              lstm_bptt_grouped.masked_launches)
+    wrappers = (lstm_scan_residuals, lstm_bptt)
+    counts = [(w.masked_launches, w.grouped_launches) for w in wrappers]
     res = lstm_scan_residuals_grouped(xw, w_h, 2, lengths)
     da = lstm_bptt_grouped(res[1], res[2], dout, w_h_t, 2, lengths)
     torch.cuda.synchronize()
-    assert (lstm_scan_residuals_grouped.masked_launches,
-            lstm_bptt_grouped.masked_launches) == tuple(c + 1 for c in counts)
+    assert [(w.masked_launches, w.grouped_launches) for w in wrappers] == [
+        (masked + 1, grouped + 1) for masked, grouped in counts]
     for g in range(4):
         reverse = g >= 2
         alone = lstm_scan_residuals(xw[g], w_h[g], reverse, lengths)
@@ -1651,15 +1697,16 @@ def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
         x = torch.randn(*shape, generator=g)
         on_card = copy.deepcopy(layer).to(cuda)
         grouped = isinstance(layer, GroupedBiLSTM)
-        wrappers = ((lstm_scan_residuals_grouped, lstm_bptt_grouped)
-                    if grouped else (lstm_scan_residuals, lstm_bptt))
-        counts = [w.masked_launches for w in wrappers]
+        wrappers = (lstm_scan_residuals, lstm_bptt)
+        counts = [(w.masked_launches, w.grouped_launches) for w in wrappers]
         got = on_card(x.to(cuda), lengths.to(cuda))
         got.square().sum().backward()
         want = layer(x, lengths)
         want.square().sum().backward()
-        assert [w.masked_launches for w in wrappers] == [
-            c + (1 if grouped else 2) for c in counts]
+        assert [(w.masked_launches, w.grouped_launches)
+                for w in wrappers] == [
+            (masked + (1 if grouped else 2), n + grouped)
+            for masked, n in counts]
         torch.testing.assert_close(got.detach().cpu(), want.detach(),
                                    rtol=0, atol=1e-4)
         for name, param in on_card.named_parameters():

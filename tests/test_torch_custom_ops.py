@@ -1,9 +1,10 @@
 """Kernels A-F and the conv blocks' eval epilogue as custom ops of
 ``torch.ops.amt_tools_tpu_torch``, on the CPU.
 
-Each op (kernels B, E and F with their masked and carried schemas, the
-grouped launches of B, E and F, masked or not, and the epilogue, pooled or
-not) passes
+Each op (kernels B, E and F, one op each over (G, B, T, ·) tensors:
+one sequence as one group, plain, masked, carried and carried over no
+frames, and three groups, masked or not; and the epilogue, pooled or not)
+passes
 ``torch.library.opcheck`` (schema, fake implementation against the real
 one, autograd registration, a trace with symbolic shapes), equals its plain
 version bit for bit, survives ``torch.export`` save and load inside a tiny
@@ -80,63 +81,74 @@ def _cases():
         out, gates, c_seq = lstm_kernel.lstm_scan_residuals_plain(xw, wh)
         dout = _tensor(rng, 3, FRAMES, HIDDEN, scale=0.1, dtype=dtype)
         wht = wh.t().contiguous()
+        # One sequence is one group (reverse_from 1 forward, 0 reversed);
+        # each op returns a list, the carry's outputs last
+        x1, w1, wht1, carry = xw[None], wh[None], wht[None], (c0[None],
+                                                               h0[None])
+        res1 = gates[None], c_seq[None], dout[None], wht1
+        empty = xw[None, :, :0].contiguous()
+        no_frames = tuple(t[None, :, :0].contiguous()
+                          for t in (gates, c_seq, dout)) + (wht1,)
+
+        def one(*results):
+            return [x[None] for r in results
+                    for x in (r if isinstance(r, tuple) else (r,))]
+
         cases += [
-            (f'B {name}', lstm_kernel.lstm_scan_op, (xw, wh, False, None),
-             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_plain(xw, wh)),
+            (f'B {name}', lstm_kernel.lstm_scan_op,
+             (x1, w1, 1, None, None, None),
+             lambda xw=xw, wh=wh: one(lstm_kernel.lstm_scan_plain(xw, wh))),
             (f'B {name} masked', lstm_kernel.lstm_scan_op,
-             (xw, wh, True, lengths),
-             lambda xw=xw, wh=wh, n=lengths: lstm_kernel.lstm_scan_plain(
-                 xw, wh, True, n)),
-            (f'B {name} carried', lstm_kernel.lstm_scan_carried_op,
-             (xw, wh, False, lengths, c0, h0),
-             lambda xw=xw, wh=wh, n=lengths, c=(c0, h0): (
-                 lambda r: (r[0], *r[1]))(lstm_kernel.lstm_scan_plain(
-                     xw, wh, False, n, c, return_carry=True))),
-            (f'B {name} carried, no frames', lstm_kernel.lstm_scan_carried_op,
-             (xw[:, :0].contiguous(), wh, False, None, c0, h0),
-             lambda wh=wh, c=(c0, h0), xw=xw: (
-                 lambda r: (r[0], *r[1]))(lstm_kernel.lstm_scan_plain(
-                     xw[:, :0], wh, False, None, c, return_carry=True))),
+             (x1, w1, 0, lengths, None, None),
+             lambda xw=xw, wh=wh, n=lengths: one(lstm_kernel.lstm_scan_plain(
+                 xw, wh, True, n))),
+            (f'B {name} carried', lstm_kernel.lstm_scan_op,
+             (x1, w1, 1, lengths, *carry),
+             lambda xw=xw, wh=wh, n=lengths, c=(c0, h0): one(
+                 *lstm_kernel.lstm_scan_plain(xw, wh, False, n, c,
+                                              return_carry=True))),
+            (f'B {name} carried, no frames', lstm_kernel.lstm_scan_op,
+             (empty, w1, 1, None, *carry),
+             lambda wh=wh, c=(c0, h0), xw=xw: one(
+                 *lstm_kernel.lstm_scan_plain(xw[:, :0], wh, False, None, c,
+                                              return_carry=True))),
             (f'E {name}', lstm_kernel.lstm_scan_residuals_op,
-             (xw, wh, True, None),
-             lambda xw=xw, wh=wh: lstm_kernel.lstm_scan_residuals_plain(
-                 xw, wh, True)),
+             (x1, w1, 0, None, None, None),
+             lambda xw=xw, wh=wh: one(
+                 *lstm_kernel.lstm_scan_residuals_plain(xw, wh, True))),
             (f'E {name} masked', lstm_kernel.lstm_scan_residuals_op,
-             (xw, wh, True, lengths),
-             lambda xw=xw, wh=wh, n=lengths:
-             lstm_kernel.lstm_scan_residuals_plain(xw, wh, True, n)),
-            (f'E {name} carried', lstm_kernel.lstm_scan_residuals_carried_op,
-             (xw, wh, True, lengths, c0, h0),
-             lambda xw=xw, wh=wh, n=lengths, c=(c0, h0): (
-                 lambda r: (*r[:3], *r[3]))(
-                     lstm_kernel.lstm_scan_residuals_plain(
-                         xw, wh, True, n, c, return_carry=True))),
+             (x1, w1, 0, lengths, None, None),
+             lambda xw=xw, wh=wh, n=lengths: one(
+                 *lstm_kernel.lstm_scan_residuals_plain(xw, wh, True, n))),
+            (f'E {name} carried', lstm_kernel.lstm_scan_residuals_op,
+             (x1, w1, 0, lengths, *carry),
+             lambda xw=xw, wh=wh, n=lengths, c=(c0, h0): one(
+                 *lstm_kernel.lstm_scan_residuals_plain(
+                     xw, wh, True, n, c, return_carry=True))),
             (f'E {name} carried, no frames',
-             lstm_kernel.lstm_scan_residuals_carried_op,
-             (xw[:, :0].contiguous(), wh, False, None, c0, h0),
-             lambda wh=wh, c=(c0, h0), xw=xw: (
-                 lambda r: (*r[:3], *r[3]))(
-                     lstm_kernel.lstm_scan_residuals_plain(
-                         xw[:, :0], wh, False, None, c, return_carry=True))),
+             lstm_kernel.lstm_scan_residuals_op,
+             (empty, w1, 1, None, *carry),
+             lambda wh=wh, c=(c0, h0), xw=xw: one(
+                 *lstm_kernel.lstm_scan_residuals_plain(
+                     xw[:, :0], wh, False, None, c, return_carry=True))),
             (f'F {name}', lstm_kernel.lstm_bptt_op,
-             (gates, c_seq, dout, wht, False, None),
+             (*res1, 1, None, None, None, None),
              lambda g=gates, c=c_seq, d=dout, w=wht:
-             lstm_kernel.lstm_bptt_plain(g, c, d, w)),
+             one(lstm_kernel.lstm_bptt_plain(g, c, d, w))),
             (f'F {name} masked', lstm_kernel.lstm_bptt_op,
-             (gates, c_seq, dout, wht, True, lengths),
+             (*res1, 0, lengths, None, None, None),
              lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths:
-             lstm_kernel.lstm_bptt_plain(g, c, d, w, True, n)),
-            (f'F {name} carried', lstm_kernel.lstm_bptt_carried_op,
-             (gates, c_seq, dout, wht, False, lengths, c0, h0, dc),
+             one(lstm_kernel.lstm_bptt_plain(g, c, d, w, True, n))),
+            (f'F {name} carried', lstm_kernel.lstm_bptt_op,
+             (*res1, 1, lengths, *carry, dc[None]),
              lambda g=gates, c=c_seq, d=dout, w=wht, n=lengths,
-             k=(c0, h0, dc): lstm_kernel.lstm_bptt_plain(g, c, d, w, False,
-                                                         n, k)),
-            (f'F {name} carried, no frames', lstm_kernel.lstm_bptt_carried_op,
-             (gates[:, :0].contiguous(), c_seq[:, :0].contiguous(),
-              dout[:, :0].contiguous(), wht, False, None, c0, h0, dc),
+             k=(c0, h0, dc): one(*lstm_kernel.lstm_bptt_plain(
+                 g, c, d, w, False, n, k))),
+            (f'F {name} carried, no frames', lstm_kernel.lstm_bptt_op,
+             (*no_frames, 1, None, *carry, dc[None]),
              lambda g=gates, c=c_seq, d=dout, w=wht, k=(c0, h0, dc):
-             lstm_kernel.lstm_bptt_plain(g[:, :0], c[:, :0], d[:, :0], w,
-                                         False, None, k)),
+             one(*lstm_kernel.lstm_bptt_plain(g[:, :0], c[:, :0], d[:, :0],
+                                              w, False, None, k))),
         ]
         # Three groups, the last reversed
         gxw = _tensor(rng, 3, 3, FRAMES, 4 * HIDDEN, scale=0.5, dtype=dtype)
@@ -146,30 +158,30 @@ def _cases():
         gdout = _tensor(rng, 3, 3, FRAMES, HIDDEN, scale=0.1, dtype=dtype)
         gwht = gwh.transpose(1, 2).contiguous()
         cases += [
-            (f'B {name} grouped', lstm_kernel.lstm_scan_grouped_op,
-             (gxw, gwh, 2, None),
-             lambda x=gxw, w=gwh: lstm_kernel.lstm_scan_grouped_plain(x, w, 2)),
-            (f'B {name} grouped masked', lstm_kernel.lstm_scan_grouped_op,
-             (gxw, gwh, 2, lengths),
-             lambda x=gxw, w=gwh, n=lengths:
-             lstm_kernel.lstm_scan_grouped_plain(x, w, 2, n)),
-            (f'E {name} grouped', lstm_kernel.lstm_scan_residuals_grouped_op,
-             (gxw, gwh, 2, None),
-             lambda x=gxw, w=gwh:
-             lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2)),
-            (f'E {name} grouped masked',
-             lstm_kernel.lstm_scan_residuals_grouped_op,
-             (gxw, gwh, 2, lengths),
-             lambda x=gxw, w=gwh, n=lengths:
-             lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2, n)),
-            (f'F {name} grouped', lstm_kernel.lstm_bptt_grouped_op,
-             (ggates, gc, gdout, gwht, 2, None),
-             lambda g=ggates, c=gc, d=gdout, w=gwht:
-             lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2)),
-            (f'F {name} grouped masked', lstm_kernel.lstm_bptt_grouped_op,
-             (ggates, gc, gdout, gwht, 2, lengths),
-             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths:
-             lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2, n)),
+            (f'B {name} grouped', lstm_kernel.lstm_scan_op,
+             (gxw, gwh, 2, None, None, None),
+             lambda x=gxw, w=gwh: [
+                 lstm_kernel.lstm_scan_grouped_plain(x, w, 2)]),
+            (f'B {name} grouped masked', lstm_kernel.lstm_scan_op,
+             (gxw, gwh, 2, lengths, None, None),
+             lambda x=gxw, w=gwh, n=lengths: [
+                 lstm_kernel.lstm_scan_grouped_plain(x, w, 2, n)]),
+            (f'E {name} grouped', lstm_kernel.lstm_scan_residuals_op,
+             (gxw, gwh, 2, None, None, None),
+             lambda x=gxw, w=gwh: list(
+                 lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2))),
+            (f'E {name} grouped masked', lstm_kernel.lstm_scan_residuals_op,
+             (gxw, gwh, 2, lengths, None, None),
+             lambda x=gxw, w=gwh, n=lengths: list(
+                 lstm_kernel.lstm_scan_residuals_grouped_plain(x, w, 2, n))),
+            (f'F {name} grouped', lstm_kernel.lstm_bptt_op,
+             (ggates, gc, gdout, gwht, 2, None, None, None, None),
+             lambda g=ggates, c=gc, d=gdout, w=gwht: [
+                 lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2)]),
+            (f'F {name} grouped masked', lstm_kernel.lstm_bptt_op,
+             (ggates, gc, gdout, gwht, 2, lengths, None, None, None),
+             lambda g=ggates, c=gc, d=gdout, w=gwht, n=lengths: [
+                 lstm_kernel.lstm_bptt_grouped_plain(g, c, d, w, 2, n)]),
         ]
 
     # The conv blocks' eval epilogue on a channels-last conv output, an odd
@@ -304,10 +316,8 @@ def _cost(label, args):
     if label == 'D':
         audio, stack, supports, bins, hop, _ = args
         return cqt_kernel.cost(*audio.shape, hop, stack, supports, bins)
-    xw = args[0]
-    # a grouped launch costs its groups times one sequence's
-    groups = xw.shape[0] if 'grouped' in label else 1
-    batch, frames, four_h = xw.shape[-3:]
+    # a launch costs its groups times one sequence's
+    groups, batch, frames, four_h = args[0].shape
     lengths = args[5] if label.startswith('F') else args[3]
     steps = None if lengths is None else int(lengths.sum())
     if label.startswith('F'):
@@ -316,7 +326,7 @@ def _cost(label, args):
                                      carried='carried' in label, steps=steps)
     else:
         cost = lstm_kernel.scan_cost(
-            batch, frames, four_h // 4, xw.dtype,
+            batch, frames, four_h // 4, args[0].dtype,
             residuals=label.startswith('E'), carried='carried' in label,
             steps=steps)
     return groups * cost[0], groups * cost[1]
@@ -386,17 +396,14 @@ def test_fake_implementations_launch_and_count_nothing():
 
     wrappers = (stft_kernel.stft_power, lstm_kernel.lstm_scan,
                 lstm_kernel.lstm_scan_residuals, lstm_kernel.lstm_bptt,
-                lstm_kernel.lstm_scan_grouped,
-                lstm_kernel.lstm_scan_residuals_grouped,
-                lstm_kernel.lstm_bptt_grouped,
                 cqt_kernel.cqt_mag, cqt_kernel.cqt_mag_grouped)
     before = [w.launches for w in wrappers]
     for _, op, args, plain in CASES:
         meta = [a.to('meta') if isinstance(a, torch.Tensor) else a
                 for a in args]
         got, want = op(*meta), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
         assert [(g.shape, g.dtype) for g in got] == \
             [(w.shape, w.dtype) for w in want]
         assert all(g.device.type == 'meta' for g in got)

@@ -69,12 +69,12 @@ def test_fused_lms_match_jax(velocity, use_lengths):
     model = _model(estimate_velocity=velocity, fused_lms=True).eval()
     assert model._fused_lm_streams == jax_ref._fused_lm_streams
     model.load_state_dict(from_flax(v_fused))
-    launches = lstm_kernel.lstm_scan_grouped.launches
+    launches = lstm_kernel.lstm_scan.grouped_launches
     with torch.no_grad():
         got = model(torch.from_numpy(feats), lengths=None if lengths is None
                     else torch.from_numpy(lengths))
     # the CPU's plain version counts no launch
-    assert lstm_kernel.lstm_scan_grouped.launches == launches
+    assert lstm_kernel.lstm_scan.grouped_launches == launches
 
     assert set(got) == set(want)
     for key in want:

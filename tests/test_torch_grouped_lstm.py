@@ -1,5 +1,5 @@
 """The grouped recurrence (the fused_lms layout) on the CPU: grouped kernels
-B, E and F through their plain versions, ``LSTMScanGroupedGrad``,
+B, E and F through their plain versions, ``LSTMScanGrad`` over groups,
 ``GroupedBiLSTM`` and the grouped cluster plan, against per-stream runs and
 the JAX package's grouped scan (``ops/lstm.py`` ``_grouped_lstm_scan``,
 ``GroupedBiLSTM``).
@@ -30,9 +30,10 @@ from amt_tools_tpu.ops.lstm import _grouped_lstm_scan
 from amt_tools_tpu_torch.ops import lstm_kernel
 from amt_tools_tpu_torch.ops.lstm import GroupedBiLSTM
 from amt_tools_tpu_torch.ops.lstm_kernel import (
-    cluster_plan, lstm_bptt_grouped, lstm_bptt_plain, lstm_scan_grad,
-    lstm_scan_grouped, lstm_scan_grouped_grad, lstm_scan_plain,
-    lstm_scan_residuals_grouped, lstm_scan_residuals_plain)
+    cluster_plan, lstm_bptt, lstm_bptt_grouped, lstm_bptt_plain, lstm_scan,
+    lstm_scan_grad, lstm_scan_grouped, lstm_scan_grouped_grad,
+    lstm_scan_plain, lstm_scan_residuals, lstm_scan_residuals_grouped,
+    lstm_scan_residuals_plain)
 from amt_tools_tpu_torch.weights import from_flax
 
 torch.set_num_threads(1)
@@ -95,6 +96,48 @@ def test_grouped_plain_equals_per_stream_runs(dtype, masked):
                                                   w_h_t[g], g >= split)), g
 
 
+@pytest.mark.parametrize('kernel', ['B', 'E', 'F'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_one_sequence_is_group_0_of_one_group(kernel, dtype, masked,
+                                              reverse):
+    """The wrappers of one (B, T, ·) sequence are the grouped ones at G =
+    1: bit for bit group 0 of a one-group call (``reverse_from`` 0
+    reversed, 1 forward). And ``lstm_scan_grad``'s dW_h at G = 1 is the one
+    float32 ``mm`` of the (B·T, H) and (B·T, 4H) operands, bit for bit."""
+
+    xw, w_h, dout = (torch.from_numpy(a[0]).to(dtype) for a in _data(4))
+    lengths = torch.tensor(LENGTHS) if masked else None
+    reverse_from = 0 if reverse else 1
+    out, gates, c_seq = lstm_scan_residuals_plain(xw, w_h, reverse, lengths)
+    w_h_t = w_h.t().contiguous()
+
+    if kernel == 'B':
+        pairs = [(lstm_scan(xw, w_h, reverse, lengths),
+                  lstm_scan_grouped(xw[None], w_h[None], reverse_from,
+                                    lengths))]
+    elif kernel == 'E':
+        pairs = zip(lstm_scan_residuals(xw, w_h, reverse, lengths),
+                    lstm_scan_residuals_grouped(xw[None], w_h[None],
+                                                reverse_from, lengths))
+    else:
+        pairs = [(lstm_bptt(gates, c_seq, dout, w_h_t, reverse, lengths),
+                  lstm_bptt_grouped(gates[None], c_seq[None], dout[None],
+                                    w_h_t[None], reverse_from, lengths))]
+    for got, group in pairs:
+        assert group.shape[0] == 1 and torch.equal(got, group[0])
+
+    xw_t = xw.clone().requires_grad_()
+    w_t = w_h.float().requires_grad_()
+    lstm_scan_grad(xw_t, w_t, reverse, lengths).backward(dout)
+    da = lstm_bptt_plain(gates, c_seq, dout, w_h_t, reverse, lengths)
+    h_prev = lstm_kernel._shift_prev(out, reverse).float()
+    hidden = h_prev.shape[-1]
+    assert torch.equal(w_t.grad, h_prev.reshape(-1, hidden).t() @
+                       da.reshape(-1, 4 * hidden))
+
+
 @pytest.mark.parametrize('masked', [False, True])
 def test_grouped_plain_matches_jax_grouped_scan(masked):
     xw, w_h, _ = _data(2)
@@ -109,7 +152,7 @@ def test_grouped_plain_matches_jax_grouped_scan(masked):
 
 
 def test_grouped_gradients_match_jax_grad():
-    """``LSTMScanGroupedGrad`` (grouped E and F through their plain
+    """``LSTMScanGrad`` over groups (grouped E and F through their plain
     versions, dW_h one batched matmul) against ``jax.grad`` of the grouped
     scan, float32; and against the per-stream Function."""
 
@@ -242,13 +285,15 @@ def test_masked_and_carried_f_hold_a_dh_buffer(dtype):
 def test_ctypes_signatures_match_the_sources(source, signatures):
     """Every exported C function the wrappers call takes as many arguments
     as its ctypes signature names (ctypes would otherwise refuse the call,
-    on the card only)."""
+    on the card only), and each source exports one launch entry, named as
+    the source, beside its occupancy and shared-memory queries."""
 
     text = (Path(lstm_kernel.__file__).parent.parent / 'csrc' /
             f'{source}.cu').read_text()
     declared = {name: len([a for a in args.split(',') if a.strip()])
                 for name, args in re.findall(
                     r'extern "C" int (\w+)\(([^)]*)\)', text)}
-    assert set(signatures) <= set(declared)
+    assert set(signatures) == set(declared) == {
+        source, f'{source}_max_active_clusters', f'{source}_smem'}
     for name, argtypes in signatures.items():
         assert len(argtypes) == declared[name], name

@@ -261,7 +261,10 @@ def test_card_bptt_bf16_tolerance_catches_numerics_faults(recipe):
 
 
 def _spy(monkeypatch):
-    calls = {'lstm_scan': 0, 'lstm_scan_grad': 0}
+    """Count the layers' calls of kernel B's and the Function's grouped
+    wrappers (one sequence is one group)."""
+
+    calls = {'lstm_scan_grouped': 0, 'lstm_scan_grouped_grad': 0}
     for name in calls:
         original = getattr(port_lstm, name)
 
@@ -281,7 +284,7 @@ def test_routing_grad_on_takes_e_and_f(monkeypatch):
 
     layer(x).sum().backward()
 
-    assert calls == {'lstm_scan': 0, 'lstm_scan_grad': 2}
+    assert calls == {'lstm_scan_grouped': 0, 'lstm_scan_grouped_grad': 2}
     assert layer.recurrent_kernel_fwd.grad is not None
     assert layer.recurrent_kernel_bwd.grad is not None
 
@@ -296,7 +299,7 @@ def test_routing_grad_off_takes_b(monkeypatch):
     with torch.inference_mode():
         layer(x)
 
-    assert calls == {'lstm_scan': 4, 'lstm_scan_grad': 0}
+    assert calls == {'lstm_scan_grouped': 4, 'lstm_scan_grouped_grad': 0}
 
     # The two routes give the same outputs
     assert torch.equal(layer(x).detach(), out)

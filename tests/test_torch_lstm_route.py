@@ -105,7 +105,7 @@ def test_cpu_layers_keep_the_kernels_plain_versions(monkeypatch):
     def refuse(*args):
         raise AssertionError('a CPU layer padded its recurrence')
 
-    monkeypatch.setattr(lstm_layers, 'padded_recurrence', refuse)
+    monkeypatch.setattr(lstm_layers, '_padded_scan', refuse)
     model = LanguageModel(40, 48, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         out = model(torch.randn(2, 9, 40))
