@@ -5,7 +5,8 @@ Counterparts of ``amt_tools_tpu/ops/lstm.py`` ``FastLSTM`` (``:208``) and
 ``lengths`` (bucketed evaluation, ``lengths_to_mask`` ``:202``): the input
 projection for every step is one ``nn.Linear`` over
 (B, T, E), and the recurrence runs in the Hopper kernels on CUDA tensors,
-each direction as one group of a grouped launch:
+``FastLSTM``'s one direction as a launch of one group and ``FastBiLSTM``'s
+two as one launch of two groups, the backward group reversed:
 :func:`ops.lstm_kernel.lstm_scan_grouped` (kernel B) when nothing
 differentiates it, :func:`ops.lstm_kernel.lstm_scan_grouped_grad` (kernels
 E and F) when autograd records, as ``lstm_scan_pallas_grad`` forwards to
@@ -241,7 +242,9 @@ class FastLSTM(nn.Module):
 class FastBiLSTM(nn.Module):
     """Bidirectional LSTM: (B, T, E) -> (B, T, 2H), [forward | backward];
     ``lengths`` (B,) masks each row's padded tail, so the backward
-    direction starts at each row's true end."""
+    direction starts at each row's true end. The two recurrences are one
+    grouped launch (G = 2, the backward group reversed), each group bit for
+    bit its direction's own launch."""
 
     def __init__(self, input_size, features, dtype=None, generator=None,
                  quant=False):
@@ -264,17 +267,17 @@ class FastBiLSTM(nn.Module):
 
     def forward(self, inputs, lengths=None):
         with profiling.span('amt.lstm'):
-            xw_f = linear(inputs, self.input_proj_fwd, self.dtype)
-            xw_b = linear(inputs, self.input_proj_bwd, self.dtype)
+            # Both directions in one grouped launch, the backward group
+            # reversed: a second group costs the launch almost nothing
+            # while it fits one wave, where two launches each pay the
+            # chain of dependent steps
+            xw = torch.stack([linear(inputs, self.input_proj_fwd, self.dtype),
+                              linear(inputs, self.input_proj_bwd, self.dtype)])
+            w_h = torch.stack([_whole(self, self.recurrent_kernel_fwd),
+                               _whole(self, self.recurrent_kernel_bwd)])
+            out = _recurrence(xw, w_h, 1, lengths)
 
-            out_f = one_sequence(_recurrence, (
-                xw_f, _whole(self, self.recurrent_kernel_fwd)), False,
-                lengths, None)
-            out_b = one_sequence(_recurrence, (
-                xw_b, _whole(self, self.recurrent_kernel_bwd)), True,
-                lengths, None)
-
-            return torch.cat([out_f, out_b], dim=-1)
+            return torch.cat([out[0], out[1]], dim=-1)
 
 
 class GroupedBiLSTM(nn.Module):

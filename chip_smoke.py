@@ -65,7 +65,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     card, kernel A), batch 8, Adam 6e-4, 3 passes in float32 and 3 in bf16,
     each with a checkpoint; then 30 float32 steps on one batch, whose loss
     must fall. Counts are reset before each run and read after it: E and F
-    six times a step, B and the conv epilogue never; every loss finite. 12b: one float32
+    three times a step (one launch a BiLSTM), B and the conv epilogue never; every loss finite. 12b: one float32
     training step of a narrow O&F2 on each of three seeds, card (kernels)
     against the CPU (plain versions), on the losses, the gradients and the
     parameters after one SGD step, with the ReLU and max-pool decisions
@@ -79,7 +79,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     the same weights (bf16, int8, int8, bf16); the note agreement (F1)
     with bf16 as ``bench.py:242-271`` computes it; each batch's peak
     memory, int8 and bf16; counts reset before and read after each run:
-    A once and B six times a dispatch on the int8 route; and 5 clips of
+    A once and B three times a dispatch on the int8 route; and 5 clips of
     the batch, in every int8 layer (Conv_1 over 26 chunks), equal bit for
     bit to the same clips run alone in one chunk;
 15. int8-static guitar: one 64 x 60 s batch through TabCNN (fullseq) with
@@ -103,7 +103,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     through ``evaluate.validate`` with the recipe's estimator and evaluator
     over 16 SyntheticPiano tracks of 20-120 s (HTK mels by kernel A on the
     card), bucketed by 128 frames, at batch sizes 1 and 8: kernel B masked
-    six times a forward, every track scored alike by both passes, every
+    three times a forward, every track scored alike by both passes, every
     track's notes equal to ``run_offline(bucket=0)``'s; tracks per second,
     audio-s per wall-s and the host's share;
 20. guitar validation: TabCNN (fullseq, bf16) through ``validate`` with the
@@ -115,7 +115,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     validations, steps/s with and without them;
 22. the velocity head: O&F2 complexity 3 with ``estimate_velocity`` in
     float32 through ``train()`` on SyntheticPiano(velocity_range=(0.3,
-    1.0)) crops of 8 x 625, Adam: E and F eight times a step, steps/s; 30
+    1.0)) crops of 8 x 625, Adam: E and F four times a step, steps/s; 30
     steps on one batch, whose velocity loss must fall;
 23. ``remat`` False, True, 'blocks' and False again, in turns, on that
     model and batch: the first step's loss bit for bit equal, the
@@ -149,12 +149,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     Adam 6e-4, one pass of ``train()`` validating the validation split at
     its checkpoint; with the cache cold (the threads run kernel A once a
     track read, the npz files appear) and warm (A never runs, every
-    track's features read back bit for bit the cold pass's); E and F six
+    track's features read back bit for bit the cold pass's); E and F three
     times a step; steps/s and the loader's host ms a batch; one track's
     features card against CPU; the notes MAESTRO loads against those
     written, within half a MIDI tick;
 27. ``validate`` on the MAESTRO test split and the MAPS splits (their
-    notes checked as in 26): kernel A and masked B once and six times a
+    notes checked as in 26): kernel A and masked B once and three times a
     track; tracks/s;
 28. the tabcnn recipe on GuitarSet fold 0: TabCNN paper width float32 on
     CQT(22050, 512, n_bins=192, bins_per_octave=24), players 01-05 cropped
@@ -172,18 +172,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 31. ``train(mesh=get_mesh())`` over NCCL at world size 1 in this process
     against ``train()`` (O&F2 complexity 3, float32, 8 x 625, dropout on,
     two Adam steps each, cuDNN's deterministic algorithms): losses,
-    parameters and BatchNorm buffers bit for bit; E and F six times a
+    parameters and BatchNorm buffers bit for bit; E and F three times a
     step;
 32. two ranks on the one card, spawned, through gloo (which does
     broadcast and all_reduce on CUDA tensors): one SGD step on 4 + 4 rows
     of a batch of 8 with dropout on against the one-process step: the
     loss, the averaged gradients (phase 12b's rule, with the ReLU and
     max-pool decisions each rank took otherwise counted) and the running
-    statistics; E and F six times on each rank;
+    statistics; E and F three times on each rank;
 33. the same two ranks serve phase 5's bf16 piano batch (64 clips a rank)
     and phase 8's guitar batch (32 a rank) through the pipelines' ``mesh``:
     every rank's notes equal the one-process notes under PARITY.md's rule
-    (and the tablature rule); A once and B six times, D once, a rank; each
+    (and the tablature rule); A once and B three times, D once, a rank; each
     rank's peak memory;
 34. over NCCL at world size 1, each bit for bit its unsharded counterpart:
     ``framify_time_sharded``, TabCNN on a time-sharded track,
@@ -197,8 +197,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``torch.library.opcheck`` of each on the card at small shapes;
 36. phase 5's bf16 piano pipeline exported (``export.save_serving``, a
     symbolic batch) at 128 x 60 s and loaded: notes equal to the live
-    pipeline's, A once and B six times a call, audio-s per wall-s in turns
-    with the live pipeline; the same artifact at 8 clips; a float32
+    pipeline's, A once and B three times a call, audio-s per wall-s in
+    turns with the live pipeline; the same artifact at 8 clips; a float32
     artifact loaded with TF32 on (loading turns it off), its logits program
     bit for bit the live pipeline's; the int8-static artifact's notes
     equal to the live int8 pipeline's;
@@ -225,7 +225,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 40. fused piano serving: phase 5's pipeline and its twin
     ``OnsetsFrames2(fused_heads=True, fused_lms=True)`` on the same weights
     (``fuse_acoustic_variables``, ``fuse_lm_variables``), 3 requests of
-    ``FUSED_SERVING_CLIPS`` x 60 s: A once, grouped B once and B twice a
+    ``FUSED_SERVING_CLIPS`` x 60 s: A once and grouped B twice a
     dispatch; bf16 logits within ``LAYOUT_TOL`` of the per-head ones and
     notes equal under phase 33's rule, with that bound as its band (the
     two run other cuDNN kernels channels-last); audio-s per wall-s in
@@ -235,14 +235,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     dropout) against the per-head step, losses within ``LOSS_TOL`` and
     gradients (mapped back by the converters) under phase 12b's rule;
     then ``train()`` in turns with the per-head model and with
-    ``fused_lms`` alone (per-head acoustic stacks): E and F six times a
-    step per-head, grouped E and F once and E and F twice with either
-    fused layout; steps/s; E + F device ms a step;
-42. the fused velocity model (G = 6): grouped E and F once a step, its
+    ``fused_lms`` alone (per-head acoustic stacks): E and F three times a
+    step per-head and twice with either fused layout, every launch
+    grouped; steps/s; E + F device ms a step;
+42. the fused velocity model (G = 6): grouped E and F twice a step, its
     cluster plans, steps/s in turns with the per-head model;
 43. phase 40's fused pipeline exported (``export.save_serving``, a
     symbolic batch) and loaded: notes equal to the live fused pipeline's,
-    A once, grouped B once and B twice a call; the same artifact at 8
+    A once and grouped B twice a call; the same artifact at 8
     clips;
 44. masked and carried kernels E and F (per-row lengths, a float32 carry)
     at the training shape, 8 x 625, H = 256, both directions, float32 and
@@ -261,11 +261,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     on SyntheticPiano tracks (HTK mels by kernel A) cut to 313-625 frames
     and padded to 625 with ``KEY_VALID_FRAMES``: lengths = T bit for bit
     the unmasked ``make_train_step`` step; ``train()`` 30 steps on one
-    batch with masked E and F six times a step and B never, the loss
+    batch with masked E and F three times a step and B never, the loss
     falling; steps/s in turns with the unmasked batch; the first masked
     step (dropout off, SGD) against the CPU under phase 12b's rule; the
-    same with ``fused_lms`` (grouped masked E and F once, masked E and F
-    twice a step); one bf16 step with a finite loss;
+    same with ``fused_lms`` (grouped masked E and F twice a step); one bf16 step with a finite loss;
 46. carried training: ``OnsetsFramesOnline`` complexity 3 on 8 x 625
     frames in 5 chunks that thread the carries, the gradient through the
     chain: carried E and F twice a chunk, ms a step; its onset language
@@ -1151,8 +1150,10 @@ def serve(clips, profile, card):
             'the STFT kernel did not run once per dispatch')
     require(launches['stft_power_fft'] == launches['stft_power'],
             'the STFT kernel left its FFT route on the serving path')
-    require(launches['lstm_scan'] >= 6 * REQUESTS,
-            'the LSTM kernel did not run six times per dispatch')
+    require(launches['lstm_scan'] >= 3 * REQUESTS and
+            launches['lstm_scan_grouped'] == launches['lstm_scan'],
+            'the LSTM kernel did not run three times per dispatch, each '
+            'launch both directions of a BiLSTM')
     require(launches['conv_epilogue'] == 9 * REQUESTS,
             'the conv epilogue did not run once a conv block of the three '
             'acoustic stacks per dispatch')
@@ -1959,10 +1960,10 @@ class FixedLoader:
 
 
 def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0,
-              directions=6):
+              recurrences=3):
     """One ``train()`` run on the card with fresh launch counts: E and F
-    ``directions`` times a step (six for O&F2, eight with the velocity
-    head, two for O&F online), B never; every loss finite. Returns (result,
+    ``recurrences`` times a step (three for O&F2, one launch a BiLSTM; four
+    with the velocity head; two for O&F online's two LSTMs), B never; every loss finite. Returns (result,
     launches, steps per second)."""
 
     import torch
@@ -1985,9 +1986,9 @@ def train_run(model, loader, iterations, label, log_dir=None, checkpoints=0,
         f'steps/s; launches {launches}')
     for key, values in sorted(losses.items()):
         log(f'  {key}: ' + ' '.join(f'{v:.6g}' for v in values))
-    require(launches['lstm_scan_residuals'] == directions * steps and
-            launches['lstm_bptt'] == directions * steps,
-            f'{label}: kernels E and F did not run {directions} times a '
+    require(launches['lstm_scan_residuals'] == recurrences * steps and
+            launches['lstm_bptt'] == recurrences * steps,
+            f'{label}: kernels E and F did not run {recurrences} times a '
             f'step')
     require(launches['lstm_scan'] == 0,
             f'{label}: kernel B ran inside a training step')
@@ -2879,8 +2880,8 @@ def serve_int8(clips, profile, card):
             int8_launches = launches
     require(int8_launches['stft_power_fft'] == REQUESTS,
             'kernel A did not run once per int8 dispatch on its FFT route')
-    require(int8_launches['lstm_scan'] == 6 * REQUESTS,
-            'kernel B did not run six times per int8 dispatch')
+    require(int8_launches['lstm_scan'] == 3 * REQUESTS,
+            'kernel B did not run three times per int8 dispatch')
 
     flat = [clip for result in notes['int8-static'] for clip in result]
     flat_ref = [clip for result in notes['bf16'] for clip in result]
@@ -3378,12 +3379,13 @@ def validate_piano(card):
     one, eight = passes[1], passes[VAL_BATCH]
     require(one[1]['stft_power'] == len(dataset.tracks),
             'the validation features did not run kernel A once a track')
-    require(one[1]['lstm_scan_masked'] == 6 * len(dataset.tracks) and
+    require(one[1]['lstm_scan_masked'] == 3 * len(dataset.tracks) and
             one[1]['lstm_scan'] == one[1]['lstm_scan_masked'],
-            'the batch-1 pass did not run masked kernel B six times a track')
+            'the batch-1 pass did not run masked kernel B three times a '
+            'track')
     groups = sum(-(-4 // VAL_BATCH) for _ in VAL_DURATIONS)
-    require(eight[1]['lstm_scan_masked'] == 6 * groups,
-            f'the batch-{VAL_BATCH} pass did not run masked kernel B six '
+    require(eight[1]['lstm_scan_masked'] == 3 * groups,
+            f'the batch-{VAL_BATCH} pass did not run masked kernel B three '
             f'times a bucket group')
     for track in dataset.tracks:
         require(without_loss(one[3].scores[track]) ==
@@ -3641,11 +3643,11 @@ def train_with_validation(card):
                     f'train() validated at {sorted(writer.steps)}, not at '
                     f'iterations 2 and 4')
             require(launches['lstm_scan_masked'] ==
-                    2 * 6 * TRAIN_VAL_TRACKS,
-                    'the validations did not run masked kernel B six times '
-                    'a track')
-        require(launches['lstm_scan_residuals'] == 6 * 4,
-                'kernel E did not run six times a step')
+                    2 * 3 * TRAIN_VAL_TRACKS,
+                    'the validations did not run masked kernel B three '
+                    'times a track')
+        require(launches['lstm_scan_residuals'] == 3 * 4,
+                'kernel E did not run three times a step')
 
     # Two runs without validation tell the card's own run-to-run spread
     # (cuDNN's backward may sum in another order each run) from an effect
@@ -3677,7 +3679,7 @@ def train_velocity(card):
     """Phase 22: O&F2 complexity 3 with the velocity head (a fourth
     acoustic stack and BiLSTM, ``RegressionBank``) through ``train()`` on
     SyntheticPiano(velocity_range=(0.3, 1.0)) crops of 625 frames, batch 8,
-    Adam 6e-4, float32: kernels E and F eight times a step, steps/s; then
+    Adam 6e-4, float32: kernels E and F four times a step, steps/s; then
     30 steps on one batch, whose velocity loss must fall. Returns E's and
     F's launches a step, a fixed batch and a profiler entry."""
 
@@ -3700,7 +3702,7 @@ def train_velocity(card):
         velocity_model(22), loader, TRAIN_PASSES,
         f'training O&F2 complexity 3 with the velocity head in float32, '
         f'{TRAIN_PASSES} passes over {len(dataset)} tracks ({card})',
-        directions=8)
+        recurrences=4)
     require(tools.KEY_LOSS_VELOCITY in result['losses'],
             'the velocity head took no loss')
 
@@ -3709,7 +3711,7 @@ def train_velocity(card):
             'the crops carry no velocity ground truth')
     fixed, _, _ = train_run(velocity_model(23), FixedLoader([batch]),
                             FIT_STEPS, f'{FIT_STEPS} velocity steps on one '
-                                       f'batch', directions=8)
+                                       f'batch', recurrences=4)
     losses = fixed['losses'][tools.KEY_LOSS_VELOCITY]
     log(f'fixed batch: velocity loss {losses[0]:.6g} -> {losses[-1]:.6g}, '
         f'total {fixed["losses"][tools.KEY_LOSS_TOTAL][0]:.6g} -> '
@@ -4162,7 +4164,7 @@ def stream_online(card, batch):
                                  generator=torch.Generator().manual_seed(26))
     train_run(trained, FixedLoader([batch]), 3,
               f'3 float32 steps of O&F online (unidirectional LMs) on one '
-              f'batch ({card})', directions=2)
+              f'batch ({card})', recurrences=2)
     profiled = copy.deepcopy(trained).cuda()
     step = make_train_step(profiled, torch.optim.Adam(profiled.parameters(),
                                                       lr=LEARNING_RATE))
@@ -4431,7 +4433,7 @@ def of2_on_maestro(card, corpora):
     card (kernel A once a track read, plus once a validation track) and
     write the npz files. Then with it warm, on new datasets: kernel A never
     runs, and every track's features read back equal the cold pass's bit
-    for bit. E and F six times a step; steps/s and the loader's host ms a
+    for bit. E and F three times a step; steps/s and the loader's host ms a
     batch in each pass. Then one track's features on the card against the
     CPU's, and the notes MAESTRO loads against the notes written. Returns
     the model, the launches and rates, and the step the profiler runs."""
@@ -4506,12 +4508,12 @@ def of2_on_maestro(card, corpora):
                 f'{steps} steps, not one pass')
         require(all(np.isfinite(v).all() for v in result['losses'].values()),
                 'a MAESTRO training loss is not finite')
-        require(launches['lstm_scan_residuals'] == 6 * steps and
-                launches['lstm_bptt'] == 6 * steps,
-                'kernels E and F did not run six times a step')
-        require(launches['lstm_scan_masked'] == 6 * len(val_set.tracks) and
+        require(launches['lstm_scan_residuals'] == 3 * steps and
+                launches['lstm_bptt'] == 3 * steps,
+                'kernels E and F did not run three times a step')
+        require(launches['lstm_scan_masked'] == 3 * len(val_set.tracks) and
                 launches['lstm_scan'] == launches['lstm_scan_masked'],
-                'the validation did not run masked kernel B six times a '
+                'the validation did not run masked kernel B three times a '
                 'track')
         require(validation.seconds > 0, 'train() did not validate')
         read = len(recorded.feats) + len(recorded_val.feats)
@@ -4583,7 +4585,7 @@ def validate_corpora(card, corpora, model):
     ``load_notes_midi`` and its sustain-pedal pairing; notes checked
     against those written), the of_2 recipe's estimator and evaluator,
     bucketed by 128 frames: kernel A once a track (the caches cold), masked
-    B six times a track; tracks/s. Returns masked B's launches."""
+    B three times a track; tracks/s. Returns masked B's launches."""
 
     import torch
 
@@ -4626,9 +4628,9 @@ def validate_corpora(card, corpora, model):
                                            for k, v in sorted(scores.items())))
         require(launches['stft_power'] == tracks,
                 f'{name}: kernel A did not run once a track')
-        require(launches['lstm_scan_masked'] == 6 * tracks and
-                launches['lstm_scan'] == 6 * tracks,
-                f'{name}: masked kernel B did not run six times a track')
+        require(launches['lstm_scan_masked'] == 3 * tracks and
+                launches['lstm_scan'] == 3 * tracks,
+                f'{name}: masked kernel B did not run three times a track')
     torch.cuda.synchronize()
 
     return masked
@@ -4950,7 +4952,7 @@ def dp_world_one(card):
     against ``train()``: O&F2 complexity 3, float32, 8 x 625, dropout on,
     Adam, two steps each, in turns (plain, mesh, mesh, plain) under
     cuDNN's deterministic algorithms; each mesh run's losses, parameters
-    and BatchNorm buffers bit for bit the first plain run's, E and F six
+    and BatchNorm buffers bit for bit the first plain run's, E and F three
     times a step. Returns E's and F's launches a step."""
 
     import torch
@@ -4983,9 +4985,9 @@ def dp_world_one(card):
             log(f'phase 31 {label}: {DP_STEPS} steps in {elapsed:.3f} s '
                 f'({card}); totals {result["losses"][tools.KEY_LOSS_TOTAL]}; '
                 f'launches {launches}')
-            require(launches['lstm_scan_residuals'] == 6 * DP_STEPS and
-                    launches['lstm_bptt'] == 6 * DP_STEPS,
-                    f'phase 31 {label}: kernels E and F did not run six '
+            require(launches['lstm_scan_residuals'] == 3 * DP_STEPS and
+                    launches['lstm_bptt'] == 3 * DP_STEPS,
+                    f'phase 31 {label}: kernels E and F did not run three '
                     f'times a step')
 
     def equal(run, other):
@@ -5009,7 +5011,7 @@ def world_one_paths(card):
     ``framify_time_sharded`` at the guitar features' shape, TabCNN (paper
     width, windowed, float32) on a time-sharded 60 s track,
     ``shard_params_tp`` then a bf16 O&F2 complexity 3 forward through
-    kernel B (six launches), and ``pipeline_apply`` at S = 1."""
+    kernel B (three launches), and ``pipeline_apply`` at S = 1."""
 
     import copy
 
@@ -5078,8 +5080,8 @@ def world_one_paths(card):
     require(framed and tabcnn and tp and pipelined,
             'a world-size-1 parallel path differs from its unsharded '
             'counterpart')
-    require(tp_launches['lstm_scan'] == 6,
-            'the tensor-parallel forward did not run kernel B six times')
+    require(tp_launches['lstm_scan'] == 3,
+            'the tensor-parallel forward did not run kernel B three times')
     require(len(names) > 0, 'shard_params_tp sharded no kernel')
 
 
@@ -5314,7 +5316,7 @@ def check_two_rank_step(ranks, reference, card):
     at or after it went the other way on a rank (the rule of phase 12b:
     the BatchNorm statistics and the convolutions of 4 rows round apart
     from those of 8, and an element whose decision flips routes its whole
-    gradient elsewhere); the running statistics within 1e-5; E and F six
+    gradient elsewhere); the running statistics within 1e-5; E and F three
     times a step on each rank. Returns E's launches a step a rank."""
 
     from amt_tools_tpu_torch import tools
@@ -5338,9 +5340,9 @@ def check_two_rank_step(ranks, reference, card):
             f'step, two processes sharing one card, not a scaling figure; '
             f'{card}); loss {step["loss"][key]!r} (one process '
             f'{ref_loss[key]!r}); launches {step["launches"]}')
-        require(step['launches']['lstm_scan_residuals'] == 6 and
-                step['launches']['lstm_bptt'] == 6,
-                f'phase 32 rank {rank}: E and F did not run six times')
+        require(step['launches']['lstm_scan_residuals'] == 3 and
+                step['launches']['lstm_bptt'] == 3,
+                f'phase 32 rank {rank}: E and F did not run three times')
 
     grads = ranks[0]['train']['grads']
     ratios = []
@@ -5379,7 +5381,7 @@ def check_two_rank_piano(ranks, reference, profile, card):
     """Phase 33, piano: every rank's notes for all 128 clips equal the
     one-process pipeline's (phase 5) in every pitch row whose thresholded
     maps agree, the maps differing only within ``BF16_LOGIT_TOL`` of the
-    threshold; A once and B six times a rank."""
+    threshold; A once and B three times a rank."""
 
     import torch
 
@@ -5420,8 +5422,9 @@ def check_two_rank_piano(ranks, reference, profile, card):
             f'processes sharing one card, not a scaling figure; {card}); '
             f'peak {piano["peak_gb"]:.3f} GB; launches {piano["launches"]}')
         require(piano['launches']['stft_power'] == 1 and
-                piano['launches']['lstm_scan'] == 6,
-                f'phase 33 rank {rank}: A did not run once and B six times')
+                piano['launches']['lstm_scan'] == 3,
+                f'phase 33 rank {rank}: A did not run once and B three '
+                f'times')
     log(f'phase 33 piano: two ranks vs one process: logits within '
         f'{worst:.3g}; {differ_cells} map cells differ (each within '
         f'{BF16_LOGIT_TOL} of the threshold); notes identical in '
@@ -5794,7 +5797,7 @@ def notes_equal(got, want):
 def serving_artifacts(pipeline, requests, card, directory):
     """Phase 36: the bf16 piano pipeline of phase 5 exported at 128 x 60 s
     with a symbolic batch, saved and loaded on the card: notes equal to the
-    live pipeline's, A once and B six times a call, audio-s per wall-s in
+    live pipeline's, A once and B three times a call, audio-s per wall-s in
     turns with the live pipeline (live, artifact, artifact, live, each
     over the 3 requests called one by one); the same artifact at 8 clips; a
     float32 artifact loaded with TF32 switched on, whose loading turns it
@@ -5836,8 +5839,9 @@ def serving_artifacts(pipeline, requests, card, directory):
     require(equal == clips, 'the serving artifact\'s notes differ from the '
                             'live pipeline\'s')
     require(launches['stft_power'] == launches['stft_power_fft'] == 1 and
-            launches['lstm_scan'] == 6,
-            'the serving artifact did not run A once and B six times a call')
+            launches['lstm_scan'] == 3,
+            'the serving artifact did not run A once and B three times a '
+            'call')
 
     times = {}
     runs = {'live': pipeline, 'artifact': artifact}
@@ -6105,8 +6109,8 @@ def profiling_and_examples(pipeline, requests, train_batch, card, directory):
         wav, None, os.path.join(directory, 'notes.txt'))
     examples = {'transcribe_file': read_launches()}
     require(examples['transcribe_file']['stft_power'] == 1 and
-            examples['transcribe_file']['lstm_scan'] == 6,
-            'transcribe_file did not run A once and B six times')
+            examples['transcribe_file']['lstm_scan'] == 3,
+            'transcribe_file did not run A once and B three times')
 
     runs = {'export_artifact': ('inference', 'export_artifact.py',
                                 [f'out={directory}/example.amtx',
@@ -6530,7 +6534,8 @@ def notes_outside(rows, got, ref, profile):
 def serve_fused(pipeline, requests, card):
     """Phase 40: phase 5's bf16 piano pipeline and its fused twin on the
     same weights, 3 requests of ``FUSED_SERVING_CLIPS`` x 60 s each: A
-    once, grouped B once and B twice (adjoin_lm) a fused dispatch; the
+    once and grouped B twice (onset and offset at G = 4, adjoin_lm at G =
+    2) a fused dispatch; the
     logits of the first request within ``LAYOUT_TOL`` of the per-head
     pipeline's and its notes equal to theirs under phase 33's rule, the
     maps differing only within ``LAYOUT_TOL`` of the largest logit of the
@@ -6559,9 +6564,9 @@ def serve_fused(pipeline, requests, card):
         f'x {CLIP_SECONDS:.0f} s: launches {launches}')
     require(launches['stft_power'] == launches['stft_power_fft'] == REQUESTS,
             'fused serving: A did not run once a dispatch')
-    require(launches['lstm_scan_grouped'] == REQUESTS and
-            launches['lstm_scan'] == 3 * REQUESTS,
-            'fused serving: not one grouped B and two B a dispatch')
+    require(launches['lstm_scan_grouped'] == 2 * REQUESTS and
+            launches['lstm_scan'] == 2 * REQUESTS,
+            'fused serving: not two grouped B a dispatch')
 
     # Channels-last, the grouped convs run other cuDNN kernels than the
     # per-head ones: the two layouts' logits are held to each other as each
@@ -6668,8 +6673,8 @@ def train_fused(batch, card):
     Then ``train()`` with dropout, ``FUSED_TRAIN_STEPS`` steps a turn
     (per-head, fused_lms, fused, fused, fused_lms, per-head; ``fused_lms``
     is the grouped language models under per-head acoustic stacks): E and
-    F six times a step per-head; grouped E and F once and E and F twice a
-    step with either fused layout; steps/s; and E + F's device ms a step
+    F three times a step per-head and twice with either fused layout, every
+    launch grouped; steps/s; and E + F's device ms a step
     at the step's shapes by CUDA events."""
 
     import torch
@@ -6679,8 +6684,7 @@ def train_fused(batch, card):
                                             unfuse_acoustic_variables,
                                             unfuse_lm_variables)
     from amt_tools_tpu_torch.ops.lstm_kernel import (
-        lstm_bptt, lstm_bptt_grouped, lstm_scan_residuals,
-        lstm_scan_residuals_grouped)
+        lstm_bptt_grouped, lstm_scan_residuals_grouped)
     from amt_tools_tpu_torch.train import train
 
     tools.use_exact_fp32()
@@ -6751,25 +6755,23 @@ def train_fused(batch, card):
         require(all(np.isfinite(v).all() for v in result['losses'].values()),
                 f'{turn} training: a loss is not finite')
     steps = FUSED_TRAIN_STEPS
-    require(launches['per-head']['lstm_scan_residuals'] == 6 * steps and
-            launches['per-head']['lstm_bptt'] == 6 * steps,
-            'per-head training: E and F not six times a step')
-    for turn in ('fused_lms', 'fused'):
+    for turn, per_step in (('per-head', 3), ('fused_lms', 2), ('fused', 2)):
         counts = launches[turn]
-        require(counts['lstm_scan_residuals_grouped'] == steps and
-                counts['lstm_bptt_grouped'] == steps and
-                counts['lstm_scan_residuals'] == 3 * steps and
-                counts['lstm_bptt'] == 3 * steps and
+        require(counts['lstm_scan_residuals_grouped'] == per_step * steps and
+                counts['lstm_bptt_grouped'] == per_step * steps and
+                counts['lstm_scan_residuals'] == per_step * steps and
+                counts['lstm_bptt'] == per_step * steps and
                 counts['lstm_scan'] == 0,
-                f'{turn} training: not grouped E and F once and E and F '
-                f'twice a step')
+                f'{turn} training: not grouped E and F {per_step} times a '
+                f'step')
     log(f'training O&F2 complexity 3 float32, {TRAIN_BATCH} x '
         f'{TRAIN_FRAMES}, Adam, {steps} steps a turn (per-head, fused_lms, '
         f'fused, fused, fused_lms, per-head): steps/s {rates} ({card}); '
         f'launches a run {launches}')
 
     # E + F device ms a step at the step's shapes: the grouped onset and
-    # offset BiLSTMs plus adjoin_lm's two directions, against six and six
+    # offset BiLSTMs plus adjoin_lm's, against one launch of E and one of F
+    # a BiLSTM
     def shapes(groups, width):
         g = torch.Generator().manual_seed(410 + groups)
         xw = torch.randn(groups, TRAIN_BATCH, TRAIN_FRAMES, 4 * HIDDEN,
@@ -6780,26 +6782,22 @@ def train_fused(batch, card):
             groups, TRAIN_BATCH, TRAIN_FRAMES, HIDDEN, generator=g).cuda()
 
     xw, wh, wht, dout = shapes(6, 0.05)
-    res = [lstm_scan_residuals(xw[s], wh[s], s % 2 == 1) for s in range(6)]
-    grouped_res = lstm_scan_residuals_grouped(xw[:4], wh[:4], 2)
+    # Each launch's groups [a, b) and its reverse_from
+    layouts = {'per-head': [(0, 2, 1), (2, 4, 1), (4, 6, 1)],
+               'fused': [(0, 4, 2), (4, 6, 1)]}
+    res = {(a, b, r): lstm_scan_residuals_grouped(xw[a:b], wh[a:b], r)
+           for layout in layouts.values() for a, b, r in layout}
 
-    def per_head_step():
-        for s in range(6):
-            lstm_scan_residuals(xw[s], wh[s], s % 2 == 1)
-            lstm_bptt(res[s][1], res[s][2], dout[s], wht[s], s % 2 == 1)
-
-    def fused_step():
-        lstm_scan_residuals_grouped(xw[:4], wh[:4], 2)
-        lstm_bptt_grouped(grouped_res[1], grouped_res[2], dout[:4], wht[:4],
-                          2)
-        for s in (4, 5):
-            lstm_scan_residuals(xw[s], wh[s], s % 2 == 1)
-            lstm_bptt(res[s][1], res[s][2], dout[s], wht[s], s % 2 == 1)
+    def step(layout):
+        for a, b, r in layout:
+            lstm_scan_residuals_grouped(xw[a:b], wh[a:b], r)
+            lstm_bptt_grouped(res[a, b, r][1], res[a, b, r][2], dout[a:b],
+                              wht[a:b], r)
 
     e_f = {}
     for turn in ('per-head', 'fused', 'fused', 'per-head'):
-        run = per_head_step if turn == 'per-head' else fused_step
-        e_f.setdefault(turn, []).append(time_ms(run, reps=5))
+        e_f.setdefault(turn, []).append(
+            time_ms(lambda: step(layouts[turn]), reps=5))
     log(f'E + F device ms a float32 step at {TRAIN_BATCH} x {TRAIN_FRAMES} '
         f'(CUDA events, in turns): {e_f} ({card})')
 
@@ -6812,8 +6810,8 @@ def train_fused_velocity(batch, card):
     """Phase 42: the velocity model (G = 6: three BiLSTMs, both ways),
     per-head and fused on the same weights, ``FUSED_TRAIN_STEPS`` steps of
     ``train()`` a turn (per-head, fused, fused, per-head): grouped E and F
-    once a step at 4 rows a cluster (12 clusters), E and F twice;
-    steps/s."""
+    twice a step, the G = 6 launch at 4 rows a cluster (12 clusters), and
+    four times per-head; steps/s."""
 
     import torch
 
@@ -6835,12 +6833,12 @@ def train_fused_velocity(batch, card):
             result['step'] / (time.perf_counter() - start))
         launches[turn] = read_launches()
     counts = launches['fused']
-    require(counts['lstm_scan_residuals_grouped'] == FUSED_TRAIN_STEPS and
-            counts['lstm_bptt_grouped'] == FUSED_TRAIN_STEPS and
-            counts['lstm_scan_residuals'] == 3 * FUSED_TRAIN_STEPS,
-            'fused velocity training: not grouped E and F once a step')
+    require(counts['lstm_scan_residuals_grouped'] ==
+            counts['lstm_bptt_grouped'] ==
+            counts['lstm_scan_residuals'] == 2 * FUSED_TRAIN_STEPS,
+            'fused velocity training: not grouped E and F twice a step')
     require(launches['per-head']['lstm_scan_residuals'] ==
-            8 * FUSED_TRAIN_STEPS, 'velocity training: E not 8 times a step')
+            4 * FUSED_TRAIN_STEPS, 'velocity training: E not 4 times a step')
     plans = {}
     for kernel, bptt in (('E', False), ('F', True)):
         plans[kernel], design = grouped_design(
@@ -6858,7 +6856,7 @@ def fused_artifact(serving, card, directory):
     """Phase 43: the fused bf16 pipeline of phase 40 exported
     (``export.save_serving``) with its requests' batch as the example, and
     loaded, with a symbolic batch: notes equal to the live fused
-    pipeline's, A once, grouped B once and B twice a call; the same
+    pipeline's, A once and grouped B twice a call; the same
     artifact at ``ARTIFACT_SYMBOLIC_CLIPS`` clips."""
 
     import torch
@@ -6890,10 +6888,10 @@ def fused_artifact(serving, card, directory):
     require(equal == clips, 'the fused artifact\'s notes differ from the '
                             'live fused pipeline\'s')
     require(launches['stft_power'] == 1 and
-            launches['lstm_scan_grouped'] == 1 and
-            launches['lstm_scan'] == 3,
-            'the fused artifact did not run A once, grouped B once and B '
-            'twice a call')
+            launches['lstm_scan_grouped'] == 2 and
+            launches['lstm_scan'] == 2,
+            'the fused artifact did not run A once and grouped B twice a '
+            'call')
     require(meta['symbolic_batch'], 'the fused artifact did not export '
                                     'with a symbolic batch')
     sub = requests[0][:ARTIFACT_SYMBOLIC_CLIPS]
@@ -7388,11 +7386,11 @@ def train_masked(card):
     313-625 frames and padded to 625 with valid frames: through
     ``make_train_step`` (lengths = T bit for bit the unmasked step, under
     cuDNN's deterministic algorithms) and ``train()`` (30 steps on one
-    batch, masked E and F six times a step, B never, the loss falling),
+    batch, masked E and F three times a step, B never, the loss falling),
     steps/s in turns with the unmasked batch; the first masked step
     (dropout off, SGD) against the CPU's plain versions under phase 12b's
     rule; the same with ``fused_lms``
-    (grouped masked E and F once, masked E and F twice a step); one bf16
+    (grouped masked E and F twice a step); one bf16
     step. Returns the launches a step by layout and a profiler entry."""
 
     import torch
@@ -7446,17 +7444,19 @@ def train_masked(card):
 
     launches = {}
     for kw, label, counts in (
-            ({}, 'per-head', {'lstm_scan_residuals_masked': 6,
-                              'lstm_bptt_masked': 6}),
+            ({}, 'per-head', {'lstm_scan_residuals_grouped': 3,
+                              'lstm_bptt_grouped': 3,
+                              'lstm_scan_residuals_masked': 3,
+                              'lstm_bptt_masked': 3}),
             ({'fused_lms': True}, 'fused_lms',
-             {'lstm_scan_residuals_grouped': 1, 'lstm_bptt_grouped': 1,
-              'lstm_scan_residuals_masked': 3, 'lstm_bptt_masked': 3})):
+             {'lstm_scan_residuals_grouped': 2, 'lstm_bptt_grouped': 2,
+              'lstm_scan_residuals_masked': 2, 'lstm_bptt_masked': 2})):
         result, got, _ = train_run(
             model(seed=4, **kw), FixedLoader([batch]), FIT_STEPS,
             f'phase 45, {FIT_STEPS} masked float32 steps of O&F2 complexity '
             f'3 ({label}) on one batch, lengths '
             f'{batch[tools.KEY_VALID_FRAMES].tolist()}',
-            directions=counts['lstm_scan_residuals_masked'])
+            recurrences=counts['lstm_scan_residuals_masked'])
         for key, per_step in counts.items():
             require(got[key] == per_step * FIT_STEPS,
                     f'phase 45 {label}: {key} ran {got[key]} times in '
@@ -7475,8 +7475,7 @@ def train_masked(card):
             _, _, rate = train_run(
                 model(seed=5, **kw), FixedLoader([data] * 2), 3,
                 f'phase 45 {label} {kind} turn',
-                directions=counts['lstm_scan_residuals_masked'] if
-                kind == 'masked' else 6 - 3 * bool(kw))
+                recurrences=counts['lstm_scan_residuals_masked'])
             rates[kind].append(rate)
         log(f'phase 45 {label}: steps/s in turns, masked {rates["masked"]}, '
             f'unmasked {rates["unmasked"]}')
@@ -7716,9 +7715,11 @@ def add_masked_entries(residuals, bptt, entries, masked, carried):
             masked['per-head'][f'{name}_masked']))
         entry['carried'] = dict(times[key, 'carried'], launches_per_chunk=(
             carried['carried_per_chunk']))
+        # Every launch of a masked step is masked, so the grouped ones are
+        # the grouped masked ones
         entry['grouped_masked'] = dict(
             times[key, 'grouped_masked'], launches_fused_lms_per_step=(
-                masked['fused_lms'][f'{name}_grouped_masked']))
+                masked['fused_lms'][f'{name}_grouped']))
         entry['bfloat16_masked_carried'] = {
             route: entries['bfloat16'][key, route]
             for route in ('masked', 'carried', 'grouped_masked')}

@@ -86,9 +86,11 @@ from amt_tools_tpu_torch.models import OnsetsFrames2, TabCNN
 from amt_tools_tpu_torch.models import run_on_batch as models_run_on_batch
 from amt_tools_tpu_torch.models import onsetsframes
 from amt_tools_tpu_torch.models.onsetsframes import LanguageModel
-from amt_tools_tpu_torch.ops.lstm import FastLSTM, GroupedBiLSTM
+from amt_tools_tpu_torch.ops.lstm import (FastBiLSTM, FastLSTM,
+                                         GroupedBiLSTM)
 from amt_tools_tpu_torch.ops import (conv_epilogue, cuda_build, decode,
                                      layers, lstm_kernel, qconv, spectral)
+from amt_tools_tpu_torch.ops import lstm as lstm_ops
 from amt_tools_tpu_torch.ops.cqt_kernel import (ROUTES, cqt_mag,
                                                 cqt_mag_grouped,
                                                 cqt_mag_grouped_plain,
@@ -547,7 +549,7 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
     gpu_notes = TranscriptionPipeline(model, mel, capacity=256,
                                       device=cuda)(audio.numpy())
     assert stft_power.launches == stft + 1
-    assert lstm_scan.launches == lstm + 6
+    assert lstm_scan.launches == lstm + 3
     gpu_raw = _logits(model, mel, audio.to(cuda))
 
     rows = torch.zeros(2, 88, dtype=torch.bool)  # pitch rows whose maps differ
@@ -733,9 +735,10 @@ def test_every_lstm_width_runs_the_kernels(cuda, hidden):
     (on_card(x.to(cuda)) * dout.to(cuda)).sum().backward()
     torch.cuda.synchronize()
 
-    # Two directions: B for the forward, E and F for the trained one
+    # Both directions in one launch: B for the forward, E and F for the
+    # trained one
     assert (lstm_scan.launches, lstm_scan_residuals.launches,
-            lstm_bptt.launches) == tuple(c + 2 for c in counts)
+            lstm_bptt.launches) == tuple(c + 1 for c in counts)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     for name, param in on_card.named_parameters():
         ref = want_grads[name]
@@ -814,7 +817,7 @@ def test_masked_lstm_at_a_padded_width(cuda):
         masked = lstm_scan.masked_launches
         got = copy.deepcopy(model).to(cuda)(x.to(cuda), lengths.to(cuda))
     torch.cuda.synchronize()
-    assert lstm_scan.masked_launches == masked + 2
+    assert lstm_scan.masked_launches == masked + 1
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
@@ -869,7 +872,7 @@ def test_bucketed_validate_on_the_card_matches_the_cpu(cuda):
     cpu = run('cpu', 1)
     masked = lstm_scan.masked_launches
     card = run(cuda, 1)
-    assert lstm_scan.masked_launches == masked + 6 * 3
+    assert lstm_scan.masked_launches == masked + 3 * 3
     batched = run(cuda, 2)
 
     for key, value in cpu[tools.KEY_LOSS].items():
@@ -1072,7 +1075,7 @@ def _held(card, cpu, names):
 
 def test_velocity_train_step_on_the_card_matches_the_cpu(cuda):
     """A narrow O&F2 with the velocity head: one float32 train step on the
-    card (kernels E and F eight times) against the CPU: losses within 1e-4
+    card (kernels E and F four times) against the CPU: losses within 1e-4
     relative, the velocity BiLSTM's and head's gradients within 1e-3 of
     their module's largest."""
 
@@ -1091,7 +1094,7 @@ def test_velocity_train_step_on_the_card_matches_the_cpu(cuda):
     card_loss, card_grads = _train_step(model, batch, cuda)
     torch.cuda.synchronize()
     assert (lstm_scan_residuals.launches, lstm_bptt.launches) == tuple(
-        c + 8 for c in counts)
+        c + 4 for c in counts)
 
     assert tools.KEY_LOSS_VELOCITY in card_loss
     for key, value in cpu_loss.items():
@@ -1407,6 +1410,119 @@ def test_grouped_bilstm_on_the_card_matches_the_cpu(cuda, hidden):
                 1e-4 * ref.abs().max().item()), name
 
 
+
+# A FastBiLSTM's two directions as one launch of two groups, at the serving
+# shape (bf16, 128 rows: 9 rows a cluster against 5 for one group) and the
+# training one (8 x 625: 2 rows a cluster against 1), masked or not
+BILSTM_SHAPES = [(torch.bfloat16, 128, 512), (torch.float32, 8, 625)]
+
+
+def _per_direction(layer, x, lengths=None):
+    """``FastBiLSTM``'s forward as two one-group launches, one a direction."""
+
+    outs = [lstm_kernel.one_sequence(
+        lstm_ops._recurrence, (layers.linear(x, proj, layer.dtype), w_h),
+        reverse, lengths, None)
+        for proj, w_h, reverse in (
+            (layer.input_proj_fwd, layer.recurrent_kernel_fwd, False),
+            (layer.input_proj_bwd, layer.recurrent_kernel_bwd, True))]
+
+    return torch.cat(outs, dim=-1)
+
+
+def _bilstm(dtype, batch, frames, masked, cuda):
+    g = torch.Generator().manual_seed(batch)
+    layer = FastBiLSTM(96, 256, dtype=dtype if dtype == torch.bfloat16
+                       else None, generator=g).to(cuda)
+    x = torch.randn(batch, frames, 96, generator=g).to(cuda)
+    lengths = (torch.randint(0, frames + 1, (batch,), generator=g).to(cuda)
+               if masked else None)
+
+    return layer, x, lengths, g
+
+
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('dtype,batch,frames', BILSTM_SHAPES)
+def test_bilstm_one_launch_equals_two_launches(cuda, dtype, batch, frames,
+                                               masked):
+    """One grouped launch of B bit for bit the two one-group launches."""
+
+    layer, x, lengths, _ = _bilstm(dtype, batch, frames, masked, cuda)
+    wrappers = (lstm_scan, lstm_scan_residuals, lstm_bptt)
+    counts = [(w.launches, w.grouped_launches) for w in wrappers]
+    with torch.no_grad():
+        got = layer(x, lengths)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.grouped_launches) for w in wrappers] == [
+        (n + k, grouped + k) for (n, grouped), k in zip(counts, (1, 0, 0))]
+    with torch.no_grad():
+        assert torch.equal(got, _per_direction(layer, x, lengths))
+
+
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bilstm_training_one_launch_equals_two_launches(cuda, dtype, masked):
+    """At the training batch, 8 x 625, under autograd: one grouped E and
+    one grouped F against two one-group launches of each, the output, d(x)
+    and the projections' gradients bit for bit, dW_h (one batched matmul
+    against one ``mm`` a direction) within 1e-5 of its largest value."""
+
+    layer, x, lengths, g = _bilstm(dtype, 8, 625, masked, cuda)
+    dout = torch.randn(8, 625, 512, generator=g).to(cuda, dtype)
+    wrappers = (lstm_scan, lstm_scan_residuals, lstm_bptt)
+    results = []
+    for forward in (layer, lambda x, lengths: _per_direction(layer, x,
+                                                             lengths)):
+        layer.zero_grad()
+        x_t = x.clone().requires_grad_()
+        counts = [(w.launches, w.grouped_launches) for w in wrappers]
+        out = forward(x_t, lengths)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        launches = [(w.launches - n, w.grouped_launches - grouped)
+                    for w, (n, grouped) in zip(wrappers, counts)]
+        results.append((out.detach(), x_t.grad, launches, {
+            n: p.grad.clone() for n, p in layer.named_parameters()}))
+
+    (out, dx, launches, grads), (out_ref, dx_ref, launches_ref,
+                                 grads_ref) = results
+    assert launches == [(0, 0), (1, 1), (1, 1)]
+    assert launches_ref == [(0, 0), (2, 0), (2, 0)]
+    assert torch.equal(out, out_ref) and torch.equal(dx, dx_ref)
+    for name, ref in grads_ref.items():
+        if name.startswith('recurrent_kernel'):
+            assert ((grads[name] - ref).abs().max().item() <=
+                    1e-5 * ref.abs().max().item()), name
+        else:
+            assert torch.equal(grads[name], ref), name
+
+
+def test_of2_runs_one_grouped_launch_a_bilstm(cuda):
+    """A per-head O&F2: 3 launches of B a forward, every one grouped, and
+    3 of E and 3 of F a training step, every one grouped."""
+
+    g = torch.Generator().manual_seed(21)
+    model = OnsetsFrames2(dim_in=32, profile=tools.PianoProfile(),
+                          model_complexity=2, dropout=False, generator=g)
+    batch = {tools.KEY_FEATS: torch.rand(2, 1, 32, 40, generator=g),
+             tools.KEY_MULTIPITCH: (torch.rand(2, 88, 40, generator=g) <
+                                    0.1).float()}
+
+    wrappers = (lstm_scan, lstm_scan_residuals, lstm_bptt)
+    counts = [(w.launches, w.grouped_launches) for w in wrappers]
+    with torch.no_grad():
+        models_run_on_batch(model.to(cuda), {
+            k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert [(w.launches - n, w.grouped_launches - grouped) for w, (
+        n, grouped) in zip(wrappers, counts)] == [(3, 3), (0, 0), (0, 0)]
+
+    counts = [(w.launches, w.grouped_launches) for w in wrappers]
+    _train_step(model, batch, cuda)
+    torch.cuda.synchronize()
+    assert [(w.launches - n, w.grouped_launches - grouped) for w, (
+        n, grouped) in zip(wrappers, counts)] == [(0, 0), (3, 3), (3, 3)]
+
 def test_grouped_launch_plans_on_the_card(cuda):
     """The grouped plans the fused models launch, from the card's own count
     of clusters: one wave where rows allow it."""
@@ -1684,10 +1800,10 @@ def test_masked_grouped_e_and_f_equal_per_stream(cuda, dtype):
 
 @pytest.mark.parametrize('hidden', [24, 256])
 def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
-    """FastBiLSTM and GroupedBiLSTM with lengths under autograd: masked E
-    and F on the card (grouped for the grouped layer) against the CPU's
-    plain versions, outputs within 1e-4 and gradients within 1e-4 of their
-    largest value."""
+    """FastBiLSTM and GroupedBiLSTM with lengths under autograd: one
+    grouped masked E and one grouped masked F on the card against the
+    CPU's plain versions, outputs within 1e-4 and gradients within 1e-4 of
+    their largest value."""
 
     g = torch.Generator().manual_seed(hidden + 1)
     layers = (LanguageModel(40, 2 * hidden, generator=g),
@@ -1696,7 +1812,6 @@ def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
     for layer, shape in zip(layers, ((4, 37, 40), (2, 4, 37, 40))):
         x = torch.randn(*shape, generator=g)
         on_card = copy.deepcopy(layer).to(cuda)
-        grouped = isinstance(layer, GroupedBiLSTM)
         wrappers = (lstm_scan_residuals, lstm_bptt)
         counts = [(w.masked_launches, w.grouped_launches) for w in wrappers]
         got = on_card(x.to(cuda), lengths.to(cuda))
@@ -1705,8 +1820,7 @@ def test_masked_bilstm_training_on_the_card_matches_the_cpu(cuda, hidden):
         want.square().sum().backward()
         assert [(w.masked_launches, w.grouped_launches)
                 for w in wrappers] == [
-            (masked + (1 if grouped else 2), n + grouped)
-            for masked, n in counts]
+            (masked + 1, n + 1) for masked, n in counts]
         torch.testing.assert_close(got.detach().cpu(), want.detach(),
                                    rtol=0, atol=1e-4)
         for name, param in on_card.named_parameters():
@@ -1784,11 +1898,11 @@ def test_spans_share_the_device_clock(cuda):
 
     backward = [e for e in prof.events() if e.device_type == DeviceType.CPU
                 and e.name == 'amt.lstm.backward']
-    assert len(backward) == 6
+    assert len(backward) == 3
     bptt = [operation for operation, spans in found
             if any(s.name == 'amt.lstm.backward' for s in spans) and
             'lstm_bptt' in operation.name]
-    assert len(bptt) == 6
+    assert len(bptt) == 3
 
 
 # -- the conv blocks' eval epilogue ------------------------------------------

@@ -27,8 +27,9 @@ import jax.numpy as jnp
 from amt_tools_tpu.ops.lstm import GroupedBiLSTM as JaxGroupedBiLSTM
 from amt_tools_tpu.ops.lstm import _grouped_lstm_scan
 
+from amt_tools_tpu_torch.ops import lstm as lstm_ops
 from amt_tools_tpu_torch.ops import lstm_kernel
-from amt_tools_tpu_torch.ops.lstm import GroupedBiLSTM
+from amt_tools_tpu_torch.ops.lstm import FastBiLSTM, GroupedBiLSTM
 from amt_tools_tpu_torch.ops.lstm_kernel import (
     cluster_plan, lstm_bptt, lstm_bptt_grouped, lstm_bptt_plain, lstm_scan,
     lstm_scan_grad, lstm_scan_grouped, lstm_scan_grouped_grad,
@@ -231,7 +232,11 @@ def test_grouped_bilstm_refusals():
     # the velocity model's six (3 rows would make 18 clusters)
     ('scan', 6, 8, 4, 12, 1), ('bptt', 6, 8, 4, 12, 1),
     # serving, B: no rows put 4 x 128 in one wave
-    ('scan', 4, 128, 16, 32, 2)])
+    ('scan', 4, 128, 16, 32, 2),
+    # a FastBiLSTM's two directions: 16 clusters of one row at the training
+    # batch, and one wave of 16-row clusters in serving
+    ('scan', 2, 8, 1, 16, 1), ('bptt', 2, 8, 1, 16, 1),
+    ('scan', 2, 128, 16, 16, 1)])
 def test_grouped_cluster_plan(kernel, groups, batch, rows, clusters, waves):
     dtype = torch.bfloat16 if batch == 128 else torch.float32
     plan = cluster_plan(batch, 256, dtype, 16, kernel, groups=groups)
@@ -297,3 +302,120 @@ def test_ctypes_signatures_match_the_sources(source, signatures):
         source, f'{source}_max_active_clusters', f'{source}_smem'}
     for name, argtypes in signatures.items():
         assert len(argtypes) == declared[name], name
+
+
+# -- FastBiLSTM: both directions as one launch of two groups ----------------
+
+
+def _per_direction(layer, x, lengths=None):
+    """``FastBiLSTM``'s forward as two one-group runs, one a direction."""
+
+    from amt_tools_tpu_torch.ops.layers import linear
+
+    outs = [lstm_kernel.one_sequence(
+        lstm_ops._recurrence, (linear(x, proj, layer.dtype), w_h), reverse,
+        lengths, None)
+        for proj, w_h, reverse in (
+            (layer.input_proj_fwd, layer.recurrent_kernel_fwd, False),
+            (layer.input_proj_bwd, layer.recurrent_kernel_bwd, True))]
+
+    return torch.cat(outs, dim=-1)
+
+
+def _bilstm(hidden, dtype, quant, seed=6):
+    layer = FastBiLSTM(24, hidden, dtype=dtype, quant=quant,
+                       generator=torch.Generator().manual_seed(seed))
+    x = torch.from_numpy(np.random.RandomState(seed).rand(
+        BATCH, FRAMES, 24).astype(np.float32) - 0.5)
+
+    return layer, x
+
+
+def test_bilstm_is_one_recurrence_of_two_groups(monkeypatch):
+    """A ``FastBiLSTM`` forward makes one recurrence call: (2, B, T, 4H)
+    projections, (2, H, 4H) kernels, the backward group reversed."""
+
+    calls = []
+    recurrence = lstm_ops._recurrence
+
+    def spy(xw, w_h, reverse_from, *args, **kwargs):
+        calls.append((tuple(xw.shape), tuple(w_h.shape), reverse_from))
+        return recurrence(xw, w_h, reverse_from, *args, **kwargs)
+
+    monkeypatch.setattr(lstm_ops, '_recurrence', spy)
+    layer, x = _bilstm(HIDDEN, None, False)
+    with torch.no_grad():
+        layer(x, torch.tensor(LENGTHS))
+    layer(x).sum().backward()
+
+    call = ((2, BATCH, FRAMES, 4 * HIDDEN), (2, HIDDEN, 4 * HIDDEN), 1)
+    assert calls == [call, call]
+
+
+@pytest.mark.parametrize('dtype', [None, torch.bfloat16])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('hidden,quant', [(HIDDEN, False), (24, False),
+                                          (HIDDEN, True)])
+def test_bilstm_equals_its_directions_run_apart(dtype, masked, hidden,
+                                                quant):
+    """The grouped forward bit for bit the two one-group runs, float32 and
+    bf16, masked or not, at H = 24 and with int8 projections."""
+
+    layer, x = _bilstm(hidden, dtype, quant)
+    lengths = torch.tensor(LENGTHS) if masked else None
+    with torch.no_grad():
+        got = layer(x, lengths)
+        want = _per_direction(layer, x, lengths)
+
+    assert got.shape == (BATCH, FRAMES, 2 * hidden)
+    assert got.dtype == want.dtype == (dtype or torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_padded_scan_of_two_groups_equals_its_directions(masked):
+    """The card's zero-padded route (H = 24 run at 32 units) over the two
+    groups bit for bit the per-direction ``padded_recurrence``, through
+    the plain versions."""
+
+    xw, w_h, _ = (torch.from_numpy(a) for a in _data(7, streams=1,
+                                                      hidden=24))
+    lengths = torch.tensor(LENGTHS) if masked else None
+    got = lstm_ops._padded_scan(xw, w_h, 1, lengths, None, 32)
+
+    assert got.shape == (2, BATCH, FRAMES, 24)
+    for g in range(2):
+        assert torch.equal(got[g], lstm_ops.padded_recurrence(
+            xw[g], w_h[g], g == 1, 32, lengths)), g
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_bilstm_gradients_equal_its_directions_run_apart(masked):
+    """Under autograd (plain E and F over the two groups) the output, d(x)
+    and the projections' gradients bit for bit the per-direction runs';
+    dW_h, one batched matmul against one ``mm`` a direction, within 1e-5
+    of its largest value."""
+
+    layer, x = _bilstm(HIDDEN, None, False)
+    lengths = torch.tensor(LENGTHS) if masked else None
+    dout = torch.from_numpy(np.random.RandomState(8).randn(
+        BATCH, FRAMES, 2 * HIDDEN).astype(np.float32))
+
+    results = []
+    for forward in (layer, lambda x, lengths: _per_direction(layer, x,
+                                                             lengths)):
+        layer.zero_grad()
+        x_t = x.clone().requires_grad_()
+        out = forward(x_t, lengths)
+        out.backward(dout)
+        results.append((out.detach(), x_t.grad, {
+            n: p.grad.clone() for n, p in layer.named_parameters()}))
+
+    (out, dx, grads), (out_ref, dx_ref, grads_ref) = results
+    assert torch.equal(out, out_ref) and torch.equal(dx, dx_ref)
+    for name, ref in grads_ref.items():
+        if name.startswith('recurrent_kernel'):
+            assert ((grads[name] - ref).abs().max().item() <=
+                    1e-5 * ref.abs().max().item()), name
+        else:
+            assert torch.equal(grads[name], ref), name

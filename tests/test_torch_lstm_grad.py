@@ -284,7 +284,8 @@ def test_routing_grad_on_takes_e_and_f(monkeypatch):
 
     layer(x).sum().backward()
 
-    assert calls == {'lstm_scan_grouped': 0, 'lstm_scan_grouped_grad': 2}
+    # Both directions in one grouped call
+    assert calls == {'lstm_scan_grouped': 0, 'lstm_scan_grouped_grad': 1}
     assert layer.recurrent_kernel_fwd.grad is not None
     assert layer.recurrent_kernel_bwd.grad is not None
 
@@ -299,7 +300,7 @@ def test_routing_grad_off_takes_b(monkeypatch):
     with torch.inference_mode():
         layer(x)
 
-    assert calls == {'lstm_scan_grouped': 4, 'lstm_scan_grouped_grad': 0}
+    assert calls == {'lstm_scan_grouped': 2, 'lstm_scan_grouped_grad': 0}
 
     # The two routes give the same outputs
     assert torch.equal(layer(x).detach(), out)
