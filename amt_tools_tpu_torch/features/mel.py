@@ -6,7 +6,8 @@ float32 ``torch.matmul`` (the JAX package leaves it to XLA, ``mel.py:37``).
 ``fmin`` and ``fmax`` bound the filterbank; ``absolute_db`` gives the
 High-resolution Piano Transcription model's features, ``10 log10(max(1e-10,
 mel))`` against a reference of 1 with no floor below the maximum and no
-[0, 1] mapping, in place of the per-clip scale.
+[0, 1] mapping, in place of the per-clip scale; ``log_offset`` gives
+hFT-Transformer's, the natural ``log(mel + log_offset)``.
 """
 
 import torch
@@ -22,7 +23,10 @@ class MelSpec(STFT):
     def __init__(self, sample_rate=16000, hop_length=512, decibels=True,
                  n_mels=229, n_fft=2048, win_length=None, center=True,
                  htk=False, fmin=0.0, fmax=None, absolute_db=False,
-                 pad_mode='constant'):
+                 log_offset=None, pad_mode='constant'):
+        if absolute_db and log_offset is not None:
+            raise ValueError('absolute_db and log_offset are two scales: '
+                             'give one')
         super().__init__(sample_rate=sample_rate, hop_length=hop_length,
                          decibels=decibels, win_length=win_length,
                          center=center, n_fft=n_fft, pad_mode=pad_mode)
@@ -30,6 +34,7 @@ class MelSpec(STFT):
         self.n_mels = n_mels
         self.htk = htk
         self.absolute_db = absolute_db
+        self.log_offset = log_offset
 
         # (n_mels, n_fft//2+1), host constant; device copies on first use
         self._mel_fb = spectral.mel_filterbank(sample_rate, n_fft,
@@ -56,9 +61,12 @@ class MelSpec(STFT):
 
     def post_proc(self, feats):
         """With ``absolute_db`` (and ``decibels``): ``10 log10(max(1e-10,
-        x))``, a channel dimension inserted; else the per-clip [0, 1]
-        scale."""
+        x))``; with ``log_offset`` (and ``decibels``): ``log(x +
+        log_offset)``; either with a channel dimension inserted. Else the
+        per-clip [0, 1] scale."""
 
+        if self.decibels and self.log_offset is not None:
+            return torch.log(feats + self.log_offset).unsqueeze(-3)
         if not (self.decibels and self.absolute_db):
             return super().post_proc(feats)
 

@@ -44,7 +44,7 @@ from .conv_epilogue import batch_norm_eval, conv_epilogue
 __all__ = ['linear', 'head_linear', 'conv2d_same', 'conv2d_valid',
            'conv_block', 'stack_layout', 'dense_block', 'conv3x3',
            'BatchNorm', 'dropout', 'BatchShardGenerator', 'lecun_normal_',
-           'orthogonal_', 'checkpoint', 'records']
+           'torch_default_', 'orthogonal_', 'checkpoint', 'records']
 
 # Running-average decay of every Flax BatchNorm the JAX models build
 # (amt_tools_tpu/models/onsetsframes.py:99)
@@ -413,6 +413,19 @@ def lecun_normal_(tensor, fan_in, generator):
     with torch.no_grad():
         return nn.init.trunc_normal_(tensor, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)
+
+
+def torch_default_(layer, fan_in, generator):
+    """``torch.nn``'s default init of a Linear or conv ``layer``, its
+    weight and bias uniform over +-1 / sqrt(``fan_in``), from
+    ``generator``; returns the layer."""
+
+    bound = fan_in ** -0.5
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.uniform_(-bound, bound, generator=generator)
+
+    return layer
 
 
 def conv3x3(in_channels, out_channels, generator, groups=1):

@@ -30,12 +30,21 @@ around its launch; with no profiler recording they cost one check:
 - ``amt.features``: ``MelSpec.process`` and ``VQT.process`` (``CQT``'s);
 - ``amt.acoustic``: ``AcousticModel`` and ``GroupedAcousticModel``'s
   forwards, TabCNN's conv stack and its max-pool, the four conv stacks of
-  ``RegressCRNN`` with their ``fc5``;
+  ``RegressCRNN`` with their ``fc5``, the front end of ``HFTransformer``
+  (each frame's context, the conv and the bins' embedding);
 - ``amt.lstm``: ``FastLSTM``, ``FastBiLSTM`` and ``GroupedBiLSTM``'s
   forwards, the input projections and the recurrences;
 - ``amt.gru``: each grouped GRU layer of ``ops.gru.bigru_layers`` (the
   High-resolution Piano Transcription model's four a forward), the input
   projections and the recurrence (kernel G);
+- ``amt.transformer``: each transformer stack of ``HFTransformer``, three
+  a forward (the frequency encoder, the frequency decoder, the time
+  encoder), their projections, attention and feed-forward layers; the
+  attention calls count by kind in ``ops.attention.attention``
+  (``frequency_self``, ``cross``, ``pitch_self``, ``time_self``, 11 a
+  forward, and ``plain`` for those off the fused route), the segments and
+  their padded frames in ``models.hft.pad_segments`` (``segments``,
+  ``padded_frames``);
 - ``amt.lstm.backward``: the backward of the differentiable recurrences
   (kernel F, dW_h and d(xw)), on autograd's thread;
 - ``amt.decode``: the serving pipelines' device decode after the model's

@@ -12,9 +12,10 @@ kernel), the sigmoid threshold and the full note decode on the device; one
 guitar dispatch runs the CQT (kernel C or D), TabCNN, the per-string argmax
 and the per-string note decode. The host gets four fixed-capacity int32
 buffers per batch. :class:`RegressionPipeline` serves the High-resolution
-Piano Transcription model (``models.RegressCRNN``, which the JAX package
-lacks): its dispatch runs the features, the model (kernel G for its GRUs)
-and the regression decode's device stage (``decode.
+Piano Transcription model (``models.RegressCRNN``) and hFT-Transformer
+(``models.HFTransformer``), which the JAX package lacks: its dispatch runs
+the features, the model (kernel G for the GRUs, fused attention for the
+transformer) and the regression decode's device stage (``decode.
 regression_events_on_device``); its host stage assembles each clip's notes
 from the compacted events.
 
@@ -42,7 +43,8 @@ time, inside :meth:`finalize`.
 
 Under a profiler (``profiling.trace``) a batch shows the port's spans
 (``profiling.span``): ``amt.features``, ``amt.acoustic``, ``amt.lstm``
-(``amt.gru`` for the GRU layers) and ``amt.decode`` (the device decode
+(``amt.gru`` for the GRU layers, ``amt.transformer`` for a transformer
+stack) and ``amt.decode`` (the device decode
 after the forward) inside
 :meth:`dispatch`, and ``amt.serving.decode_host`` (the host decode of the
 batch, re-decodes included) inside :meth:`finalize`, after its wait for
@@ -508,61 +510,77 @@ class TablaturePipeline(_ServingPipeline):
 
 class RegressionPipeline(_ServingPipeline):
     """Audio batches in, per-clip ``(pitches, intervals, velocities)`` notes
-    out, from the regressed onset and offset times of the High-resolution
-    Piano Transcription model (the published ``RegressionPostProcessor``'s
-    notes; the pedal model is a separate network and not served).
+    out, from the onset and offset curves of a note model: the regressed
+    onset and offset times of the High-resolution Piano Transcription model
+    (the published ``RegressionPostProcessor``'s notes; the pedal model is
+    a separate network and not served), or heads B of hFT-Transformer.
 
     One dispatch runs the features, the model's forward and, inside
-    ``amt.decode``, the sigmoids of its four heads and
-    ``decode.regression_events_on_device``: the onset and offset peaks with
-    their shifts, the onsets' velocities and the frame curve's first drop
-    after each onset, compacted into buffers of ``capacity`` events a
-    clip. :meth:`finalize` assembles each clip's notes on the host
-    (``decode.regression_notes_from_device``); a clip with more onset or
-    offset peaks than ``capacity`` is decoded again at a capacity that fits.
+    ``amt.decode``, the sigmoids of its frame, onset and offset heads, the
+    velocity levels and ``decode.regression_events_on_device``: the onset
+    and offset peaks with their shifts, the onsets' velocities and the
+    frame curve's first drop after each onset, compacted into buffers of
+    ``capacity`` events a clip. :meth:`finalize` assembles each clip's
+    notes on the host (``decode.regression_notes_from_device``); a clip
+    with more onset or offset peaks than ``capacity`` is decoded again at a
+    capacity that fits.
 
     Parameters
     ----------
-    model : RegressCRNN
+    model : RegressCRNN or HFTransformer
         Moved to ``device``; its forward returns the ``frame``,
-        ``reg_onset``, ``reg_offset`` and ``velocity`` logits.
+        ``reg_onset``, ``reg_offset`` and ``velocity`` logits, (B, T, K)
+        each, or ``velocity`` as (B, T, K, C) class logits.
     data_proc : FeatureModule
         Feature extraction run on the device via ``process`` (``MelSpec``
-        with ``absolute_db`` for the published model).
+        with ``absolute_db`` for the High-resolution model, with
+        ``log_offset`` for hFT-Transformer).
     capacity : int
         Onset (and offset) peaks a clip before a re-decode.
     device : str or torch.device, optional
         Where the pipeline runs: CUDA unless given.
     mesh : DeviceMesh, optional
         Data-parallel serving over the mesh's ``data`` dimension.
+    onset_threshold, offset_threshold, frame_threshold : float
+        The decode's thresholds on the sigmoids: the defaults are the High-
+        resolution model's published 0.3, 0.3 and 0.1.
 
-    The decode takes the published settings: onset and offset thresholds
-    0.3, frame threshold 0.1, notes of at most 600 frames, velocities
-    ``int(velocity * 128)``.
+    A note closes at most 600 frames after its onset (the published rule).
+    A velocity curve gives ``int(velocity * 128)``, the published levels;
+    class logits give their argmax class.
     """
 
     def __init__(self, model, data_proc, capacity=2048, device=None,
-                 mesh=None):
+                 mesh=None, onset_threshold=0.3, offset_threshold=0.3,
+                 frame_threshold=0.1):
         super().__init__(model, data_proc, capacity, device=device, mesh=mesh)
+        self.thresholds = {'onset_threshold': onset_threshold,
+                           'offset_threshold': offset_threshold,
+                           'frame_threshold': frame_threshold}
 
     def _decode(self, audio, capacity):
         raw = _forward(self.model, self.data_proc, audio)
 
         with torch.inference_mode(), profiling.span('amt.decode'):
             # The sigmoid in the logits' dtype, compared in float32
-            curves = {key: torch.sigmoid(value).float().transpose(-1, -2)
-                      for key, value in raw.items()}
+            curves = {key: torch.sigmoid(raw[key]).float().transpose(-1, -2)
+                      for key in ('frame', 'reg_onset', 'reg_offset')}
+            # The velocity levels: the argmax class of class logits, or a
+            # curve times 128 (exact in float32: a power of two)
+            velocity = raw['velocity']
+            levels = (velocity.argmax(-1).float() if velocity.dim() == 4 else
+                      torch.sigmoid(velocity).float() * 128.0)
 
             return decode.regression_events_on_device(
                 curves['frame'], curves['reg_onset'], curves['reg_offset'],
-                curves['velocity'], capacity)
+                levels.transpose(-1, -2), capacity, **self.thresholds)
 
     def _finalize_clip(self, arrays, b, times):
         return decode.regression_notes_from_device(
             *(x[b] for x in arrays), num_frames=len(times),
             frame_seconds=(self.data_proc.hop_length /
                            self.data_proc.sample_rate),
-            low=self.profile.low)
+            low=self.profile.low, velocity_scale=1)
 
     def _notes_in(self, counts):
         # One note an onset peak

@@ -2,7 +2,7 @@
 decode counters, on the CPU.
 
 - Under ``torch.profiler`` a piano batch, a guitar batch, a High-resolution
-  Piano Transcription batch and an O&F2
+  Piano Transcription batch, an hFT-Transformer batch and an O&F2
   train step hold each ``amt.`` span where the port opens it, once a layer
   call: the features, the acoustic stacks, the LSTM layers and the device
   decode inside ``dispatch``, the device decode after the forward, the
@@ -194,6 +194,41 @@ def test_an_hpt_batch_holds_every_serving_span_and_four_gru_layers():
     grus = _intervals(prof, 'amt.gru')
     assert all(gru.start >= acoustic.end for gru in grus)
     assert decode.start >= max(gru.end for gru in grus)
+    assert len(notes) == len(audio)
+
+
+def test_an_hft_batch_holds_every_serving_span_and_three_transformers():
+    """The hFT-Transformer pipeline (at a small width): its front end in
+    one ``amt.acoustic``, its three stacks (the frequency encoder, the
+    frequency decoder, the time encoder) in three ``amt.transformer``
+    after it, the regression decode's device stage in ``amt.decode`` after
+    them and its host stage in ``amt.serving.decode_host``."""
+
+    from amt_tools_tpu_torch.models import HFTransformer
+    from amt_tools_tpu_torch.serving import RegressionPipeline
+
+    mel = MelSpec(hop_length=256, n_mels=N_MELS, htk=True, fmax=8000.0,
+                  log_offset=1e-8)
+    model = HFTransformer(n_bin=N_MELS, n_margin=4, n_frame=8, hid_dim=32,
+                          n_heads=2, pf_dim=64, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+    pipeline = RegressionPipeline(model, mel, device='cpu',
+                                  onset_threshold=0.5, offset_threshold=0.5,
+                                  frame_threshold=0.5)
+    audio = _audio(tools.PianoProfile(), 16000, 0.2)
+    prof, notes = _serve_profiled(pipeline, audio)
+
+    assert _spans(prof) == {
+        ('amt.features', ('test.dispatch',)): 1,
+        ('amt.acoustic', ('test.dispatch',)): 1,
+        ('amt.transformer', ('test.dispatch',)): 3,
+        ('amt.decode', ('test.dispatch',)): 1,
+        ('amt.serving.decode_host', ('test.finalize',)): 1}
+    decode, = _intervals(prof, 'amt.decode')
+    acoustic, = _intervals(prof, 'amt.acoustic')
+    stacks = _intervals(prof, 'amt.transformer')
+    assert all(stack.start >= acoustic.end for stack in stacks)
+    assert decode.start >= max(stack.end for stack in stacks)
     assert len(notes) == len(audio)
 
 
