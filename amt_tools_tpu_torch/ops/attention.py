@@ -18,7 +18,12 @@ sublayer's residual sum passes through (post-LN):
   ``encoder_attention``, the feed-forward.
 
 Every layer computes in ``dtype`` (default: its input's) with float32
-parameters; ``F.layer_norm`` keeps its statistics in float32 whatever the
+parameters. A sublayer's residual sum and its LayerNorm are one call of
+``ops.add_layer_norm``: on CUDA, where autograd does not record, the
+hand-written kernel that adds and normalizes in one pass over the rows
+(counted in ``add_layer_norm.fused``); on the CPU, and wherever autograd
+records, the eager add and ``F.layer_norm`` (counted in
+``add_layer_norm.plain``). Both keep the statistics in float32 whatever the
 input's dtype. The published dropout is not applied: the port serves these
 layers (and autograd runs through them) without it.
 
@@ -39,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import cuda_build
+from .add_layer_norm import add_layer_norm, add_layer_norm_plain
 from .layers import _compute_dtype, linear, records, torch_default_
 
 __all__ = ['attention', 'MultiHeadAttention', 'FeedForward', 'EncoderLayer',
@@ -160,11 +166,19 @@ class _PostLN(nn.Module):
         super().__init__()
         self.layer_norm = nn.LayerNorm(hid_dim)
 
-    def _norm(self, x, dtype):
-        norm = self.layer_norm
+    def _norm(self, y, residual, dtype):
+        """``layer_norm(residual + y)`` in ``dtype``, ``y`` the sublayer's
+        output: the kernel on CUDA where autograd does not record, the eager
+        ops elsewhere (the module docstring)."""
 
-        return F.layer_norm(x, norm.normalized_shape, norm.weight.to(dtype),
-                            norm.bias.to(dtype), norm.eps)
+        norm = self.layer_norm
+        args = (y, residual, norm.weight.to(dtype), norm.bias.to(dtype),
+                norm.eps)
+        if y.is_cuda and not records(*args[:4]):
+            return add_layer_norm(*args)
+        cuda_build.count(add_layer_norm, 'plain')
+
+        return add_layer_norm_plain(*args)
 
 
 class EncoderLayer(_PostLN):
@@ -180,9 +194,9 @@ class EncoderLayer(_PostLN):
 
     def forward(self, src, dtype=None):
         dtype = _compute_dtype(src, dtype)
-        src = self._norm(src + self.self_attention(src, src, dtype), dtype)
+        src = self._norm(self.self_attention(src, src, dtype), src, dtype)
 
-        return self._norm(src + self.positionwise_feedforward(src, dtype),
+        return self._norm(self.positionwise_feedforward(src, dtype), src,
                           dtype)
 
 
@@ -200,10 +214,10 @@ class DecoderLayerZero(_PostLN):
 
     def forward(self, enc_src, trg, dtype=None):
         dtype = _compute_dtype(enc_src, dtype)
-        trg = self._norm(trg.to(dtype) +
-                         self.encoder_attention(trg, enc_src, dtype), dtype)
+        trg = self._norm(self.encoder_attention(trg, enc_src, dtype),
+                         trg.to(dtype), dtype)
 
-        return self._norm(trg + self.positionwise_feedforward(trg, dtype),
+        return self._norm(self.positionwise_feedforward(trg, dtype), trg,
                           dtype)
 
 
@@ -222,9 +236,9 @@ class DecoderLayer(_PostLN):
 
     def forward(self, enc_src, trg, dtype=None):
         dtype = _compute_dtype(trg, dtype)
-        trg = self._norm(trg + self.self_attention(trg, trg, dtype), dtype)
-        trg = self._norm(trg + self.encoder_attention(trg, enc_src, dtype),
+        trg = self._norm(self.self_attention(trg, trg, dtype), trg, dtype)
+        trg = self._norm(self.encoder_attention(trg, enc_src, dtype), trg,
                          dtype)
 
-        return self._norm(trg + self.positionwise_feedforward(trg, dtype),
+        return self._norm(self.positionwise_feedforward(trg, dtype), trg,
                           dtype)

@@ -49,7 +49,7 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 
 KERNEL_SOURCES = ('stft_power', 'lstm_scan', 'lstm_bptt', 'cqt_mag',
-                  'conv_epilogue', 'gru_scan')
+                  'conv_epilogue', 'gru_scan', 'add_layer_norm')
 
 # The custom ops' namespace: torch.ops.amt_tools_tpu_torch.<op>
 NAMESPACE = 'amt_tools_tpu_torch'

@@ -311,6 +311,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     conversions; OnsetsFramesOnline's median ms a streamed frame over a 10 s
     track in both layouts. ``python3 chip_smoke.py layout`` runs phases 48
     and 51 alone, after the build;
+52. the post-LN add-and-norm kernel: a bf16 forward of the published-width
+    hft model (2 clips x 300 frames) launches it 20 times and its plain
+    version never, each launch recorded by its shapes and counted by call;
+    then at the hft-serve-bf16 cell's bf16 shapes (the frequency encoder's
+    61,440 x 256 rows, the first decoder sum's 61,440 x 88 rows on 88
+    shared queries, the decoder's, the time encoder's 42,240 x 128), each
+    within ``ADD_NORM_ROW_TOL`` of a row's largest output and one bf16 ulp
+    of its plain version (PyTorch's add and ``F.layer_norm``), timed beside
+    its byte bound and the plain version; float32 at a quarter of the
+    frequency encoder's rows.
+    ``python3 chip_smoke.py hft`` runs it alone, after the build;
 9 and 13. one piano batch (bf16 and int8-static), one guitar batch, one
    float32 training step of O&F2, of O&F2 with the velocity head, of O&F
    online and of TabCNN, 10 streamed frames, a fused piano batch and a
@@ -341,12 +352,15 @@ and its launches in the fused phases 40-43; E and F with their masked,
 carried and grouped masked launches a step, times and bounds, phases
 44-46; the conv epilogue with its phase 48 channels-last times, summed
 over a batch's nine launches, and its launches in phase 5; kernel G with its phase 49
-times, summed over a batch's four launches), and one JSON line
+times, summed over a batch's four launches; the add-and-norm kernel with
+its phase 52 times, each call's weighted by its launches counted in an
+hFT forward), and one JSON
+line
 ``{"ok": true, "device": {...}}``.
 Every bound comes from the kernel's cost function (``stft_kernel.cost``,
 ``lstm_kernel.scan_cost`` and ``bptt_cost``, ``cqt_kernel.cost``,
-``conv_epilogue.cost``, ``gru_kernel.gru_scan_cost``), the FLOP formula of
-its op.
+``conv_epilogue.cost``, ``gru_kernel.gru_scan_cost``,
+``add_layer_norm.cost``), the FLOP formula of its op.
 """
 
 import copy
@@ -1741,6 +1755,216 @@ def check_hpt_forward():
             'epilogue_ms': 4 * sum(b['ms'] for b in blocks),
             'epilogue_bound_ms': 4 * sum(b['bound_ms'] for b in blocks),
             'blocks': blocks}
+
+
+# The hft-serve-bf16 cell's add-and-norm calls (phase 52): y's shape and
+# the residual's. A forward's launches of each are counted on the card
+# (``forward_add_norm_calls``), each launch matched to its call by y's
+# trailing dims and whether the residual has y's rows
+ADD_NORM_CALLS = (
+    ('frequency encoder', (61440, 256, 256), (61440, 256, 256)),
+    ('first decoder sum', (61440, 88, 256), (88, 256)),
+    ('decoder', (61440, 88, 256), (61440, 88, 256)),
+    ('time encoder', (42240, 128, 256), (42240, 128, 256)),
+)
+
+
+def forward_add_norm_calls():
+    """Phase 52: the add-and-norm launches of one bf16 forward of the
+    published-width hft model (2 clips x 300 frames) under inference mode,
+    each recorded by its (y, residual) shapes and matched to its
+    ``ADD_NORM_CALLS`` entry: {call name: launches}. Requires 20 launches,
+    every one matched, and no plain call."""
+
+    import collections
+
+    import torch
+
+    from amt_tools_tpu_torch.models import HFTransformer
+    from amt_tools_tpu_torch.ops import add_layer_norm as aln
+    from amt_tools_tpu_torch.ops import attention
+
+    def call_of(y_shape, r_shape):
+        full = len(r_shape) == len(y_shape)
+        for name, cell_y, cell_r in ADD_NORM_CALLS:
+            if (y_shape[1:] == cell_y[1:] and
+                    full == (len(cell_r) == len(cell_y))):
+                return name
+        return None
+
+    device = torch.device('cuda')
+    model = HFTransformer(dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(52))
+    model = model.to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(52)
+    feats = -18.0 + 6.0 * torch.rand(2, 1, 256, 300, generator=gen,
+                                     device=device)
+
+    launched = []
+    kernel = attention.add_layer_norm
+
+    def spy(y, residual, *args):
+        launched.append(call_of(tuple(y.shape), tuple(residual.shape)))
+        return kernel(y, residual, *args)
+
+    attention.add_layer_norm = spy
+    aln.add_layer_norm.fused, aln.add_layer_norm.plain = 0, 0
+    try:
+        with torch.inference_mode():
+            model(feats)
+        torch.cuda.synchronize()
+    finally:
+        attention.add_layer_norm = kernel
+    counts = (aln.add_layer_norm.fused, aln.add_layer_norm.plain)
+    require(counts == (20, 0) and len(launched) == 20,
+            f'phase 52: an hft forward launched the add-and-norm kernel '
+            f'{counts[0]} times and its plain version {counts[1]} (20 and 0 '
+            f'expected) over {len(launched)} calls')
+    require(None not in launched, f'phase 52: an hft forward\'s add-and-'
+            f'norm call matches none of the cell\'s shapes: {launched}')
+    per_forward = collections.Counter(launched)
+    log(f'add_layer_norm in an hft forward: 20 launches, 0 plain; '
+        + ', '.join(f'{name} {per_forward[name]}'
+                    for name, _, _ in ADD_NORM_CALLS))
+    del model, feats
+    torch.cuda.empty_cache()
+
+    return dict(per_forward)
+
+
+# The add-and-norm kernel against its plain version (phase 52): float32
+# within 1e-6 of the row's largest output (float32 statistics in another
+# order of sums); bf16 within that and one bf16 ulp of each output (each
+# rounds once a float32 value that lies as far from the plain version's as a
+# float32 output does, which near zero is many ulps of the output)
+ADD_NORM_ROW_TOL = 1e-6
+
+
+def add_norm_gaps(got, want):
+    """The largest gap of the kernel's output from the plain version's over
+    its bound (at most 1 passes), and over one bf16 ulp of the larger
+    magnitude alone (bf16; None for float32), over chunks of rows."""
+
+    import torch
+
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.view(-1, got.shape[-1]), want.view(-1, want.shape[-1])
+    worst, ulps = 0.0, 0.0
+    for start in range(0, got.shape[0], 1 << 20):
+        a = got[start:start + (1 << 20)].float()
+        b = want[start:start + (1 << 20)].float()
+        gap = (a - b).abs()
+        allowed = ADD_NORM_ROW_TOL * b.abs().amax(dim=1, keepdim=True)
+        if bf16:
+            _, exponent = torch.frexp(torch.maximum(a.abs(), b.abs())
+                                      .clamp_min(1e-30))
+            ulp = torch.ldexp(torch.ones_like(a), exponent - 8)
+            ulps = max(ulps, float((gap / ulp).max()))
+            allowed = allowed + ulp
+        worst = max(worst, float((gap / allowed).max()))
+
+    return worst, (ulps if bf16 else None)
+
+
+def check_add_layer_norm():
+    """Phase 52: the post-LN add-and-norm kernel (``ops/add_layer_norm.py``):
+    its launches in an hft forward, counted by call
+    (``forward_add_norm_calls``); at the hft-serve-bf16 cell's bf16 shapes
+    (H 256), each within ``ADD_NORM_ROW_TOL`` of a row's largest output and
+    one bf16 ulp of its plain version, timed beside its byte bound and the
+    plain version; and float32 at a quarter of the frequency encoder's rows
+    against its plain version, within ``ADD_NORM_ROW_TOL`` of each row's
+    largest output. The totals of a forward weigh each call's times by its
+    counted launches."""
+
+    import torch
+
+    from amt_tools_tpu_torch.ops.add_layer_norm import (add_layer_norm,
+                                                        add_layer_norm_plain,
+                                                        cost)
+
+    device = torch.device('cuda')
+    gen = torch.Generator(device=device).manual_seed(52)
+    eps = 1e-5
+
+    def inputs(y_shape, r_shape, dtype):
+        y = torch.randn(y_shape, generator=gen, device=device, dtype=dtype)
+        residual = torch.randn(r_shape, generator=gen, device=device,
+                               dtype=dtype)
+        weight = (1.0 + 0.1 * torch.randn(y_shape[-1], generator=gen,
+                                          device=device)).to(dtype)
+        bias = (0.1 * torch.randn(y_shape[-1], generator=gen,
+                                  device=device)).to(dtype)
+        return y.mul_(2.0).add_(0.5), residual.mul_(3.0).sub_(1.0), weight, \
+            bias
+
+    per_forward = forward_add_norm_calls()
+    calls = []
+    for name, y_shape, r_shape in ADD_NORM_CALLS:
+        args = inputs(y_shape, r_shape, torch.bfloat16)
+        launches = add_layer_norm.fused
+        got = add_layer_norm(*args, eps)
+        want = add_layer_norm_plain(*args, eps)
+        require(add_layer_norm.fused == launches + 1,
+                f'phase 52: add_layer_norm at {name} did not count its '
+                f'launch')
+        worst, ulps = add_norm_gaps(got, want)
+        require(worst <= 1.0, f'phase 52: add_layer_norm at {name} '
+                f'{y_shape} lies {worst:.3g} of its bound from its plain '
+                f'version')
+        del got, want
+        torch.cuda.empty_cache()
+
+        y, residual, weight, bias = args
+        ms = time_ms(lambda: add_layer_norm(*args, eps), reps=20)
+        # The plain version is PyTorch's add and F.layer_norm, so it is
+        # also the library yardstick
+        plain_ms = time_ms(lambda: add_layer_norm_plain(*args, eps), reps=5)
+        rows = y.numel() // y.shape[-1]
+        _, num_bytes = cost(rows, residual.numel() // y.shape[-1],
+                            y.shape[-1], y.dtype)
+        bound, bound_by = bound_ms(num_bytes, 0.0, PEAK_BF16_FLOPS)
+        log(f'add_layer_norm at {name} {y_shape} + {r_shape} bf16: '
+            f'{worst:.3g} of its bound from the plain version ({ulps:.3g} '
+            f'bf16 ulps of an output at most); kernel '
+            f'{ms:.3f} ms, plain (add + F.layer_norm) {plain_ms:.3f} ms, '
+            f'bound {bound:.3f} ms ({bound_by}: '
+            f'{num_bytes / 1e9:.3f} GB), {100 * bound / ms:.1f}% of it')
+        calls.append({'call': name, 'shape': list(y_shape),
+                      'residual': list(r_shape),
+                      'per_forward': per_forward.get(name, 0),
+                      'ms': ms, 'plain_ms': plain_ms,
+                      'library_ms': plain_ms, 'bound_ms': bound,
+                      'max_gap_of_bound': worst, 'max_ulps': ulps})
+        del args, y, residual, weight, bias
+        torch.cuda.empty_cache()
+
+    name, y_shape, r_shape = ADD_NORM_CALLS[0]
+    y_shape = (y_shape[0] // 4, *y_shape[1:])
+    args = inputs(y_shape, y_shape, torch.float32)
+    worst, _ = add_norm_gaps(add_layer_norm(*args, eps),
+                             add_layer_norm_plain(*args, eps))
+    require(worst <= 1.0, f'phase 52: float32 add_layer_norm at {y_shape} '
+            f'lies {worst:.3g} of its bound from its plain version')
+    log(f'add_layer_norm at {y_shape} float32: {worst:.3g} of its bound '
+        f'({ADD_NORM_ROW_TOL:g} of a row\'s largest output) from the plain '
+        f'version')
+    del args
+    torch.cuda.empty_cache()
+
+    # A forward's 20 launches: each call's times by its counted launches
+    return {'name': 'add_layer_norm', 'route': 'cuda',
+            'source': 'amt_tools_tpu_torch/csrc/add_layer_norm.cu',
+            'op': 'torch.ops.amt_tools_tpu_torch.add_layer_norm',
+            'replaces': None,
+            **{key: sum(c['per_forward'] * c[key] for c in calls)
+               for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms')},
+            'bound_by': 'bytes', 'calls': calls,
+            'float32_max_gap_of_bound': worst,
+            'design': 'a port kernel with no TPU counterpart: the residual '
+                      'add and LayerNorm of a post-LN sublayer in one pass, '
+                      'a warp a row, a block for every 8 rows, the '
+                      'statistics by warp shuffles in float32'}
 
 
 def piano_logits(model, mel, audio):
@@ -7780,6 +8004,12 @@ def main(argv=()):
         print(json.dumps({'stack_layout': layout}), flush=True)
         return
 
+    if list(argv) == ['hft']:
+        add_norm = check_add_layer_norm()
+        log(card)
+        print(json.dumps({'kernels': [add_norm]}), flush=True)
+        return
+
     if list(argv) in (['gru'], ['hpt']):
         with tools.exact_fp32():
             gru = check_gru_scan()
@@ -8021,12 +8251,15 @@ def main(argv=()):
         torch.cuda.empty_cache()
         hpt = check_hpt_forward()
     gru['op'] = 'torch.ops.amt_tools_tpu_torch.gru_scan_grouped'
+    torch.cuda.empty_cache()
+    add_norm = check_add_layer_norm()
 
     log(card)
     print(json.dumps({'hpt_forward': hpt}), flush=True)
     print(json.dumps({'stack_layout': layout}), flush=True)
     print(json.dumps({'kernels': [stft, lstm, cqt_full, cqt_grouped,
-                                  residuals, bptt, epilogue, gru]}),
+                                  residuals, bptt, epilogue, gru,
+                                  add_norm]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """hFT-Transformer on a card: the bf16 forward at the cell's shapes against
-the float32 reference, the fused attention route and its counters, and
-``RegressionPipeline`` over it and over the High-resolution model.
+the float32 reference, the fused attention route and its counters, the
+add-and-norm kernel (``ops/add_layer_norm.py``) at the cell's shapes and on
+the forward's route, and ``RegressionPipeline`` over it and over the
+High-resolution model.
 
 Every test here needs a CUDA device and skips without one; like
 ``tests/test_torch_cuda.py`` it imports neither JAX nor the JAX package:
@@ -17,9 +19,17 @@ Tolerances:
   the benchmark's control (fp8 products) moves them by far more;
 - the fused route in chunks against the plain product in float32: 2e-2
   (bf16 operands, weights and output);
-- the served notes against the loop decode of the served logits: equal.
+- the served notes against the loop decode of the served logits: equal;
+- the add-and-norm kernel against its plain version (PyTorch's add and
+  ``F.layer_norm``) at the cell's row shapes: float32 within 1e-6 of the
+  row's largest output (both take float32 statistics, in another order of
+  sums); bf16 within that and one bf16 ulp of each output (the sum keeps
+  its bits, and each output rounds once a float32 value that lies as far
+  from the plain version's as a float32 output does: near zero that gap
+  is many ulps of the output, hence the 1e-6 term).
 """
 
+import collections
 import math
 
 import numpy as np
@@ -32,6 +42,7 @@ from amt_tools_tpu_torch import tools
 from amt_tools_tpu_torch.features import MelSpec
 from amt_tools_tpu_torch.models import HFTransformer, RegressCRNN
 from amt_tools_tpu_torch.models.hft import pad_segments
+from amt_tools_tpu_torch.ops import add_layer_norm as aln
 from amt_tools_tpu_torch.ops import attention, decode
 from amt_tools_tpu_torch.serving import RegressionPipeline
 
@@ -81,12 +92,15 @@ def test_bf16_forward_at_the_cells_shapes(cuda):
     model = _model(cuda)
     feats = _feats(16, 3751, cuda)
     (calls, segments, padded) = _counts()
+    norms = aln.add_layer_norm.fused, aln.add_layer_norm.plain
     with torch.inference_mode():
         got = model(feats)
     after, segments_after, padded_after = _counts()
     assert {k: after[k] - calls[k] for k in calls} == {
         'frequency_self': 3, 'cross': 3, 'pitch_self': 2, 'time_self': 3,
         'plain': 0}
+    assert (aln.add_layer_norm.fused - norms[0],
+            aln.add_layer_norm.plain - norms[1]) == (20, 0)
     assert segments_after - segments == 480
     assert padded_after - padded == 16 * 89
     assert got['velocity'].shape == (16, 3751, 88, 128)
@@ -117,6 +131,109 @@ def test_the_math_backend_never_runs(cuda):
     fused = [n for n in names if any(k in n for k in ATTENTION_KERNELS)]
     assert len(fused) == 11, sorted(set(names))
     assert not any('softmax' in n.lower() for n in names)
+
+
+def _kernel_names(model, feats):
+    """The device kernels of one forward, by name and count."""
+
+    with torch.inference_mode():
+        model(feats)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model(feats)
+            torch.cuda.synchronize()
+
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_each_sum_and_norm_is_one_kernel(cuda, monkeypatch):
+    """A published-width forward runs the add-and-norm kernel 20 times and
+    PyTorch's LayerNorm never; against the same forward on the plain
+    version, it runs 20 LayerNorm kernels and 20 add kernels fewer, and
+    nothing else differs."""
+
+    model = _model(cuda)
+    feats = _feats(2, 300, cuda)
+    counts = aln.add_layer_norm.fused, aln.add_layer_norm.plain
+    fused = _kernel_names(model, feats)
+    assert (aln.add_layer_norm.fused - counts[0],
+            aln.add_layer_norm.plain - counts[1]) == (40, 0)
+    monkeypatch.setattr(attention, 'add_layer_norm',
+                        aln.add_layer_norm_plain)
+    plain = _kernel_names(model, feats)
+
+    ours = [n for n in fused if 'add_layer_norm_kernel' in n]
+    assert sum(fused[n] for n in ours) == 20, sorted(fused)
+    assert not any('vectorized_layer_norm' in n for n in fused), sorted(fused)
+    assert fused - plain == collections.Counter({n: fused[n] for n in ours})
+    gone = plain - fused
+    norms = sum(v for n, v in gone.items() if 'layer_norm' in n)
+    adds = sum(v for n, v in gone.items() if 'add' in n.lower() and
+               'layer_norm' not in n)
+    assert (norms, adds, sum(gone.values())) == (20, 20, 40), sorted(gone)
+
+
+# The hft-serve-bf16 cell's calls: (y's shape, the residual's): the
+# frequency encoder over 480 segments x 128 frames x 256 bins, the
+# decoder's first sum with the 88 shared queries and its others, the time
+# encoder over 480 x 88 notes x 128 frames
+ADD_NORM_SHAPES = {
+    'frequency encoder': ((61440, 256, 256), (61440, 256, 256)),
+    'first decoder sum': ((61440, 88, 256), (88, 256)),
+    'decoder': ((61440, 88, 256), (61440, 88, 256)),
+    'time encoder': ((42240, 128, 256), (42240, 128, 256)),
+}
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x|, in float32 (x > 0)."""
+
+    _, exponent = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), exponent - 8)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', list(ADD_NORM_SHAPES))
+def test_add_layer_norm_kernel_matches_plain(cuda, shape, dtype):
+    """At the cell's shapes (float32 at a quarter of the leading dim, the
+    memory four full-size float32 tensors would take), H kept."""
+
+    y_shape, r_shape = ADD_NORM_SHAPES[shape]
+    if dtype == torch.float32:
+        y_shape = (y_shape[0] // 4, *y_shape[1:])
+        if len(r_shape) == 3:
+            r_shape = y_shape
+    g = torch.Generator(device=cuda).manual_seed(23)
+    y = torch.randn(y_shape, generator=g, device=cuda, dtype=dtype)
+    y.mul_(2.0).add_(0.5)
+    residual = torch.randn(r_shape, generator=g, device=cuda, dtype=dtype)
+    residual.mul_(3.0).sub_(1.0)
+    weight = (1.0 + 0.1 * torch.randn(256, generator=g, device=cuda)).to(
+        dtype)
+    bias = (0.1 * torch.randn(256, generator=g, device=cuda)).to(dtype)
+
+    launches = aln.add_layer_norm.fused
+    got = aln.add_layer_norm(y, residual, weight, bias, 1e-5)
+    assert aln.add_layer_norm.fused == launches + 1
+    want = aln.add_layer_norm_plain(y, residual, weight, bias, 1e-5)
+    del y, residual
+    assert got.shape == want.shape and got.dtype == want.dtype
+
+    got, want = got.view(-1, 256), want.view(-1, 256)
+    for start in range(0, got.shape[0], 1 << 20):
+        a = got[start:start + (1 << 20)].float()
+        b = want[start:start + (1 << 20)].float()
+        allowed = 1e-6 * b.abs().amax(dim=1, keepdim=True)
+        if dtype == torch.bfloat16:
+            allowed = allowed + _bf16_ulp(
+                torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))
+        ratio = (a - b).abs() / allowed
+        assert bool((ratio <= 1.0).all()), float(ratio.max())
+    del got, want
+    torch.cuda.empty_cache()
 
 
 def test_a_shape_no_fused_kernel_takes_raises(cuda):

@@ -1,10 +1,10 @@
-"""Kernels A-F and the conv blocks' eval epilogue as custom ops of
-``torch.ops.amt_tools_tpu_torch``, on the CPU.
+"""Kernels A-G, the conv blocks' eval epilogue and the post-LN add and
+norm as custom ops of ``torch.ops.amt_tools_tpu_torch``, on the CPU.
 
 Each op (kernels B, E and F, one op each over (G, B, T, ·) tensors:
 one sequence as one group, plain, masked, carried and carried over no
-frames, and three groups, masked or not; and the epilogue, pooled or not)
-passes
+frames, and three groups, masked or not; the epilogue, pooled or not; the
+add and norm, its residual full or broadcast) passes
 ``torch.library.opcheck`` (schema, fake implementation against the real
 one, autograd registration, a trace with symbolic shapes), equals its plain
 version bit for bit, survives ``torch.export`` save and load inside a tiny
@@ -23,8 +23,9 @@ from torch.library import opcheck
 from torch.utils.flop_counter import FlopCounterMode
 
 from amt_tools_tpu_torch.features import CQT, MelSpec
-from amt_tools_tpu_torch.ops import (conv_epilogue, cqt_kernel, cuda_build,
-                                     gru_kernel, lstm_kernel, stft_kernel)
+from amt_tools_tpu_torch.ops import (add_layer_norm, conv_epilogue,
+                                     cqt_kernel, cuda_build, gru_kernel,
+                                     lstm_kernel, stft_kernel)
 
 torch.set_num_threads(1)
 
@@ -215,6 +216,21 @@ def _cases():
                       lambda x=xw, w=wh, b=bhn: gru_kernel.gru_scan_plain(
                           x, w, b, 1)))
 
+    # The post-LN add and norm, a residual of y's shape and one broadcast
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        y = _tensor(rng, 2, 3, 16, dtype=dtype)
+        weight = _tensor(rng, 16, dtype=dtype)
+        bias = _tensor(rng, 16, scale=0.1, dtype=dtype)
+        for label, residual in (('', _tensor(rng, 2, 3, 16, dtype=dtype)),
+                                (' broadcast', _tensor(rng, 3, 16,
+                                                       dtype=dtype))):
+            args = (y, residual, weight, bias, 1e-5)
+            cases.append((f'add-norm {name}{label}',
+                          add_layer_norm.add_layer_norm_op, args,
+                          lambda a=args: add_layer_norm.add_layer_norm_plain(
+                              *a)))
+
     return cases
 
 
@@ -305,6 +321,10 @@ def _cost(label, args):
     if label.startswith('epilogue'):
         return conv_epilogue.cost(args[0].shape, args[0].dtype, args[5],
                                   conv_bias=args[1] is not None)
+    if label.startswith('add-norm'):
+        y, residual, _, _, _ = args
+        return add_layer_norm.cost(y.numel() // 16, residual.numel() // 16,
+                                   16, y.dtype)
     if label.startswith('G'):
         xw = args[0]
         groups, batch, frames, three_h = xw.shape
