@@ -20,12 +20,16 @@ class STFT(WaveformWrapper):
 
     def __init__(self, sample_rate=16000, hop_length=512, decibels=True,
                  win_length=None, center=True, n_fft=2048,
-                 pad_mode='constant'):
+                 pad_mode='constant', pad_end=False):
         if pad_mode not in ('constant', 'reflect'):
             raise ValueError(f"pad_mode must be 'constant' or 'reflect', got "
                              f"{pad_mode!r}")
+        if pad_end and center:
+            raise ValueError('pad_end frames the audio from its first sample: '
+                             'give center=False')
         self.n_fft = n_fft
         self.pad_mode = pad_mode
+        self.pad_end = pad_end
 
         if win_length is None:
             win_length = n_fft
@@ -49,7 +53,10 @@ class STFT(WaveformWrapper):
 
         Centred frames are zero-padded, or with ``pad_mode='reflect'``
         reflected (half a frame each side, as ``torch.stft`` pads them),
-        which gives the same T = 1 + N // hop frames."""
+        which gives the same T = 1 + N // hop frames. With ``pad_end`` the
+        frames start at the first sample and the audio is zero-padded at
+        its end so that each hop starts a frame: T = ceil(N / hop), as
+        ``tf.signal.stft(..., pad_end=True)`` frames it."""
 
         lead = audio.shape[:-1]
         flat = audio.reshape((-1, audio.shape[-1])).contiguous()
@@ -58,6 +65,10 @@ class STFT(WaveformWrapper):
             half = self.n_fft // 2
             flat = F.pad(flat, (half, half), mode='reflect')
             center = False
+        if self.pad_end:
+            frames = -(-flat.shape[-1] // self.hop_length)
+            flat = F.pad(flat, (0, (frames - 1) * self.hop_length + self.n_fft
+                                - flat.shape[-1]))
         power = stft_power(flat, self._bank(audio.device), self.n_fft,
                            self.hop_length, center=center)
 

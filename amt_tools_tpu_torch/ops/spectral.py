@@ -3,7 +3,8 @@
 The numpy builders (``hann_window``, ``dft_bank``, ``hz_to_mel``,
 ``mel_to_hz``, ``mel_filterbank``, ``cqt_frequencies``, ``wavelet_lengths``,
 ``wavelet_bank``) are copies of ``amt_tools_tpu/ops/spectral.py`` and agree
-with it bit for bit. The tensor functions (``frame_signal``, ``stft_mag``,
+with it bit for bit; ``tf_mel_filterbank`` (MT3's filterbank) has no
+counterpart there. The tensor functions (``frame_signal``, ``stft_mag``,
 ``power_to_db``, ``amplitude_to_db``) are PyTorch counterparts of its jnp
 functions, with the same frame algebra: T = 1 + N // hop with centre
 padding of half the frame length. Its ``cqt_mag`` is
@@ -23,6 +24,7 @@ __all__ = [
     'amplitude_to_db',
     'hz_to_mel', 'mel_to_hz',
     'mel_filterbank',
+    'tf_mel_filterbank',
     'cqt_frequencies',
     'wavelet_lengths',
     'wavelet_bank',
@@ -241,6 +243,26 @@ def mel_filterbank(sample_rate, n_fft, n_mels=128, fmin=0.0, fmax=None, htk=Fals
         weights *= enorm[:, None]
 
     return weights.astype(np.float32)
+
+
+def tf_mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax):
+    """TensorFlow's ``tf.signal.linear_to_mel_weight_matrix`` as (n_mels,
+    n_fft//2+1): triangles linear in HTK mels (``1127 ln(1 + f / 700)``)
+    between ``n_mels + 2`` edges evenly spaced from ``fmin`` to ``fmax``,
+    no area norm, the DC bin zeroed (the features of MT3, through ddsp's
+    ``compute_mel``)."""
+
+    def mel(freqs):
+        return 1127.0 * np.log1p(np.asarray(freqs, dtype=np.float64) / 700.0)
+
+    bins = mel(np.linspace(0.0, sample_rate / 2.0, n_fft // 2 + 1)[1:, None])
+    edges = np.linspace(mel(fmin), mel(fmax), n_mels + 2)
+    lower, centre, upper = edges[:-2], edges[1:-1], edges[2:]
+    weights = np.maximum(0.0, np.minimum((bins - lower) / (centre - lower),
+                                         (upper - bins) / (upper - centre)))
+
+    return np.ascontiguousarray(np.pad(weights, ((1, 0), (0, 0))).T,
+                                dtype=np.float32)
 
 
 ##################################################

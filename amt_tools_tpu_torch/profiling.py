@@ -44,14 +44,22 @@ around its launch; with no profiler recording they cost one check:
   (``frequency_self``, ``cross``, ``pitch_self``, ``time_self``, 11 a
   forward, and ``plain`` for those off the fused route), the segments and
   their padded frames in ``models.hft.pad_segments`` (``segments``,
-  ``padded_frames``);
+  ``padded_frames``); the encoder of ``Seq2SeqTranscriber`` (MT3), its
+  input projection, 8 layers and final norm, once a forward
+  (``encoder_self`` attention calls, 8 a forward);
+- ``amt.generate``: ``Seq2SeqTranscriber``'s greedy decode, twice a
+  forward: the cross-attention's key and value projections of every
+  decoder layer (in ``encode``), then the decode loop, every step's
+  embedding, decoder layers (``decoder_self`` and ``decoder_cross``
+  attention calls, 8 each a step), logits, argmax and stop test;
 - ``amt.lstm.backward``: the backward of the differentiable recurrences
   (kernel F, dW_h and d(xw)), on autograd's thread;
 - ``amt.decode``: the serving pipelines' device decode after the model's
   forward (sigmoid and threshold, or the argmax and local one-hot, then
   ``notes_on_device``; or the regression decode's device stage);
 - ``amt.serving.decode_host``: ``finalize``'s host decode of a batch,
-  after its wait for the device, re-decodes after an overflow included;
+  after its wait for the device, re-decodes after an overflow included
+  (``Seq2SeqPipeline``'s: the token decode of every segment);
 - ``amt.train.forward``: the train step's forward and losses
   (``run_on_batch``), once a microbatch.
 """

@@ -17,7 +17,11 @@ Piano Transcription model (``models.RegressCRNN``) and hFT-Transformer
 the features, the model (kernel G for the GRUs, fused attention for the
 transformer) and the regression decode's device stage (``decode.
 regression_events_on_device``); its host stage assembles each clip's notes
-from the compacted events.
+from the compacted events. :class:`Seq2SeqPipeline` serves MT3's piano
+transcriber (``models.Seq2SeqTranscriber``): its dispatch cuts each clip
+into the model's segments and runs their features and the greedy decode;
+its host stage decodes each segment's tokens to notes
+(``tools.event_codec``).
 
 :meth:`dispatch` never waits for the device: it enqueues the work and the
 copy of the buffers into pinned host memory, and returns. Dispatching batch
@@ -44,8 +48,8 @@ time, inside :meth:`finalize`.
 Under a profiler (``profiling.trace``) a batch shows the port's spans
 (``profiling.span``): ``amt.features``, ``amt.acoustic``, ``amt.lstm``
 (``amt.gru`` for the GRU layers, ``amt.transformer`` for a transformer
-stack) and ``amt.decode`` (the device decode
-after the forward) inside
+stack, ``amt.generate`` for a greedy decode) and ``amt.decode`` (the
+device decode after the forward) inside
 :meth:`dispatch`, and ``amt.serving.decode_host`` (the host decode of the
 batch, re-decodes included) inside :meth:`finalize`, after its wait for
 the device.
@@ -54,14 +58,16 @@ the device.
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from . import profiling, tools
 from .ops import decode
 from .ops.qconv import int8_layers, validate_quant_stats
 from .parallel.mesh import _axis, replicate
+from .tools import event_codec
 
 __all__ = ['TranscriptionPipeline', 'TablaturePipeline',
-           'RegressionPipeline', 'calibrate_activity',
+           'RegressionPipeline', 'Seq2SeqPipeline', 'calibrate_activity',
            'calibrate_tablature_activity', 'calibrate_quant_stats']
 
 
@@ -585,3 +591,93 @@ class RegressionPipeline(_ServingPipeline):
     def _notes_in(self, counts):
         # One note an onset peak
         return int(counts[0])
+
+
+class Seq2SeqPipeline(_ServingPipeline):
+    """Audio batches in, per-clip ``(pitches, intervals, velocities)``
+    notes out, from the tokens of a sequence-to-sequence transcriber (MT3's
+    piano model, ``models.Seq2SeqTranscriber``).
+
+    One dispatch cuts each (B, N) clip into S = ceil(N / segment) segments
+    of the model's input length (512 frames of the features' hop: 4.096 s
+    at MT3's settings), the last zero-padded, computes their features and
+    runs the model's forward, greedy decoding of at most ``capacity``
+    tokens a segment, every segment of the batch at once; the tokens are
+    copied to pinned host memory without a wait. :meth:`finalize` decodes
+    each segment's tokens to notes from the segment's start
+    (``tools.event_codec.decode_rows``) and returns each clip's notes,
+    sorted by onset, then pitch.
+
+    Parameters
+    ----------
+    model : Seq2SeqTranscriber
+        Moved to ``device``; ``model.encoder`` takes ``input_length``
+        frames a segment.
+    data_proc : MelSpec
+        Feature extraction run on the device via ``process`` (MT3's:
+        ``magnitude``, ``filterbank='tf'``, ``pad_end``, ``log_floor``).
+    capacity : int
+        Tokens a segment: the decode's cap.
+    input_length : int
+        Feature frames a segment.
+    device : str or torch.device, optional
+        Where the pipeline runs: CUDA unless given.
+
+    Beside the counts of every pipeline it counts ``segments`` (dispatched),
+    ``decode_steps`` (the decode loops' steps), ``rows_ended`` (segments
+    whose tokens hold an EOS, so that they ended before the cap) and
+    ``tokens_invalid`` (tokens the host decode skipped or dropped).
+    """
+
+    def __init__(self, model, data_proc, capacity=1024, input_length=512,
+                 device=None):
+        super().__init__(model, data_proc, capacity, device=device)
+        self.segment_samples = input_length * data_proc.hop_length
+        self.segment_seconds = self.segment_samples / data_proc.sample_rate
+        self.segments = 0
+        self.decode_steps = 0
+        self.rows_ended = 0
+        self.tokens_invalid = 0
+
+    def _times_for(self, num_samples):
+        """A clip's segment start times, in seconds."""
+
+        segments = max(1, -(-num_samples // self.segment_samples))
+
+        return np.arange(segments) * self.segment_seconds
+
+    def _decode(self, audio, capacity):
+        clips, num_samples = audio.shape
+        segments = len(self._times_for(num_samples))
+        audio = F.pad(audio, (0, segments * self.segment_samples -
+                              num_samples)).view(-1, self.segment_samples)
+        with torch.inference_mode():
+            tokens = self.model(self.data_proc.process(audio), capacity)
+        self.segments += audio.shape[0]
+        self.decode_steps += tokens.shape[1]
+
+        return (tokens.to(torch.int32),)
+
+    def _finalize_batch(self, arrays, times, redecode):
+        tokens = arrays[0]
+        segments = len(times)
+        clips = tokens.shape[0] // segments
+        rows, pitches, onsets, offsets, velocities, invalid = \
+            event_codec.decode_rows(tokens, np.tile(times, clips),
+                                    self.segment_seconds)
+        self.rows_ended += int((tokens == event_codec.EOS).any(axis=1).sum())
+        self.tokens_invalid += invalid
+
+        bounds = np.searchsorted(rows // segments, np.arange(clips + 1))
+        groups = []
+        for c in range(clips):
+            part = slice(bounds[c], bounds[c + 1])
+            order = np.lexsort((pitches[part], onsets[part]))
+            groups.append((pitches[part][order],
+                           np.stack([onsets[part][order],
+                                     offsets[part][order]], axis=-1),
+                           velocities[part][order]))
+        self.clips_decoded += clips
+        self.notes_decoded += len(rows)
+
+        return groups

@@ -98,6 +98,7 @@ def test_bf16_forward_at_the_cells_shapes(cuda):
     after, segments_after, padded_after = _counts()
     assert {k: after[k] - calls[k] for k in calls} == {
         'frequency_self': 3, 'cross': 3, 'pitch_self': 2, 'time_self': 3,
+        'encoder_self': 0, 'decoder_self': 0, 'decoder_cross': 0,
         'plain': 0}
     assert (aln.add_layer_norm.fused - norms[0],
             aln.add_layer_norm.plain - norms[1]) == (20, 0)

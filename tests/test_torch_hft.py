@@ -230,7 +230,8 @@ def test_counters_of_a_forward():
         model(_feats(3, 21))
     calls = {k: getattr(attention.attention, k) - before[k] for k in before}
     assert calls == {'frequency_self': 3, 'cross': 3, 'pitch_self': 2,
-                     'time_self': 3, 'plain': 11}
+                     'time_self': 3, 'encoder_self': 0, 'decoder_self': 0,
+                     'decoder_cross': 0, 'plain': 11}
     assert pad_segments.segments - segments == 3 * 3
     assert pad_segments.padded_frames - padded == 3 * 3
 

@@ -2,8 +2,8 @@
 decode counters, on the CPU.
 
 - Under ``torch.profiler`` a piano batch, a guitar batch, a High-resolution
-  Piano Transcription batch, an hFT-Transformer batch and an O&F2
-  train step hold each ``amt.`` span where the port opens it, once a layer
+  Piano Transcription batch, an hFT-Transformer batch, an MT3 batch and an
+  O&F2 train step hold each ``amt.`` span where the port opens it, once a layer
   call: the features, the acoustic stacks, the LSTM layers and the device
   decode inside ``dispatch``, the device decode after the forward, the
   host decode inside ``finalize``, the step's forward around its stacks
@@ -230,6 +230,41 @@ def test_an_hft_batch_holds_every_serving_span_and_three_transformers():
     assert all(stack.start >= acoustic.end for stack in stacks)
     assert decode.start >= max(stack.end for stack in stacks)
     assert len(notes) == len(audio)
+
+
+def test_an_mt3_batch_holds_its_encoder_and_two_generate_spans():
+    """MT3's pipeline (at a small width): the features in one
+    ``amt.features``, the encoder in one ``amt.transformer`` after them,
+    then two ``amt.generate`` (the cross-attention's keys and values, then
+    the decode loop), and the token decode in ``amt.serving.decode_host``;
+    no ``amt.decode``, since the decode to notes runs on the host."""
+
+    from amt_tools_tpu_torch.models import Seq2SeqTranscriber
+    from amt_tools_tpu_torch.serving import Seq2SeqPipeline
+
+    mel = MelSpec(hop_length=128, n_mels=N_MELS, center=False, pad_end=True,
+                  magnitude=True, filterbank='tf', fmin=20.0, fmax=7600.0,
+                  log_floor=1e-5)
+    model = Seq2SeqTranscriber(n_mels=N_MELS, emb_dim=32, num_heads=2,
+                               head_dim=16, mlp_dim=64, num_encoder_layers=2,
+                               num_decoder_layers=2, max_len=6,
+                               dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(0))
+    pipeline = Seq2SeqPipeline(model, mel, capacity=6, input_length=16,
+                               device='cpu')
+    audio = _audio(tools.PianoProfile(), 16000, 0.2)
+    prof, notes = _serve_profiled(pipeline, audio)
+
+    assert _spans(prof) == {
+        ('amt.features', ('test.dispatch',)): 1,
+        ('amt.transformer', ('test.dispatch',)): 1,
+        ('amt.generate', ('test.dispatch',)): 2,
+        ('amt.serving.decode_host', ('test.finalize',)): 1}
+    encoder, = _intervals(prof, 'amt.transformer')
+    cross, loop = sorted(_intervals(prof, 'amt.generate'),
+                         key=lambda span: span.start)
+    assert encoder.end <= cross.start and cross.end <= loop.start
+    assert len(notes) == len(audio) and pipeline.decode_steps == 6
 
 
 def test_a_train_step_holds_its_forward_and_the_lstm_backward():
